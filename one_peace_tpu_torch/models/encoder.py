@@ -1,0 +1,183 @@
+"""Fusion transformer encoder (counterpart of ``one_peace_tpu/models/encoder.py``).
+
+Each layer: sub-LN attention (Magneto LN before out_proj; optional post-
+attention LN and per-head gains), the GeGLU FFN of the token's modality,
+LayerScale.  The relative-position bias stays (H, L, L) or (B, H, L, L) and
+the key mask (B, L); the attention op combines them.
+
+The JAX package stacks the layers and runs them under ``lax.scan``; here
+they are an ``nn.ModuleList`` walked by a loop.  This is the inference
+path: dropout, drop-path and LayerDrop (``deterministic=False``) raise
+until the training path is ported; remat and pipelining come with it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from one_peace_tpu.core.config import EncoderConfig
+
+from ..ops.attention import multihead_attention
+from .components import LayerNorm, Linear, empty_param, gelu
+
+MODALITIES = ("text", "image", "audio")
+
+
+class Attention(nn.Module):
+    """q/k/v projections (k_proj has no bias), optional per-head gains
+    ``c_attn``, Magneto ``ln``, ``out_proj`` (``_attention``)."""
+
+    def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
+        super().__init__()
+        d = cfg.embed_dim
+        self.cfg = cfg
+        self.q_proj = Linear(d, d, device=device, dtype=dtype)
+        self.k_proj = Linear(d, d, bias=False, device=device, dtype=dtype)
+        self.v_proj = Linear(d, d, device=device, dtype=dtype)
+        self.out_proj = Linear(d, d, device=device, dtype=dtype)
+        self.c_attn = (empty_param(cfg.attention_heads, device=device, dtype=dtype)
+                       if cfg.scale_heads else None)
+        self.ln = LayerNorm(d, device=device, dtype=dtype) if cfg.magneto_scale_attn else None
+
+    def forward(self, x, rel_bias, key_padding_mask):
+        b, l, d = x.shape
+        h = self.cfg.attention_heads
+        hd = d // h
+        q = self.q_proj(x).reshape(b, l, h, hd)
+        k = self.k_proj(x).reshape(b, l, h, hd)
+        v = self.v_proj(x).reshape(b, l, h, hd)
+        attn = multihead_attention(q, k, v, rel_bias, key_padding_mask,
+                                   scaling=hd**-0.5, impl=self.cfg.attn_impl)
+        if self.c_attn is not None:
+            attn = attn * self.c_attn[:, None]
+        attn = attn.reshape(b, l, d)
+        if self.ln is not None:
+            attn = self.ln(attn)
+        return self.out_proj(attn)
+
+
+class GeGLU(nn.Module):
+    """``wo(ffn_ln(gelu(wi_0 x) * wi_1 x))`` (``_geglu_ffn``)."""
+
+    def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
+        super().__init__()
+        d, f = cfg.embed_dim, cfg.ffn_embed_dim
+        self.wi_0 = Linear(d, f, bias=False, device=device, dtype=dtype)
+        self.wi_1 = Linear(d, f, bias=False, device=device, dtype=dtype)
+        self.wo = Linear(f, d, device=device, dtype=dtype)
+        self.ffn_ln = LayerNorm(f, device=device, dtype=dtype) if cfg.scale_fc else None
+
+    def forward(self, x):
+        y = gelu(self.wi_0(x)) * self.wi_1(x)
+        if self.ffn_ln is not None:
+            y = self.ffn_ln(y)
+        return self.wo(y)
+
+
+def split_by_modality(x: torch.Tensor, encoder_type: str,
+                      split_lens: Tuple[int, int, int]):
+    """[(modality, segment)] of the concatenated sequence, in order."""
+    if encoder_type in MODALITIES:
+        return [(encoder_type, x)]
+    text_len, image_len, _ = split_lens
+    if encoder_type == "vl":
+        return [("text", x[:, :text_len]), ("image", x[:, text_len:])]
+    if encoder_type == "al":
+        return [("text", x[:, :text_len]), ("audio", x[:, text_len:])]
+    if encoder_type == "val":
+        return [("text", x[:, :text_len]),
+                ("image", x[:, text_len:text_len + image_len]),
+                ("audio", x[:, text_len + image_len:])]
+    raise NotImplementedError(encoder_type)
+
+
+class EncoderLayer(nn.Module):
+    """One transformer layer (``encoder_layer``)."""
+
+    def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
+        super().__init__()
+        d = cfg.embed_dim
+        kw = dict(device=device, dtype=dtype)
+        self.self_attn = Attention(cfg, **kw)
+        self.self_attn_layer_norm = LayerNorm(d, **kw)
+        self.final_layer_norm = LayerNorm(d, **kw)
+        self.attn_ln = LayerNorm(d, **kw) if cfg.scale_attn else None
+        self.text_ffn = GeGLU(cfg, **kw) if cfg.use_text_moe else None
+        self.image_ffn = GeGLU(cfg, **kw) if cfg.use_image_moe else None
+        self.audio_ffn = GeGLU(cfg, **kw) if cfg.use_audio_moe else None
+        self.gamma_1 = empty_param(d, **kw) if cfg.use_layer_scale else None
+        self.gamma_2 = empty_param(d, **kw) if cfg.use_layer_scale else None
+
+    def forward(self, x, key_padding_mask, rel_bias, encoder_type: str,
+                split_lens: Tuple[int, int, int]):
+        y = self.self_attn(self.self_attn_layer_norm(x), rel_bias, key_padding_mask)
+        if self.attn_ln is not None:
+            y = self.attn_ln(y)
+        if self.gamma_1 is not None:
+            y = y * self.gamma_1
+        x = x + y
+
+        y = self.final_layer_norm(x)
+        segs = [getattr(self, f"{mod}_ffn")(seg)
+                for mod, seg in split_by_modality(y, encoder_type, split_lens)]
+        y = segs[0] if len(segs) == 1 else torch.cat(segs, dim=1)
+        if self.gamma_2 is not None:
+            y = y * self.gamma_2
+        return x + y
+
+
+class FusionEncoder(nn.Module):
+    """The shared multi-modal transformer (``FusionEncoder``)."""
+
+    def __init__(self, cfg: EncoderConfig, use_text_norm=True, use_image_norm=True,
+                 use_audio_norm=True, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.embed_dim
+        kw = dict(device=device, dtype=dtype)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, **kw) for _ in range(cfg.layers))
+        self.text_layer_norm = (LayerNorm(d, **kw)
+                                if cfg.use_text_moe and use_text_norm else None)
+        self.image_layer_norm = (LayerNorm(d, **kw)
+                                 if cfg.use_image_moe and use_image_norm else None)
+        self.audio_layer_norm = (LayerNorm(d, **kw)
+                                 if cfg.use_audio_moe and use_audio_norm else None)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        padding_mask: Optional[torch.Tensor],
+        rel_bias: Optional[torch.Tensor],
+        encoder_type: str,
+        split_lens: Tuple[int, int, int],
+        deterministic: bool = True,
+    ) -> torch.Tensor:
+        """x: (B, L, D) concatenated modality sequence; padding_mask: (B, L)
+        True at pads; rel_bias: (tables, H, L, L) or (tables, B, H, L, L) with
+        tables in {1, layers}, or None.  Returns the output after the final
+        LayerNorm of each modality."""
+        if not deterministic:
+            raise NotImplementedError("dropout / drop-path / LayerDrop are not "
+                                      "ported yet: the port runs inference only")
+        key_mask = None
+        if padding_mask is not None:
+            # zero padded positions before the stack (ref encoder:139-142)
+            x = x * (1.0 - padding_mask[..., None].to(x.dtype))
+            # a mask with no padded key changes no output: skip its (B, L)
+            # bias row (one host sync per forward)
+            if bool(padding_mask.any()):
+                key_mask = padding_mask
+
+        per_layer_bias = rel_bias is not None and rel_bias.shape[0] == self.cfg.layers
+        for i, layer in enumerate(self.layers):
+            bias = None if rel_bias is None else rel_bias[i if per_layer_bias else 0]
+            x = layer(x, key_mask, bias, encoder_type, split_lens)
+
+        segs = []
+        for mod, seg in split_by_modality(x, encoder_type, split_lens):
+            norm = getattr(self, f"{mod}_layer_norm")
+            segs.append(seg if norm is None else norm(seg))
+        return segs[0] if len(segs) == 1 else torch.cat(segs, dim=1)

@@ -14,7 +14,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    embeddings through the kernel path (``attn_impl="pallas"``) against the
    plain path (``"xla"``), fp32 then bf16, and the kernel's launch count;
 5. times (info lines): embeddings per second and attention ms per layer,
-   kernel path and plain path, at bench.py's batches in bf16.
+   kernel path and plain path, at bench.py's batches in bf16;
+6. the backward kernel against its plain version on the card, bf16 and fp32,
+   at the training path's shapes (B=32 L=257 image, B=32 L=70 text with
+   pads) and at L=37 (batched bias), 500 and 850, and its time;
+7. the image-text retrieval fine-tuning step at full width through
+   ``Trainer``: (a) 4 layers, kernel path against plain path on the same
+   weights and batch -- loss and per-parameter gradient cosines in fp32 and
+   bf16 compute, then 3 optimizer steps on each; (b) the depth-40 vl model,
+   bf16 compute, fp32 master AdamW, remat, B=32: steps on the kernel path
+   and then the plain path, ms per step, pairs per second, MFU, peak memory,
+   the kernels' launch counts per step and a falling loss; one step under
+   ``torch.profiler`` (its top ops go to ``chiprun_out/train_profile.txt``).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -24,15 +35,22 @@ package beside it, the script fails before printing either.
 from __future__ import annotations
 
 import json
+import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
+from one_peace_tpu.core.config import FrameworkConfig
+from one_peace_tpu_torch.criterions import build_criterion
 from one_peace_tpu_torch.models.adapters.audio import conv_output_length
 from one_peace_tpu_torch.models.one_peace import ModelConfig, OnePeaceRetrievalModel
 from one_peace_tpu_torch.ops import flash_attention as fa
+from one_peace_tpu_torch.ops.attention import attention_plain
+from one_peace_tpu_torch.trainer import Trainer
 from one_peace_tpu_torch.utils.random_weights import fill_random_
 
 H100_BF16_PEAK_TFLOPS = 989.0  # dense, NVIDIA data sheet (SXM, 700 W)
@@ -71,7 +89,9 @@ def analytic_flops(cfg, seq_len: int, batch: int, frontend: str, wav_samples: in
     enc = cfg.encoder
     d, f, L = enc.embed_dim, enc.ffn_embed_dim, seq_len
     flops = enc.layers * (2 * (4 * L * d * d) + 2 * (2 * L * L * d) + 2 * (3 * L * d * f))
-    if frontend == "image":
+    if frontend == "text":
+        pass
+    elif frontend == "image":
         hw = 256
         flops += 2 * ((hw // 4) ** 2 * (d // 4) * 3 * 16
                       + (hw // 8) ** 2 * (d // 4) * (d // 4) * 4
@@ -135,6 +155,306 @@ def check_kernel(gen) -> float:
                 if not torch.equal(same, got):
                     raise RuntimeError("all-False mask and no mask disagree")
     return worst
+
+
+def text_pad_mask(b: int, l: int, device="cuda") -> torch.Tensor:
+    """(b, l) True at pads: row i keeps CLS and 8 + 7i mod (l - 8) tokens."""
+    mask = torch.zeros(b, l, dtype=torch.bool, device=device)
+    for row in range(b):
+        mask[row, 9 + (7 * row) % (l - 9):] = True
+    return mask
+
+
+def check_backward_kernel(gen) -> float:
+    """Phase 6: the backward kernel against flash_attention_bwd_plain on the
+    same inputs, bf16 and fp32; returns the largest max |diff| of dq, dk, dv
+    and d(bias).
+
+    Bounds, relative to max |plain| (and mean |diff| to mean |plain|):
+    fp32 1e-4 max -- both sides sum in fp32, in other orders, over at most
+    850 terms (and 32 batch rows for d(bias)), and the kernel's exp is
+    __expf (2 ulp); bf16 2e-2 max, 5e-3 mean -- dq, dk, dv are rounded to
+    bf16 (2^-8 relative), and where the kernel's fp32 p or ds*scaling lands
+    on the other side of a bf16 rounding boundary than the plain version's,
+    one product term moves by one bf16 ulp."""
+    heads, worst = 24, 0.0
+    cases = [  # (B, L, bias form, key mask)
+        (32, 257, "shared", None), (32, 70, "shared", "text"), (2, 37, "batched", [5, 0]),
+        (4, 500, "shared", [0, 137, 0, 60]), (1, 850, "shared", None)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, l, form, pads in cases:
+            q, k, v, g = (torch.randn(b, l, heads * 64, generator=gen, device="cuda").to(dtype)
+                          for _ in range(4))
+            shape = (heads, l, l) if form == "shared" else (b, heads, l, l)
+            bias = torch.randn(shape, generator=gen, device="cuda")
+            if pads == "text":
+                mask = text_pad_mask(b, l)
+            else:
+                mask = torch.zeros(b, l, dtype=torch.bool, device="cuda")
+                for row, n in enumerate(pads or []):
+                    if n:
+                        mask[row, l - n:] = True
+            key_bias = None if pads is None else torch.zeros(
+                b, l, device="cuda").masked_fill(mask, fa.NEG_INF)
+            got = fa.flash_attention_bwd_cuda(q, k, v, g, bias, key_bias, 0.125, heads)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_plain(q, k, v, g, bias, key_bias, 0.125, heads)
+            parts = []
+            for name, x, y in zip(("dq", "dk", "dv", "dbias"), got, want):
+                if not torch.isfinite(x).all():
+                    raise RuntimeError(f"backward kernel {name} is not finite")
+                err = (x.float() - y.float()).abs()
+                rel_max = err.max().item() / y.float().abs().max().item()
+                rel_mean = err.mean().item() / y.float().abs().mean().item()
+                parts.append(f"{name} {rel_max:.2e}/{rel_mean:.2e}")
+                worst = max(worst, err.max().item())
+                bad = (rel_max > 1e-4 if dtype == torch.float32
+                       else rel_max > 2e-2 or rel_mean > 5e-3)
+                if bad:
+                    raise RuntimeError(f"backward kernel {name} disagrees with the plain "
+                                       f"version: {str(dtype)[6:]} B={b} L={l} {form} "
+                                       f"{pads}: max {rel_max:.3e} mean {rel_mean:.3e}")
+            log(f"bwd kernel vs plain {str(dtype)[6:]} B={b} L={l} bias={form} pads={pads}: "
+                f"max/mean |d| relative {', '.join(parts)}")
+    return worst
+
+
+def time_backward(gen, card: str):
+    """Phase 6 times: the backward kernel and its plain version at the image
+    training shape (B=32, L=257, shared bias, bf16), and autograd through
+    the plain attention as information."""
+    b, l, heads = 32, 257, 24
+    q, k, v, g = (torch.randn(b, l, heads * 64, generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(4))
+    bias = torch.randn(heads, l, l, generator=gen, device="cuda")
+    kernel_ms = cuda_time_ms(
+        lambda: fa.flash_attention_bwd_cuda(q, k, v, g, bias, None, 0.125, heads), iters=10)
+    plain_ms = cuda_time_ms(
+        lambda: fa.flash_attention_bwd_plain(q, k, v, g, bias, None, 0.125, heads), iters=10)
+    leaves = [x.reshape(b, l, heads, 64).detach().requires_grad_() for x in (q, k, v)]
+    bias.requires_grad_()
+
+    def autograd_plain():
+        out = attention_plain(*leaves, bias, None, 0.125)
+        torch.autograd.grad(out, [*leaves, bias], g.reshape(b, l, heads, 64))
+
+    autograd_ms = cuda_time_ms(autograd_plain, iters=5)
+    log(f"attention backward per layer B={b} L={l} bf16: kernel {kernel_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, autograd through the plain attention (forward included) "
+        f"{autograd_ms:.3f} ms ({card})")
+    return kernel_ms, plain_ms
+
+
+def train_config(layers: int, bf16: bool, remat: bool, drop_path: float) -> FrameworkConfig:
+    """The image-text retrieval fine-tune (recipes/image_text_retrieval over
+    recipes/finetune_4b_base): vl head at the 4B width, AdamW betas (0.9,
+    0.999), weight decay 0.05, no clipping; constant lr 1e-5 for the few
+    steps taken here (no warmup)."""
+    cfg = FrameworkConfig()
+    cfg.model = ModelConfig(head_type="vl")
+    enc = cfg.model.encoder
+    enc.layers, enc.checkpoint_activations, enc.drop_path_rate = layers, remat, drop_path
+    cfg.criterion._name = "image_text_retrieval_criterion"
+    cfg.common.bf16 = bf16
+    cfg.optimizer.adam_betas = (0.9, 0.999)
+    cfg.optimizer.weight_decay = 0.05
+    cfg.optimization.lr = 1e-5
+    cfg.optimization.clip_norm = 0.0
+    cfg.lr_scheduler.min_lr = 1e-5
+    return cfg
+
+
+def train_batch(cfg, gen, b: int) -> dict:
+    """b image-text pairs: 256 px images, 70-token texts with pads."""
+    tokens = torch.randint(4, cfg.model.encoder.text_adapter.vocab_size, (b, 70),
+                           generator=gen, device="cuda")
+    tokens[text_pad_mask(b, 71)[:, 1:]] = cfg.model.encoder.text_adapter.padding_idx
+    return {"src_tokens": tokens,
+            "src_images": torch.randn(b, 3, 256, 256, generator=gen, device="cuda")}
+
+
+def make_trainer(cfg, seed: int = 0) -> Trainer:
+    model = OnePeaceRetrievalModel(cfg.model, device="cuda", dtype=torch.float32)
+    fill_random_(model, torch.Generator(device="cuda").manual_seed(seed))
+    return Trainer(cfg, model, build_criterion(cfg.criterion))
+
+
+def grad_cosines(grads_a, grads_b) -> list:
+    """Cosine between matching gradients (1 where both are zero), in fp64."""
+    out = []
+    for a, b in zip(grads_a, grads_b):
+        a, b = a.double().flatten(), b.double().flatten()
+        norm = a.norm() * b.norm()
+        out.append(1.0 if norm == 0 else (a @ b / norm).item())
+    return out
+
+
+def check_train_paths(gen) -> None:
+    """Phase 7(a): 4 layers at full width, kernel path against plain path on
+    the same weights and batch.
+
+    fp32: the losses within 1e-5 and every parameter's gradient cosine
+    >= 1-1e-6 (the kernels agree with their plain versions to ~3e-7).
+    bf16 compute: both paths round activations and the weights' copies to
+    bf16, so each differs from the fp32 gradients by bf16 noise; small
+    parameters fed by few positions (a last-layer LN bias) sit near cosine
+    0.99 between any two bf16 runs.  The kernel path must be no further from
+    the fp32 gradients than the plain path: per parameter, cosine to fp32 at
+    least the plain path's minus 0.01, and over all parameters together
+    kernel vs plain >= 0.999; losses within 2e-3.  Then 3 AdamW steps on
+    each path: losses within 1e-4 (fp32) and 2e-2 (bf16) -- Adam's
+    normalised update turns small gradient differences into parameter
+    differences of order lr."""
+    cfg = train_config(layers=4, bf16=False, remat=False, drop_path=0.0)
+    batch = train_batch(cfg, gen, 8)
+    runs, ref32 = {}, None
+    for bf16 in (False, True):
+        name = "bf16" if bf16 else "fp32"
+        cfg = train_config(layers=4, bf16=bf16, remat=False, drop_path=0.0)
+        trainer = make_trainer(cfg)
+        enc = trainer.model.cfg.encoder
+        for impl in ("pallas", "xla"):
+            enc.attn_impl = impl
+            fa.launches = fa.bwd_launches = 0
+            metrics, grads = trainer.gradients(batch)
+            torch.cuda.synchronize()
+            launched = (fa.launches, fa.bwd_launches)
+            want = (2 * 4, 2 * 4) if impl == "pallas" else (0, 0)
+            if launched != want:
+                raise RuntimeError(f"7(a) {name} {impl}: launches {launched}, expected {want}")
+            if not all(torch.isfinite(g).all() for g in grads):
+                raise RuntimeError(f"7(a) {name} {impl}: non-finite gradient")
+            runs[name, impl] = (float(metrics["loss"]), grads)
+        enc.attn_impl = "pallas"
+        names = trainer._names
+        del trainer
+        (loss_k, grads_k), (loss_p, grads_p) = runs[name, "pallas"], runs[name, "xla"]
+        cos = grad_cosines(grads_k, grads_p)
+        worst = min(range(len(cos)), key=cos.__getitem__)
+        log(f"7(a) {name} 4-layer vl B=8: loss kernel {loss_k:.7f} plain {loss_p:.7f}; "
+            f"gradient cosine kernel vs plain per parameter min {cos[worst]:.9f} "
+            f"({names[worst]}), median {sorted(cos)[len(cos) // 2]:.9f}, "
+            f"{len(cos)} parameters")
+        if not bf16:
+            ok = abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and cos[worst] >= 1 - 1e-6
+            ref32 = grads_p
+        else:
+            cos_k, cos_p = grad_cosines(grads_k, ref32), grad_cosines(grads_p, ref32)
+            gap = max(range(len(cos)), key=lambda i: cos_p[i] - cos_k[i])
+            total = grad_cosines([torch.cat([g.flatten() for g in grads_k])],
+                                 [torch.cat([g.flatten() for g in grads_p])])[0]
+            log(f"7(a) bf16 vs the fp32 gradients: min cosine kernel path {min(cos_k):.6f}, "
+                f"plain path {min(cos_p):.6f}; largest shortfall of the kernel path "
+                f"{cos_p[gap] - cos_k[gap]:.2e} ({names[gap]}); all parameters together "
+                f"kernel vs plain {total:.9f}")
+            ok = (abs(loss_k - loss_p) <= 2e-3 * abs(loss_p) and total >= 0.999
+                  and cos_p[gap] - cos_k[gap] <= 0.01)
+        if not ok:
+            raise RuntimeError(f"7(a) {name}: kernel and plain training paths disagree")
+        runs.clear()
+        del grads_k, grads_p
+        losses = {}
+        for impl in ("pallas", "xla"):
+            trainer = make_trainer(cfg)
+            trainer.model.cfg.encoder.attn_impl = impl
+            losses[impl] = [trainer.train_step(batch)["loss"] for _ in range(3)]
+            del trainer
+        log(f"7(a) {name} 3 AdamW steps: losses kernel {losses['pallas']}, plain {losses['xla']}")
+        tol = 2e-2 if bf16 else 1e-4
+        for a, b in zip(losses["pallas"], losses["xla"]):
+            if abs(a - b) > tol * abs(b):
+                raise RuntimeError(f"7(a) {name}: step losses disagree")
+        torch.cuda.empty_cache()
+
+
+def train_full_depth(gen, card: str) -> dict:
+    """Phase 7(b): the depth-40 vl model, bf16 compute, fp32 master AdamW,
+    remat, drop path 0.5 (the recipe's); B=32, or 16 if 32 does not fit.
+    Every step sees the same batch and the same drop-path masks (the
+    trainer's generator is reset before each), so the loss must fall."""
+    cfg = train_config(layers=40, bf16=True, remat=True, drop_path=0.5)
+    trainer = make_trainer(cfg)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"7(b) 4B vl model: {n_params / 1e9:.3f}B parameters, fp32 master + AdamW state")
+    enc = trainer.model.cfg.encoder
+    rng_state = trainer.generator.get_state()
+    for b in (32, 16):
+        batch = train_batch(cfg, gen, b)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            trainer.generator.set_state(rng_state)
+            first = trainer.train_step(batch)
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"7(b) B={b} does not fit on the card")
+            if b == 16:
+                raise
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"7(b) running B={b} (first step, warm-up: loss {first['loss']:.5f}, "
+        f"{first['step_time'] * 1e3:.0f} ms)")
+    flops = 4 * (analytic_flops(cfg.model, 257, b, "image")
+                 + analytic_flops(cfg.model, 71, b, "text"))
+    layers = cfg.model.encoder.layers
+    result = {"batch": b}
+    for impl, steps in (("pallas", 4), ("xla", 2)):
+        enc.attn_impl = impl
+        fa.launches = fa.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(steps):
+            trainer.generator.set_state(rng_state)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            losses.append(metrics["loss"])
+        launched = (fa.launches, fa.bwd_launches)
+        want = (steps * 2 * layers * 2, steps * 2 * layers) if impl == "pallas" else (0, 0)
+        ms = 1e3 * sum(times) / steps
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tflops = flops / ms / 1e9
+        log(f"7(b) {impl} B={b}: {ms:.1f} ms per step, {b / ms * 1e3:.1f} pairs/s, "
+            f"{tflops:.1f} TFLOP/s = {100 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% MFU, peak "
+            f"{peak:.1f} GiB, losses {[round(x, 5) for x in losses]}, launches fwd "
+            f"{launched[0]} bwd {launched[1]} (expected {want[0]} and {want[1]}) ({card})")
+        if launched != want:
+            raise RuntimeError(f"7(b) {impl}: launches {launched}, expected {want}")
+        if not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"7(b) {impl}: non-finite loss")
+        result[impl] = {"ms": ms, "peak_gib": peak, "losses": losses,
+                        "launches": launched}
+    losses = [first["loss"], *result["pallas"]["losses"], *result["xla"]["losses"]]
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"7(b): the loss on a repeated batch did not fall: {losses}")
+    enc.attn_impl = "pallas"
+    trainer.generator.set_state(rng_state)
+    profile_step(trainer, batch, result["pallas"]["ms"])
+    return result
+
+
+def profile_step(trainer, batch, step_ms: float) -> None:
+    """One kernel-path step under torch.profiler: device time by op, and
+    the device's busy time against the unprofiled step's ``step_ms`` (one
+    stream, so kernels do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "train_profile.txt").write_text(table)
+    log("7(b) profiled kernel-path step, top ops by device self time:")
+    for line in table.splitlines()[:16]:
+        log(f"  {line}")
+    total = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
+    if total:
+        busy = float(total.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[total.group(2)]
+        log(f"7(b) device busy {busy:.1f} ms of the unprofiled {step_ms:.1f} ms step: "
+            f"idle {100 * (1 - busy / step_ms):.0f}%")
 
 
 def make_inputs(cfg, gen, n_img, n_aud, n_txt):
@@ -259,13 +579,14 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build: one nvcc per kernel source, started together
     t0 = time.time()
-    lib = fa.build_library()
-    log(f"built {lib.name} in {time.time() - t0:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    libs = fa.build_libraries()
+    log(f"built {', '.join(lib.name for lib in libs.values())} in {time.time() - t0:.1f} s")
+    for lib in libs.values():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
     # 3. kernel vs plain
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -274,29 +595,46 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = check_kernel(gen)
 
-    # 4. the slice at full width: fp32, then bf16
+    # 4. the embedding slice at full width: fp32, then bf16
     cfg = ModelConfig(head_type="val")
     inputs = make_inputs(cfg, gen, 4, 2, 4)
     fa.launches = 0
     reference = check_slice(cfg, inputs, torch.float32, 1 - 1e-6)
     torch.cuda.empty_cache()
     check_slice(cfg, inputs, torch.bfloat16, 0.999, reference)
-    launches = fa.launches
-    if launches == 0:
-        raise RuntimeError("the main path never launched the attention kernel")
+    embed_launches = fa.launches
+    if embed_launches == 0:
+        raise RuntimeError("the embedding path never launched the attention kernel")
     torch.cuda.empty_cache()
 
     # 5. times
     kernel_ms, plain_ms = time_paths(cfg, card)
+
+    # 6. the backward kernel vs plain
+    bwd_worst = check_backward_kernel(gen)
+    bwd_ms, bwd_plain_ms = time_backward(gen, card)
+    torch.cuda.empty_cache()
+
+    # 7. the training slice
+    check_train_paths(gen)
+    train = train_full_depth(gen, card)
+    fwd_train, bwd_train = train["pallas"]["launches"]
+    if bwd_train == 0:
+        raise RuntimeError("the training path never launched the backward kernel")
     if "jax" in sys.modules:
         raise RuntimeError("the port imported jax")
 
-    log(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "one_peace_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "one_peace_tpu/ops/flash_attention.py:239",
-        "launches": launches, "max_abs_err": worst,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    log(json.dumps({"kernels": [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "one_peace_tpu_torch/csrc/flash_attention_fwd.cu",
+         "replaces": "one_peace_tpu/ops/flash_attention.py:239",
+         "launches": embed_launches + fwd_train, "max_abs_err": worst,
+         "ms": kernel_ms, "plain_ms": plain_ms},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "one_peace_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "one_peace_tpu/ops/flash_attention.py:409",
+         "launches": bwd_train, "max_abs_err": bwd_worst,
+         "ms": bwd_ms, "plain_ms": bwd_plain_ms}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

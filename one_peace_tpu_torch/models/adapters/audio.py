@@ -17,8 +17,8 @@ from torch import nn
 
 from one_peace_tpu.core.config import AudioAdapterConfig
 
-from ..components import (Conv, LayerNorm, Linear, conv1d, empty_param, gather_rel_bias,
-                          gelu, layer_norm)
+from ..components import (Conv, LayerNorm, Linear, conv1d, dropout, empty_param,
+                          gather_rel_bias, gelu, generator_on, layer_norm)
 from ..rel_pos import make_token_bucket_position_with_cls
 
 MAX_POSITIONS = 1024  # waveform conv frames; the rel-pos table's extent
@@ -114,10 +114,12 @@ class AudioAdapter(nn.Module):
                 f"({self.rp_bucket.shape[0]} positions)")
         return gather_rel_bias(self.rel_pos_table, self.rp_bucket[:seq_len, :seq_len])
 
-    def forward(self, src_audios: torch.Tensor, padding_mask: torch.Tensor):
+    def forward(self, src_audios: torch.Tensor, padding_mask: torch.Tensor,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
         """src_audios: (B, T) waveform; padding_mask: (B, T'+1) True at pads,
         T' = conv_output_length(T).  Returns (x (B, T'+1, D), padding_mask,
-        rel_bias (tables, H, T'+1, T'+1) or None)."""
+        rel_bias (tables, H, T'+1, T'+1) or None).  ``cfg.dropout`` applies
+        to x unless deterministic."""
         bsz, seq_len = padding_mask.shape
         feats = self.extract_features(src_audios)
         pos = torch.cat([self.cls_pos_embed.expand(bsz, 1, self.embed_dim),
@@ -128,4 +130,5 @@ class AudioAdapter(nn.Module):
         x = x + pos
         if self.type_embedding is not None:
             x = x + self.type_embedding
+        x = dropout(x, self.cfg.dropout, deterministic, generator_on(generator, x.device))
         return x, padding_mask, self.rel_pos_bias(seq_len)

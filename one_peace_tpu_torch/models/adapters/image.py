@@ -17,7 +17,8 @@ from torch import nn
 from one_peace_tpu.core.config import ImageAdapterConfig
 from one_peace_tpu.utils.interpolate import bicubic_resize_matrix
 
-from ..components import Conv, LayerNorm, conv2d, empty_param, gather_rel_bias, gelu
+from ..components import (Conv, LayerNorm, conv2d, dropout, empty_param, gather_rel_bias,
+                          gelu, generator_on)
 from ..rel_pos import make_image_bucket_position
 
 
@@ -95,9 +96,11 @@ class ImageAdapter(nn.Module):
             return None
         return gather_rel_bias(self.rel_pos_table, self.rp_bucket)
 
-    def forward(self, src_images: torch.Tensor, is_second_image: bool = False):
+    def forward(self, src_images: torch.Tensor, is_second_image: bool = False,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
         """src_images: (B, 3, H, W).  Returns (x (B, win**2+1, D), an
-        all-False padding mask, rel_bias (tables, H, L, L) or None)."""
+        all-False padding mask, rel_bias (tables, H, L, L) or None).
+        ``cfg.dropout`` applies to x unless deterministic."""
         cfg = self.cfg
         bsz = src_images.shape[0]
         window_size = src_images.shape[2] // 16
@@ -118,4 +121,5 @@ class ImageAdapter(nn.Module):
             x = x + self.type_embedding
             if is_second_image:
                 x = x + self.type_embedding_2
+        x = dropout(x, cfg.dropout, deterministic, generator_on(generator, x.device))
         return x, padding_mask, self.rel_pos_bias()

@@ -16,7 +16,7 @@ from torch import nn
 
 from one_peace_tpu.core.config import TextAdapterConfig
 
-from ..components import LayerNorm, empty_param, gather_rel_bias
+from ..components import LayerNorm, dropout, empty_param, gather_rel_bias, generator_on
 from ..rel_pos import make_token_bucket_position_with_cls
 
 
@@ -49,9 +49,11 @@ class TextAdapter(nn.Module):
             return None
         return gather_rel_bias(self.rel_pos_table, self.rp_bucket[:seq_len, :seq_len])
 
-    def forward(self, src_tokens: torch.Tensor):
+    def forward(self, src_tokens: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """Returns (x (B, Lt+1, D), padding_mask (B, Lt+1) True at pads,
-        rel_bias (tables, H, Lt+1, Lt+1) or None)."""
+        rel_bias (tables, H, Lt+1, Lt+1) or None).  ``cfg.dropout`` applies
+        to x unless deterministic."""
         bsz, tok_len = src_tokens.shape
         seq_len = tok_len + 1  # CLS prepended
         padding_mask = torch.cat(
@@ -65,4 +67,5 @@ class TextAdapter(nn.Module):
         x = x + self.embed_positions[:seq_len][None]
         if self.type_embedding is not None:
             x = x + self.type_embedding
+        x = dropout(x, self.cfg.dropout, deterministic, generator_on(generator, x.device))
         return x, padding_mask, self.rel_pos_bias(seq_len)

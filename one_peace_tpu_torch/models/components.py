@@ -8,6 +8,9 @@ Numerics match the JAX package:
 - ``conv2d``: NHWC; a stride == kernel conv runs as the exact patchify
   reshape plus one matmul, the patch flattened in (kh, kw, in) order.
 - ``conv1d``: NWC, with groups.
+- ``dropout`` / ``drop_path``: the JAX package's masks and scales, drawn
+  from an explicit ``torch.Generator`` on the tensor's device (JAX's keys
+  become generators; ``split_generator`` plays ``jax.random.split``).
 
 Weights are kept in PyTorch's layouts: dense (out, in), conv2d
 (out, in, kh, kw), conv1d (out, in / groups, k).  The large products go to
@@ -19,8 +22,9 @@ weights (``utils.checkpoint``) or by ``utils.random_weights``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -79,6 +83,51 @@ def gather_rel_bias(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     contiguous fp32 (tables, H, L, L): contiguous once here, so the kernel
     takes each layer's slice without a copy."""
     return table.float()[:, idx].permute(0, 3, 1, 2).contiguous()
+
+
+def split_generator(generator: Optional[torch.Generator], n: int) -> List[Optional[torch.Generator]]:
+    """n CPU generators seeded from draws of ``generator`` (the role of
+    ``jax.random.split``); n Nones without one."""
+    if generator is None:
+        return [None] * n
+    seeds = torch.randint(0, 2**62, (n,), generator=generator, device=generator.device)
+    return [torch.Generator().manual_seed(s) for s in seeds.tolist()]
+
+
+def generator_on(generator: Optional[torch.Generator], device) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded from one draw of ``generator``."""
+    if generator is None:
+        return None
+    seed = torch.randint(0, 2**62, (), generator=generator, device=generator.device).item()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout: keep with probability 1 - rate, scale by 1 / keep.
+    Identity when deterministic or at rate 0; otherwise ``generator`` (on
+    x's device) draws the mask."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with rate > 0 needs a generator when not deterministic")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth on (B, L, D): one keep draw per batch row, shared over
+    the sequence, kept rows scaled by 1 / keep (in x's dtype).  Identity when
+    deterministic, without a generator, or at rate 0."""
+    if deterministic or generator is None or rate == 0.0:
+        return x
+    keep = np.float32(1.0) - np.float32(rate)
+    mask = torch.rand((x.shape[0], 1, 1), generator=generator, device=x.device) < float(keep)
+    scale = np.float32(1.0) / max(keep, np.float32(1e-8)) if keep > 0 else 0.0
+    scaled = x * torch.tensor(float(scale), dtype=x.dtype, device=x.device)
+    return torch.where(mask, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def empty_param(*shape, device=None, dtype=None) -> nn.Parameter:

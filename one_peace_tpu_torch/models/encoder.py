@@ -6,22 +6,30 @@ LayerScale.  The relative-position bias stays (H, L, L) or (B, H, L, L) and
 the key mask (B, L); the attention op combines them.
 
 The JAX package stacks the layers and runs them under ``lax.scan``; here
-they are an ``nn.ModuleList`` walked by a loop.  This is the inference
-path: dropout, drop-path and LayerDrop (``deterministic=False``) raise
-until the training path is ported; remat and pipelining come with it.
+they are an ``nn.ModuleList`` walked by a loop.  With ``deterministic=False``
+and a generator the training path runs: dropout and activation dropout,
+drop path on the ``linspace(0, drop_path_rate, layers)`` schedule, and
+LayerDrop.  ``checkpoint_activations`` (remat policy ``full``) recomputes
+each layer in the backward pass through ``torch.utils.checkpoint``.  Each
+layer's random masks come from a generator rebuilt from a seed drawn before
+the layer runs, so the recompute draws the same masks.  The ``qkv`` and
+``offload_qkv`` remat policies and pipelining are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from one_peace_tpu.core.config import EncoderConfig
 
 from ..ops.attention import multihead_attention
-from .components import LayerNorm, Linear, empty_param, gelu
+from .components import LayerNorm, Linear, drop_path, dropout, empty_param, gelu
 
 MODALITIES = ("text", "image", "audio")
 
@@ -60,7 +68,8 @@ class Attention(nn.Module):
 
 
 class GeGLU(nn.Module):
-    """``wo(ffn_ln(gelu(wi_0 x) * wi_1 x))`` (``_geglu_ffn``)."""
+    """``wo(ffn_ln(dropout(gelu(wi_0 x) * wi_1 x)))`` (``_geglu_ffn``), the
+    dropout at ``activation_dropout``."""
 
     def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
         super().__init__()
@@ -69,9 +78,12 @@ class GeGLU(nn.Module):
         self.wi_1 = Linear(d, f, bias=False, device=device, dtype=dtype)
         self.wo = Linear(f, d, device=device, dtype=dtype)
         self.ffn_ln = LayerNorm(f, device=device, dtype=dtype) if cfg.scale_fc else None
+        self.activation_dropout = cfg.activation_dropout
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         y = gelu(self.wi_0(x)) * self.wi_1(x)
+        y = dropout(y, self.activation_dropout, deterministic, generator)
         if self.ffn_ln is not None:
             y = self.ffn_ln(y)
         return self.wo(y)
@@ -95,12 +107,15 @@ def split_by_modality(x: torch.Tensor, encoder_type: str,
 
 
 class EncoderLayer(nn.Module):
-    """One transformer layer (``encoder_layer``)."""
+    """One transformer layer (``encoder_layer``).  Dropout, activation
+    dropout and drop path draw, in that order, from one generator on x's
+    device."""
 
     def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
         super().__init__()
         d = cfg.embed_dim
         kw = dict(device=device, dtype=dtype)
+        self.dropout_rate = cfg.dropout
         self.self_attn = Attention(cfg, **kw)
         self.self_attn_layer_norm = LayerNorm(d, **kw)
         self.final_layer_norm = LayerNorm(d, **kw)
@@ -110,23 +125,50 @@ class EncoderLayer(nn.Module):
         self.audio_ffn = GeGLU(cfg, **kw) if cfg.use_audio_moe else None
         self.gamma_1 = empty_param(d, **kw) if cfg.use_layer_scale else None
         self.gamma_2 = empty_param(d, **kw) if cfg.use_layer_scale else None
+        # under remat these enter the checkpoint as inputs (see _run_layer)
+        self.param_names = [name for name, _ in self.named_parameters()]
 
     def forward(self, x, key_padding_mask, rel_bias, encoder_type: str,
-                split_lens: Tuple[int, int, int]):
+                split_lens: Tuple[int, int, int], drop_path_rate: float = 0.0,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
+        rate = self.dropout_rate
         y = self.self_attn(self.self_attn_layer_norm(x), rel_bias, key_padding_mask)
         if self.attn_ln is not None:
             y = self.attn_ln(y)
+        y = dropout(y, rate, deterministic, generator)
         if self.gamma_1 is not None:
             y = y * self.gamma_1
-        x = x + y
+        x = x + drop_path(y, drop_path_rate, deterministic, generator)
 
         y = self.final_layer_norm(x)
-        segs = [getattr(self, f"{mod}_ffn")(seg)
+        segs = [getattr(self, f"{mod}_ffn")(seg, deterministic, generator)
                 for mod, seg in split_by_modality(y, encoder_type, split_lens)]
         y = segs[0] if len(segs) == 1 else torch.cat(segs, dim=1)
+        y = dropout(y, rate, deterministic, generator)
         if self.gamma_2 is not None:
             y = y * self.gamma_2
-        return x + y
+        return x + drop_path(y, drop_path_rate, deterministic, generator)
+
+
+def _run_layer(layer: EncoderLayer, x, key_mask, bias, encoder_type, split_lens,
+               rate: float, deterministic: bool, seed: Optional[int], remat: bool):
+    """One layer, its masks drawn from a generator seeded with ``seed``.
+    Under remat the layer's parameters enter ``checkpoint`` as inputs: the
+    recompute then sees the tensors the forward saw, also when they were
+    swapped in by ``torch.func.functional_call`` (the trainer's bf16
+    copies), which no longer holds when the backward pass runs."""
+
+    def run(x, bias, *params):
+        gen = None if seed is None else torch.Generator(device=x.device).manual_seed(seed)
+        args = (x, key_mask, bias, encoder_type, split_lens, rate, deterministic, gen)
+        if not params:
+            return layer(*args)
+        return torch.func.functional_call(layer, dict(zip(layer.param_names, params)), args)
+
+    if not remat:
+        return run(x, bias)
+    params = [functools.reduce(getattr, name.split("."), layer) for name in layer.param_names]
+    return checkpoint(run, x, bias, *params, use_reentrant=False, preserve_rng_state=False)
 
 
 class FusionEncoder(nn.Module):
@@ -154,14 +196,30 @@ class FusionEncoder(nn.Module):
         encoder_type: str,
         split_lens: Tuple[int, int, int],
         deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """x: (B, L, D) concatenated modality sequence; padding_mask: (B, L)
         True at pads; rel_bias: (tables, H, L, L) or (tables, B, H, L, L) with
-        tables in {1, layers}, or None.  Returns the output after the final
+        tables in {1, layers}, or None.  ``generator`` (CPU) draws each
+        layer's seed and LayerDrop decision; without one, or when
+        deterministic, nothing is random.  Returns the output after the final
         LayerNorm of each modality."""
-        if not deterministic:
-            raise NotImplementedError("dropout / drop-path / LayerDrop are not "
-                                      "ported yet: the port runs inference only")
+        cfg = self.cfg
+        remat = cfg.checkpoint_activations
+        if remat and cfg.remat_policy != "full":
+            raise NotImplementedError(f"remat_policy={cfg.remat_policy!r} is not ported "
+                                      f"yet: only 'full'")
+        remat = remat and torch.is_grad_enabled()
+        use_rng = not deterministic and generator is not None
+        seeds = [None] * cfg.layers
+        keep = [True] * cfg.layers
+        if use_rng:
+            seeds = torch.randint(0, 2**62, (cfg.layers,), generator=generator,
+                                  device=generator.device).tolist()
+            if cfg.layerdrop > 0.0:
+                keep = (torch.rand(cfg.layers, generator=generator, device=generator.device)
+                        < 1.0 - cfg.layerdrop).tolist()
+        rates = np.linspace(0, cfg.drop_path_rate, cfg.layers, dtype=np.float32)
         key_mask = None
         if padding_mask is not None:
             # zero padded positions before the stack (ref encoder:139-142)
@@ -173,8 +231,11 @@ class FusionEncoder(nn.Module):
 
         per_layer_bias = rel_bias is not None and rel_bias.shape[0] == self.cfg.layers
         for i, layer in enumerate(self.layers):
+            if not keep[i]:  # LayerDrop skips the whole layer
+                continue
             bias = None if rel_bias is None else rel_bias[i if per_layer_bias else 0]
-            x = layer(x, key_mask, bias, encoder_type, split_lens)
+            x = _run_layer(layer, x, key_mask, bias, encoder_type, split_lens,
+                           float(rates[i]), deterministic, seeds[i], remat)
 
         segs = []
         for mod, seg in split_by_modality(x, encoder_type, split_lens):

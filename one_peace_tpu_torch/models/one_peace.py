@@ -3,7 +3,9 @@
 ``ModelWrapper`` runs the modality adapters and the fusion encoder and
 splits the concatenated output back into per-modality features;
 ``OnePeaceRetrievalModel`` adds the per-modality projection heads and the
-L2 normalisation.  The classify and pretrain models are not ported yet.
+L2 normalisation; ``logit_scale`` trains through the straight-through
+clamp of ``logit_scale_exp``.  The classify and pretrain models are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from one_peace_tpu.core.config import EncoderConfig, ModelConfig
 from .adapters.audio import AudioAdapter
 from .adapters.image import ImageAdapter
 from .adapters.text import TextAdapter
-from .components import Linear, empty_param
+from .components import Linear, empty_param, split_generator
 from .encoder import FusionEncoder
 
 ENCODER_TYPES = ("text", "image", "audio", "vl", "al", "val")
@@ -82,21 +84,23 @@ class ModelWrapper(nn.Module):
         encoder_type: str = "text",
         deterministic: bool = True,
         return_padding_mask: bool = False,
+        generator: Optional[torch.Generator] = None,
     ):
         """Returns the per-modality features (None where absent), each
-        (B, l_mod, D), and their padding masks when requested."""
+        (B, l_mod, D), and their padding masks when requested.  With
+        ``deterministic=False`` the adapters' dropout and the encoder's
+        dropout, drop path and LayerDrop draw from ``generator``."""
         if encoder_type not in ENCODER_TYPES:
             raise NotImplementedError(f"unknown encoder_type {encoder_type!r}")
-        if not deterministic:
-            raise NotImplementedError("dropout / drop-path / LayerDrop are not "
-                                      "ported yet: the port runs inference only")
+        gens = split_generator(generator, 4)
         infos: List = [None, None, None]
         if encoder_type in ("text", "vl", "al", "val"):
-            infos[0] = self.text_adapter(src_tokens)
+            infos[0] = self.text_adapter(src_tokens, deterministic, gens[0])
         if encoder_type in ("image", "vl", "val"):
-            infos[1] = self.image_adapter(src_images, is_second_image)
+            infos[1] = self.image_adapter(src_images, is_second_image, deterministic, gens[1])
         if encoder_type in ("audio", "al", "val"):
-            infos[2] = self.audio_adapter(src_audios, audio_padding_masks)
+            infos[2] = self.audio_adapter(src_audios, audio_padding_masks, deterministic,
+                                          gens[2])
 
         present = [i for i in infos if i is not None]
         lens = [i[0].shape[1] for i in present]
@@ -105,7 +109,8 @@ class ModelWrapper(nn.Module):
         rel_bias = combine_rel_bias([i[2] for i in present], lens)
         split_lens = tuple(0 if i is None else i[0].shape[1] for i in infos)
 
-        out = self.fusion(x, padding_mask, rel_bias, encoder_type, split_lens)
+        out = self.fusion(x, padding_mask, rel_bias, encoder_type, split_lens,
+                          deterministic, gens[3])
 
         feats, pads, start = [], [], 0
         for info, l in zip(infos, split_lens):
@@ -160,14 +165,16 @@ class OnePeaceRetrievalModel(nn.Module):
         audio_padding_masks: Optional[torch.Tensor] = None,
         encoder_type: str = "text",
         deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """(B, D) unit-norm embeddings for encoder_type text, image or audio."""
+        """(B, D) unit-norm embeddings for encoder_type text, image or audio.
+        ``deterministic=False`` with a generator is the training path."""
         if encoder_type not in ("text", "image", "audio"):
             raise NotImplementedError(encoder_type)
         text_f, image_f, audio_f = self.encoder_wrapper(
             src_tokens=src_tokens, src_images=src_images, src_audios=src_audios,
             audio_padding_masks=audio_padding_masks, encoder_type=encoder_type,
-            deterministic=deterministic)
+            deterministic=deterministic, generator=generator)
         feats = {"text": text_f, "image": image_f, "audio": audio_f}[encoder_type]
         out = getattr(self, f"{encoder_type}_proj")(feats[:, 0])
         outf = out.float()

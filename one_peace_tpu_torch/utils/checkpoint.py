@@ -14,12 +14,18 @@ Layout rules:
 - a LayerNorm's ``scale`` becomes ``weight``;
 - the stacked ``fusion/layers`` tree (leading ``layers`` axis) becomes one
   module per layer, and lists become numbered modules.
+
+The same walk carries any tree of the parameters' structure, such as a
+gradient tree, or the optimizer's ``decay_mask`` and ``layer_decay_scales``
+trees: with ``num_layers`` given, a stacked leaf without a leading layer
+axis (a bool, a 0-d scale) goes to every layer, and a leaf of fewer than two
+dimensions keeps its layout.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -39,11 +45,13 @@ def _to_torch(x: Any) -> torch.Tensor:
 def _index(node: Any, i: int) -> Any:
     if isinstance(node, dict):
         return {k: _index(v, i) for k, v in node.items()}
-    return node[i]
+    return node if np.ndim(node) == 0 else node[i]
 
 
-def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX parameter tree -> ``state_dict`` of ``OnePeaceRetrievalModel``."""
+def params_from_jax(tree: Dict[str, Any],
+                    num_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree -> ``state_dict`` of ``OnePeaceRetrievalModel``
+    (or the same names for a tree of that structure)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Any, path: tuple) -> None:
@@ -54,7 +62,7 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             first = node
             while isinstance(first, dict):
                 first = next(iter(first.values()))
-            for i in range(len(first)):
+            for i in range(num_layers if np.ndim(first) == 0 else len(first)):
                 walk(_index(node, i), path + (str(i),))
         elif isinstance(node, dict):
             for key, child in node.items():
@@ -63,7 +71,8 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             leaf = _to_torch(node)
             name = path[-1]
             if name == "w":
-                leaf = leaf.permute(*_CONV_PERMUTE[leaf.ndim]).contiguous()
+                if leaf.ndim >= 2:
+                    leaf = leaf.permute(*_CONV_PERMUTE[leaf.ndim]).contiguous()
                 name = "weight"
             elif name == "b":
                 name = "bias"

@@ -222,10 +222,21 @@ def test_logit_scale_exp_matches_jax(setup):
 
 
 def test_inference_only_and_unknown_types_raise(setup):
+    """``deterministic=False`` trains now: without a generator and at zero
+    rates it is the inference output, and a dropout it cannot draw raises.
+    Unknown encoder types raise."""
     cfg, jax_model, params, model = setup
     tokens = torch.as_tensor(_inputs(cfg)["src_tokens"])
-    with pytest.raises(NotImplementedError):
-        model(src_tokens=tokens, encoder_type="text", deterministic=False)
+    with torch.no_grad():
+        torch.testing.assert_close(
+            model(src_tokens=tokens, encoder_type="text", deterministic=False),
+            model(src_tokens=tokens, encoder_type="text"), rtol=0, atol=0)
+        model.encoder_wrapper.text_adapter.cfg.dropout = 0.1
+        try:
+            with pytest.raises(ValueError):
+                model(src_tokens=tokens, encoder_type="text", deterministic=False)
+        finally:
+            model.encoder_wrapper.text_adapter.cfg.dropout = 0.0
     with pytest.raises(NotImplementedError):
         model.encoder_wrapper(src_tokens=tokens, encoder_type="bogus")
     with pytest.raises(NotImplementedError):

@@ -26,6 +26,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    and then the plain path, ms per step, pairs per second, MFU, peak memory,
    the kernels' launch counts per step and a falling loss; one step under
    ``torch.profiler`` (its top ops go to ``chiprun_out/train_profile.txt``).
+8. the int8 kernels (row quantize and GEMM) against their plain versions on
+   the card, bit for bit, at the serving path's shapes and ragged ones, and
+   their times beside the plain versions' and bf16 ``torch.matmul``'s;
+9. int8 serving at full width through the hub: ``from_pretrained`` on a
+   2-layer full-width fairseq ``.pt`` written under ``build/``, quantize
+   "ffn" and "ffn_attn", fp32 and bf16, text / image / audio embeddings on
+   the kernel path against the plain int8 path, the launch counts per
+   forward, ``process_image(on_device=True)``; then images/s and clips/s at
+   depth 40 in bf16 for the bf16, "ffn" and "ffn_attn" paths;
+10. the depth-40 golden (``tests/fixtures/full_geometry_golden.npz``): the
+   seeded 4B fairseq state regenerated, converted by the port's ``.pt``
+   route, and the fp32 model on the kernel path held to the golden
+   embeddings at cosine >= 1-1e-3.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -34,6 +47,8 @@ package beside it, the script fails before printing either.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import math
 import re
@@ -42,18 +57,32 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from one_peace_tpu.core.config import FrameworkConfig
+from one_peace_tpu.core.config import FrameworkConfig, TaskConfig
+from one_peace_tpu.data.tokenizer import bytes_to_unicode
+from one_peace_tpu_torch import hub as port_hub
 from one_peace_tpu_torch.criterions import build_criterion
 from one_peace_tpu_torch.models.adapters.audio import conv_output_length
 from one_peace_tpu_torch.models.one_peace import ModelConfig, OnePeaceRetrievalModel
+from one_peace_tpu_torch.ops import build
 from one_peace_tpu_torch.ops import flash_attention as fa
+from one_peace_tpu_torch.ops import int8_matmul as im
 from one_peace_tpu_torch.ops.attention import attention_plain
+from one_peace_tpu_torch.ops.preprocess import resize_normalize
+from one_peace_tpu_torch.ops.quant import quantize_ffn_
 from one_peace_tpu_torch.trainer import Trainer
+from one_peace_tpu_torch.utils.checkpoint_convert import convert_retrieval_model
 from one_peace_tpu_torch.utils.random_weights import fill_random_
 
+ROOT = Path(__file__).resolve().parent
+sys.path[:0] = [str(ROOT / "tests"), str(ROOT / "examples")]
+import full_geometry_parity as golden  # noqa: E402  (numpy constants; no JAX at import)
+from torch_fixture import make_random_state_dict  # noqa: E402  (numpy)
+
 H100_BF16_PEAK_TFLOPS = 989.0  # dense, NVIDIA data sheet (SXM, 700 W)
+H100_INT8_PEAK_TOPS = 1979.0  # dense, the same sheet
 IMG_BATCH, AUD_BATCH, AUDIO_SECONDS = 256, 32, 10  # bench.py's workload
 BF16_MAX_ERR, BF16_MEAN_ERR, FP32_MAX_ERR = 2e-2, 2e-3, 1e-4
 
@@ -570,6 +599,295 @@ def time_paths(cfg, card: str):
     return attn_ms[257]
 
 
+FFN_SHAPES = [(65792, 1536, 6144), (65792, 6144, 1536), (65792, 1536, 1536)]  # (M, K, N)
+RAGGED_SHAPES = [(13, 100, 70), (260, 520, 515)]  # tests/test_quant.py:141's
+
+
+def check_int8_kernels(gen, card: str) -> dict:
+    """Phase 8: the row quantize and the GEMM against their plain versions,
+    bit for bit, at the serving path's shapes (M = 65,792 image rows at
+    B=256, 16,032 audio rows at B=32) and ragged ones; then their times and
+    bf16 ``torch.matmul``'s on the same product (information)."""
+    worst = {"quantize": 0.0, "gemm": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, k in ((65792, 1536), (65792, 6144), (16032, 6144), (13, 100)):
+            x = (torch.randn(m, k, generator=gen, device="cuda") * 2).to(dtype)
+            got = im.int8_quantize_rows_cuda(x)
+            torch.cuda.synchronize()
+            want = im.int8_quantize_rows_plain(x)
+            err = max((got[0].int() - want[0].int()).abs().max().item(),
+                      (got[1] - want[1]).abs().max().item())
+            worst["quantize"] = max(worst["quantize"], float(err))
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            log(f"int8 quantize vs plain {str(dtype)[6:]} ({m} x {k}): "
+                f"{'bit-equal' if same else f'DIFFERENT, max |d| {err}'}")
+            if not same:
+                raise RuntimeError(f"int8 quantize kernel disagrees at {dtype} ({m}, {k})")
+            del x, got, want
+    for m, k, n in FFN_SHAPES + RAGGED_SHAPES:
+        x_q = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        sx = torch.rand(m, generator=gen, device="cuda") * 0.01 + 1e-4
+        sw = torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-4
+        bias = torch.randn(n, generator=gen, device="cuda")
+        for out_dtype in (torch.float32, torch.bfloat16):
+            for b in (None, bias):
+                got = im.int8_matmul_cuda(x_q, w_q, sx, sw, b, out_dtype)
+                torch.cuda.synchronize()
+                want = im.int8_matmul_plain(x_q, w_q, sx, sw, b, out_dtype)
+                err = (got.float() - want.float()).abs().max().item()
+                worst["gemm"] = max(worst["gemm"], err)
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"int8 GEMM disagrees at ({m}, {k}, {n}) "
+                                       f"{out_dtype} bias={b is not None}: max {err}")
+                del got, want
+        log(f"int8 GEMM vs plain ({m}, {k}, {n}): bit-equal in fp32 and bf16, "
+            f"with and without bias")
+    torch.cuda.empty_cache()
+
+    times = {"max_abs_err": worst}
+    x = torch.randn(65792, 1536, generator=gen, device="cuda", dtype=torch.bfloat16)
+    times["quantize"] = (cuda_time_ms(lambda: im.int8_quantize_rows_cuda(x), iters=20),
+                         cuda_time_ms(lambda: im.int8_quantize_rows_plain(x), iters=5))
+    log(f"int8 quantize (65792 x 1536) bf16: kernel {times['quantize'][0]:.3f} ms, plain "
+        f"{times['quantize'][1]:.3f} ms ({card})")
+    del x
+    for m, k, n in FFN_SHAPES:
+        x_q = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        sx, sw = torch.rand(m, device="cuda"), torch.rand(n, device="cuda")
+        xb = torch.randn(m, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+        wb = torch.randn(n, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+        kernel_ms = cuda_time_ms(lambda: im.int8_matmul_cuda(x_q, w_q, sx, sw, None,
+                                                             torch.bfloat16), iters=10)
+        plain_ms = cuda_time_ms(lambda: im.int8_matmul_plain(x_q, w_q, sx, sw, None,
+                                                             torch.bfloat16), iters=3, warmup=1)
+        bf16_ms = cuda_time_ms(lambda: xb @ wb.T, iters=10)
+        tops = 2 * m * k * n / kernel_ms / 1e9
+        log(f"int8 GEMM ({m}, {k}, {n}) -> bf16: kernel {kernel_ms:.3f} ms ({tops:.1f} TOPS = "
+            f"{100 * tops / H100_INT8_PEAK_TOPS:.1f}% of {H100_INT8_PEAK_TOPS:.0f}), plain "
+            f"{plain_ms:.3f} ms; bf16 torch.matmul {bf16_ms:.3f} ms "
+            f"({2 * m * k * n / bf16_ms / 1e9:.1f} TFLOP/s) ({card})")
+        times[(m, k, n)] = (kernel_ms, plain_ms, bf16_ms)
+        del x_q, w_q, xb, wb
+    torch.cuda.empty_cache()
+    return times
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """The int8 serving path on the plain versions (the comparison side of
+    phase 9): ``ops.quant`` reaches the dispatchers through the module."""
+    saved = im.int8_quantize_rows, im.int8_matmul
+    im.int8_quantize_rows, im.int8_matmul = im.int8_quantize_rows_plain, im.int8_matmul_plain
+    try:
+        yield
+    finally:
+        im.int8_quantize_rows, im.int8_matmul = saved
+
+
+def write_bpe_dir(path: Path) -> str:
+    """A byte-level BPE set: encoder.json over the 256 byte symbols, no
+    merges, a 256-row dict.txt (the GPT-2 assets are not in the repo)."""
+    path.mkdir(parents=True, exist_ok=True)
+    symbols = bytes_to_unicode()
+    (path / "encoder.json").write_text(json.dumps({symbols[b]: b for b in range(256)}))
+    (path / "vocab.bpe").write_text("#version: 0.2\n")
+    (path / "dict.txt").write_text("".join(f"{i} 1\n" for i in range(256)))
+    return str(path)
+
+
+def smooth_images(n: int, rng) -> list:
+    """n PIL RGB images of low-frequency patterns, sizes around 256 px."""
+    from PIL import Image
+
+    out = []
+    for i in range(n):
+        h, w = 300 + 37 * i, 260 + 53 * i
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        chans = [np.sin(xx / (17 + 5 * c + rng.rand() * 9) + yy / (23 + 3 * c)) for c in range(3)]
+        out.append(Image.fromarray(((np.stack(chans, -1) * 0.45 + 0.5) * 255).astype(np.uint8)))
+    return out
+
+
+def serve_int8(card: str) -> dict:
+    """Phase 9: int8 serving at full width through the hub.  Returns the
+    int8 kernels' launch counts over the kernel-path forwards."""
+    work = ROOT / "build" / "smoke_hub"
+    work.mkdir(parents=True, exist_ok=True)
+    bpe = write_bpe_dir(work / "bpe")
+    cfg = ModelConfig(head_type="val")
+    cfg.encoder.layers = 2
+    t0 = time.time()
+    sd = make_random_state_dict(cfg, seed=0)
+    pt = work / "model.pt"
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, pt)
+    log(f"9: wrote a 2-layer full-width fairseq .pt ({pt.stat().st_size / 2**30:.2f} GiB) "
+        f"in {time.time() - t0:.1f} s")
+    del sd
+
+    rng = np.random.RandomState(0)
+    texts = ["a dog barking in the rain", "two cats", "an orchestra tuning up before the show",
+             "waves"]
+    images = smooth_images(4, rng)
+    wavs = [rng.randn(16000 * AUDIO_SECONDS).astype(np.float32) * 0.1,
+            rng.randn(16000 * 6).astype(np.float32) * 0.1]
+    launched = {"gemm": 0, "quantize": 0}
+    task = TaskConfig()
+    bounds = {"float32": 1 - 1e-6, "bf16": 0.999}
+    for dtype in ("float32", "bf16"):
+        reference, inputs = None, None
+        for quantize in ("none", "ffn", "ffn_attn"):
+            t0 = time.time()
+            hub = port_hub.from_pretrained(str(pt), dtype=dtype, bpe_dir=bpe, model_cfg=cfg,
+                                           task_cfg=task, quantize=quantize, device="cuda")
+            log(f"9: from_pretrained {dtype} quantize={quantize}: {time.time() - t0:.1f} s")
+            if inputs is None:
+                inputs = {"text": {"src_tokens": hub.process_text(texts)},
+                          "image": {"src_images": hub.process_image(images)},
+                          "audio": dict(zip(("src_audios", "audio_padding_masks"),
+                                            hub.process_audio(wavs)))}
+                check_on_device_images(hub, images)
+            extract = {"text": hub.extract_text_features, "image": hub.extract_image_features,
+                       "audio": hub.extract_audio_features}
+            if quantize == "none":
+                reference = {m: extract[m](**kw).float() for m, kw in inputs.items()}
+                del hub
+                continue
+            want = (6, 4) if quantize == "ffn" else (14, 8)
+            for modality, kwargs in inputs.items():
+                im.launches = im.quantize_launches = 0
+                got = extract[modality](**kwargs).float()
+                torch.cuda.synchronize()
+                counts = (im.launches, im.quantize_launches)
+                launched["gemm"] += counts[0]
+                launched["quantize"] += counts[1]
+                with plain_int8():
+                    im.launches = im.quantize_launches = 0
+                    plain = extract[modality](**kwargs).float()
+                    if (im.launches, im.quantize_launches) != (0, 0):
+                        raise RuntimeError("9: the plain int8 path launched a kernel")
+                b = next(iter(kwargs.values())).shape[0]
+                if got.shape != (b, cfg.encoder.embed_dim) or not torch.isfinite(got).all():
+                    raise RuntimeError(f"9: bad {modality} embeddings {tuple(got.shape)}")
+                cos = min_cosine(got, plain)
+                log(f"9: {dtype} {quantize} {modality} B={b}: min cosine kernel vs plain int8 "
+                    f"{cos:.9f} (bound {bounds[dtype]}); vs unquantized {dtype} "
+                    f"{min_cosine(got, reference[modality]):.6f}; launches per forward "
+                    f"{counts[0]} GEMM, {counts[1]} quantize (expected {want[0]}, {want[1]})")
+                if counts != want:
+                    raise RuntimeError(f"9: {quantize} launched {counts}, expected {want}")
+                if cos < bounds[dtype]:
+                    raise RuntimeError(f"9: {dtype} {quantize} {modality}: kernel and plain "
+                                       f"int8 paths disagree")
+            del hub
+            torch.cuda.empty_cache()
+    time_int8_paths(card, bpe)
+    return launched
+
+
+def check_on_device_images(hub, images) -> None:
+    """process_image(on_device=True) against the host PIL path (the JAX
+    package documents ~1e-2 in normalised units between the two), and the
+    card's resize against the same function on the CPU."""
+    host = hub.process_image(images).float()
+    dev = hub.process_image(images, on_device=True).float()
+    vs_cpu = 0.0
+    for img in images:
+        a, b = (resize_normalize(torch.from_numpy(np.array(img)).to(where), 256,
+                                 port_hub.CLIP_MEAN,
+                                 port_hub.CLIP_STD).cpu() for where in ("cuda", "cpu"))
+        vs_cpu = max(vs_cpu, (a - b).abs().max().item())
+    vs_host = (dev - host).abs()
+    log(f"9: process_image(on_device=True) {hub.dtype}: vs the host PIL path max |d| "
+        f"{vs_host.max().item():.3e} mean {vs_host.mean().item():.3e}; fp32 resize on the "
+        f"card vs on the CPU max |d| {vs_cpu:.3e}")
+    if vs_host.mean().item() > 2e-2 or vs_cpu > 1e-4:
+        raise RuntimeError("9: the on-device image path disagrees")
+
+
+def time_int8_paths(card: str, bpe: str) -> None:
+    """Phase 9 times: the depth-40 model in bf16 through the hub at
+    bench.py's batches, bf16 / "ffn" / "ffn_attn" (the int8 models are
+    quantized copies of the same bf16 weights)."""
+    cfg = ModelConfig(head_type="val")
+    model = OnePeaceRetrievalModel(cfg, device="cuda", dtype=torch.bfloat16)
+    fill_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    hubs = {"bf16": port_hub.OnePeaceHubInterface(cfg, TaskConfig(), model,
+                                                  dtype=torch.bfloat16, bpe_dir=bpe)}
+    for mode in ("ffn", "ffn_attn"):
+        hubs[mode] = port_hub.OnePeaceHubInterface(
+            cfg, TaskConfig(), quantize_ffn_(copy.deepcopy(model), include_attn=mode == "ffn_attn"),
+            dtype=torch.bfloat16, bpe_dir=bpe)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    inputs = make_inputs(cfg, gen, IMG_BATCH, AUD_BATCH, 1)
+    inputs["audio"]["audio_padding_masks"].zero_()
+    images = inputs["image"]["src_images"].bfloat16()
+    audio = (inputs["audio"]["src_audios"].bfloat16(), inputs["audio"]["audio_padding_masks"])
+    for modality, b in (("image", IMG_BATCH), ("audio", AUD_BATCH)):
+        for mode in ("bf16", "ffn", "ffn_attn", "ffn_attn", "ffn", "bf16"):
+            hub = hubs[mode]
+            fn = ((lambda: hub.extract_image_features(images)) if modality == "image"
+                  else (lambda: hub.extract_audio_features(*audio)))
+            ms = cuda_time_ms(fn, iters=2, warmup=1)
+            log(f"9: depth 40 {modality} B={b} {mode}: {ms:.1f} ms per batch, "
+                f"{b / ms * 1e3:.1f} {modality}s/s ({card})")
+    del hubs, model, inputs
+    torch.cuda.empty_cache()
+
+
+def check_golden() -> dict:
+    """Phase 10: the depth-40 golden through the port's .pt route, fp32,
+    kernel path.  Returns the cosines."""
+    cfg = golden.real_config()
+    t0 = time.time()
+    sd = make_random_state_dict(cfg, seed=golden.SD_SEED)
+    t_gen = time.time() - t0
+    t0 = time.time()
+    state = convert_retrieval_model(sd, cfg)
+    t_conv = time.time() - t0
+    t0 = time.time()
+    model = OnePeaceRetrievalModel(cfg, device="cuda", dtype=torch.float32)
+    model.load_state_dict(state, strict=True)
+    del state
+    t_load = time.time() - t0
+    log(f"10: 4B state from the seed in {t_gen:.1f} s, converted by the port in {t_conv:.1f} s, "
+        f"on the card in {t_load:.1f} s")
+    imgs = torch.from_numpy(np.random.RandomState(golden.IMAGE_SEED).randn(
+        *golden.IMAGE_SHAPE).astype(np.float32)).cuda()
+    wav = torch.from_numpy(np.random.RandomState(golden.AUDIO_SEED).randn(
+        1, golden.AUDIO_LEN).astype(np.float32)).cuda()
+    frames = conv_output_length(golden.AUDIO_LEN, cfg.encoder.audio_adapter.feature_encoder_spec)
+    apad = torch.zeros(1, frames + 1, dtype=torch.bool, device="cuda")
+    apad[0, -7:] = True
+    tokens = torch.from_numpy(golden.TOKENS).cuda()
+    fa.launches = 0
+    with torch.inference_mode():
+        out = {"text": model(src_tokens=tokens, encoder_type="text"),
+               "image": model(src_images=imgs, encoder_type="image"),
+               "audio": model(src_audios=wav, audio_padding_masks=apad, encoder_type="audio")}
+        text_f, image_f, _ = model.encoder_wrapper(src_tokens=tokens[:1], src_images=imgs,
+                                                   encoder_type="vl")
+        out["vl"] = torch.cat([text_f, image_f], dim=1)
+    torch.cuda.synchronize()
+    if fa.launches != 4 * cfg.encoder.layers:
+        raise RuntimeError(f"10: {fa.launches} attention launches, expected "
+                           f"{4 * cfg.encoder.layers}")
+    ref = np.load(golden.GOLDEN)
+    report = {}
+    for key, value in out.items():
+        a = value.double().cpu().flatten()
+        b = torch.from_numpy(ref[f"emb_{key}"]).double().flatten()
+        report[key] = (a @ b / (a.norm() * b.norm())).item()
+    log(f"10: depth-40 golden, fp32 kernel path, cosine: "
+        + ", ".join(f"{k} {v:.9f}" for k, v in report.items()) + " (bound 1-1e-3)")
+    if min(report.values()) < 1 - 1e-3:
+        raise RuntimeError(f"10: the port misses the depth-40 golden: {report}")
+    del model, out
+    torch.cuda.empty_cache()
+    return report
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -581,7 +899,7 @@ def main() -> None:
 
     # 2. build: one nvcc per kernel source, started together
     t0 = time.time()
-    libs = fa.build_libraries()
+    libs = build.build_libraries()
     log(f"built {', '.join(lib.name for lib in libs.values())} in {time.time() - t0:.1f} s")
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -621,9 +939,20 @@ def main() -> None:
     fwd_train, bwd_train = train["pallas"]["launches"]
     if bwd_train == 0:
         raise RuntimeError("the training path never launched the backward kernel")
+    torch.cuda.empty_cache()
+
+    # 8. the int8 kernels vs plain, and their times
+    int8_times = check_int8_kernels(gen, card)
+    # 9. int8 serving through the hub (the counts are read over its kernel-path forwards)
+    int8_launches = serve_int8(card)
+    if min(int8_launches.values()) == 0:
+        raise RuntimeError(f"the int8 serving path never launched a kernel: {int8_launches}")
+    # 10. the depth-40 golden through the .pt route
+    check_golden()
     if "jax" in sys.modules:
         raise RuntimeError("the port imported jax")
 
+    gemm_ms, gemm_plain_ms, _ = int8_times[FFN_SHAPES[0]]
     log(json.dumps({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "one_peace_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -634,7 +963,18 @@ def main() -> None:
          "source": "one_peace_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "one_peace_tpu/ops/flash_attention.py:409",
          "launches": bwd_train, "max_abs_err": bwd_worst,
-         "ms": bwd_ms, "plain_ms": bwd_plain_ms}]}))
+         "ms": bwd_ms, "plain_ms": bwd_plain_ms},
+        {"name": "int8_matmul", "route": "cuda",
+         "source": "one_peace_tpu_torch/csrc/int8_matmul.cu",
+         "replaces": "one_peace_tpu/ops/quant_pallas.py:75",
+         "launches": int8_launches["gemm"], "max_abs_err": int8_times["max_abs_err"]["gemm"],
+         "ms": gemm_ms, "plain_ms": gemm_plain_ms},
+        {"name": "int8_quantize_rows", "route": "cuda",
+         "source": "one_peace_tpu_torch/csrc/int8_matmul.cu",
+         "replaces": "one_peace_tpu/ops/quant.py:46",
+         "launches": int8_launches["quantize"],
+         "max_abs_err": int8_times["max_abs_err"]["quantize"],
+         "ms": int8_times["quantize"][0], "plain_ms": int8_times["quantize"][1]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,10 +5,15 @@ same name there:
 
 - ``models``  rel-pos tables, components, the fusion encoder, the text /
               image / audio adapters and the retrieval model
-- ``ops``     bias-aware attention and its hand-written CUDA kernel
-- ``utils``   weights carried across from the JAX package
+- ``ops``     bias-aware attention, the int8 serving path, preprocessing,
+              and the wrappers of the hand-written CUDA kernels
+- ``hub``     ``from_pretrained`` and the embedding interface; ``cli.embed``
+- ``utils``   weights carried across from the JAX package and from fairseq
+              ``.pt`` checkpoints
 - ``csrc``    CUDA C++ kernel sources, built with ``nvcc`` at first use
 
 The package imports ``torch`` and never ``jax``.  Of the JAX package it
-imports only the JAX-free ``core.config`` and ``utils.interpolate``.
+imports only JAX-free host code: ``core.config``, ``utils.interpolate``, the
+tokenizer and FLAC decoder under ``data``, and the numpy rules of
+``utils.checkpoint_convert``.
 """

@@ -1,11 +1,11 @@
 """Audio modality adapter (counterpart of ``one_peace_tpu/models/adapters/audio.py``).
 
 wav2vec2-style 1-D conv feature extractor on the raw 16 kHz waveform ->
-LN -> Linear(512 -> embed_dim), the convolutional positional embedding
-(grouped convs, SamePad, LN without affine, GELU), CLS, and the
-log-bucketed relative-position bias.  Waveform frontend only: the fbank
-frontend, the fixed absolute positions and the preserve-id paths are not
-ported yet.
+LN -> Linear(512 -> embed_dim), or with ``frontend="fbank"`` the log-mel
+filterbank -> LN -> Linear(n_mels -> embed_dim); then the convolutional
+positional embedding (grouped convs, SamePad, LN without affine, GELU), CLS,
+and the log-bucketed relative-position bias.  The fixed absolute positions
+and the preserve-id paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,11 +17,15 @@ from torch import nn
 
 from one_peace_tpu.core.config import AudioAdapterConfig
 
+from ...ops.preprocess import LogMelFbank
 from ..components import (Conv, LayerNorm, Linear, conv1d, dropout, empty_param,
                           gather_rel_bias, gelu, generator_on, layer_norm)
 from ..rel_pos import make_token_bucket_position_with_cls
 
-MAX_POSITIONS = 1024  # waveform conv frames; the rel-pos table's extent
+# the rel-pos table's extent: waveform conv frames stay within 1024; fbank
+# frames run to ~1500 for 15 s at a 10 ms hop
+MAX_POSITIONS = 1024
+FBANK_MAX_POSITIONS = 2048
 
 
 def conv_output_length(length: int, spec) -> int:
@@ -49,23 +53,33 @@ class AudioAdapter(nn.Module):
     def __init__(self, cfg: AudioAdapterConfig, embed_dim: int, attention_heads: int,
                  num_rel_tables: Optional[int] = None, device=None, dtype=None):
         super().__init__()
-        if cfg.frontend != "waveform" or cfg.abs_pos_type != "conv":
+        if cfg.frontend not in ("waveform", "fbank") or cfg.abs_pos_type != "conv":
             raise NotImplementedError(
                 f"audio frontend {cfg.frontend!r} with abs_pos_type {cfg.abs_pos_type!r}: "
-                f"only the waveform frontend with conv positions is ported")
-        if not cfg.feature_encoder_spec:
+                f"only the waveform and fbank frontends with conv positions are ported")
+        self.fbank = None
+        if cfg.frontend == "fbank":
+            self.fbank = LogMelFbank(n_fft=cfg.fbank_n_fft, hop=cfg.fbank_hop,
+                                     n_mels=cfg.fbank_n_mels)
+        elif not cfg.feature_encoder_spec:
             raise NotImplementedError("an audio adapter without a conv frontend "
                                       "(the pretrain decoder's) is not ported")
         self.cfg = cfg
         self.embed_dim = d = embed_dim
         kw = dict(device=device, dtype=dtype)
-        blocks, in_ch = [], 1
-        for out_ch, k, s in cfg.feature_encoder_spec:
-            blocks.append(FeatureBlock(in_ch, out_ch, k, s, cfg.conv_bias, **kw))
-            in_ch = out_ch
-        self.feature_extractor = nn.ModuleList(blocks)
-        self.post_extract_ln = LayerNorm(in_ch, **kw)
-        self.post_extract_proj = Linear(in_ch, d, **kw)
+        self.feature_extractor = self.post_extract_ln = self.post_extract_proj = None
+        self.fbank_ln = self.fbank_proj = None
+        if self.fbank is not None:
+            self.fbank_ln = LayerNorm(cfg.fbank_n_mels, **kw)
+            self.fbank_proj = Linear(cfg.fbank_n_mels, d, **kw)
+        else:
+            blocks, in_ch = [], 1
+            for out_ch, k, s in cfg.feature_encoder_spec:
+                blocks.append(FeatureBlock(in_ch, out_ch, k, s, cfg.conv_bias, **kw))
+                in_ch = out_ch
+            self.feature_extractor = nn.ModuleList(blocks)
+            self.post_extract_ln = LayerNorm(in_ch, **kw)
+            self.post_extract_proj = Linear(in_ch, d, **kw)
         # conv positional embedding: k = max(3, width // depth) (19 for 4B)
         self.pos_conv_kernel = max(3, cfg.conv_pos_width // cfg.conv_pos_depth)
         self.pos_convs = nn.ModuleList(
@@ -82,13 +96,27 @@ class AudioAdapter(nn.Module):
             self.rel_pos_table = empty_param(num_rel_tables or 1, num_rel_dis,
                                              attention_heads, **kw)
             self.register_buffer("rp_bucket", torch.from_numpy(
-                make_token_bucket_position_with_cls(cfg.bucket_size, MAX_POSITIONS)
+                make_token_bucket_position_with_cls(
+                    cfg.bucket_size, MAX_POSITIONS if self.fbank is None else FBANK_MAX_POSITIONS)
             ).to(device), persistent=False)
         self.mask_embedding = empty_param(1, d, **kw)  # carried for the pretrain paths
 
+    def output_length(self, length: int) -> int:
+        """Waveform samples -> frontend frames (drives the padding mask)."""
+        if self.fbank is not None:
+            return self.fbank.num_frames(length)
+        return conv_output_length(length, self.cfg.feature_encoder_spec)
+
     def extract_features(self, src_audios: torch.Tensor) -> torch.Tensor:
         """(B, T) raw waveform -> (B, T', embed_dim), in the params' dtype."""
-        x = src_audios.to(self.cls_embedding.dtype)[..., None]  # (B, T, 1) NWC
+        dtype = self.cls_embedding.dtype
+        if self.fbank is not None:  # fp32 mel, LN and projection, then the cast
+            x = layer_norm(self.fbank(src_audios.float()), self.fbank_ln.weight,
+                           self.fbank_ln.bias)
+            b = self.fbank_proj.bias
+            return torch.nn.functional.linear(x, self.fbank_proj.weight.float(),
+                                              None if b is None else b.float()).to(dtype)
+        x = src_audios.to(dtype)[..., None]  # (B, T, 1) NWC
         for block in self.feature_extractor:
             x = block(x)
         return self.post_extract_proj(self.post_extract_ln(x))

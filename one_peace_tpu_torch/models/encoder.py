@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from one_peace_tpu.core.config import EncoderConfig
 
 from ..ops.attention import multihead_attention
+from ..ops.quant import shared_input_linears
 from .components import LayerNorm, Linear, drop_path, dropout, empty_param, gelu
 
 MODALITIES = ("text", "image", "audio")
@@ -36,7 +37,9 @@ MODALITIES = ("text", "image", "audio")
 
 class Attention(nn.Module):
     """q/k/v projections (k_proj has no bias), optional per-head gains
-    ``c_attn``, Magneto ``ln``, ``out_proj`` (``_attention``)."""
+    ``c_attn``, Magneto ``ln``, ``out_proj`` (``_attention``).  Any
+    projection may be a ``QuantizedLinear`` (``ops.quant.quantize_ffn_``);
+    q/k/v then share one row quantize of x."""
 
     def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
         super().__init__()
@@ -54,9 +57,8 @@ class Attention(nn.Module):
         b, l, d = x.shape
         h = self.cfg.attention_heads
         hd = d // h
-        q = self.q_proj(x).reshape(b, l, h, hd)
-        k = self.k_proj(x).reshape(b, l, h, hd)
-        v = self.v_proj(x).reshape(b, l, h, hd)
+        q, k, v = (y.reshape(b, l, h, hd) for y in
+                   shared_input_linears(x, self.q_proj, self.k_proj, self.v_proj))
         attn = multihead_attention(q, k, v, rel_bias, key_padding_mask,
                                    scaling=hd**-0.5, impl=self.cfg.attn_impl)
         if self.c_attn is not None:
@@ -69,7 +71,8 @@ class Attention(nn.Module):
 
 class GeGLU(nn.Module):
     """``wo(ffn_ln(dropout(gelu(wi_0 x) * wi_1 x)))`` (``_geglu_ffn``), the
-    dropout at ``activation_dropout``."""
+    dropout at ``activation_dropout``.  Quantized ``wi_0`` and ``wi_1``
+    share one row quantize of x."""
 
     def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
         super().__init__()
@@ -82,7 +85,8 @@ class GeGLU(nn.Module):
 
     def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        y = gelu(self.wi_0(x)) * self.wi_1(x)
+        a, g = shared_input_linears(x, self.wi_0, self.wi_1)
+        y = gelu(a) * g
         y = dropout(y, self.activation_dropout, deterministic, generator)
         if self.ffn_ln is not None:
             y = self.ffn_ln(y)

@@ -12,34 +12,24 @@ H100 and how the design answers that.
 tensors to the plain versions, in both directions.  On the card there is no
 fallback: an input the kernels do not take (head dim other than 64, a dtype
 other than bf16 or fp32) raises.  Each kernel is compiled with ``nvcc`` at
-its first launch, into ``build/torch_kernels/`` beside the package, under a
-name keyed on a hash of its source and the flags, and loaded through
-``ctypes``.
+its first launch by ``ops/build.py`` and loaded through ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from concurrent.futures import ThreadPoolExecutor
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
+
+from .build import build_library
 
 NEG_INF = -1e30  # additive key bias at padded keys, as the TPU kernel's
 HEAD_DIM = 64  # the only head dim the kernel takes (every shipped config)
 _DKV_BLOCKS = 4 * 132  # dk/dv blocks to aim for: about four per SM of an H100
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = {"fwd": _CSRC / "flash_attention_fwd.cu", "bwd": _CSRC / "flash_attention_bwd.cu"}
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SOURCES = {"fwd": "flash_attention_fwd", "bwd": "flash_attention_bwd"}
 
 # Kernel launches since the caller last set them to 0.  Only the CUDA
 # wrappers add to them, once per launch that the runtime accepted:
@@ -97,51 +87,9 @@ def flash_attention_bwd_plain(q, k, v, g, rel_bias, key_bias, scaling: float, he
     return (*(x.to(q.dtype).reshape(b, l, hdim) for x in (dq, dk, dv)), dbias)
 
 
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-                       "the attention kernel cannot be built")
-
-
-def build_library(which: str = "fwd") -> Path:
-    """Compile one kernel source (``which``: "fwd" or "bwd") into a shared
-    library unless a library of the same source and flags is already built;
-    return its path.  The compiler's output (``-Xptxas -v``: registers,
-    shared memory, spills) is kept beside it with a ``.log`` suffix."""
-    source = _SOURCES[which]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(_NVCC_FLAGS).encode())
-    lib = _BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-def build_libraries() -> dict:
-    """Build every kernel source at once, one nvcc process each; returns
-    {"fwd": path, "bwd": path}."""
-    with ThreadPoolExecutor(len(_SOURCES)) as pool:
-        futures = {which: pool.submit(build_library, which) for which in _SOURCES}
-        return {which: f.result() for which, f in futures.items()}
-
-
 @functools.lru_cache(maxsize=None)
 def _library(which: str = "fwd") -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library(which)))
+    lib = ctypes.CDLL(str(build_library(_SOURCES[which])))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if which == "fwd":
         lib.one_peace_flash_attention_fwd.argtypes = [p, p, p, p, i, p, p, i, i, i, f, i, i, p]

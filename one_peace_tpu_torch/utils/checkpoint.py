@@ -12,6 +12,9 @@ Layout rules:
   (kh, kw, in, out) becomes (out, in, kh, kw), a conv1d ``w``
   (k, in / groups, out) becomes (out, in / groups, k); ``b`` becomes ``bias``;
 - a LayerNorm's ``scale`` becomes ``weight``;
+- an int8 ``w_q`` (in, out) of ``quantize_ffn_params`` becomes ``w_q``
+  (out, in), the layout of ``ops.quant.QuantizedLinear``; ``w_scale`` keeps
+  its name;
 - the stacked ``fusion/layers`` tree (leading ``layers`` axis) becomes one
   module per layer, and lists become numbered modules.
 
@@ -74,6 +77,8 @@ def params_from_jax(tree: Dict[str, Any],
                 if leaf.ndim >= 2:
                     leaf = leaf.permute(*_CONV_PERMUTE[leaf.ndim]).contiguous()
                 name = "weight"
+            elif name == "w_q" and leaf.ndim == 2:
+                leaf = leaf.T.contiguous()
             elif name == "b":
                 name = "bias"
             elif name == "scale":

@@ -52,7 +52,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``detect()``; (c) images/s of ``detect()`` at B=2 in bf16 on both paths,
    one profiled call (``detect_profile.txt`` beside phase 7's profile), and
    ms per global and windowed layer for the kernel, its plain version and
-   SDPA with the bias materialised.
+   SDPA with the bias materialised;
+12. detection fine-tuning: (a) the det attention backward kernels (pass 1
+   with the dtoep pass, pass 2) against their plain version, bf16 and fp32,
+   at the global grid (B=2, 64 x 64), its windows (B=32, 16 x 16) with each
+   bias alone, both and none, and ragged, 32 x 32, 1 x 64 and 80 x 80 grids,
+   each call twice and bit-equal; (b) the recipe's detector with 4 trunk
+   layers at full width, 1024 px, B=2, drop path 0.6 and remat, RPN, cascade
+   and masks: loss and per-parameter gradients, kernel path against plain
+   path, fp32 and bf16 compute; (c) the recipe at depth 40 through
+   ``load_config``, ``CocoDetectionTask.build_model``,
+   ``DetectionCriterion`` and ``Trainer`` (bf16 over fp32 masters, AdamW
+   with layer decay): ms per step, images/s, peak memory, launches per step
+   (80 forward, 40 backward) and a falling loss on both paths, one profiled
+   step (``det_train_profile.txt``); (d) ms per global and windowed layer of
+   the backward by pass, the plain backward and SDPA's backward with the
+   materialised bias needing a gradient.
 
 Every timed kernel also prints its bound: the larger of its bytes over the
 HBM rate and its operations over the peak rate (NVIDIA's data sheet).  The
@@ -77,7 +92,7 @@ import numpy as np
 import torch
 
 from one_peace_tpu_torch import hub as port_hub
-from one_peace_tpu_torch.core.config import FrameworkConfig, TaskConfig
+from one_peace_tpu_torch.core.config import FrameworkConfig, TaskConfig, load_config
 from one_peace_tpu_torch.data.tokenizer import bytes_to_unicode
 from one_peace_tpu_torch.criterions import build_criterion
 from one_peace_tpu_torch.models.adapters.audio import conv_output_length
@@ -89,6 +104,7 @@ from one_peace_tpu_torch.ops import int8_matmul as im
 from one_peace_tpu_torch.ops.attention import attention_plain
 from one_peace_tpu_torch.ops.preprocess import resize_normalize
 from one_peace_tpu_torch.ops.quant import quantize_ffn_
+from one_peace_tpu_torch.tasks.vision_tasks import CocoDetectionTask
 from one_peace_tpu_torch.trainer import Trainer
 from one_peace_tpu_torch.utils.checkpoint_convert import convert_retrieval_model
 from one_peace_tpu_torch.utils.random_weights import fill_random_
@@ -1173,6 +1189,303 @@ def time_det_attention(gen, card: str) -> dict:
     return times
 
 
+DET_BWD_CASES = [  # (B, hg, wg, toep, decomp): the 1024 px global grid with each bias
+    # alone, both and none; its 16 x 16 windows (16 per image, B=2) likewise; a
+    # ragged 50 x 50 grid; a 32 x 32 grid (the dtoep pass's middle tile width); a
+    # 1 x 64 grid (one displacement; toep only, since a one-row grid's dbh, the sum
+    # of ds over all keys, is 0 up to rounding); an 80 x 80 grid (slab tiles of 64)
+    (2, 64, 64, True, True), (2, 64, 64, True, False), (2, 64, 64, False, True),
+    (2, 64, 64, False, False), (32, 16, 16, True, True), (32, 16, 16, True, False),
+    (32, 16, 16, False, True), (32, 16, 16, False, False), (2, 50, 50, True, True),
+    (2, 32, 32, True, True), (2, 1, 64, True, False), (1, 80, 80, True, True)]
+DET_BWD_NAMES = ("dq", "dk", "dv", "dtoep", "dbh", "dbw")
+
+
+def check_det_bwd_kernel(gen) -> dict:
+    """Phase 12(a): the det attention backward kernels (pass 1 with the
+    dtoep pass, #5; pass 2, #6) against det_attention_bwd_plain on the same
+    inputs (the forward kernel's output and LSE), bf16 and fp32; the same
+    call twice must be bit-equal.  Returns the largest max |diff| of #5's
+    outputs (dq, dtoep, dbh, dbw) and of #6's (dk, dv).  Bounds relative to
+    max |plain|, as phase 6's: fp32 1e-4, bf16 2e-2 max and 5e-3 mean."""
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, hg, wg, toep_on, decomp_on in DET_BWD_CASES:
+            ops = det_operands(gen, b, hg, wg, dtype, toep_on, decomp_on)
+            out, lse = da.det_attention_cuda(*ops, (hg, wg), 0.125, DET_HEADS, with_lse=True)
+            dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+            args = (*ops, out, dout, lse, (hg, wg), 0.125, DET_HEADS)
+            got = da.det_attention_bwd_cuda(*args)
+            again = da.det_attention_bwd_cuda(*args)
+            torch.cuda.synchronize()
+            want = da.det_attention_bwd_plain(*args)
+            parts = []
+            for name, x, y, z in zip(DET_BWD_NAMES, got, want, again):
+                if (x is None) != (y is None):
+                    raise RuntimeError(f"12(a): {name} is None on one side only")
+                if x is None:
+                    continue
+                if not torch.isfinite(x).all():
+                    raise RuntimeError(f"12(a): det backward {name} is not finite")
+                if not torch.equal(x, z):
+                    raise RuntimeError(f"12(a): det backward {name} differs between two calls")
+                err = (x.float() - y.float()).abs()
+                scale = y.float().abs()
+                rel_max = err.max().item() / max(scale.max().item(), 1e-30)
+                rel_mean = err.mean().item() / max(scale.mean().item(), 1e-30)
+                group = "dkv" if name in ("dk", "dv") else "dq"
+                worst[group] = max(worst[group], err.max().item())
+                parts.append(f"{name} {rel_max:.2e}/{rel_mean:.2e}")
+                bad = (rel_max > 1e-4 if dtype == torch.float32
+                       else rel_max > 2e-2 or rel_mean > 5e-3)
+                if bad:
+                    raise RuntimeError(f"12(a): det backward {name} disagrees with the plain "
+                                       f"version: {str(dtype)[6:]} B={b} {hg}x{wg} "
+                                       f"toep={toep_on} decomp={decomp_on}: max {rel_max:.3e} "
+                                       f"mean {rel_mean:.3e}")
+            log(f"12(a) det bwd kernel vs plain {str(dtype)[6:]} B={b} grid {hg}x{wg} "
+                f"toep={toep_on} decomp={decomp_on}: max/mean |d| relative {', '.join(parts)}; "
+                f"bit-equal over two calls")
+            del ops, out, lse, dout, got, again, want
+            torch.cuda.empty_cache()
+    return worst
+
+
+DET_RECIPE = ROOT / "recipes" / "detection" / "cascade_mask_rcnn_1024.yaml"
+
+
+def det_config(overrides=()):
+    """The detection recipe through the port's load_config, with
+    ``overrides``; the criterion is the task's."""
+    cfg = load_config(str(DET_RECIPE), list(overrides))
+    cfg.criterion._name = cfg.criterion._name or CocoDetectionTask.criterion_name
+    return cfg
+
+
+def det_trainer(cfg, seed: int = 0) -> Trainer:
+    model = CocoDetectionTask.build_model(cfg, device="cuda")
+    fill_random_(model, torch.Generator(device="cuda").manual_seed(seed))
+    return Trainer(cfg, model, build_criterion(cfg.criterion))
+
+
+def det_batch(cfg, gen, b: int) -> dict:
+    """b synthetic 1024 px images with cfg.task.max_boxes GT slots (the last
+    quarter padded), 80 classes, and box-shaped instance masks at the
+    recipe's stride 4 (uint8), as vision_collate gives them."""
+    t = cfg.task
+    size, m, stride = t.image_size, t.max_boxes, t.mask_stride
+    rs = np.random.RandomState(int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda")))
+    x0 = rs.uniform(0, size * 0.75, (b, m))
+    y0 = rs.uniform(0, size * 0.75, (b, m))
+    w = np.exp(rs.uniform(np.log(16), np.log(size / 2), (b, m)))
+    h = w * np.exp(rs.uniform(-0.7, 0.7, (b, m)))
+    boxes = np.stack([x0, y0, np.minimum(x0 + w, size - 1), np.minimum(y0 + h, size - 1)], -1)
+    valid = np.ones((b, m), bool)
+    valid[:, 3 * m // 4:] = False
+    boxes[~valid] = 0.0
+    masks = np.zeros((b, m, size // stride, size // stride), np.uint8)
+    for i in range(b):
+        for j in range(m):
+            if valid[i, j]:
+                c0, r0, c1, r1 = (boxes[i, j] / stride).astype(int)
+                masks[i, j, r0:r1 + 1, c0:c1 + 1] = 1
+    return {"src_images": torch.randn(b, 3, size, size, generator=gen, device="cuda"),
+            "gt_boxes": torch.from_numpy(boxes.astype(np.float32)).cuda(),
+            "gt_labels": torch.from_numpy(rs.randint(0, t.num_classes, (b, m))).cuda(),
+            "gt_valid": torch.from_numpy(valid).cuda(), "gt_masks": torch.from_numpy(masks).cuda()}
+
+
+def check_det_train_paths(gen) -> None:
+    """Phase 12(b): the detection fine-tuning objective at full width with 4
+    trunk layers (3 windowed, 1 global), pyramid, RPN, cascade and masks, at
+    1024 px and B=2, drop path 0.6 and remat as the recipe: the kernel path
+    against the plain path on the same weights, batch and generator seed
+    (the same drop-path masks, RPN sample and jitter).  fp32: losses within
+    1e-5, the gradient cosine over all parameters together >= 1-1e-6 and
+    every parameter's >= 1-1e-4 (the heads' ReLU units whose input lies within
+    the two paths' ~1e-7 difference of 0 flip, and move an FC weight's
+    gradient cosine to ~1-1e-5); bf16 compute: the kernel path no further
+    from the fp32 gradients than the plain path, over all parameters
+    together to 1e-3 and per parameter to 0.02, losses within 2e-3.  (Phase
+    7(a)'s 0.999 between the two bf16 paths does not carry over: here the
+    plain path itself sits at cosine ~0.9965 from fp32 over all parameters,
+    and a parameter's distance to fp32 moves by up to ~0.01 from one batch
+    to the next on either path.)  Launches: 8 forward (4 layers and their
+    recompute), 4 backward."""
+    batch, ref32 = None, None
+    for bf16 in (False, True):
+        name = "bf16" if bf16 else "fp32"
+        cfg = det_config(["model.encoder.layers=4", f"common.bf16={str(bf16).lower()}"])
+        trainer = det_trainer(cfg)
+        batch = batch or det_batch(cfg, gen, 2)
+        runs = {}
+        for impl in ("pallas", "xla"):
+            trainer.model.backbone.attn_impl = impl
+            da.launches = da.bwd_launches = 0
+            metrics, grads = trainer.gradients(batch, torch.Generator().manual_seed(5))
+            torch.cuda.synchronize()
+            launched = (da.launches, da.bwd_launches)
+            want = (8, 4) if impl == "pallas" else (0, 0)
+            if launched != want:
+                raise RuntimeError(f"12(b) {name} {impl}: launches {launched}, expected {want}")
+            if not all(torch.isfinite(g).all() for g in grads):
+                raise RuntimeError(f"12(b) {name} {impl}: non-finite gradient")
+            runs[impl] = (float(metrics["loss"]), grads)
+        names = trainer._names
+        del trainer
+        (loss_k, grads_k), (loss_p, grads_p) = runs["pallas"], runs["xla"]
+        cos = grad_cosines(grads_k, grads_p)
+        worst = min(range(len(cos)), key=cos.__getitem__)
+        total = grad_cosines([torch.cat([g.flatten() for g in grads_k])],
+                             [torch.cat([g.flatten() for g in grads_p])])[0]
+        log(f"12(b) {name} 4-layer detector 1024 px B=2: loss kernel {loss_k:.7f} plain "
+            f"{loss_p:.7f}; gradient cosine kernel vs plain over all parameters {total:.9f}, "
+            f"per parameter min {cos[worst]:.9f} ({names[worst]}), median "
+            f"{sorted(cos)[len(cos) // 2]:.9f}, {sum(c < 1 - 1e-6 for c in cos)} of {len(cos)} "
+            f"parameters below 1-1e-6")
+        if not bf16:
+            ok = (abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and total >= 1 - 1e-6
+                  and cos[worst] >= 1 - 1e-4)
+            ref32 = grads_p
+        else:
+            cos_k, cos_p = grad_cosines(grads_k, ref32), grad_cosines(grads_p, ref32)
+            gap = max(range(len(cos)), key=lambda i: cos_p[i] - cos_k[i])
+            flat32 = [torch.cat([g.flatten() for g in ref32])]
+            total_k = grad_cosines([torch.cat([g.flatten() for g in grads_k])], flat32)[0]
+            total_p = grad_cosines([torch.cat([g.flatten() for g in grads_p])], flat32)[0]
+            log(f"12(b) bf16 vs the fp32 gradients, all parameters together: kernel path "
+                f"{total_k:.6f}, plain path {total_p:.6f}; per parameter min kernel path "
+                f"{min(cos_k):.6f}, plain path {min(cos_p):.6f}, largest shortfall of the kernel "
+                f"path {cos_p[gap] - cos_k[gap]:.2e} ({names[gap]})")
+            ok = (abs(loss_k - loss_p) <= 2e-3 * abs(loss_p) and total_k >= total_p - 1e-3
+                  and cos_p[gap] - cos_k[gap] <= 0.02)
+        if not ok:
+            raise RuntimeError(f"12(b) {name}: kernel and plain training paths disagree")
+        del runs, grads_k, grads_p
+        torch.cuda.empty_cache()
+
+
+def train_det_full_depth(gen, card: str) -> dict:
+    """Phase 12(c): the recipe at depth 40 (load_config on the recipe,
+    CocoDetectionTask.build_model, DetectionCriterion, Trainer): 1024 px,
+    B=2, bf16 compute over fp32 masters, AdamW with layer decay, remat, drop
+    path 0.6; the warm-up is cut to 0 so a few steps move the weights.  Each
+    path gets a fresh trainer (the same seeded weights) and every step the
+    same batch and generator state, so the loss must fall.  Returns the
+    kernel path's launches per step and the times."""
+    cfg = det_config(["lr_scheduler.warmup_updates=0"])
+    batch = det_batch(cfg, gen, 2)
+    result = {}
+    for impl, steps in (("pallas", 4), ("xla", 2)):
+        t0 = time.time()
+        trainer = det_trainer(cfg)
+        torch.cuda.synchronize()
+        trainer.model.backbone.attn_impl = impl
+        if impl == "pallas":
+            n = sum(p.numel() for p in trainer.model.parameters())
+            n_trunk = sum(p.numel() for p in trainer.model.backbone.parameters())
+            log(f"12(c) detector from the recipe: {n_trunk / 1e9:.3f}B trunk parameters, "
+                f"{n / 1e9:.3f}B in all, fp32 masters + AdamW ({time.time() - t0:.1f} s to "
+                f"build and fill)")
+        rng_state = trainer.generator.get_state()
+        first = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        da.launches = da.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [first["loss"]], []
+        for _ in range(steps):
+            trainer.generator.set_state(rng_state)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            losses.append(metrics["loss"])
+        launched = (da.launches // steps, da.bwd_launches // steps)
+        want = (80, 40) if impl == "pallas" else (0, 0)
+        ms = 1e3 * sum(times) / steps
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"12(c) {impl} depth 40 B=2 bf16: {ms:.1f} ms per step (steps "
+            f"{[round(1e3 * x, 1) for x in times]}), {2 / ms * 1e3:.2f} images/s, peak "
+            f"{peak:.1f} GiB, losses {[round(x, 5) for x in losses]} (the first a warm-up "
+            f"step), launches per step: det attention forward {launched[0]}, backward "
+            f"{launched[1]} (expected {want[0]} and {want[1]}) ({card})")
+        if launched != want or da.launches != want[0] * steps:
+            raise RuntimeError(f"12(c) {impl}: launches {launched} per step, expected {want}")
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"12(c) {impl}: the loss on a repeated batch did not fall: "
+                               f"{losses}")
+        result[impl] = {"ms": ms, "peak_gib": peak, "losses": losses, "launches": launched,
+                        "total": (da.launches, da.bwd_launches)}
+        if impl == "pallas":
+            trainer.generator.set_state(rng_state)
+            profile_call(lambda: trainer.train_step(batch), ms, "12(c)", "det_train_profile.txt")
+        del trainer
+        torch.cuda.empty_cache()
+    return result
+
+
+def time_det_backward(gen, card: str) -> dict:
+    """Phase 12(d): ms per global and windowed layer of the backward, bf16:
+    pass 1 with the dtoep pass (#5), pass 2 (#6) and the whole backward
+    (with delta); the plain backward; SDPA with the materialised bf16 bias
+    requiring a gradient (its backward alone, the library call set beside
+    the kernels, and forward + backward).  Bounds from this run's operands:
+    #5 computes s, dp and dq (6 B H L^2 64 operations), #6 s, dp, dv and dk
+    (8), the whole backward at least 10."""
+    times = {}
+    for name, (b, hg, wg) in (("global", (2, 64, 64)), ("windowed", (32, 16, 16))):
+        ops = det_operands(gen, b, hg, wg, torch.bfloat16)
+        q, k, v, toep, bh, bw = ops
+        l = hg * wg
+        out, lse = da.det_attention_cuda(*ops, (hg, wg), 0.125, DET_HEADS, with_lse=True)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        args = (*ops, out, dout, lse, (hg, wg), 0.125, DET_HEADS)
+        dq_ms = cuda_time_ms(lambda: da.det_attention_bwd_cuda(*args, passes=3), iters=10)
+        pass1_ms = cuda_time_ms(lambda: da.det_attention_bwd_cuda(*args, passes=1), iters=10)
+        dkv_ms = cuda_time_ms(lambda: da.det_attention_bwd_cuda(*args, passes=4), iters=10)
+        total_ms = cuda_time_ms(lambda: da.det_attention_bwd_cuda(*args), iters=10)
+        plain_ms = cuda_time_ms(lambda: da.det_attention_bwd_plain(*args), iters=3, warmup=1)
+        bias = (bh.transpose(2, 3)[..., None] + bw[..., None, :]).reshape(b, DET_HEADS, l, l)
+        bias += da.bias_from_toeplitz(toep, hg, wg)[None]
+        mask = bias.to(torch.bfloat16).requires_grad_()
+        del bias
+        leaves = [x.view(b, l, DET_HEADS, 64).transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+        g4 = dout.view(b, l, DET_HEADS, 64).transpose(1, 2)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            *leaves, attn_mask=mask, scale=0.125)
+        res = sdpa()
+        library_ms = cuda_time_ms(lambda: torch.autograd.grad(res, [*leaves, mask], g4,
+                                                              retain_graph=True), iters=5)
+        fwd_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa(), [*leaves, mask], g4),
+                                  iters=5)
+        del res
+        unit = b * DET_HEADS * l * l * 64
+        qkv = q.numel() * 2
+        biases = 4 * (toep.numel() + bh.numel() + bw.numel())
+        stats = 2 * 4 * lse.numel()
+        bound_dq = bound_ms(5 * qkv + stats + 2 * biases, 6 * unit, H100_BF16_PEAK_TFLOPS * 1e12)
+        bound_dkv = bound_ms(6 * qkv + stats + biases, 8 * unit, H100_BF16_PEAK_TFLOPS * 1e12)
+        bound_all = bound_ms(8 * qkv + stats + 2 * biases, 10 * unit,
+                             H100_BF16_PEAK_TFLOPS * 1e12)
+        log(f"12(d) det attention backward per {name} layer B={b} grid {hg}x{wg} bf16: pass 1 + "
+            f"dtoep (#5) {dq_ms:.3f} ms (pass 1 alone {pass1_ms:.3f}; bound {bound_dq[0]:.3f} "
+            f"by {bound_dq[1]}), pass 2 "
+            f"(#6) {dkv_ms:.3f} ms (bound {bound_dkv[0]:.3f} by {bound_dkv[1]}), whole backward "
+            f"{total_ms:.3f} ms (bound {bound_all[0]:.3f} by {bound_all[1]}); plain "
+            f"{plain_ms:.3f} ms; SDPA with the materialised bf16 bias: backward {library_ms:.3f}"
+            f" ms, forward + backward {fwd_bwd_ms:.3f} ms ({card})")
+        times[name] = {
+            "dq": {"ms": dq_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_dq[0], "bound_by": bound_dq[1]},
+            "dkv": {"ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_dkv[0], "bound_by": bound_dkv[1]}}
+        del ops, q, k, v, toep, bh, bw, out, lse, dout, args, mask, leaves, g4
+        torch.cuda.empty_cache()
+    return times
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -1243,6 +1556,15 @@ def main() -> None:
         raise RuntimeError("the detection path never launched the det attention kernel")
     det_times = time_det_attention(gen, card)
 
+    # 12. detection fine-tuning: the backward kernels vs plain, the 4-layer
+    # full-width objective on both paths, the depth-40 recipe through the
+    # Trainer (its launches counted from 0 after a warm-up step), and times
+    det_bwd_worst = check_det_bwd_kernel(gen)
+    check_det_train_paths(gen)
+    det_train = train_det_full_depth(gen, card)
+    det_fwd_train, det_bwd_train = det_train["pallas"]["total"]
+    det_bwd_times = time_det_backward(gen, card)
+
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
     if imported:
@@ -1270,8 +1592,13 @@ def main() -> None:
         entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75", int8_launches["gemm"],
               int8_times["max_abs_err"]["gemm"], gemm),
         quantize,
-        entry("det_attention_fwd", "one_peace_tpu/ops/det_attention.py:277", det_launches,
-              det_worst, det_times["global"])]}))
+        entry("det_attention_fwd", "one_peace_tpu/ops/det_attention.py:277",
+              det_launches + det_fwd_train, det_worst, det_times["global"]),
+        entry("det_attention_bwd_dq", "one_peace_tpu/ops/det_attention.py:618", det_bwd_train,
+              det_bwd_worst["dq"], det_bwd_times["global"]["dq"], source="det_attention_bwd"),
+        entry("det_attention_bwd_dkv", "one_peace_tpu/ops/det_attention.py:642", det_bwd_train,
+              det_bwd_worst["dkv"], det_bwd_times["global"]["dkv"],
+              source="det_attention_bwd")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

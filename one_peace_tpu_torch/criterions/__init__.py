@@ -2,5 +2,7 @@
 
 from .criterions import (AudioTextRetrievalCriterion, ImageTextRetrievalCriterion,
                          build_criterion)
+from .vision_criterions import DetectionCriterion
 
-__all__ = ["AudioTextRetrievalCriterion", "ImageTextRetrievalCriterion", "build_criterion"]
+__all__ = ["AudioTextRetrievalCriterion", "DetectionCriterion", "ImageTextRetrievalCriterion",
+           "build_criterion"]

@@ -2,8 +2,9 @@
 
 A criterion is a callable ``(model, batch, generator=None,
 deterministic=False) -> (loss, metrics)``: two encoder passes, one per
-modality, each with its own generator, then ITC.  The pretrain, classify,
-grounding and hinge criterions are not ported yet.
+modality, each with its own generator, then ITC.  ``detection_criterion``
+lives in ``vision_criterions.py``.  The pretrain, classify, grounding and
+hinge criterions are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from ..core.config import CriterionConfig
 
 from ..models.components import split_generator
 from .losses import itc_loss
+from .vision_criterions import DetectionCriterion
 
 
 class _RetrievalCriterion:
@@ -50,7 +52,8 @@ class AudioTextRetrievalCriterion(_RetrievalCriterion):
 
 
 CRITERIONS = {"image_text_retrieval_criterion": ImageTextRetrievalCriterion,
-              "audio_text_retrieval_criterion": AudioTextRetrievalCriterion}
+              "audio_text_retrieval_criterion": AudioTextRetrievalCriterion,
+              "detection_criterion": DetectionCriterion}
 
 
 def build_criterion(cfg: CriterionConfig):

@@ -196,13 +196,17 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Stochastic depth on (B, L, D): one keep draw per batch row, shared over
-    the sequence, kept rows scaled by 1 / keep (in x's dtype).  Identity when
-    deterministic, without a generator, or at rate 0."""
+    """Stochastic depth: one keep draw per leading index (a batch row of
+    (B, L, D), an image of the trunk's (B, h, w, C) maps), shared over the
+    rest, kept rows scaled by 1 / keep (in x's dtype).  The mask has shape
+    (B,) + (1,) * (ndim - 1), so on (B, L, D) it draws as the JAX package's
+    (B, 1, 1).  Identity when deterministic, without a generator, or at
+    rate 0."""
     if deterministic or generator is None or rate == 0.0:
         return x
     keep = np.float32(1.0) - np.float32(rate)
-    mask = torch.rand((x.shape[0], 1, 1), generator=generator, device=x.device) < float(keep)
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < float(keep)
     scale = np.float32(1.0) / max(keep, np.float32(1e-8)) if keep > 0 else 0.0
     scaled = x * torch.tensor(float(scale), dtype=x.dtype, device=x.device)
     return torch.where(mask, scaled, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -127,9 +127,10 @@ class OnePeaceRetrievalModel(nn.Module):
 
     ``cfg`` is the JAX package's ``ModelConfig``; the model keeps a copy, and
     ``model.cfg.encoder.attn_impl`` selects the attention path at run time.
-    Parameters are created uninitialised on ``device`` in ``dtype``."""
+    Parameters are created uninitialised on ``device`` (the card unless the
+    caller asks for another) in ``dtype``."""
 
-    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, device="cuda", dtype=torch.float32):
         super().__init__()
         cfg = copy.deepcopy(cfg)
         self.cfg = cfg

@@ -1,8 +1,9 @@
-"""The detection trunk's attention: a hand-written CUDA kernel for Hopper and
-its plain PyTorch version.
+"""The detection trunk's attention, forward and backward: hand-written CUDA
+kernels for Hopper and their plain PyTorch versions.
 
-Counterpart of ``one_peace_tpu/ops/det_attention.py`` (the Pallas TPU kernel
-``_det_flash_fwd``).  The trunk's layers attend over a grid of tokens (the
+Counterpart of ``one_peace_tpu/ops/det_attention.py`` (the Pallas TPU kernels
+``_det_flash_fwd`` and the two passes of ``_det_flash_bwd``, under one
+``custom_vjp``).  The trunk's layers attend over a grid of tokens (the
 64 x 64 stride-16 grid at 1024 px in the global layers, 16 x 16 windows in
 the others) with two additive biases:
 
@@ -14,12 +15,14 @@ the others) with two additive biases:
   ``bh[b, h, ky, q] + bw[b, h, q, kx]`` (``compute_decomp``), computed from
   the unscaled q.
 
-``det_flash_attention`` keeps the JAX signature.  A CUDA tensor goes to the
-kernel (``det_attention_cuda``: ``csrc/det_attention_fwd.cu``, built by
-``ops/build.py`` at its first launch), a CPU tensor to ``det_attention_plain``;
-there is no fallback on the card: whatever the kernel does not take (a head
-dim other than 64) raises.  This is the serving path: the kernel has no backward yet, so a call
-that would need a gradient raises.
+``det_flash_attention`` keeps the JAX signature and runs
+``DetAttentionFunction``: CUDA tensors go to the kernels
+(``csrc/det_attention_fwd.cu``, ``csrc/det_attention_bwd.cu``, built by
+``ops/build.py`` at their first launch), CPU tensors to the plain versions,
+in both directions.  There is no fallback on the card: whatever the kernels
+do not take (a head dim other than 64) raises.  ``compute_decomp`` stays
+outside the Function, as in JAX, so the gradients of rel_h, rel_w and the
+decomposed bias's share of dq come from autograd chained onto dbh and dbw.
 """
 
 from __future__ import annotations
@@ -35,9 +38,13 @@ from .build import build_library
 
 HEAD_DIM = 64  # the only head dim the kernel takes (every shipped config)
 
-# Kernel launches since the caller last set it to 0; only the CUDA wrapper
-# adds to it, once per launch that the runtime accepted.
+# Kernel launches since the caller last set them to 0.  Only the CUDA
+# wrappers add to them, once per call that the runtime accepted:
+# ``launches`` for the forward kernel, ``bwd_launches`` for the backward
+# (each call launches pass 1, the dtoep pass when there is a Toeplitz factor,
+# and pass 2).
 launches = 0
+bwd_launches = 0
 
 
 def interpolate_rel_table(table: torch.Tensor, src_bucket: int, dst_bucket: int) -> torch.Tensor:
@@ -77,9 +84,9 @@ def bias_from_toeplitz(toep: torch.Tensor, hg: int, wg: int) -> torch.Tensor:
 
 def compute_decomp(qh: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
                    hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """bh (B, H, hg, L) [ky-major] and bw (B, H, L, wg), fp32, from the
-    unscaled q (B, L, H, dh) and tables of (2hg-1, dh) / (2wg-1, dh), the
-    products in q's dtype."""
+    """bh (B, H, hg, L) [ky-major] and bw (B, H, L, wg), fp32 (fp64 for
+    fp64 q), from the unscaled q (B, L, H, dh) and tables of (2hg-1, dh) /
+    (2wg-1, dh), the products in q's dtype."""
     hg, wg = hw
     b, l, heads, dh = qh.shape
     qg = qh.reshape(b, hg, wg, heads, dh)
@@ -87,8 +94,9 @@ def compute_decomp(qh: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
     pos_w = torch.arange(wg, device=qh.device)
     rh = rel_h[pos_h[:, None] - pos_h[None, :] + hg - 1].to(qh.dtype)  # (hg, hg, dh) [qy, ky]
     rw = rel_w[pos_w[:, None] - pos_w[None, :] + wg - 1].to(qh.dtype)
-    bh = torch.einsum("bhwnc,hkc->bnkhw", qg, rh).reshape(b, heads, hg, l).float()
-    bw = torch.einsum("bhwnc,wkc->bnhwk", qg, rw).reshape(b, heads, l, wg).float()
+    acc = _acc_dtype(qh)
+    bh = torch.einsum("bhwnc,hkc->bnkhw", qg, rh).reshape(b, heads, hg, l).to(acc)
+    bw = torch.einsum("bhwnc,wkc->bnhwk", qg, rw).reshape(b, heads, l, wg).to(acc)
     return bh, bw
 
 
@@ -99,18 +107,9 @@ def det_attention_plain(q, k, v, toep, bh, bw, hw: Tuple[int, int], scaling: flo
     cast to q's dtype before p.v.  With ``with_lse`` also the row
     log-sum-exp (B, H, L) fp32."""
     b, l, hdim = q.shape
-    hg, wg = hw
     dh = hdim // heads
-    qh = q.reshape(b, l, heads, dh).float()
-    kh = k.reshape(b, l, heads, dh).float()
-    vh = v.reshape(b, l, heads, dh)
-    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scaling
-    if toep is not None:
-        logits += bias_from_toeplitz(toep, hg, wg)[None]
-    if bh is not None:
-        grid = logits.view(b, heads, l, hg, wg)
-        grid += bh.transpose(2, 3)[..., None]
-        grid += bw[..., None, :]
+    qh, kh, vh = (x.reshape(b, l, heads, dh) for x in (q, k, v))
+    logits = _biased_logits(qh, kh, toep, bh, bw, hw, scaling)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(b, l, hdim)
     if with_lse:
@@ -118,14 +117,84 @@ def det_attention_plain(q, k, v, toep, bh, bw, hw: Tuple[int, int], scaling: flo
     return out
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32, or fp64 for fp64 inputs (the CPU gradient checks)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _biased_logits(qh, kh, toep, bh, bw, hw, scaling):
+    """fp32 (B, H, L, L) logits of (B, L, H, Dh) q and k, with the biases."""
+    b, l, heads, _ = qh.shape
+    hg, wg = hw
+    acc = _acc_dtype(qh)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh.to(acc), kh.to(acc)) * scaling
+    if toep is not None:
+        logits += bias_from_toeplitz(toep, hg, wg)[None]
+    if bh is not None:
+        grid = logits.view(b, heads, l, hg, wg)
+        grid += bh.transpose(2, 3)[..., None]
+        grid += bw[..., None, :]
+    return logits
+
+
+def det_attention_bwd_plain(q, k, v, toep, bh, bw, out, dout, lse, hw: Tuple[int, int],
+                            scaling: float, heads: int):
+    """Plain version of the backward (``_make_bwd_dq_kernel`` and
+    ``_make_bwd_dkv_kernel``'s formula) on the (B, L, H*Dh) layout, from the
+    forward's ``out`` and row log-sum-exp ``lse`` (B, H, L) and the output's
+    cotangent ``dout``.  Returns (dq, dk, dv, dtoep, dbh, dbw): the first
+    three in q's dtype, the bias cotangents fp32 (None for an absent bias).
+
+    p = exp(s - lse) from the fp32 logits; delta = rowsum(dout * out);
+    dv = p^T dout with p in dout's dtype; ds = p (dout v^T - delta);
+    dq = ds k * scaling and dk = ds^T q * scaling with ds in q's dtype;
+    dbh = ds summed over kx, dbw over ky, and dtoep over the batch and over
+    the (qy, ky) pairs of each displacement (``bias_from_toeplitz``'s
+    transpose)."""
+    b, l, hdim = q.shape
+    hg, wg = hw
+    dh = hdim // heads
+    acc = _acc_dtype(q)
+    qh, kh, vh, gh, oh = (x.reshape(b, l, heads, dh) for x in (q, k, v, dout, out))
+    p = torch.exp(_biased_logits(qh, kh, toep, bh, bw, hw, scaling) - lse[..., None])
+    gf = gh.to(acc)
+    delta = (gf * oh.to(acc)).sum(-1).transpose(1, 2)  # (B, H, L)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).to(acc), gf)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", gf, vh.to(acc)) - delta[..., None])
+    del p
+    dsc = ds.to(q.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsc, kh.to(acc)) * scaling
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsc, qh.to(acc)) * scaling
+    del dsc
+    dtoep = dbh = dbw = None
+    grid = ds.view(b, heads, l, hg, wg)
+    if bh is not None:
+        dbh = grid.sum(-1).transpose(2, 3).contiguous()  # (B, H, hg, L)
+        dbw = grid.sum(-2)  # (B, H, L, wg)
+    if toep is not None:
+        pos = torch.arange(hg, device=q.device)
+        idx = (pos[:, None] - pos[None, :] + hg - 1).reshape(-1)  # (qy, ky) -> dy
+        blocks = ds.sum(0).view(heads, hg, wg, hg, wg).permute(0, 1, 3, 2, 4)
+        dtoep = torch.zeros(heads, 2 * hg - 1, wg, wg, dtype=acc, device=q.device)
+        dtoep.index_add_(1, idx, blocks.reshape(heads, hg * hg, wg, wg))
+    return (*(x.to(q.dtype).reshape(b, l, hdim) for x in (dq, dk, dv)), dtoep, dbh, dbw)
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library("det_attention_fwd")))
+def _library(which: str = "fwd") -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library(f"det_attention_{which}")))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.one_peace_det_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
-    lib.one_peace_det_attention_fwd.restype = i
-    lib.one_peace_det_error_string.argtypes = [i]
-    lib.one_peace_det_error_string.restype = ctypes.c_char_p
+    if which == "fwd":
+        lib.one_peace_det_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, i,
+                                                    i, p]
+        lib.one_peace_det_attention_fwd.restype = i
+        lib.one_peace_det_error_string.argtypes = [i]
+        lib.one_peace_det_error_string.restype = ctypes.c_char_p
+    else:
+        lib.one_peace_det_attention_bwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, p]
+        lib.one_peace_det_attention_bwd.restype = i
+        lib.one_peace_det_bwd_error_string.argtypes = [i]
+        lib.one_peace_det_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -160,13 +229,16 @@ def _check_kernel_inputs(q, k, v, toep, bh, bw, hw, heads: int) -> None:
                              f"got {[str(t.device) for t in tensors]}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError("det attention kernel needs contiguous, 16-byte aligned inputs")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        raise NotImplementedError("the det attention kernel has no backward yet (serving only)")
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
 
 
 def det_attention_cuda(q, k, v, toep, bh, bw, hw: Tuple[int, int], scaling: float,
                        heads: int, with_lse: bool = False):
-    """Launch the kernel; arguments and results as ``det_attention_plain``."""
+    """Launch the forward kernel; arguments and results as
+    ``det_attention_plain``."""
     global launches
     _check_kernel_inputs(q, k, v, toep, bh, bw, hw, heads)
     lib = _library()
@@ -174,10 +246,9 @@ def det_attention_cuda(q, k, v, toep, bh, bw, hw: Tuple[int, int], scaling: floa
     out = torch.empty_like(q)
     lse = (torch.empty(b, heads, l, dtype=torch.float32, device=q.device)
            if with_lse else None)
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     err = lib.one_peace_det_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(toep), ptr(bh), ptr(bw),
-        out.data_ptr(), ptr(lse), b, l, heads, hw[0], hw[1], float(scaling),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(toep), _ptr(bh), _ptr(bw),
+        out.data_ptr(), _ptr(lse), b, l, heads, hw[0], hw[1], float(scaling),
         int(q.dtype == torch.bfloat16), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -185,6 +256,77 @@ def det_attention_cuda(q, k, v, toep, bh, bw, hw: Tuple[int, int], scaling: floa
                            f"{lib.one_peace_det_error_string(err).decode()} ({err})")
     launches += 1
     return (out, lse) if with_lse else out
+
+
+def det_attention_bwd_cuda(q, k, v, toep, bh, bw, out, dout, lse, hw: Tuple[int, int],
+                           scaling: float, heads: int, need_dtoep: bool = True,
+                           passes: int = 7):
+    """Launch the backward kernels; arguments and results as
+    ``det_attention_bwd_plain`` (dtoep is None when ``need_dtoep`` is
+    False).  delta = rowsum(dout * out) is one small torch op here, as the
+    JAX package computes it in XLA outside the Pallas calls.  ``passes``
+    times one kernel alone (a bit mask: 1 pass 1, 2 the dtoep pass, 4
+    pass 2); the outputs of the others are then left unwritten."""
+    global bwd_launches
+    _check_kernel_inputs(q, k, v, toep, bh, bw, hw, heads)
+    b, l, _ = q.shape
+    for name, x in (("out", out), ("dout", dout)):
+        if x.dtype != q.dtype or x.shape != q.shape or x.device != q.device:
+            raise ValueError(f"{name} must match q: {x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"det attention kernel needs a contiguous, 16-byte aligned {name}")
+    if (lse.dtype != torch.float32 or lse.shape != (b, heads, l) or not lse.is_contiguous()
+            or lse.device != q.device):
+        raise ValueError(f"lse must be contiguous fp32 ({b}, {heads}, {l}) on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    lib = _library("bwd")
+    delta = (dout.float() * out.float()).view(b, l, heads, HEAD_DIM).sum(-1)
+    delta = delta.transpose(1, 2).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dtoep = torch.empty_like(toep) if toep is not None and need_dtoep else None
+    dbh = torch.empty_like(bh) if bh is not None else None
+    dbw = torch.empty_like(bw) if bw is not None else None
+    err = lib.one_peace_det_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), _ptr(toep), _ptr(bh), _ptr(bw), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _ptr(dtoep), _ptr(dbh), _ptr(dbw), b, l, heads, hw[0], hw[1],
+        float(scaling), int(q.dtype == torch.bfloat16), passes, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"det attention backward kernel launch failed: "
+                           f"{lib.one_peace_det_bwd_error_string(err).decode()} ({err})")
+    bwd_launches += 1
+    return dq, dk, dv, dtoep, dbh, dbw
+
+
+class DetAttentionFunction(torch.autograd.Function):
+    """The det attention on the (B, L, H*Dh) layout with its gradient
+    (``_det_attention_core``'s ``custom_vjp``): the kernels for CUDA
+    tensors, the plain versions for CPU tensors.  The forward saves its
+    output and row log-sum-exp (computed only when a gradient is wanted);
+    the backward recomputes the probabilities from them.  A bias that is
+    absent, or needs no gradient, gets None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, toep, bh, bw, hw, scaling: float, heads: int):
+        fwd = det_attention_plain if q.device.type == "cpu" else det_attention_cuda
+        if not any(ctx.needs_input_grad[:6]):
+            return fwd(q, k, v, toep, bh, bw, hw, scaling, heads)
+        out, lse = fwd(q, k, v, toep, bh, bw, hw, scaling, heads, with_lse=True)
+        ctx.save_for_backward(q, k, v, toep, bh, bw, out, lse)
+        ctx.hw, ctx.scaling, ctx.heads = hw, scaling, heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, toep, bh, bw, out, lse = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        args = (q, k, v, toep, bh, bw, out, g.contiguous(), lse, ctx.hw, ctx.scaling, ctx.heads)
+        if q.device.type == "cpu":
+            grads = det_attention_bwd_plain(*args)
+        else:
+            grads = det_attention_bwd_cuda(*args, need_dtoep=need[3])
+        return (*(x if want else None for x, want in zip(grads, need[:6])), None, None, None)
 
 
 def det_flash_attention(
@@ -200,14 +342,14 @@ def det_flash_attention(
     """Public entry (the JAX signature): q/k/v (B, L, heads, dh) with
     L = hw[0] * hw[1]; toep from ``toeplitz_tables`` sliced to the grid, or
     None; rel_h / rel_w the layer's decomposed tables resized to the grid,
-    or None.  Returns (B, L, heads, dh): the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    or None.  Returns (B, L, heads, dh) through ``DetAttentionFunction``: the
+    kernels for CUDA tensors, the plain versions for CPU tensors."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"det attention runs on cuda or cpu tensors, not {q.device}")
     b, l, heads, dh = q.shape
     bh = bw = None
     if rel_h is not None:
         bh, bw = compute_decomp(q, rel_h, rel_w, hw)
-    fn = det_attention_cuda if q.device.type == "cuda" else det_attention_plain
-    out = fn(*(x.reshape(b, l, heads * dh) for x in (q, k, v)), toep, bh, bw, hw, scaling, heads)
+    q3, k3, v3 = (x.reshape(b, l, heads * dh) for x in (q, k, v))
+    out = DetAttentionFunction.apply(q3, k3, v3, toep, bh, bw, tuple(hw), scaling, heads)
     return out.reshape(b, l, heads, dh)

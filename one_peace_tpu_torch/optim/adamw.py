@@ -11,8 +11,9 @@ before every update (``group["lr_scale"] * schedule(n)``); clipping and
 gradient accumulation live in the trainer.
 
 Parameter names are the port's (``encoder_wrapper.fusion.layers.3.
-self_attn.q_proj.weight``); the rules are the JAX package's, applied to the
-unstacked layers.  Adan and the vision zoo's layer ids are not ported yet.
+self_attn.q_proj.weight``, ``backbone.layers.3.self_attn.q_proj.weight``);
+the rules are the JAX package's, applied to the unstacked layers.  Adan and
+the segmentation and video trunks' layer ids are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +39,17 @@ def decay_mask(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, bo
 def layer_id_for_path(name: str, num_layers: int) -> Optional[int]:
     """0 for the adapters, i + 1 for encoder layer i, num_layers + 1 for the
     rest (final norms, heads, logit scale); None for an adapter's rel-pos
-    table, whose scale goes per table."""
+    table, whose scale goes per table.  The detector (``OnePeaceDetector``)
+    as detectron2's recipe: ``backbone.image_adapter`` 0, trunk layer i
+    i + 1, everything else (the pyramid, the proposer, the heads and the
+    trunk's shared rel-pos table) num_layers + 1."""
+    if name.startswith("backbone."):
+        rest = name.removeprefix("backbone.")
+        if rest.startswith("image_adapter."):
+            return 0
+        if rest.startswith("layers."):
+            return int(rest.split(".")[1]) + 1
+        return num_layers + 1
     p = name.removeprefix("encoder_wrapper.")
     if p.startswith(ADAPTERS):
         return None if "rel_pos_table" in p else 0

@@ -1,9 +1,11 @@
-"""Cascade R-CNN box heads and the mask head, inference part (counterpart of
+"""Cascade R-CNN box heads and the mask head (counterpart of
 ``one_peace_tpu/vision/cascade_rcnn.py``): proposals are RoIAligned from the
 pyramid, passed through each stage's two-FC box head and refined by its
 class-agnostic deltas; the class scores are the mean of the stages' softmax.
 The RoI features flatten in NHWC order, so ``fc1`` takes the JAX weights as
-they are."""
+they are.  Training (``cascade_box_loss``): per-stage IoU assignment on the
+0.5 / 0.6 / 0.7 schedule, CE and smooth-L1 losses, proposals refined from
+stage to stage without gradient."""
 
 from __future__ import annotations
 
@@ -135,3 +137,86 @@ class MaskHead(nn.Module):
             x = torch.relu(conv2d(x, c.weight, c.bias, 1, "SAME"))
         x = torch.relu(conv_transpose2d(x, self.deconv.weight, self.deconv.bias, 2, "SAME"))
         return conv2d(x, self.predictor.weight, self.predictor.bias, 1, "SAME")
+
+
+# ---------------------------------------------------------------------------
+# training: per-stage target assignment and losses (the cascade IoU schedule)
+# ---------------------------------------------------------------------------
+
+CASCADE_IOU_THRESHOLDS = (0.5, 0.6, 0.7)
+
+
+def boxes_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, 4) x (M, 4) -> (N, M) IoU."""
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    return inter / (area_a[:, None] + area_b[None, :] - inter).clamp(min=1e-9)
+
+
+def encode_deltas(boxes: torch.Tensor, targets: torch.Tensor, weights) -> torch.Tensor:
+    """The inverse of ``apply_deltas``: regression targets of matched boxes."""
+    wx, wy, ww, wh = weights
+    w = boxes[:, 2] - boxes[:, 0]
+    h = boxes[:, 3] - boxes[:, 1]
+    cx = boxes[:, 0] + 0.5 * w
+    cy = boxes[:, 1] + 0.5 * h
+    tw = targets[:, 2] - targets[:, 0]
+    th = targets[:, 3] - targets[:, 1]
+    tcx = targets[:, 0] + 0.5 * tw
+    tcy = targets[:, 1] + 0.5 * th
+    w, h = w.clamp(min=1e-6), h.clamp(min=1e-6)
+    return torch.stack([wx * (tcx - cx) / w, wy * (tcy - cy) / h,
+                        ww * torch.log(tw.clamp(min=1e-6) / w),
+                        wh * torch.log(th.clamp(min=1e-6) / h)], dim=1)
+
+
+def assign_targets(proposals, gt_boxes, gt_labels, gt_valid, iou_threshold: float,
+                   num_classes: int):
+    """IoU matcher: a proposal takes its best valid GT at IoU >= threshold,
+    else background (label ``num_classes``).  Returns (labels (N,),
+    matched boxes (N, 4), foreground mask (N,))."""
+    iou = torch.where(gt_valid[None, :], boxes_iou(proposals, gt_boxes), -1.0)
+    best_iou, best = iou.max(1)
+    fg = best_iou >= iou_threshold
+    labels = torch.where(fg, gt_labels[best], num_classes)
+    return labels, gt_boxes[best], fg
+
+
+def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    ax = x.abs()
+    return torch.where(ax < beta, 0.5 * ax * ax / beta, ax - 0.5 * beta)
+
+
+def cascade_box_loss(head: CascadeBoxHead, features, proposals, batch_indices, gt_boxes,
+                     gt_labels, gt_valid, prop_valid=None):
+    """The cascade's training loss: per stage, CE over the stage's logits and
+    smooth-L1 on the deltas of foreground proposals; the proposals are
+    refined for the next stage and detached.  Padded GTs are masked by
+    ``gt_valid``, padded proposals by ``prop_valid``."""
+    boxes = proposals.float()
+    gt_boxes, gt_valid = gt_boxes.float(), gt_valid.bool()
+    pv = (torch.ones(boxes.shape[:1], device=boxes.device) if prop_valid is None
+          else prop_valid.float())
+    n_valid = pv.sum().clamp(min=1.0)
+    total_cls = total_box = 0.0
+    metrics = {}
+    for s, stage in enumerate(head.stages):
+        labels, matched, fg = assign_targets(boxes, gt_boxes, gt_labels.long(), gt_valid,
+                                             CASCADE_IOU_THRESHOLDS[min(s, 2)], head.num_classes)
+        cls_logits, deltas = stage(_pool(features, head.feature_strides, boxes, batch_indices,
+                                         head.pooled, head.spatial_scale))
+        lp = torch.log_softmax(cls_logits.float(), -1)
+        total_cls = total_cls + (-lp.gather(1, labels[:, None])[:, 0] * pv).sum() / n_valid
+        weights = STAGE_DELTA_WEIGHTS[s]
+        box_err = smooth_l1(deltas.float() - encode_deltas(boxes, matched, weights)).sum(-1)
+        fgf = fg.float() * pv
+        total_box = total_box + (box_err * fgf).sum() / fgf.sum().clamp(min=1.0)
+        metrics[f"stage{s}_fg"] = fgf.sum() / n_valid
+        boxes = apply_deltas(boxes, deltas.float(), weights).detach()
+    n = len(head.stages)
+    metrics.update(cls_loss=total_cls / n, box_loss=total_box / n)
+    return (total_cls + total_box) / n, metrics

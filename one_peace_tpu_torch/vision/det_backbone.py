@@ -9,6 +9,16 @@ resized to the grid) and the layer's decomposed rel pos from the unscaled q;
 Magneto LN before out_proj, GeGLU FFN with its inner LN, LayerScale.  The
 layers are plain modules in a Python loop (no scan, no stacking).
 
+With ``deterministic=False`` and a generator the training path runs: drop
+path on both branches of every layer, one keep draw per image, on the
+``linspace(0, drop_path_rate, layers)`` schedule.  ``checkpoint_activations``
+recomputes each layer in the backward pass through ``torch.utils.checkpoint``;
+each layer's masks come from a generator rebuilt from a seed drawn before the
+layer runs, so the recompute draws the same masks.  (The JAX package's
+``detector_training_loss`` never passes ``deterministic=False`` to the trunk,
+and its ``drop_path`` draws a (B, 1, 1) mask that does not fit the trunk's
+(B, h, w, C) maps; the port applies the recipe's drop path per image.)
+
 ``attn_impl="pallas"`` sends the attention of every layer through
 ``ops.det_attention.det_flash_attention`` (the CUDA kernel on the card, its
 plain version on the CPU), with the shared bias as its Toeplitz factor; ``"xla"`` is the plain path, which materialises the (H, L, L) and
@@ -21,15 +31,17 @@ stride-2 subsample of p32 as p64.  Everything is NHWC, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..models.adapters.image import HMLP
-from ..models.components import (Conv, LayerNorm, Linear, conv2d, conv_transpose2d, empty_param,
-                                 gelu, max_pool)
+from ..models.components import (Conv, LayerNorm, Linear, conv2d, conv_transpose2d, drop_path,
+                                 empty_param, gelu, max_pool)
 from ..models.rel_pos import make_image_bucket_position
 from ..ops.det_attention import det_flash_attention, interpolate_rel_table, toeplitz_tables
 
@@ -196,8 +208,9 @@ class DetFFN(nn.Module):
 
 
 class DetLayer(nn.Module):
-    """One trunk layer (``det_layer``), windowed when ``window_size > 0``;
-    inference only (no drop path)."""
+    """One trunk layer (``det_layer``), windowed when ``window_size > 0``.
+    Drop path acts on both branches, one keep draw per image, both drawn
+    from ``generator`` (on x's device)."""
 
     def __init__(self, d: int, f: int, heads: int, input_size: int,
                  use_decomposed_rel_pos: bool = True, device=None, dtype=None):
@@ -209,9 +222,12 @@ class DetLayer(nn.Module):
         self.image_ffn = DetFFN(d, f, **kw)
         self.gamma_1 = empty_param(d, **kw)
         self.gamma_2 = empty_param(d, **kw)
+        # under remat these enter the checkpoint as inputs (see _run_layer)
+        self.param_names = [name for name, _ in self.named_parameters()]
 
-    def forward(self, x: torch.Tensor, window_size: int, shared_bias, toep,
-                use_kernel: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shared_bias, toep, window_size: int, use_kernel: bool,
+                drop_path_rate: float = 0.0, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = self.self_attn_layer_norm(x)
         hw = y.shape[1:3]
         if window_size > 0:
@@ -219,20 +235,42 @@ class DetLayer(nn.Module):
         y = self.self_attn(y, shared_bias, toep, use_kernel)
         if window_size > 0:
             y = window_unpartition(y, window_size, pad_hw, hw)
-        x = x + y * self.gamma_1
-        return x + self.image_ffn(self.final_layer_norm(x)) * self.gamma_2
+        x = x + drop_path(y * self.gamma_1, drop_path_rate, deterministic, generator)
+        y = self.image_ffn(self.final_layer_norm(x)) * self.gamma_2
+        return x + drop_path(y, drop_path_rate, deterministic, generator)
+
+
+def _run_layer(layer: DetLayer, x, bias, toep, static: dict, seed: Optional[int], remat: bool):
+    """One layer, its masks drawn from a generator seeded with ``seed``.
+    Under remat the layer's parameters enter ``checkpoint`` as inputs, so the
+    recompute sees the tensors the forward saw, also when they were swapped
+    in by ``torch.func.functional_call`` (the trainer's bf16 copies)."""
+
+    def run(x, bias, toep, *params):
+        gen = None if seed is None else torch.Generator(device=x.device).manual_seed(seed)
+        args, kwargs = (x, bias, toep), dict(static, generator=gen)
+        if not params:
+            return layer(*args, **kwargs)
+        return torch.func.functional_call(layer, dict(zip(layer.param_names, params)), args,
+                                          kwargs)
+
+    if not remat:
+        return run(x, bias, toep)
+    params = [functools.reduce(getattr, name.split("."), layer) for name in layer.param_names]
+    return checkpoint(run, x, bias, toep, *params, use_reentrant=False, preserve_rng_state=False)
 
 
 class DetBackbone(nn.Module):
     """The windowed trunk: layer i attends over the whole grid when
     (i + 1) % global_period == 0 and over windows otherwise (the recipe:
-    window 16, global at 3, 7, ..., 39).  Inference only: no drop path,
-    no remat."""
+    window 16, global at 3, 7, ..., 39), with drop path at
+    ``linspace(0, drop_path_rate, layers)[i]`` and, with
+    ``checkpoint_activations``, each layer recomputed in the backward pass."""
 
     def __init__(self, embed_dim=1536, ffn_embed_dim=6144, heads=24, layers=40,
                  bucket_size=64, pretrain_bucket_size=16, window_size=16, global_period=4,
-                 shared_rp_bias=True, use_decomposed_rel_pos=True, attn_impl="pallas",
-                 device=None, dtype=None):
+                 drop_path_rate=0.0, shared_rp_bias=True, use_decomposed_rel_pos=True,
+                 checkpoint_activations=True, attn_impl="pallas", device=None, dtype=None):
         super().__init__()
         assert layers % global_period == 0, (layers, global_period)
         kw = dict(device=device, dtype=dtype)
@@ -243,7 +281,9 @@ class DetBackbone(nn.Module):
         self.global_period = global_period
         self.shared_rp_bias = shared_rp_bias
         self.use_decomposed = use_decomposed_rel_pos
+        self.checkpoint_activations = checkpoint_activations
         self.attn_impl = attn_impl
+        self.dpr = np.linspace(0, drop_path_rate, layers, dtype=np.float32)
         self.image_adapter = DetImageAdapter(embed_dim, bucket_size, **kw)
         self.layers = nn.ModuleList(
             DetLayer(embed_dim, ffn_embed_dim, heads,
@@ -256,8 +296,11 @@ class DetBackbone(nn.Module):
     def is_global(self, i: int) -> bool:
         return (i + 1) % self.global_period == 0
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images (B, 3, H, W) -> stride-16 map (B, H/16, W/16, D)."""
+    def forward(self, images: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """images (B, 3, H, W) -> stride-16 map (B, H/16, W/16, D).
+        ``generator`` (CPU) draws each layer's seed; without one, or when
+        deterministic, nothing is random."""
         x = self.image_adapter(images)
         h, w = x.shape[1:3]
         assert h == w <= self.bucket_size, "square inputs up to bucket_size"
@@ -280,11 +323,18 @@ class DetBackbone(nn.Module):
                 toep_win = toeplitz_tables(table, src, ws)
             else:
                 bias_win = shared_bias_from_table(table, src, ws)
+        n = len(self.layers)
+        seeds = [None] * n
+        if not deterministic and generator is not None:
+            seeds = torch.randint(0, 2**62, (n,), generator=generator,
+                                  device=generator.device).tolist()
+        remat = self.checkpoint_activations and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            if self.is_global(i):
-                x = layer(x, 0, bias, toep, use_kernel)
-            else:
-                x = layer(x, ws, bias_win, toep_win, use_kernel)
+            glob = self.is_global(i)
+            static = dict(window_size=0 if glob else ws, use_kernel=use_kernel,
+                          drop_path_rate=float(self.dpr[i]), deterministic=deterministic)
+            x = _run_layer(layer, x, bias if glob else bias_win, toep if glob else toep_win,
+                           static, seeds[i], remat)
         return x
 
 

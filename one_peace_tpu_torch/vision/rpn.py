@@ -1,11 +1,14 @@
-"""Region Proposal Network, inference part (counterpart of
-``one_peace_tpu/vision/rpn.py``): the detection recipe's proposer, detectron2's
-StandardRPNHead with anchors of 8 * stride per level and aspect ratios
-{0.5, 1, 2}, Box2BoxTransform deltas, and the host-side proposal decode."""
+"""Region Proposal Network (counterpart of ``one_peace_tpu/vision/rpn.py``):
+the detection recipe's proposer, detectron2's StandardRPNHead with anchors of
+8 * stride per level and aspect ratios {0.5, 1, 2}, Box2BoxTransform deltas,
+the host-side proposal decode, and the training losses: the Matcher's
+[0.3, 0.7] thresholds with low-quality force-matching, and detectron2's
+256-anchor 1:1 subsample as static weight vectors (``sampler="subsample"``)
+or the deterministic balanced weighting (``"balanced"``)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +57,20 @@ def apply_deltas(anchors: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     w = wa * torch.exp(dw.clamp(max=_DELTA_CLAMP))
     h = ha * torch.exp(dh.clamp(max=_DELTA_CLAMP))
     return torch.stack([x - w / 2, y - h / 2, x + w / 2, y + h / 2], -1)
+
+
+def boxes_to_deltas(anchors: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """The inverse transform (regression targets) of ``apply_deltas``."""
+    wa = anchors[..., 2] - anchors[..., 0]
+    ha = anchors[..., 3] - anchors[..., 1]
+    xa = anchors[..., 0] + 0.5 * wa
+    ya = anchors[..., 1] + 0.5 * ha
+    wg = (boxes[..., 2] - boxes[..., 0]).clamp(min=1e-6)
+    hg = (boxes[..., 3] - boxes[..., 1]).clamp(min=1e-6)
+    xg = boxes[..., 0] + 0.5 * wg
+    yg = boxes[..., 1] + 0.5 * hg
+    return torch.stack([(xg - xa) / wa, (yg - ya) / ha, torch.log(wg / wa),
+                        torch.log(hg / ha)], -1)
 
 
 class RPNHead(nn.Module):
@@ -126,3 +143,91 @@ class RPNHead(nn.Module):
             results.append({"boxes": bx[keep], "scores": sc[keep],
                             "labels": np.zeros((len(keep),), np.int64)})
         return results
+
+
+def _box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, 4) x (M, 4) -> (N, M)."""
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    return inter / (area_a[:, None] + area_b[None, :] - inter).clamp(min=1e-6)
+
+
+def _uniforms(generator: torch.Generator, n: int, device) -> torch.Tensor:
+    """The sampler's random numbers for one image: (2, n) uniforms, the
+    positives' then the negatives'."""
+    return torch.rand(2, n, generator=generator, device=device)
+
+
+def _sample_weights(pos: torch.Tensor, neg: torch.Tensor, generator: torch.Generator,
+                    batch_size: int = 256, pos_fraction: float = 0.5):
+    """detectron2's subsample_labels as static weight vectors: min(#pos, 128)
+    random positives, filled to 256 with random negatives, weight 1 each.
+    The draws come from ``generator`` on the masks' device."""
+    u_pos, u_neg = _uniforms(generator, pos.shape[0], pos.device)
+
+    def ranks(mask, u):  # rank of each masked anchor in a random order of the masked set
+        key = u + (~mask).float() * 10.0
+        return torch.argsort(torch.argsort(key, stable=True), stable=True)
+
+    n_pos = pos.sum().clamp(max=int(batch_size * pos_fraction))
+    sel_pos = pos & (ranks(pos, u_pos) < n_pos)
+    n_neg = torch.minimum(neg.sum(), batch_size - n_pos)
+    sel_neg = neg & (ranks(neg, u_neg) < n_neg)
+    return sel_pos.float(), sel_neg.float()
+
+
+def rpn_loss(head: RPNHead, feats: List[torch.Tensor], gt_boxes, gt_labels, gt_valid,
+             sampler: str = "subsample", generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Objectness and box losses (detectron2 rpn.py losses), per image, then
+    the mean over images.  feats: per-level NHWC maps; gt_boxes (B, M, 4);
+    gt_valid (B, M) bool; gt_labels is unused (the RPN is class-agnostic).
+    ``sampler="subsample"`` needs ``generator`` (on the maps' device): without
+    one it raises, as the JAX package does, rather than draw the same sample
+    every step."""
+    outs = head(feats)
+    device = outs[0][0].device
+    anchors = torch.from_numpy(head.all_anchors([o.shape[1:3] for o, _ in outs])).to(device)
+    b = outs[0][0].shape[0]
+    obj_flat = torch.cat([o.reshape(b, -1) for o, _ in outs], 1)  # (B, N)
+    delta_flat = torch.cat([d.reshape(b, -1, 4) for _, d in outs], 1)  # (B, N, 4)
+    if sampler == "subsample" and generator is None:
+        raise ValueError("rpn_loss(sampler='subsample') needs a generator; pass one through "
+                         "detector_training_loss, or set criterion.rpn_sampler='balanced'")
+
+    obj_losses, box_losses, n_pos = [], [], []
+    for i in range(b):
+        gtb, gtv = gt_boxes[i].float(), gt_valid[i].bool()
+        with torch.no_grad():  # the matching: targets only
+            iou = torch.where(gtv[None, :], _box_iou(anchors, gtb), -1.0)
+            best_iou, best_gt = iou.max(-1)
+            pos = best_iou >= 0.7
+            neg = (best_iou < 0.3) & (best_iou > -0.5)  # all-invalid rows stay negative
+            if not bool(gtv.any()):
+                neg = torch.ones_like(neg)
+            # low-quality force-match: an anchor at a valid GT's best IoU is positive
+            gt_best = iou.max(0).values
+            pos |= ((iou == gt_best[None, :]) & gtv[None, :] & (gt_best[None, :] > 0)).any(-1)
+            neg &= ~pos
+            tgt = boxes_to_deltas(anchors, gtb[best_gt])
+        posf = pos.float()
+        logits = obj_flat[i].float()
+        bce = logits.clamp(min=0) - logits * posf + torch.log1p(torch.exp(-logits.abs()))
+        if sampler == "subsample":  # 256 anchors, <= 128 positive, normalised by 256
+            w_pos, w_neg = _sample_weights(pos, neg, generator)
+            obj_losses.append((bce * (w_pos + w_neg)).sum() / 256.0)
+            box_w, box_n = w_pos, 256.0
+        else:  # balanced: positives and negatives each carry half the weight
+            negf = neg.float()
+            obj_losses.append(0.5 * (bce * posf).sum() / posf.sum().clamp(min=1.0)
+                              + 0.5 * (bce * negf).sum() / negf.sum().clamp(min=1.0))
+            box_w, box_n = posf, posf.sum().clamp(min=1.0)
+        box_losses.append(((delta_flat[i].float() - tgt).abs().sum(-1) * box_w).sum() / box_n)
+        n_pos.append(posf.sum())
+    obj_l, box_l = torch.stack(obj_losses).mean(), torch.stack(box_losses).mean()
+    return obj_l + box_l, {"rpn_obj": obj_l, "rpn_box": box_l,
+                           "rpn_pos": torch.stack(n_pos).mean()}

@@ -4,7 +4,8 @@
 head.  ``detect`` runs the trunk, pyramid and proposer on the device,
 decodes proposals on the host, pads them to ``max_proposals`` per image, runs
 the cascade and the mask head as one batched call each, and decodes on the
-host.  The model is built on ``cuda`` unless the caller passes a device."""
+host.  ``vision/det_train.detector_training_loss`` trains it.  The model is
+built on ``cuda`` unless the caller passes a device."""
 
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ from .rpn import RPNHead
 
 
 class OnePeaceDetector(nn.Module):
-    """Cascade Mask R-CNN over the windowed ONE-PEACE trunk."""
+    """Cascade Mask R-CNN over the windowed ONE-PEACE trunk.  ``backbone_kw``
+    go to ``DetBackbone``: its geometry, ``drop_path_rate``,
+    ``checkpoint_activations`` and ``attn_impl``."""
 
     PYRAMID_KEYS = ("p4", "p8", "p16", "p32")
     STRIDES = (4, 8, 16, 32)
@@ -43,6 +46,7 @@ class OnePeaceDetector(nn.Module):
             self.proposer = RPNHead(fpn_channels, strides=self.STRIDES, **kw)
         else:
             raise ValueError(f"unknown proposer {proposer!r}")
+        self.proposer_kind = proposer
         self.box_head = CascadeBoxHead(fpn_channels, num_classes, **kw)
         self.mask_head = MaskHead(fpn_channels, num_classes, **kw) if with_masks else None
         self.num_classes = num_classes

@@ -51,7 +51,7 @@ def test_convert_matches_jax(name):
     for key, value in got.items():
         assert value.dtype == torch.float32, key
         torch.testing.assert_close(value, want[key], rtol=0, atol=0, msg=key)
-    model = OnePeaceRetrievalModel(cfg)
+    model = OnePeaceRetrievalModel(cfg, device="cpu")
     model.load_state_dict(got, strict=True)
     if name == "per_layer_tables":
         assert model.encoder_wrapper.text_adapter.rel_pos_table.shape[0] == cfg.encoder.layers

@@ -184,7 +184,7 @@ def test_unsupported_options_raise(assets, tmp_path):
         hub.from_pretrained(assets["pt"], quantize="int4", **kw)
     with pytest.raises(FileNotFoundError):
         hub.OnePeaceHubInterface(assets["cfg"], TaskConfig(), OnePeaceRetrievalModel(
-            assets["cfg"]), bpe_dir=str(tmp_path))
+            assets["cfg"], device="cpu"), bpe_dir=str(tmp_path))
 
 
 @pytest.mark.parametrize("src,size", [((300, 400), 256), ((200, 180), 256), ((48, 40), 32)])
@@ -244,7 +244,7 @@ def test_fbank_adapter_matches_jax():
     layers["gamma_1"][:] = layers["gamma_2"][:] = 0.1
     table = tree["encoder_wrapper"]["audio_adapter"]["rel_pos_table"]
     table[:] = np.random.RandomState(0).randn(*table.shape) * 0.05
-    model = OnePeaceRetrievalModel(cfg)
+    model = OnePeaceRetrievalModel(cfg, device="cpu")
     model.load_state_dict(params_from_jax(tree), strict=True)
     adapter = model.encoder_wrapper.audio_adapter
     assert adapter.rp_bucket.shape[0] > 1024 and adapter.feature_extractor is None

@@ -36,7 +36,7 @@ def _pair(cfg, seed):
     sd = tf.make_random_state_dict(cfg, seed=seed)
     tree = convert_retrieval_model(sd, cfg)
     jax_model = JaxModel(cfg)
-    model = OnePeaceRetrievalModel(cfg)
+    model = OnePeaceRetrievalModel(cfg, device="cpu")
     model.load_state_dict(params_from_jax(tree), strict=True)
     return jax_model, to_jax(tree), model
 
@@ -187,7 +187,7 @@ def test_random_weights_give_unit_embeddings():
     cfg = tiny_model_config(head_type="val")
     models = []
     for _ in range(2):
-        model = OnePeaceRetrievalModel(cfg)
+        model = OnePeaceRetrievalModel(cfg, device="cpu")
         with torch.no_grad():
             for p in model.parameters():
                 p.fill_(float("nan"))

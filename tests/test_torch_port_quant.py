@@ -133,7 +133,7 @@ def test_quantize_ffn_matches_quantize_ffn_params(include_attn, dtype):
     jtree["encoder_wrapper"] = jq.quantize_ffn_params(jtree["encoder_wrapper"],
                                                      include_attn=include_attn)
     want = params_from_jax(jax.tree.map(np.asarray, jtree))
-    model = OnePeaceRetrievalModel(cfg, dtype=getattr(torch, dtype))
+    model = OnePeaceRetrievalModel(cfg, device="cpu", dtype=getattr(torch, dtype))
     model.load_state_dict(params_from_jax(tree), strict=True)
     quant.quantize_ffn_(model, include_attn=include_attn)
     got = model.state_dict()
@@ -161,7 +161,7 @@ def quantized_pairs():
         params = to_jax(tree)
         params["encoder_wrapper"] = jq.quantize_ffn_params(
             params["encoder_wrapper"], include_attn=mode == "ffn_attn")
-        model = OnePeaceRetrievalModel(cfg)
+        model = OnePeaceRetrievalModel(cfg, device="cpu")
         model.load_state_dict(params_from_jax(tree), strict=True)
         quant.quantize_ffn_(model, include_attn=mode == "ffn_attn")
         out[mode] = (params, model)

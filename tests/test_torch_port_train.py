@@ -61,7 +61,7 @@ def _weights(cfg, seed=0):
 
 
 def _port_model(cfg, state, impl="pallas"):
-    model = OnePeaceRetrievalModel(cfg)
+    model = OnePeaceRetrievalModel(cfg, device="cpu")
     model.load_state_dict(state, strict=True)
     model.cfg.encoder.attn_impl = impl
     return model

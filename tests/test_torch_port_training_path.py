@@ -91,7 +91,7 @@ def _model(**enc_kw):
     cfg.encoder.layers = 3
     for k, v in enc_kw.items():
         setattr(cfg.encoder, k, v)
-    model = fill_random_(OnePeaceRetrievalModel(cfg), torch.Generator().manual_seed(0))
+    model = fill_random_(OnePeaceRetrievalModel(cfg, device="cpu"), torch.Generator().manual_seed(0))
     for p in model.parameters():
         p.requires_grad_(True)
     return model

@@ -25,7 +25,7 @@ def test_jax_init_tree_loads_strictly(copy_rel_pos_table):
     cfg = tiny_model_config(head_type="val", copy_rel_pos_table=copy_rel_pos_table)
     tree = jax.tree.map(np.asarray, JaxModel(cfg).init(jax.random.PRNGKey(0)))
     sd = params_from_jax(tree)
-    model = OnePeaceRetrievalModel(cfg)
+    model = OnePeaceRetrievalModel(cfg, device="cpu")
     model.load_state_dict(sd, strict=True)
     layer = tree["encoder_wrapper"]["fusion"]["layers"]
     np.testing.assert_array_equal(
@@ -54,7 +54,7 @@ def test_save_params_load_npz_round_trip(tmp_path, dtype):
     for name, tensor in got.items():
         assert tensor.dtype == tdtype, name
         torch.testing.assert_close(tensor, want[name], rtol=0, atol=0, msg=name)
-    model = OnePeaceRetrievalModel(cfg, dtype=tdtype)
+    model = OnePeaceRetrievalModel(cfg, device="cpu", dtype=tdtype)
     model.load_state_dict(got, strict=True)
     tokens = torch.tensor([[5, 6, 7, 1, 1]])
     with torch.no_grad():
@@ -90,7 +90,7 @@ def test_jax_init_tree_forward_matches(variant):
         table["rel_pos_table"] = rng.randn(*table["rel_pos_table"].shape).astype(np.float32) * 0.05
         if "type_embedding" in table:
             table["type_embedding"] = rng.randn(*table["type_embedding"].shape).astype(np.float32)
-    model = OnePeaceRetrievalModel(cfg)
+    model = OnePeaceRetrievalModel(cfg, device="cpu")
     model.load_state_dict(params_from_jax(tree), strict=True)
     params = to_jax(tree)
     inputs = {"text": {"src_tokens": np.array([[5, 6, 7, 1], [8, 9, 10, 11]])},

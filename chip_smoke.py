@@ -44,15 +44,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. detection serving: (a) the det attention kernel against its plain
    version, bf16 and fp32, with and without the LSE, at the 1024 px global
    grid (B=2, 64 x 64), its windows (B=32, 16 x 16; with each bias alone and
-   none) and a ragged 50 x 50 grid; (b) ``OnePeaceDetector`` at full width
-   and depth 40, 1024 px, 80 classes, RPN and masks, on seeded random
+   none), a ragged 50 x 50 grid, a 1 x 64, an 8 x 8 and an 80 x 80 grid, so
+   that each branch of the forward's plan runs (logged per case); (b)
+   ``OnePeaceDetector`` at full width and depth 40, 1024 px, 80 classes,
+   RPN and masks, on seeded random
    weights: the kernel path against the plain path (the stride-16 map, the
    pyramid, the cascade and mask heads on fixed proposals; cosine per image
    >= 1-1e-6 fp32, >= 0.999 bf16), 40 launches per trunk forward, then
    ``detect()``; (c) images/s of ``detect()`` at B=2 in bf16 on both paths,
    one profiled call (``detect_profile.txt`` beside phase 7's profile), and
    ms per global and windowed layer for the kernel, its plain version and
-   SDPA with the bias materialised;
+   SDPA with the bias materialised (kernel and SDPA in turns), the kernel's
+   ratio to SDPA, and the kernel with no bias beside it;
 12. detection fine-tuning: (a) the det attention backward kernels (pass 1
    with the dtoep pass, pass 2) against their plain version, bf16 and fp32,
    at the global grid (B=2, 64 x 64), its windows (B=32, 16 x 16) with each
@@ -968,10 +971,14 @@ def check_golden() -> dict:
 DET_HEADS = 24
 DET_CASES = [  # (B, hg, wg, toep, decomp): the global grid at 1024 px, its 16 x 16
     # windows (16 per image, B=2), the windows with each bias alone and none,
-    # the ragged 50 x 50 global grid of an 800 px image, and a one-row grid
+    # the ragged 50 x 50 global grid of an 800 px image, a one-row grid, an
+    # 8 x 8 grid (a 64-token tile holds 8 grid rows) and a wide 80 x 80 grid
+    # (the forward's plan stages the bias where wg is even and divides 64, and
+    # gathers it per score on the 50 x 50 and 80 x 80 grids)
     (2, 64, 64, True, True), (32, 16, 16, True, True), (32, 16, 16, True, False),
     (32, 16, 16, False, True), (32, 16, 16, False, False), (2, 50, 50, True, True),
-    (2, 1, 64, True, True)]
+    (2, 1, 64, True, True), (2, 8, 8, True, True), (1, 80, 80, True, True)]
+DET_FWD_MODES = {da.FWD_GATHER: "gather", da.FWD_SLAB: "slab, bw in registers"}
 
 
 def det_operands(gen, b, hg, wg, dtype, toep_on=True, decomp_on=True):
@@ -993,10 +1000,12 @@ def check_det_kernel(gen) -> float:
     the same inputs, bf16 and fp32, with and without the LSE, at the
     detection trunk's shapes; returns the largest max |diff| of the output.
     Bounds as phase 3's: bf16 2e-2 max and 2e-3 mean, fp32 1e-4; LSE 1e-4."""
-    worst = 0.0
+    worst, modes = 0.0, set()
     for dtype in (torch.bfloat16, torch.float32):
         for b, hg, wg, toep_on, decomp_on in DET_CASES:
             ops = det_operands(gen, b, hg, wg, dtype, toep_on, decomp_on)
+            plan = da.fwd_plan(hg, wg, toep_on, decomp_on)
+            modes.add(plan.mode)
             for with_lse in (False, True):
                 got = da.det_attention_cuda(*ops, (hg, wg), 0.125, DET_HEADS, with_lse=with_lse)
                 torch.cuda.synchronize()
@@ -1013,9 +1022,12 @@ def check_det_kernel(gen) -> float:
                 err = (got.float() - want.float()).abs()
                 mx, mean = err.max().item(), err.mean().item()
                 worst = max(worst, mx)
+                branch = (f"plan: {DET_FWD_MODES[plan.mode]}, {plan.smem_bytes} B shared"
+                          if dtype == torch.bfloat16 else "fp32 kernel: gather")
                 log(f"11(a) det kernel vs plain {str(dtype)[6:]} B={b} grid {hg}x{wg} "
-                    f"toep={toep_on} decomp={decomp_on} lse={with_lse}: max|d| {mx:.3e} "
-                    f"mean|d| {mean:.3e}" + (f", LSE max|d| {lse_err:.3e}" if with_lse else ""))
+                    f"toep={toep_on} decomp={decomp_on} lse={with_lse} ({branch}): max|d| "
+                    f"{mx:.3e} mean|d| {mean:.3e}"
+                    + (f", LSE max|d| {lse_err:.3e}" if with_lse else ""))
                 bad = (mx > BF16_MAX_ERR or mean > BF16_MEAN_ERR if dtype == torch.bfloat16
                        else mx > FP32_MAX_ERR)
                 if bad or lse_err > 1e-4:
@@ -1023,6 +1035,8 @@ def check_det_kernel(gen) -> float:
                                        f"({dtype}, B={b}, {hg}x{wg}, lse={with_lse})")
                 del got, want
             del ops
+    if modes != set(DET_FWD_MODES):
+        raise RuntimeError(f"11(a): the cases took the plan's branches {modes} only")
     q = torch.randn(2, 16, 4, 32, device="cuda")
     try:
         da.det_flash_attention(q, q, q, None, None, None, (4, 4), 32 ** -0.5)
@@ -1158,32 +1172,47 @@ def check_detector(gen, card: str) -> int:
 def time_det_attention(gen, card: str) -> dict:
     """Phase 11(c): ms per global and per windowed layer, bf16, for the
     kernel, its plain version, and SDPA with the bias materialised (as bf16)
-    outside the timed region; the bound from this run's operands."""
+    outside the timed region, kernel and SDPA in turns (kernel, SDPA, kernel,
+    SDPA; the mean of the two); the kernel's ratio to SDPA; the bound from
+    this run's operands.  Beside it the kernel on the same q/k/v with no bias,
+    which shows what the bias costs."""
     times = {}
     for name, (b, hg, wg) in (("global", (2, 64, 64)), ("windowed", (32, 16, 16))):
         ops = det_operands(gen, b, hg, wg, torch.bfloat16)
         q, k, v, toep, bh, bw = ops
         l = hg * wg
-        kernel_ms = cuda_time_ms(lambda: da.det_attention_cuda(*ops, (hg, wg), 0.125, DET_HEADS),
-                                 iters=10)
-        plain_ms = cuda_time_ms(lambda: da.det_attention_plain(*ops, (hg, wg), 0.125, DET_HEADS),
-                                iters=3, warmup=1)
         bias = (bh.transpose(2, 3)[..., None] + bw[..., None, :]).reshape(b, DET_HEADS, l, l)
         bias += da.bias_from_toeplitz(toep, hg, wg)[None]
         mask = bias.to(torch.bfloat16)
         del bias
         q4, k4, v4 = (x.view(b, l, DET_HEADS, 64).transpose(1, 2) for x in (q, k, v))
-        library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask, scale=0.125), iters=10)
+        turns = {"kernel": [], "sdpa": []}
+        for _ in range(2):
+            turns["kernel"].append(cuda_time_ms(
+                lambda: da.det_attention_cuda(*ops, (hg, wg), 0.125, DET_HEADS), iters=10))
+            turns["sdpa"].append(cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, scale=0.125), iters=10))
+        kernel_ms, library_ms = (float(np.mean(turns[key])) for key in ("kernel", "sdpa"))
+        no_bias_ms = cuda_time_ms(lambda: da.det_attention_cuda(
+            q, k, v, None, None, None, (hg, wg), 0.125, DET_HEADS), iters=10)
+        plain_ms = cuda_time_ms(lambda: da.det_attention_plain(*ops, (hg, wg), 0.125, DET_HEADS),
+                                iters=3, warmup=1)
         flops = 4 * b * DET_HEADS * l * l * 64
         n_bytes = 4 * q.numel() * 2 + 4 * (toep.numel() + bh.numel() + bw.numel())
         bound = bound_ms(n_bytes, flops, H100_BF16_PEAK_TFLOPS * 1e12)
+        plan = da.fwd_plan(hg, wg)
         log(f"11(c) det attention per {name} layer B={b} grid {hg}x{wg} bf16: kernel "
-            f"{kernel_ms:.3f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-            f"SDPA with the materialised bias {library_ms:.3f} ms; bound {bound[0]:.3f} ms by "
-            f"{bound[1]} ({card})")
+            f"{kernel_ms:.3f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s; turns "
+            f"{turns['kernel'][0]:.3f}, {turns['kernel'][1]:.3f}), {kernel_ms / library_ms:.2f}x "
+            f"SDPA with the materialised bias {library_ms:.3f} ms (turns {turns['sdpa'][0]:.3f}, "
+            f"{turns['sdpa'][1]:.3f}); plain {plain_ms:.3f} ms; bound {bound[0]:.3f} ms by "
+            f"{bound[1]}; plan: {DET_FWD_MODES[plan.mode]} ({card})")
+        log(f"11(c) det attention per {name} layer, what the bias costs: the kernel with toep, "
+            f"bh and bw {kernel_ms:.3f} ms, with no bias {no_bias_ms:.3f} ms: the bias takes "
+            f"{kernel_ms - no_bias_ms:.3f} ms, {100 * (1 - no_bias_ms / kernel_ms):.0f}% ({card})")
         times[name] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound[0], "bound_by": bound[1]}
+                       "bound_ms": bound[0], "bound_by": bound[1], "no_bias_ms": no_bias_ms}
         del ops, q, k, v, toep, bh, bw, mask, q4, k4, v4
         torch.cuda.empty_cache()
     return times

@@ -21,34 +21,55 @@
 //   global layer at 1024 px, L = 4096: q.k^T + p.v = 4*H*L^2*Dh = 103 GFLOP
 //     (0.104 ms at the 989 TFLOP/s bf16 peak); the unique bytes are q/k/v/out
 //     (50 MB in bf16), toep (50 MB) and bh + bw (25 MB): 0.037 ms at 3.35 TB/s.
-//     So the tensor cores set the bound; but each of the H*L^2 = 4.0e8 scores
-//     also needs three gathered bias values, adds and an exp, work of the same
-//     order as its share of the MMAs.
+//     So the tensor cores set the bound.  But every one of the H*L^2 = 4.0e8
+//     scores has its own fp32 toep value: a block of 64 query rows reads
+//     64 x L x 4 B = 1 MB of toep per pass from L2, twice its K and V, and
+//     the first port, which gathered it per score (8 cache lines per
+//     warp-wide load: the 8 row groups of an mma fragment sit wg floats
+//     apart), spent two thirds of its 5.3 ms there.  Two passes of
+//     exponentials and the bias adds are the rest of the non-MMA work.
 //   windowed layer, 16 windows of L = 256: 6.4 GFLOP (6.5 us) against 12.6 MB
 //     of q/k/v/out, bh and bw (3.8 us); toep is 0.7 MB, shared by all windows.
 //
 // What this design does about it:
-//   - one block per (batch, 64-row q tile, head), batch in blockIdx.x, so the
-//     blocks in flight read the same toep rows from L2;
+//   - one block, one warpgroup, per (batch, 64-row q tile, head), batch in
+//     blockIdx.x, so the blocks in flight read the same toep rows from L2;
 //   - the (L, L) scores never leave registers: the block walks 64-key tiles of
-//     K (and V) staged in shared memory, double-buffered with cp.async;
-//   - the bias is gathered per score element, in the mma accumulator layout,
-//     all of a tile's loads issued before its MMAs.  A query row's grid
-//     coordinates are fixed per thread; a key column's (ky, kx) and the three
-//     offsets they give are computed once per tile by 64 threads into a small
-//     double-buffered table in shared memory, so no thread divides by wg in
-//     the loop.  Any (hg, wg) works: a 64-key tile spans one grid row at
-//     wg = 64, four at wg = 16, and parts of two at wg = 50;
-//   - bf16 inputs use the tensor cores through mma.sync m16n8k16 with fp32
-//     accumulation, in two passes over the key tiles: the first finds each
-//     row's max and sum (and the log-sum-exp), the second rounds the
-//     normalised P to bf16 before P.V, exactly where the plain version casts
-//     its fp32 probabilities to v's dtype (the TPU kernel rounds the
-//     unnormalised P; in the retrieval kernel that one-pass order drifted from
-//     the plain path almost to the 0.999 cosine bound at depth 40);
-//   - fp32 inputs use CUDA-core FMA and a one-pass online softmax.
-// Not done yet: wgmma, TMA, the toep slice staged in shared memory once per
-// tile pair instead of gathered, one pass with the scores kept on chip.
+//     K (and V), double-buffered in shared memory by cp.async;
+//   - q.k^T and p.v run on wgmma m64n64k16: A from registers (Q, then P in the
+//     accumulator layout, which is the A layout), B from 128-byte-swizzled
+//     shared memory (K, then V transposed); the bias is read while q.k^T runs;
+//     __launch_bounds__(128, 3) holds it to 168 registers, 3 blocks per SM;
+//   - the bias comes from on-chip memory where wg is even and divides 64 (the
+//     64 x 64 grid and its 16 x 16 windows; ops/det_attention.py:fwd_plan):
+//     * toep: a (q tile at q0, key tile) pair whose keys span grid rows
+//       ky_lo..ky_hi reads toep's flat rows (qy - ky + hg - 1) * wg + qx =
+//       q + (hg - 1 - ky) * wg: the 64 + (ky_hi - ky_lo) * wg contiguous rows
+//       from q0 + (hg - 1 - ky_hi) * wg on (one 16 KB slab at wg = 64).  They
+//       are copied beside K and V into rows padded to a stride = 8 mod 16
+//       floats, so the float2 reads of an mma fragment (4 rows x 4 column
+//       pairs per half-warp) hit 32 banks;
+//     * bw: every key tile has the same column pattern, so each thread keeps
+//       its 32 bw values in registers for the whole key walk;
+//     * bh: the tile's few ky rows x 64 queries are staged with K;
+//     * on a full key tile of the 64- or 16-wide grid every offset but the
+//       row's is a constant;
+//     on other grids the same kernel gathers the bias per score through a
+//     per-tile (ky, kx) offset table (staging there, with bw's rows in shared
+//     memory, needed one block per SM and lost to the gather);
+//   - two passes over the key tiles: the first finds each row's max m and sum
+//     l (and the log-sum-exp), the second computes P = exp2(s log2e -
+//     (m log2e + log2 l)) and rounds it to bf16 before P.V, exactly where the
+//     plain version casts its fp32 probabilities to v's dtype (the TPU kernel
+//     rounds the unnormalised P; in the retrieval kernel that one-pass order
+//     drifted from the plain path almost to the 0.999 cosine bound at depth
+//     40);
+//   - fp32 inputs (the test path) use CUDA-core FMA, a one-pass online
+//     softmax and the per-score gather.
+// Not done yet: TMA for K, V and the slab; sharing one slab between the two
+// images of a batch (a 2-block cluster with a multicast copy: half the L2
+// traffic of toep, which now bounds the bias); 128-row q tiles (half that of
+// K and V).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,19 +81,57 @@ namespace {
 constexpr int kHeadDim = 64;
 constexpr int kBlockM = 64;              // query rows per block
 constexpr int kBlockN = 64;              // keys per K/V tile
-constexpr int kStride = kHeadDim + 8;    // bf16 smem row stride: no bank conflicts
+constexpr int kTileBytes = kBlockN * kHeadDim * 2;  // a bf16 K/V tile: 64 rows of 128 B
+constexpr int kAlign = 1024;             // the 128-byte swizzle's atom: 8 rows of 128 B
 constexpr int kF32Stride = kHeadDim + 1; // fp32 smem row stride: no bank conflicts
 constexpr float kNegInf = -1e30f;
 
-// The bias operands of one (batch, head) and the grid shape.
+// How the bf16 kernel reads the bias (ops/det_attention.py: FWD_GATHER, FWD_SLAB).
+constexpr int kGather = 0;  // per score from device memory
+constexpr int kSlab = 1;    // toep and bh staged per tile pair, bw in registers
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The forward's plan for one grid (ops/det_attention.py:fwd_plan).
+struct Plan {
+  int mode;        // kGather or kSlab (the grid has wg even and 64 % wg == 0)
+  int tile_rows;   // the most grid rows one 64-token tile spans
+  int slab_rows;   // toep rows (wg floats each) staged per tile pair
+  int stride;      // floats per staged toep row
+  int smem_bytes;  // dynamic shared memory of the launch
+};
+
+// Byte offsets into the bf16 kernel's dynamic shared memory.
+struct Smem {
+  int ks, vs, slab, bh, cols, total;
+};
+
+__host__ __device__ inline Smem smem_layout(bool toep, bool decomp, int mode, const Plan& p) {
+  Smem s;
+  int off = 0;
+  s.ks = off;
+  off += 2 * kTileBytes;
+  s.vs = off;  // Q is read into registers from here before V is first loaded
+  off += 2 * kTileBytes;
+  s.slab = off;
+  if (toep && mode == kSlab) off += 2 * p.slab_rows * p.stride * 4;
+  s.bh = off;
+  if (decomp && mode == kSlab) off += 2 * p.tile_rows * kBlockM * 4;
+  s.cols = off;
+  if ((toep || decomp) && mode == kGather) off += 2 * 3 * kBlockN * 4;
+  s.total = off + kAlign;  // room to align the start to the swizzle atom
+  return s;
+}
+
+// The bias operands of one (batch, head), the grid shape and the plan.
 struct Bias {
   const float* toep;  // toep + h * (2hg-1) * wg * wg, or null
   const float* bh;    // bh + (b*H + h) * hg * L, or null
   const float* bw;    // bw + (b*H + h) * L * wg, or null
   int hg, wg, L;
+  int q0, stride, lw;  // the block's first row; the slab's row stride; log2(wg) (kSlab)
 };
 
-// Offsets of one query row into the bias operands.
+// Offsets of one query row into the bias operands (kGather).
 struct Row {
   int toep;  // ((qy + hg - 1) * wg + qx) * wg
   int q;     // the row itself: bh's column
@@ -114,42 +173,91 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D = A (16x16, row) * B (16x8, col) + D, bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+// wgmma (sm_90a): one warpgroup (the block's 4 warps) multiplies a 64 x 16
+// bf16 A from registers, in mma.sync's m16n8k16 A layout per warp, by a
+// 16 x 64 bf16 B in shared memory, into 64 x 64 fp32 accumulators in
+// mma.sync's m16n8 accumulator layout per warp: d[j][c] is row 16w + g +
+// 8 (c >> 1), column 8j + 2t + (c & 1).
+//
+// B's descriptor: a tile of 128-byte rows stored with the 128-byte swizzle
+// (16-byte chunk c of row r at r * 128 + ((c ^ (r & 7)) << 4), the tile
+// 1024-byte aligned), 8-row groups 1024 B apart.  K (key rows of 64 head
+// dims) is B = K^T K-major: a 16-deep step advances 32 bytes along the row.
+// V (key rows of 64 head dims) is B = V MN-major (transposed): a 16-deep
+// step advances 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
-// 16-byte async copy global -> shared; zero-fills when !valid.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Shared memory written by threads (cp.async) becomes visible to wgmma.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of d across a wgmma's start or wait.
+__device__ __forceinline__ void fence_acc(float d[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[j][c])::"memory");
+}
+
+#define DET_ACC4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+// d (+)= a . B: wgmma m64n64k16, A from registers; kTransB: B is MN-major.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_64x64x16(float d[8][4], const uint32_t a[4], uint64_t desc,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : DET_ACC4(0), DET_ACC4(1), DET_ACC4(2), DET_ACC4(3), DET_ACC4(4), DET_ACC4(5),
+        DET_ACC4(6), DET_ACC4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(kTransB));
+}
+#undef DET_ACC4
+
+// 16- and 4-byte async copies global -> shared; zero-fill when !valid.
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(addr), "l"(gmem), "r"(valid ? 16 : 0));
 }
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(addr), "l"(gmem), "r"(valid ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-// Rows [row0, row0 + 64) of one head into shared memory, asynchronously;
-// rows >= L are zero.
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+// Rows [row0, row0 + 64) of one head into a 128-byte-swizzled tile,
+// asynchronously; rows >= L are zero.
+__device__ __forceinline__ void load_tile_async(unsigned char* dst, const __nv_bfloat16* src,
                                                 int row0, int L, int row_stride) {
   for (int i = threadIdx.x; i < kBlockM * 8; i += blockDim.x) {
     const int r = i >> 3, c = i & 7;
     const bool valid = row0 + r < L;
-    cp_async_16(dst + r * kStride + c * 8,
+    cp_async_16(dst + r * 128 + ((c ^ (r & 7)) << 4),
                 src + static_cast<size_t>(valid ? row0 + r : 0) * row_stride + c * 8, valid);
   }
 }
@@ -163,49 +271,190 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   }
 }
 
-// One warp's 16 x 64 tile of scaled, biased and masked scores against the
-// K tile in shared memory, in the mma accumulator layout: s[j][c] is row
-// rows[c >> 1], key k0 + 8j + 2t + (c & 1).  The bias loads are issued
-// first, at clamped addresses and without branches, so they overlap the MMAs.
+// Stage the bias of the key tile at k0 (kSlab; see the header).  wg is a
+// power of two that divides 64, so the tile holds grid rows ky_lo ..
+// ky_lo + span whole, and every row and piece index is a shift and a mask.
 template <bool kToep, bool kDecomp>
-__device__ __forceinline__ void score_tile(float s[8][4], const uint32_t qa[4][4],
-                                           const __nv_bfloat16* ks, const int* cols,
-                                           const Row rows[2], int k0, float scaling,
-                                           const Bias& bias) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void stage_slab(float* slab, float* bhs, int k0, const Bias& bias) {
+  const int lw = bias.lw, wg = bias.wg;
+  const int ky_lo = k0 >> lw, span = (min(kBlockN, bias.L - k0) - 1) >> lw;
+  if (kToep) {  // toep rows r0 .. r0 + rows - 1, `stride` apart
+    const int r0 = bias.q0 + (bias.hg - 1 - ky_lo - span) * wg;
+    const int rows = min(kBlockM + span * wg, (2 * bias.hg - 1) * wg - r0);
+    const float* src = bias.toep + static_cast<size_t>(r0) * wg;
+    if (wg >= 4) {  // 16-byte pieces, wg / 4 a row
+      const int lp = lw - 2;
+      for (int i = threadIdx.x; i < rows << lp; i += blockDim.x) {
+        const int r = i >> lp, c = i & ((1 << lp) - 1);
+        cp_async_16(slab + r * bias.stride + 4 * c, src + (r << lw) + 4 * c, true);
+      }
+    } else {
+      for (int i = threadIdx.x; i < rows << lw; i += blockDim.x) {
+        const int r = i >> lw, c = i & (wg - 1);
+        cp_async_4(slab + r * bias.stride + c, src + (r << lw) + c, true);
+      }
+    }
+  }
+  if (kDecomp) {  // bh rows ky_lo .. ky_lo + span, queries q0 .. q0 + 63 (zero beyond L)
+    const float* src = bias.bh + static_cast<size_t>(ky_lo) * bias.L + bias.q0;
+    if ((bias.L & 3) == 0) {
+      for (int i = threadIdx.x; i < (span + 1) << 4; i += blockDim.x) {
+        const int r = i >> 4, c = i & 15;
+        const bool valid = bias.q0 + 4 * c < bias.L;
+        cp_async_16(bhs + r * kBlockM + 4 * c, valid ? src + r * bias.L + 4 * c : src, valid);
+      }
+    } else {
+      for (int i = threadIdx.x; i < (span + 1) << 6; i += blockDim.x) {
+        const int r = i >> 6, c = i & 63;
+        const bool valid = bias.q0 + c < bias.L;
+        cp_async_4(bhs + r * kBlockM + c, valid ? src + r * bias.L + c : src, valid);
+      }
+    }
+  }
+}
+
+// slab_bias's case of a full key tile on a grid 2^kLw >= 8 wide: the key
+// rows and columns of each 8-key group are constants.  At kLw = 6 the tile
+// is one grid row of keys, so bh is one value per row: it goes to ys, for
+// the softmax to add to the row's max and exponent instead of to each score.
+template <bool kToep, bool kDecomp, int kLw>
+__device__ __forceinline__ void slab_bias_full(float bv[8][4], float ys[2], const float* slab,
+                                               const float* bhs, const int rq[2],
+                                               const float bwr[8][4], int stride) {
+  constexpr int kWg = 1 << kLw, kSpan = (kBlockN >> kLw) - 1;
+  const int t = threadIdx.x & 3;
+  const int row_step = kWg * stride;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float* p = slab + rq[r] * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int kyl = (j * 8) >> kLw;
+      float2 x = make_float2(0.f, 0.f);
+      if (kToep)
+        x = *reinterpret_cast<const float2*>(p + (kSpan - kyl) * row_step + ((j * 8) & (kWg - 1)));
+      if (kDecomp && kLw == 6) {
+        x.x += bwr[j][2 * r];
+        x.y += bwr[j][2 * r + 1];
+      } else if (kDecomp) {
+        const float y = bhs[kyl * kBlockM + rq[r]];
+        x.x = x.x + y + bwr[j][2 * r];
+        x.y = x.y + y + bwr[j][2 * r + 1];
+      }
+      bv[j][2 * r] = x.x;
+      bv[j][2 * r + 1] = x.y;
+    }
+    if (kDecomp && kLw == 6) ys[r] = bhs[rq[r]];
+  }
+}
+
+// The bias of one warp's 16 x 64 tile in the mma accumulator layout:
+// bv[j][c] is row (g + 8 (c >> 1)), key k0 + 8j + 2t + (c & 1).
+// kSlab: wg divides 64 and is even, so the column pair (2t, 2t + 1) of each
+// 8-key group shares its ky and one float2 read gives both toep values;
+// bwr holds this thread's bw.  Rows r (and clamped keys) stay in the slab.
+template <bool kToep, bool kDecomp, int kMode>
+__device__ __forceinline__ void bias_tile(float bv[8][4], float ys[2], const float* slab,
+                                          const float* bhs, const int* cols, const int rq[2],
+                                          const Row rows[2], const float bwr[8][4], int k0,
+                                          const Bias& bias) {
+  const int t = threadIdx.x & 3;
+  ys[0] = ys[1] = 0.f;
+  if constexpr (kMode == kSlab) {
+    const int ncols = min(kBlockN, bias.L - k0);  // even, as L is
+    if (ncols == kBlockN && bias.lw == 6) {
+      slab_bias_full<kToep, kDecomp, 6>(bv, ys, slab, bhs, rq, bwr, bias.stride);
+      return;
+    }
+    if (ncols == kBlockN && bias.lw == 4) {
+      slab_bias_full<kToep, kDecomp, 4>(bv, ys, slab, bhs, rq, bwr, bias.stride);
+      return;
+    }
+    const int span = (ncols - 1) >> bias.lw;      // ky_hi - ky_lo
+    float y[2] = {0.f, 0.f};
+    if (kDecomp && span == 0) {  // one grid row of keys (wg = 64): one bh value a row
+      y[0] = bhs[rq[0]];
+      y[1] = bhs[rq[1]];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = min(j * 8 + 2 * t, ncols - 2);
+      const int kyl = col >> bias.lw;
+      const int toff = (span - kyl) * bias.wg * bias.stride + (col & (bias.wg - 1));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2 x = make_float2(0.f, 0.f);
+        if (kToep) x = *reinterpret_cast<const float2*>(slab + rq[r] * bias.stride + toff);
+        if (kDecomp) {
+          const float yr = span == 0 ? y[r] : bhs[kyl * kBlockM + rq[r]];
+          x.x = x.x + yr + bwr[j][2 * r];
+          x.y = x.y + yr + bwr[j][2 * r + 1];
+        }
+        bv[j][2 * r] = x.x;
+        bv[j][2 * r + 1] = x.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        bv[j][c] = bias_at<kToep, kDecomp>(bias, rows[c >> 1], cols, j * 8 + 2 * t + (c & 1));
+  }
+}
+
+// One warp's 16 x 64 tile of scaled, biased and masked scores against the
+// K tile in shared memory, in the mma accumulator layout: s[j][c] + ys[c >> 1]
+// is row rows[c >> 1], key k0 + 8j + 2t + (c & 1).  The bias is read while
+// q.k^T runs; only the last tile masks.
+template <bool kToep, bool kDecomp, int kMode>
+__device__ __forceinline__ void score_tile(float s[8][4], float ys[2], const uint32_t qa[4][4],
+                                           const unsigned char* ks, const float* slab,
+                                           const float* bhs, const int* cols, const int rq[2],
+                                           const Row rows[2], const float bwr[8][4], int k0,
+                                           float scaling, const Bias& bias) {
+  const int t = threadIdx.x & 3;
+  const uint64_t desc = sw128_desc(ks);
+  fence_acc(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_64x64x16<0>(s, qa[kk], desc + 2 * kk, kk);
+  wgmma_commit();
   float bv[8][4];
+  bias_tile<kToep, kDecomp, kMode>(bv, ys, slab, bhs, cols, rq, rows, bwr, k0, bias);
+  wgmma_wait_all();
+  fence_acc(s);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      bv[j][c] = bias_at<kToep, kDecomp>(bias, rows[c >> 1], cols, j * 8 + 2 * t + (c & 1));
+    for (int c = 0; c < 4; ++c) s[j][c] = s[j][c] * scaling + bv[j][c];
+  if (k0 + kBlockN > bias.L) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-    const __nv_bfloat16* kp = ks + (j * 8 + g) * kStride + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_16816(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kp + kk * 16),
-                *reinterpret_cast<const uint32_t*>(kp + kk * 16 + 8));
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      s[j][c] = k0 + j * 8 + 2 * t + (c & 1) < bias.L ? s[j][c] * scaling + bv[j][c] : kNegInf;
+      for (int c = 0; c < 4; ++c)
+        if (k0 + j * 8 + 2 * t + (c & 1) >= bias.L) s[j][c] = kNegInf;
   }
 }
 
 // 4 warps; warp w owns query rows [16w, 16w + 16) of the block's tile.
-template <bool kToep, bool kDecomp>
-__global__ void __launch_bounds__(128)
+template <bool kToep, bool kDecomp, int kMode>
+__global__ void __launch_bounds__(128, 3)
 det_attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, const float* __restrict__ toep,
                   const float* __restrict__ bh, const float* __restrict__ bw,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                  int L, int H, int hg, int wg, float scaling) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kBlockM * kStride];
-  __shared__ __align__(16) __nv_bfloat16 ks[2][kBlockN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][kBlockN * kStride];
-  __shared__ int cols[2][3 * kBlockN];
+                  int L, int H, int hg, int wg, float scaling, Plan plan) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const Smem lay = smem_layout(kToep, kDecomp, kMode, plan);
+  unsigned char* smem =
+      dyn_smem + ((kAlign - static_cast<uint32_t>(__cvta_generic_to_shared(dyn_smem))) & (kAlign - 1));
+  unsigned char* ks = smem + lay.ks;  // [2][kTileBytes], 128-byte swizzled
+  unsigned char* vs = smem + lay.vs;  // [2][kTileBytes], 128-byte swizzled
+  float* slab = reinterpret_cast<float*>(smem + lay.slab);  // [2][slab_rows * stride]
+  float* bhs = reinterpret_cast<float*>(smem + lay.bh);     // [2][tile_rows * 64]
+  int* cols = reinterpret_cast<int*>(smem + lay.cols);      // [2][3 * 64]
+  const int slab_size = plan.slab_rows * plan.stride, bh_size = plan.tile_rows * kBlockM;
 
   const int b = blockIdx.x, q0 = blockIdx.y * kBlockM, h = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -215,44 +464,69 @@ det_attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   const size_t bh_head = static_cast<size_t>(b) * H + h;
   const Bias bias{kToep ? toep + static_cast<size_t>(h) * (2 * hg - 1) * wg * wg : nullptr,
                   kDecomp ? bh + bh_head * hg * L : nullptr,
-                  kDecomp ? bw + bh_head * L * wg : nullptr, hg, wg, L};
+                  kDecomp ? bw + bh_head * L * wg : nullptr, hg, wg, L, q0, plan.stride,
+                  __ffs(wg) - 1};
 
-  load_tile_async(qs, q + base, q0, L, row_stride);
+  const unsigned char* qs = vs;
+  load_tile_async(vs, q + base, q0, L, row_stride);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
   const int qr = warp * 16 + g;
   uint32_t qa[4][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const __nv_bfloat16* p0 = qs + qr * kStride + kk * 16 + 2 * t;
-    const __nv_bfloat16* p1 = p0 + 8 * kStride;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
+  for (int kk = 0; kk < 4; ++kk) {  // row qr (and qr + 8), head dims 16kk + 2t (+ 8)
+    const unsigned char* p0 = qs + qr * 128 + 4 * t;
+    const unsigned char* p1 = p0 + 8 * 128;
+    const int c0 = ((2 * kk) ^ (qr & 7)) << 4, c1 = ((2 * kk + 1) ^ (qr & 7)) << 4;
+    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p0 + c0);
+    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p1 + c0);
+    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + c1);
+    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + c1);
   }
   const int row_ids[2] = {q0 + qr, q0 + qr + 8};
+  const int rq[2] = {min(row_ids[0], L - 1) - q0, min(row_ids[1], L - 1) - q0};
   const Row rows[2] = {make_row(row_ids[0], bias), make_row(row_ids[1], bias)};
-  float s[8][4];
-
-  // pass 1: running max m and sum l of exp(s - m) per row
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // kSlab: bw of this thread's rows and columns, the same in every key tile
+  float bwr[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      bwr[j][c] = kDecomp && kMode == kSlab
+                      ? __ldg(bias.bw + (q0 + rq[c >> 1]) * wg +
+                              ((j * 8 + 2 * t + (c & 1)) & (wg - 1)))
+                      : 0.f;
+  float s[8][4], ys[2];
   const int n_tiles = (L + kBlockN - 1) / kBlockN;
-  load_tile_async(ks[0], k + base, 0, L, row_stride);
+  auto stage = [&](int it, bool with_v) {
+    const int buf = it & 1, k0 = it * kBlockN;
+    load_tile_async(ks + buf * kTileBytes, k + base, k0, L, row_stride);
+    if (with_v) load_tile_async(vs + buf * kTileBytes, v + base, k0, L, row_stride);
+    if constexpr (kMode == kSlab)
+      stage_slab<kToep, kDecomp>(slab + buf * slab_size, bhs + buf * bh_size, k0, bias);
+    else if constexpr (kToep || kDecomp)
+      column_table(cols + buf * 3 * kBlockN, k0, bias);
+  };
+  auto scores = [&](int it) {
+    const int buf = it & 1;
+    score_tile<kToep, kDecomp, kMode>(s, ys, qa, ks + buf * kTileBytes, slab + buf * slab_size,
+                                      bhs + buf * bh_size, cols + buf * 3 * kBlockN, rq, rows,
+                                      bwr, it * kBlockN, scaling, bias);
+  };
+
+  // pass 1: running max m and sum l of exp(s - m) per row (exp through exp2)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  stage(0, false);
   cp_async_commit();
-  column_table(cols[0], 0, bias);
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kBlockN;
-    if (it + 1 < n_tiles) {
-      load_tile_async(ks[(it + 1) & 1], k + base, k0 + kBlockN, L, row_stride);
-      column_table(cols[(it + 1) & 1], k0 + kBlockN, bias);
-    }
+    if (it + 1 < n_tiles) stage(it + 1, false);
     cp_async_commit();
     cp_async_wait_prev();
+    fence_async_shared();
     __syncthreads();
-    score_tile<kToep, kDecomp>(s, qa, ks[it & 1], cols[it & 1], rows, k0, scaling, bias);
-    float mx[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f};
+    scores(it);
+    float mx[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -261,21 +535,26 @@ det_attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mx[r] = fmaxf(m[r], mx[r] + ys[r]);
     }
+    // exp(s + ys - mx) = exp2(s log2e + (ys log2e - mx log2e))
+    const float off[2] = {fmaf(ys[0], kLog2e, -mx[0] * kLog2e),
+                          fmaf(ys[1], kLog2e, -mx[1] * kLog2e)};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) rs[c >> 1] += __expf(s[j][c] - mx[c >> 1]);
+      for (int c = 0; c < 4; ++c) rs[c >> 1] += ex2(fmaf(s[j][c], kLog2e, off[c >> 1]));
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
       rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * __expf(m[r] - mx[r]) + rs[r];
+      l[r] = l[r] * ex2((m[r] - mx[r]) * kLog2e) + rs[r];  // exactly l when m holds
       m[r] = mx[r];
     }
     __syncthreads();  // tile it is consumed before its buffers are refilled
   }
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  // exp(s - m) / l = exp2(s log2e - (m log2e + log2 l))
+  const float ml[2] = {fmaf(m[0], kLog2e, log2f(l[0])), fmaf(m[1], kLog2e, log2f(l[1]))};
   if (lse != nullptr && t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -288,43 +567,39 @@ det_attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-  load_tile_async(ks[0], k + base, 0, L, row_stride);
-  load_tile_async(vs[0], v + base, 0, L, row_stride);
+  stage(0, true);
   cp_async_commit();
-  column_table(cols[0], 0, bias);
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kBlockN;
-    if (it + 1 < n_tiles) {
-      load_tile_async(ks[(it + 1) & 1], k + base, k0 + kBlockN, L, row_stride);
-      load_tile_async(vs[(it + 1) & 1], v + base, k0 + kBlockN, L, row_stride);
-      column_table(cols[(it + 1) & 1], k0 + kBlockN, bias);
-    }
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) stage(it + 1, true);
     cp_async_commit();
     cp_async_wait_prev();
+    fence_async_shared();
     __syncthreads();
-    score_tile<kToep, kDecomp>(s, qa, ks[it & 1], cols[it & 1], rows, k0, scaling, bias);
+    scores(it);
+    const float off[2] = {fmaf(ys[0], kLog2e, -ml[0]), fmaf(ys[1], kLog2e, -ml[1])};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = __expf(s[j][c] - m[c >> 1]) * inv[c >> 1];
+      for (int c = 0; c < 4; ++c) s[j][c] = ex2(fmaf(s[j][c], kLog2e, off[c >> 1]));
     // The accumulator layout of two adjacent 8-key score tiles is the A
     // operand layout of one 16-key step of P.V.
+    uint32_t pa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int mi = lane >> 3;
-      const __nv_bfloat16* vrow = vs[it & 1] + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * kStride;
-#pragma unroll
-      for (int n = 0; n < 8; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vrow + (n + (mi >> 1)) * 8);
-        mma_16816(o[n], pa, vb[0], vb[1]);
-        mma_16816(o[n + 1], pa, vb[2], vb[3]);
-      }
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
+    const uint64_t desc = sw128_desc(vs + buf * kTileBytes);
+    fence_acc(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_64x64x16<1>(o, pa[kk], desc + 128 * kk, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(o);
     __syncthreads();  // tile it is consumed before its buffers are refilled
   }
 
@@ -363,7 +638,7 @@ det_attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const size_t bh_head = static_cast<size_t>(b) * H + h;
   const Bias bias{kToep ? toep + static_cast<size_t>(h) * (2 * hg - 1) * wg * wg : nullptr,
                   kDecomp ? bh + bh_head * hg * L : nullptr,
-                  kDecomp ? bw + bh_head * L * wg : nullptr, hg, wg, L};
+                  kDecomp ? bw + bh_head * L * wg : nullptr, hg, wg, L, q0, 0, 0};
 
   load_tile_f32(qs, q + base, q0, L, row_stride);
   Row rows[4];
@@ -457,26 +732,53 @@ det_attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <bool kToep, bool kDecomp, int kMode>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float* toep,
+                        const float* bh, const float* bw, void* out, float* lse, dim3 grid,
+                        int L, int heads, int hg, int wg, float scaling, const Plan& plan,
+                        cudaStream_t s) {
+  const Smem lay = smem_layout(kToep, kDecomp, kMode, plan);
+  if (lay.total != plan.smem_bytes) return cudaErrorInvalidValue;  // the plan is inconsistent
+  cudaError_t err = cudaFuncSetAttribute(det_attn_fwd_bf16<kToep, kDecomp, kMode>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+  if (err != cudaSuccess) return err;
+  det_attn_fwd_bf16<kToep, kDecomp, kMode><<<grid, 128, lay.total, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), toep, bh, bw, static_cast<__nv_bfloat16*>(out), lse,
+      L, heads, hg, wg, scaling, plan);
+  return cudaGetLastError();
+}
+
 template <bool kToep, bool kDecomp>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* toep,
                    const float* bh, const float* bw, void* out, float* lse, int batch, int L,
-                   int heads, int hg, int wg, float scaling, bool is_bf16, cudaStream_t s) {
+                   int heads, int hg, int wg, float scaling, bool is_bf16, const Plan& plan,
+                   cudaStream_t s) {
   const dim3 grid(batch, (L + kBlockM - 1) / kBlockM, heads);
   if (is_bf16) {
-    det_attn_fwd_bf16<kToep, kDecomp><<<grid, 128, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), toep, bh, bw,
-        static_cast<__nv_bfloat16*>(out), lse, L, heads, hg, wg, scaling);
-  } else {
-    cudaError_t err = cudaFuncSetAttribute(det_attn_fwd_f32<kToep, kDecomp>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(kF32Smem));
-    if (err != cudaSuccess) return err;
-    det_attn_fwd_f32<kToep, kDecomp><<<grid, 256, kF32Smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), toep, bh, bw, static_cast<float*>(out), lse,
-        L, heads, hg, wg, scaling);
+    if constexpr (!kToep && !kDecomp)  // no bias to read: one kernel serves every plan
+      return launch_bf16<kToep, kDecomp, kGather>(q, k, v, toep, bh, bw, out, lse, grid, L,
+                                                  heads, hg, wg, scaling, plan, s);
+    else switch (plan.mode) {
+      case kGather:
+        return launch_bf16<kToep, kDecomp, kGather>(q, k, v, toep, bh, bw, out, lse, grid, L,
+                                                    heads, hg, wg, scaling, plan, s);
+      case kSlab:
+        if (wg % 2 != 0 || kBlockN % wg != 0) return cudaErrorInvalidValue;
+        return launch_bf16<kToep, kDecomp, kSlab>(q, k, v, toep, bh, bw, out, lse, grid, L,
+                                                  heads, hg, wg, scaling, plan, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
+  cudaError_t err = cudaFuncSetAttribute(det_attn_fwd_f32<kToep, kDecomp>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kF32Smem));
+  if (err != cudaSuccess) return err;
+  det_attn_fwd_f32<kToep, kDecomp><<<grid, 256, kF32Smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), toep, bh, bw, static_cast<float*>(out), lse,
+      L, heads, hg, wg, scaling);
   return cudaGetLastError();
 }
 
@@ -486,11 +788,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* toe
 // q, k, v, out: (batch, L, heads * 64), bf16 when is_bf16 else fp32, L = hg * wg.
 // toep: fp32 (heads, 2hg-1, wg, wg) or null.  bh: fp32 (batch, heads, hg, L)
 // and bw: fp32 (batch, heads, L, wg), both or neither.  lse: fp32
-// (batch, heads, L) or null.
+// (batch, heads, L) or null.  mode, tile_rows, slab_rows, stride and
+// smem_bytes: the bf16 kernel's plan for this grid and these biases
+// (ops/det_attention.py:fwd_plan); the fp32 kernel ignores them.
 extern "C" int one_peace_det_attention_fwd(
     const void* q, const void* k, const void* v, const void* toep, const void* bh,
     const void* bw, void* out, void* lse, int batch, int seq_len, int heads, int hg, int wg,
-    float scaling, int is_bf16, int device, void* stream) {
+    float scaling, int is_bf16, int mode, int tile_rows, int slab_rows, int stride,
+    int smem_bytes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -498,14 +803,19 @@ extern "C" int one_peace_det_attention_fwd(
   const float* h = static_cast<const float*>(bh);
   const float* w = static_cast<const float*>(bw);
   float* ls = static_cast<float*>(lse);
+  const Plan plan{mode, tile_rows, slab_rows, stride, smem_bytes};
   if (tp != nullptr && h != nullptr)
-    err = launch<true, true>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling, is_bf16, s);
+    err = launch<true, true>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling,
+                             is_bf16, plan, s);
   else if (tp != nullptr)
-    err = launch<true, false>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling, is_bf16, s);
+    err = launch<true, false>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling,
+                              is_bf16, plan, s);
   else if (h != nullptr)
-    err = launch<false, true>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling, is_bf16, s);
+    err = launch<false, true>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling,
+                              is_bf16, plan, s);
   else
-    err = launch<false, false>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling, is_bf16, s);
+    err = launch<false, false>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling,
+                               is_bf16, plan, s);
   return static_cast<int>(err);
 }
 

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -180,13 +180,68 @@ def det_attention_bwd_plain(q, k, v, toep, bh, bw, out, dout, lse, hw: Tuple[int
     return (*(x.to(q.dtype).reshape(b, l, hdim) for x in (dq, dk, dv)), dtoep, dbh, dbw)
 
 
+# How the bf16 forward kernel reads the bias (``csrc/det_attention_fwd.cu``):
+# per score from device memory, or from a slab of toep and bh's rows staged in
+# shared memory per tile pair with bw held in registers.
+FWD_GATHER, FWD_SLAB = 0, 1
+FWD_TILE = 64  # query rows of a block and keys of a K/V tile
+
+
+class FwdPlan(NamedTuple):
+    """The bf16 forward kernel's plan for one grid and set of biases."""
+    mode: int        # FWD_GATHER or FWD_SLAB
+    tile_rows: int   # the most grid rows one 64-token tile spans
+    n_disp: int      # the most displacements qy - ky of any (q tile, key tile) pair
+    slab_rows: int   # toep rows (wg floats each) staged per tile pair
+    stride: int      # floats per staged toep row
+    smem_bytes: int  # the launch's dynamic shared memory
+
+
+def _fwd_smem_bytes(mode: int, has_toep: bool, has_decomp: bool, tile_rows: int,
+                    slab_rows: int, stride: int) -> int:
+    """``smem_layout`` of ``det_attention_fwd.cu``: K and V tiles (bf16,
+    double-buffered, 128-byte swizzled rows), then the toep slab and bh's
+    rows (double-buffered) or the gather's column table, and 1024 bytes to
+    align the tiles to the swizzle's 1024-byte atom."""
+    n = 2 * 2 * FWD_TILE * HEAD_DIM * 2 + 1024
+    if mode == FWD_SLAB:
+        n += 2 * slab_rows * stride * 4 if has_toep else 0
+        n += 2 * tile_rows * FWD_TILE * 4 if has_decomp else 0
+    elif has_toep or has_decomp:
+        n += 2 * 3 * FWD_TILE * 4
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(hg: int, wg: int, has_toep: bool = True, has_decomp: bool = True) -> FwdPlan:
+    """Plan the bf16 forward kernel on an (hg, wg) grid.  A (q tile at q0,
+    key tile) pair whose keys span grid rows ky_lo..ky_hi reads toep's flat
+    rows (qy - ky + hg - 1) * wg + qx = q + (hg - 1 - ky) * wg: the
+    64 + (ky_hi - ky_lo) * wg rows from q0 + (hg - 1 - ky_hi) * wg on.  Where
+    wg is even and divides 64 (the 64 x 64 grid, the 16 x 16 windows) every
+    key tile holds whole grid rows with one column pattern: the kernel stages
+    those rows in rows of a stride = 8 mod 16 floats (conflict-free float2
+    reads of an mma fragment) with bh's rows, and holds bw in registers.  On
+    other grids it gathers per score: staging there too, with bw's rows in
+    shared memory and a per-tile column table, ran 2.3x (80 x 80) and 4.3x
+    (50 x 50) slower than the gather on the card, at one block per SM."""
+    l = hg * wg
+    tile_rows = max((min(q0 + FWD_TILE, l) - 1) // wg - q0 // wg + 1
+                    for q0 in range(0, l, FWD_TILE))
+    n_disp = min(2 * tile_rows - 1, 2 * hg - 1)
+    slab_rows = min(FWD_TILE + (tile_rows - 1) * wg, (2 * hg - 1) * wg)
+    stride = wg + (8 - wg) % 16
+    mode = FWD_SLAB if wg % 2 == 0 and FWD_TILE % wg == 0 else FWD_GATHER
+    return FwdPlan(mode, tile_rows, n_disp, slab_rows, stride,
+                   _fwd_smem_bytes(mode, has_toep, has_decomp, tile_rows, slab_rows, stride))
+
+
 @functools.lru_cache(maxsize=None)
 def _library(which: str = "fwd") -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(f"det_attention_{which}")))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if which == "fwd":
-        lib.one_peace_det_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, i,
-                                                    i, p]
+        lib.one_peace_det_attention_fwd.argtypes = [p] * 8 + [i] * 5 + [f] + [i] * 7 + [p]
         lib.one_peace_det_attention_fwd.restype = i
         lib.one_peace_det_error_string.argtypes = [i]
         lib.one_peace_det_error_string.restype = ctypes.c_char_p
@@ -243,14 +298,15 @@ def det_attention_cuda(q, k, v, toep, bh, bw, hw: Tuple[int, int], scaling: floa
     _check_kernel_inputs(q, k, v, toep, bh, bw, hw, heads)
     lib = _library()
     b, l, _ = q.shape
+    plan = fwd_plan(hw[0], hw[1], toep is not None, bh is not None)
     out = torch.empty_like(q)
     lse = (torch.empty(b, heads, l, dtype=torch.float32, device=q.device)
            if with_lse else None)
     err = lib.one_peace_det_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(toep), _ptr(bh), _ptr(bw),
         out.data_ptr(), _ptr(lse), b, l, heads, hw[0], hw[1], float(scaling),
-        int(q.dtype == torch.bfloat16), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(q.dtype == torch.bfloat16), plan.mode, plan.tile_rows, plan.slab_rows, plan.stride,
+        plan.smem_bytes, q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"det attention kernel launch failed: "
                            f"{lib.one_peace_det_error_string(err).decode()} ({err})")

@@ -60,7 +60,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the dtoep pass, pass 2) against their plain version, bf16 and fp32,
    at the global grid (B=2, 64 x 64), its windows (B=32, 16 x 16) with each
    bias alone, both and none, and ragged, 32 x 32, 1 x 64 and 80 x 80 grids,
-   each call twice and bit-equal; (b) the recipe's detector with 4 trunk
+   each call twice and bit-equal, so that each branch of the backward's plan
+   runs (logged per case); (b) the recipe's detector with 4 trunk
    layers at full width, 1024 px, B=2, drop path 0.6 and remat, RPN, cascade
    and masks: loss and per-parameter gradients, kernel path against plain
    path, fp32 and bf16 compute; (c) the recipe at depth 40 through
@@ -69,8 +70,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    with layer decay): ms per step, images/s, peak memory, launches per step
    (80 forward, 40 backward) and a falling loss on both paths, one profiled
    step (``det_train_profile.txt``); (d) ms per global and windowed layer of
-   the backward by pass, the plain backward and SDPA's backward with the
-   materialised bias needing a gradient.
+   the backward by pass, each pass with no bias, toep only, bh + bw only and
+   both, the plain backward and SDPA's backward with the materialised bias
+   needing a gradient, and the backward's ratio to it.
 
 Every timed kernel also prints its bound: the larger of its bytes over the
 HBM rate and its operations over the peak rate (NVIDIA's data sheet).  The
@@ -1228,6 +1230,7 @@ DET_BWD_CASES = [  # (B, hg, wg, toep, decomp): the 1024 px global grid with eac
     (32, 16, 16, False, True), (32, 16, 16, False, False), (2, 50, 50, True, True),
     (2, 32, 32, True, True), (2, 1, 64, True, False), (1, 80, 80, True, True)]
 DET_BWD_NAMES = ("dq", "dk", "dv", "dtoep", "dbh", "dbw")
+DET_BWD_MODES = {da.BWD_GATHER: "gather", da.BWD_SLAB: "staged, bias sums in registers"}
 
 
 def check_det_bwd_kernel(gen) -> dict:
@@ -1236,10 +1239,16 @@ def check_det_bwd_kernel(gen) -> dict:
     inputs (the forward kernel's output and LSE), bf16 and fp32; the same
     call twice must be bit-equal.  Returns the largest max |diff| of #5's
     outputs (dq, dtoep, dbh, dbw) and of #6's (dk, dv).  Bounds relative to
-    max |plain|, as phase 6's: fp32 1e-4, bf16 2e-2 max and 5e-3 mean."""
+    max |plain|, as phase 6's: fp32 1e-4, bf16 2e-2 max and 5e-3 mean.
+    Each bf16 case logs the branch of ``det_attention.bwd_plan`` it took;
+    the phase fails unless both ran."""
     worst = {"dq": 0.0, "dkv": 0.0}
+    modes = set()
     for dtype in (torch.bfloat16, torch.float32):
         for b, hg, wg, toep_on, decomp_on in DET_BWD_CASES:
+            plan = da.bwd_plan(hg, wg, toep_on, decomp_on)
+            if dtype == torch.bfloat16:
+                modes.add(plan.mode)
             ops = det_operands(gen, b, hg, wg, dtype, toep_on, decomp_on)
             out, lse = da.det_attention_cuda(*ops, (hg, wg), 0.125, DET_HEADS, with_lse=True)
             dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
@@ -1272,11 +1281,16 @@ def check_det_bwd_kernel(gen) -> dict:
                                        f"version: {str(dtype)[6:]} B={b} {hg}x{wg} "
                                        f"toep={toep_on} decomp={decomp_on}: max {rel_max:.3e} "
                                        f"mean {rel_mean:.3e}")
+            branch = (f"plan: {DET_BWD_MODES[plan.mode]}, shared {plan.dq_smem}/"
+                      f"{plan.dkv_smem}/{plan.dtoep_smem} B" if dtype == torch.bfloat16
+                      else "fp32 kernels: gather")
             log(f"12(a) det bwd kernel vs plain {str(dtype)[6:]} B={b} grid {hg}x{wg} "
-                f"toep={toep_on} decomp={decomp_on}: max/mean |d| relative {', '.join(parts)}; "
-                f"bit-equal over two calls")
+                f"toep={toep_on} decomp={decomp_on} ({branch}): max/mean |d| relative "
+                f"{', '.join(parts)}; bit-equal over two calls")
             del ops, out, lse, dout, got, again, want
             torch.cuda.empty_cache()
+    if modes != set(DET_BWD_MODES):
+        raise RuntimeError(f"12(a): the cases took the plan's branches {modes} only")
     return worst
 
 
@@ -1459,11 +1473,28 @@ def time_det_backward(gen, card: str) -> dict:
     pass 1 with the dtoep pass (#5), pass 2 (#6) and the whole backward
     (with delta); the plain backward; SDPA with the materialised bf16 bias
     requiring a gradient (its backward alone, the library call set beside
-    the kernels, and forward + backward).  Bounds from this run's operands:
-    #5 computes s, dp and dq (6 B H L^2 64 operations), #6 s, dp, dv and dk
-    (8), the whole backward at least 10."""
+    the kernels, and forward + backward), and the whole backward's ratio to
+    it.  Bounds from this run's operands: #5 computes s, dp and dq (6 B H L^2
+    64 operations), #6 s, dp, dv and dk (8), the whole backward at least 10.
+    Beside them each kernel on the same q/k/v with no bias, toep only, bh +
+    bw only and both: what each bias costs each kernel."""
     times = {}
     for name, (b, hg, wg) in (("global", (2, 64, 64)), ("windowed", (32, 16, 16))):
+        by_bias = []
+        for toep_on, decomp_on in ((False, False), (True, False), (False, True), (True, True)):
+            ops = det_operands(gen, b, hg, wg, torch.bfloat16, toep_on, decomp_on)
+            out, lse = da.det_attention_cuda(*ops, (hg, wg), 0.125, DET_HEADS, with_lse=True)
+            dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+            args = (*ops, out, dout, lse, (hg, wg), 0.125, DET_HEADS)
+            ms = [cuda_time_ms(lambda: da.det_attention_bwd_cuda(*args, passes=p), iters=10)
+                  if p != 2 or toep_on else None for p in (1, 2, 4)]
+            by_bias.append(f"{'toep' if toep_on else 'no toep'}, "
+                           f"{'bh + bw' if decomp_on else 'no bh/bw'}: pass 1 {ms[0]:.3f}, dtoep "
+                           + ("-" if ms[1] is None else f"{ms[1]:.3f}") + f", pass 2 {ms[2]:.3f}")
+            del ops, out, lse, dout, args
+        log(f"12(d) det attention backward per {name} layer B={b} grid {hg}x{wg} bf16, what "
+            f"each bias costs each kernel (ms): {'; '.join(by_bias)}; plan: "
+            f"{DET_BWD_MODES[da.bwd_plan(hg, wg).mode]} ({card})")
         ops = det_operands(gen, b, hg, wg, torch.bfloat16)
         q, k, v, toep, bh, bw = ops
         l = hg * wg
@@ -1502,7 +1533,8 @@ def time_det_backward(gen, card: str) -> dict:
             f"dtoep (#5) {dq_ms:.3f} ms (pass 1 alone {pass1_ms:.3f}; bound {bound_dq[0]:.3f} "
             f"by {bound_dq[1]}), pass 2 "
             f"(#6) {dkv_ms:.3f} ms (bound {bound_dkv[0]:.3f} by {bound_dkv[1]}), whole backward "
-            f"{total_ms:.3f} ms (bound {bound_all[0]:.3f} by {bound_all[1]}); plain "
+            f"{total_ms:.3f} ms (bound {bound_all[0]:.3f} by {bound_all[1]}; "
+            f"{total_ms / library_ms:.2f}x SDPA's backward); plain "
             f"{plain_ms:.3f} ms; SDPA with the materialised bf16 bias: backward {library_ms:.3f}"
             f" ms, forward + backward {fwd_bwd_ms:.3f} ms ({card})")
         times[name] = {

@@ -76,6 +76,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma_tiles.cuh"
+
 namespace {
 
 constexpr int kHeadDim = 64;
@@ -168,98 +170,10 @@ __device__ __forceinline__ float bias_at(const Bias& bias, const Row& row, const
   return x;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// wgmma (sm_90a): one warpgroup (the block's 4 warps) multiplies a 64 x 16
-// bf16 A from registers, in mma.sync's m16n8k16 A layout per warp, by a
-// 16 x 64 bf16 B in shared memory, into 64 x 64 fp32 accumulators in
-// mma.sync's m16n8 accumulator layout per warp: d[j][c] is row 16w + g +
-// 8 (c >> 1), column 8j + 2t + (c & 1).
-//
-// B's descriptor: a tile of 128-byte rows stored with the 128-byte swizzle
-// (16-byte chunk c of row r at r * 128 + ((c ^ (r & 7)) << 4), the tile
-// 1024-byte aligned), 8-row groups 1024 B apart.  K (key rows of 64 head
-// dims) is B = K^T K-major: a 16-deep step advances 32 bytes along the row.
-// V (key rows of 64 head dims) is B = V MN-major (transposed): a 16-deep
-// step advances 16 rows, 2048 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Shared memory written by threads (cp.async) becomes visible to wgmma.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Keeps the compiler from moving accesses of d across a wgmma's start or wait.
-__device__ __forceinline__ void fence_acc(float d[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[j][c])::"memory");
-}
-
-#define DET_ACC4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
-// d (+)= a . B: wgmma m64n64k16, A from registers; kTransB: B is MN-major.
-template <int kTransB>
-__device__ __forceinline__ void wgmma_64x64x16(float d[8][4], const uint32_t a[4], uint64_t desc,
-                                               int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : DET_ACC4(0), DET_ACC4(1), DET_ACC4(2), DET_ACC4(3), DET_ACC4(4), DET_ACC4(5),
-        DET_ACC4(6), DET_ACC4(7)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(kTransB));
-}
-#undef DET_ACC4
-
-// 16- and 4-byte async copies global -> shared; zero-fill when !valid.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(addr), "l"(gmem), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// Rows [row0, row0 + 64) of one head into a 128-byte-swizzled tile,
-// asynchronously; rows >= L are zero.
-__device__ __forceinline__ void load_tile_async(unsigned char* dst, const __nv_bfloat16* src,
-                                                int row0, int L, int row_stride) {
-  for (int i = threadIdx.x; i < kBlockM * 8; i += blockDim.x) {
-    const int r = i >> 3, c = i & 7;
-    const bool valid = row0 + r < L;
-    cp_async_16(dst + r * 128 + ((c ^ (r & 7)) << 4),
-                src + static_cast<size_t>(valid ? row0 + r : 0) * row_stride + c * 8, valid);
-  }
 }
 
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,

@@ -3,9 +3,10 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at its first launch (or all at once through
 ``build_libraries``), into ``build/torch_kernels/`` beside the package.  The
-library's name carries a hash of its source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  The wrappers load the
-libraries with ``ctypes``.
+library's name carries a hash of its source, of every header under
+``csrc/`` (``*.cuh``, which the sources include) and of the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  The
+wrappers load the libraries with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -36,14 +37,23 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` goes: its name hashes the
+    source, every ``csrc/*.cuh`` header (names and bytes) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
 def build_library(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into a shared library unless a library of
-    the same source and flags is already built; return its path.  The
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
-    kept beside it with a ``.log`` suffix."""
+    the same source, headers and flags is already built; return its path.
+    The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    is kept beside it with a ``.log`` suffix."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    lib = library_path(name)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -236,6 +236,84 @@ def fwd_plan(hg: int, wg: int, has_toep: bool = True, has_decomp: bool = True) -
                    _fwd_smem_bytes(mode, has_toep, has_decomp, tile_rows, slab_rows, stride))
 
 
+# How the bf16 backward kernels read the bias (``csrc/det_attention_bwd.cu``):
+# per score from device memory, or staged per tile in shared memory (toep's
+# rows, bh's rows, and bw's in pass 2 and the dtoep pass) and registers (bw
+# in pass 1), with dbh and dbw summed in registers.
+BWD_GATHER, BWD_SLAB = 0, 1
+BF16_TILE_BYTES = FWD_TILE * HEAD_DIM * 2  # a 128-byte-swizzled bf16 Q/K/V/G tile
+SWIZZLE_ALIGN = 1024  # the bf16 kernels align their shared memory to the swizzle's atom
+
+
+class BwdPlan(NamedTuple):
+    """The bf16 backward kernels' plan for one grid and set of biases."""
+    mode: int        # BWD_GATHER or BWD_SLAB
+    tile_rows: int   # grid rows of a 64-key tile (BWD_SLAB: 64 // wg)
+    slab_rows: int   # toep rows staged per tile pair: 64 + (tile_rows - 1) * wg
+    q_stride: int    # floats per staged row in pass 1: = 8 mod 16
+    k_stride: int    # floats per staged row in pass 2: = 4 mod 16
+    dq_smem: int     # dynamic shared memory of pass 1, pass 2 and the dtoep pass
+    dkv_smem: int
+    dtoep_smem: int
+
+
+def dtoep_cols(wg: int) -> int:
+    """Slab columns of one dtoep block's tile: 16, 32 or 64."""
+    return 16 if wg <= 16 else 32 if wg <= 32 else 64
+
+
+def _bwd_smem_bytes(mode: int, has_toep: bool, has_decomp: bool, wg: int, tile_rows: int,
+                    slab_rows: int, q_stride: int, k_stride: int) -> Tuple[int, int, int]:
+    """``dq_layout``, ``dkv_layout`` and ``dtoep_layout`` of
+    ``det_attention_bwd.cu`` for bf16: six swizzled tiles each in passes 1
+    and 2, then the staged bias (double-buffered in pass 1, single in pass
+    2, with the q tile's lse, delta and bh rows) or the gather's ds
+    staging, dbw sums and position tables; eight tiles and two item tables
+    in the dtoep pass, with each item's bw rows; and 1024 bytes to align
+    the tiles to the swizzle's atom where wgmma reads them (all but the
+    dtoep pass's 16- and 32-wide items)."""
+    tiles = 6 * BF16_TILE_BYTES
+    if mode == BWD_SLAB:
+        dq = (tiles + (2 * slab_rows * q_stride * 4 if has_toep else 0)
+              + (2 * tile_rows * FWD_TILE * 4 if has_decomp else 0))
+        dkv = (tiles + (slab_rows * k_stride * 4 if has_toep else 0)
+               + (FWD_TILE * k_stride * 4 if has_decomp else 0)
+               + 2 * (tile_rows + 2) * FWD_TILE * 4)
+    else:
+        staging = FWD_TILE * (FWD_TILE + 1) * 4
+        dq = tiles + staging + (FWD_TILE * wg * 4 if has_decomp else 0) + 2 * 4 * FWD_TILE * 4
+        dkv = tiles + 2 * 5 * FWD_TILE * 4 + staging
+    cols = dtoep_cols(wg)
+    bw_stride = 16 if cols == 16 else cols + 8
+    dtoep = 8 * BF16_TILE_BYTES + 2 * 6 * FWD_TILE * 4 + (
+        2 * FWD_TILE * bw_stride * 4 if has_decomp else 0)
+    return dq + SWIZZLE_ALIGN, dkv + SWIZZLE_ALIGN, dtoep + (SWIZZLE_ALIGN if cols == 64 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(hg: int, wg: int, has_toep: bool = True, has_decomp: bool = True) -> BwdPlan:
+    """Plan the bf16 backward kernels on an (hg, wg) grid.  Where wg is 8, 16,
+    32 or 64 (the 64 x 64 grid, its 16 x 16 windows) a 64-token tile is
+    64 // wg whole grid rows with one column pattern, so the kernels stage
+    the bias: per (q tile at q0, key tile at ky_lo) pair toep's flat rows
+    q + (hg - 1 - ky) * wg, the 64 + (64 // wg - 1) * wg rows from
+    q0 + (hg - 64 // wg - ky_lo) * wg on (rows outside the factor are zeros),
+    padded to a stride = 8 mod 16 floats for pass 1's float2 reads and = 4
+    mod 16 for pass 2's scalar reads (both conflict-free); pass 1 holds bw
+    and the dbw sums in registers and sums dbh per grid row in registers;
+    pass 2 stages the q tile's bw rows and folds bh into its lse.  Narrower
+    even grids would put the column pairs of one 8-key group in several grid
+    rows, and ragged ones have no fixed column pattern: they gather per
+    score (``fwd_plan`` found staging there lost at one block per SM)."""
+    mode = BWD_SLAB if wg in (8, 16, 32, 64) else BWD_GATHER
+    tile_rows = FWD_TILE // wg if mode == BWD_SLAB else 0
+    slab_rows = FWD_TILE + (tile_rows - 1) * wg if mode == BWD_SLAB else 0
+    q_stride, k_stride = wg + (8 - wg) % 16, wg + (4 - wg) % 16
+    return BwdPlan(mode, tile_rows, slab_rows, q_stride, k_stride,
+                   *_bwd_smem_bytes(mode, has_toep, has_decomp, wg, tile_rows, slab_rows,
+                                    q_stride, k_stride))
+
+
 @functools.lru_cache(maxsize=None)
 def _library(which: str = "fwd") -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(f"det_attention_{which}")))
@@ -246,7 +324,7 @@ def _library(which: str = "fwd") -> ctypes.CDLL:
         lib.one_peace_det_error_string.argtypes = [i]
         lib.one_peace_det_error_string.restype = ctypes.c_char_p
     else:
-        lib.one_peace_det_attention_bwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, p]
+        lib.one_peace_det_attention_bwd.argtypes = [p] * 15 + [i] * 5 + [f] + [i] * 7 + [p]
         lib.one_peace_det_attention_bwd.restype = i
         lib.one_peace_det_bwd_error_string.argtypes = [i]
         lib.one_peace_det_bwd_error_string.restype = ctypes.c_char_p
@@ -336,6 +414,7 @@ def det_attention_bwd_cuda(q, k, v, toep, bh, bw, out, dout, lse, hw: Tuple[int,
         raise ValueError(f"lse must be contiguous fp32 ({b}, {heads}, {l}) on {q.device}, got "
                          f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     lib = _library("bwd")
+    plan = bwd_plan(hw[0], hw[1], toep is not None, bh is not None)
     delta = (dout.float() * out.float()).view(b, l, heads, HEAD_DIM).sum(-1)
     delta = delta.transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
@@ -346,7 +425,8 @@ def det_attention_bwd_cuda(q, k, v, toep, bh, bw, out, dout, lse, hw: Tuple[int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), _ptr(toep), _ptr(bh), _ptr(bw), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _ptr(dtoep), _ptr(dbh), _ptr(dbw), b, l, heads, hw[0], hw[1],
-        float(scaling), int(q.dtype == torch.bfloat16), passes, q.device.index,
+        float(scaling), int(q.dtype == torch.bfloat16), passes, plan.mode, plan.dq_smem,
+        plan.dkv_smem, plan.dtoep_smem, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"det attention backward kernel launch failed: "

@@ -9,16 +9,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: every kernel source under ``one_peace_tpu_torch/csrc``, one nvcc
    each, started together;
 3. the attention kernel against its plain PyTorch version, bf16 and fp32,
-   at the main path's shapes (L = 257 image, 500 audio, 850 VL concat);
+   at the main path's shapes (L = 257 image at B=2 and 256, 500 audio, 71
+   text with pads, 850 VL concat), with the rows' softmax statistics that a
+   gradient needs, so that both branches of ``tile_plan`` run (one walk with
+   the row block resident, and two walks; logged per case);
 4. the 4B retrieval model at full width (d 1536, FFN 6144, 24 heads, 40
    layers) on random weights from a seeded generator: text, image and audio
    embeddings through the kernel path (``attn_impl="pallas"``) against the
    plain path (``"xla"``), fp32 then bf16, and the kernel's launch count;
-5. times (info lines): embeddings per second and attention ms per layer,
-   kernel path and plain path, at bench.py's batches in bf16;
+5. times (info lines): embeddings per second, kernel path and plain path,
+   at bench.py's batches in bf16; attention ms per layer at L=257 (B=256),
+   500 (B=32) and 71 (B=32, text pads), kernel and SDPA in turns;
 6. the backward kernel against its plain version on the card, bf16 and fp32,
-   at the training path's shapes (B=32 L=257 image, B=32 L=70 text with
-   pads) and at L=37 (batched bias), 500 and 850, and its time;
+   at the training path's shapes (B=32 L=257 image, B=32 L=70 and 71 text
+   with pads; with the forward kernel's statistics passed, as training
+   does, and without) and at L=37 (batched bias), 500 and 850, each call
+   twice and bit-equal, both branches of ``bwd_plan``; its time at L=257
+   and 71 in turns with SDPA's backward, and each of its kernels alone;
 7. the image-text retrieval fine-tuning step at full width through
    ``Trainer``: (a) 4 layers, kernel path against plain path on the same
    weights and batch -- loss and per-parameter gradient cosines in fp32 and
@@ -189,22 +196,37 @@ def min_cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=-1).min().item()
 
 
+FWD_BRANCHES = {True: "one walk, the row block's scores resident", False: "two walks"}
+
+
 def check_kernel(gen) -> float:
     """Phase 3: kernel vs plain (fp32 on the same rounded inputs); returns
-    the largest max |diff| seen."""
+    the largest max |diff| seen.  Each case names the branch of
+    ``tile_plan`` that the bf16 kernel took, and the phase fails unless both
+    ran.  The rows' statistics (m, 1/l), written when a gradient will be
+    taken, are held to the plain version's to 1e-4 relative, and the output
+    written beside them must equal the one without."""
     heads, worst = 24, 0.0
-    cases = [  # (B, L, bias form, pad lengths per row or None)
+    cases = [  # (B, L, bias form, pad lengths per row, or "text", or None)
         (2, 257, "shared", None), (2, 257, "shared", [0, 0]),
         (2, 500, "shared", [0, 137]), (2, 37, "batched", [5, 0]),
-        (1, 128, "shared", None), (1, 850, "shared", None)]
+        (1, 128, "shared", None), (1, 850, "shared", None),
+        (32, 71, "shared", "text"), (256, 257, "shared", None)]
+    # the last two cases draw from a generator of their own, so that `gen`
+    # reaches the later phases (7(a)'s batch) in the state it always had
+    extra = torch.Generator(device="cuda").manual_seed(1)
+    branches = set()
     for dtype in (torch.bfloat16, torch.float32):
-        for b, l, form, pads in cases:
-            q, k, v = (torch.randn(b, l, heads, 64, generator=gen, device="cuda").to(dtype)
+        for i, (b, l, form, pads) in enumerate(cases):
+            rng = gen if i < 6 else extra
+            q, k, v = (torch.randn(b, l, heads, 64, generator=rng, device="cuda").to(dtype)
                        for _ in range(3))
             shape = (heads, l, l) if form == "shared" else (b, heads, l, l)
-            bias = torch.randn(shape, generator=gen, device="cuda")
+            bias = torch.randn(shape, generator=rng, device="cuda")
             mask = None
-            if pads is not None:
+            if pads == "text":
+                mask = text_pad_mask(b, l)
+            elif pads is not None:
                 mask = torch.zeros(b, l, dtype=torch.bool, device="cuda")
                 for row, n in enumerate(pads):
                     if n:
@@ -213,25 +235,45 @@ def check_kernel(gen) -> float:
             torch.cuda.synchronize()
             key_bias = None if mask is None else torch.zeros(
                 b, l, device="cuda").masked_fill(mask, fa.NEG_INF)
-            want = fa.flash_attention_plain(
-                *(x.float().reshape(b, l, heads * 64) for x in (q, k, v)),
-                bias, key_bias, 0.125, heads).reshape(b, l, heads, 64)
+            q3, k3, v3 = (x.reshape(b, l, heads * 64) for x in (q, k, v))
+            want, want_stats = fa.flash_attention_plain(
+                *(x.float() for x in (q3, k3, v3)), bias, key_bias, 0.125, heads,
+                with_stats=True)
+            want = want.reshape(b, l, heads, 64)
+            out_s, stats = fa.flash_attention_cuda(q3, k3, v3, bias, key_bias, 0.125, heads,
+                                                   with_stats=True)
             torch.cuda.synchronize()
             err = (got - want).abs()
             mx, mean = err.max().item(), err.mean().item()
+            stats_err = max(((stats[0] - want_stats[0]).abs()
+                             / want_stats[0].abs().clamp_min(1)).max().item(),
+                            ((stats[1] - want_stats[1]).abs() / want_stats[1]).max().item())
             worst = max(worst, mx)
-            log(f"kernel vs plain {str(dtype)[6:]} B={b} L={l} bias={form} pads={pads}: "
-                f"max|d| {mx:.3e} mean|d| {mean:.3e}")
+            plan = fa.tile_plan(l)
+            if dtype == torch.bfloat16:
+                branches.add(plan.resident)
+            log(f"kernel vs plain {str(dtype)[6:]} B={b} L={l} bias={form} pads="
+                f"{'text' if pads == 'text' else pads}: max|d| {mx:.3e} mean|d| {mean:.3e}, "
+                f"statistics {stats_err:.2e} relative; plan: {FWD_BRANCHES[plan.resident]}, "
+                f"last tile {plan.tail} wide")
             if not torch.isfinite(got).all():
                 raise RuntimeError("kernel output is not finite")
             if dtype == torch.bfloat16 and (mx > BF16_MAX_ERR or mean > BF16_MEAN_ERR):
                 raise RuntimeError(f"bf16 kernel disagrees: max {mx} mean {mean}")
             if dtype == torch.float32 and mx > FP32_MAX_ERR:
                 raise RuntimeError(f"fp32 kernel disagrees: max {mx}")
+            if stats_err > 1e-4:
+                raise RuntimeError(f"kernel statistics disagree: {stats_err}")
+            if not torch.equal(out_s.reshape(b, l, heads, 64).float(), got):
+                raise RuntimeError("the output written with the statistics differs")
             if pads == [0, 0]:  # an all-False mask must equal no mask
                 same = fa.flash_attention(q, k, v, bias, None, 0.125).float()
                 if not torch.equal(same, got):
                     raise RuntimeError("all-False mask and no mask disagree")
+            del q, k, v, bias, got, want, want_stats, out_s, stats, q3, k3, v3, err
+            torch.cuda.empty_cache()
+    if branches != {True, False}:
+        raise RuntimeError(f"phase 3 ran the forward plan's branches {branches}, not both")
     return worst
 
 
@@ -243,28 +285,43 @@ def text_pad_mask(b: int, l: int, device="cuda") -> torch.Tensor:
     return mask
 
 
+DQ_BRANCHES = {True: "dq: p32 resident", False: "dq: two walks"}
+DKV_BRANCHES = {True: "dk/dv: d(bias) slab", False: "dk/dv: d(bias) in device memory"}
+
+
 def check_backward_kernel(gen) -> float:
     """Phase 6: the backward kernel against flash_attention_bwd_plain on the
     same inputs, bf16 and fp32; returns the largest max |diff| of dq, dk, dv
-    and d(bias).
+    and d(bias).  Each call runs twice and must be bit-equal.  The case
+    marked "fwd" passes the forward kernel's statistics, as training does;
+    the others let the wrapper launch the forward for them.  Each case names
+    the branches of ``bwd_plan`` that the bf16 kernels took (the dq kernel's
+    walks, and with a shared bias the dk/dv kernel's d(bias) sum), and the
+    phase fails unless each branch ran.
 
     Bounds, relative to max |plain| (and mean |diff| to mean |plain|):
     fp32 1e-4 max -- both sides sum in fp32, in other orders, over at most
     850 terms (and 32 batch rows for d(bias)), and the kernel's exp is
-    __expf (2 ulp); bf16 2e-2 max, 5e-3 mean -- dq, dk, dv are rounded to
+    ex2.approx (2 ulp); bf16 2e-2 max, 5e-3 mean -- dq, dk, dv are rounded to
     bf16 (2^-8 relative), and where the kernel's fp32 p or ds*scaling lands
     on the other side of a bf16 rounding boundary than the plain version's,
     one product term moves by one bf16 ulp."""
     heads, worst = 24, 0.0
-    cases = [  # (B, L, bias form, key mask)
-        (32, 257, "shared", None), (32, 70, "shared", "text"), (2, 37, "batched", [5, 0]),
-        (4, 500, "shared", [0, 137, 0, 60]), (1, 850, "shared", None)]
+    cases = [  # (B, L, bias form, key mask, the forward's statistics passed)
+        (32, 257, "shared", None, False), (32, 70, "shared", "text", False),
+        (2, 37, "batched", [5, 0], False), (4, 500, "shared", [0, 137, 0, 60], False),
+        (1, 850, "shared", None, False), (32, 257, "shared", None, True),
+        (32, 71, "shared", "text", True)]
+    # the last two cases draw from a generator of their own (see check_kernel)
+    extra = torch.Generator(device="cuda").manual_seed(2)
+    branches = set()
     for dtype in (torch.bfloat16, torch.float32):
-        for b, l, form, pads in cases:
-            q, k, v, g = (torch.randn(b, l, heads * 64, generator=gen, device="cuda").to(dtype)
+        for i, (b, l, form, pads, fwd_stats) in enumerate(cases):
+            rng = gen if i < 5 else extra
+            q, k, v, g = (torch.randn(b, l, heads * 64, generator=rng, device="cuda").to(dtype)
                           for _ in range(4))
             shape = (heads, l, l) if form == "shared" else (b, heads, l, l)
-            bias = torch.randn(shape, generator=gen, device="cuda")
+            bias = torch.randn(shape, generator=rng, device="cuda")
             if pads == "text":
                 mask = text_pad_mask(b, l)
             else:
@@ -274,8 +331,17 @@ def check_backward_kernel(gen) -> float:
                         mask[row, l - n:] = True
             key_bias = None if pads is None else torch.zeros(
                 b, l, device="cuda").masked_fill(mask, fa.NEG_INF)
-            got = fa.flash_attention_bwd_cuda(q, k, v, g, bias, key_bias, 0.125, heads)
+            stats = None
+            if fwd_stats:
+                _, stats = fa.flash_attention_cuda(q, k, v, bias, key_bias, 0.125, heads,
+                                                   with_stats=True)
+            got = fa.flash_attention_bwd_cuda(q, k, v, g, bias, key_bias, 0.125, heads,
+                                              stats=stats)
+            again = fa.flash_attention_bwd_cuda(q, k, v, g, bias, key_bias, 0.125, heads,
+                                                stats=stats)
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again) if x is not None):
+                raise RuntimeError(f"two backward calls differ: {str(dtype)[6:]} B={b} L={l}")
             want = fa.flash_attention_bwd_plain(q, k, v, g, bias, key_bias, 0.125, heads)
             parts = []
             for name, x, y in zip(("dq", "dk", "dv", "dbias"), got, want):
@@ -292,47 +358,104 @@ def check_backward_kernel(gen) -> float:
                     raise RuntimeError(f"backward kernel {name} disagrees with the plain "
                                        f"version: {str(dtype)[6:]} B={b} L={l} {form} "
                                        f"{pads}: max {rel_max:.3e} mean {rel_mean:.3e}")
-            log(f"bwd kernel vs plain {str(dtype)[6:]} B={b} L={l} bias={form} pads={pads}: "
-                f"max/mean |d| relative {', '.join(parts)}")
+            plan = fa.bwd_plan(b, l, heads, form == "shared")
+            branch = f"; plan: {DQ_BRANCHES[plan.tiles.resident]}"
+            if dtype == torch.bfloat16:
+                branches.add(("dq", plan.tiles.resident))
+            if form == "shared":
+                branch += (f", {DKV_BRANCHES[plan.dkv_slab]}, {plan.chunks} chunks of "
+                           f"{plan.b_chunk}")
+                if dtype == torch.bfloat16:
+                    branches.add(("dkv", plan.dkv_slab))
+            log(f"bwd kernel vs plain {str(dtype)[6:]} B={b} L={l} bias={form} pads="
+                f"{'text' if pads == 'text' else pads}"
+                f"{', statistics from the forward' if fwd_stats else ''}: max/mean |d| "
+                f"relative {', '.join(parts)}; two calls bit-equal{branch}")
+            del q, k, v, g, bias, got, again, want, stats
+            torch.cuda.empty_cache()
+    if branches != {(kernel, x) for kernel in ("dq", "dkv") for x in (True, False)}:
+        raise RuntimeError(f"phase 6 ran the backward plan's branches {branches}, not all")
     return worst
 
 
-def time_backward(gen, card: str):
-    """Phase 6 times: the backward kernel and its plain version at the image
-    training shape (B=32, L=257, shared bias, bf16), and autograd through
-    the plain attention as information."""
-    b, l, heads = 32, 257, 24
-    q, k, v, g = (torch.randn(b, l, heads * 64, generator=gen, device="cuda",
-                              dtype=torch.bfloat16) for _ in range(4))
-    bias = torch.randn(heads, l, l, generator=gen, device="cuda")
-    kernel_ms = cuda_time_ms(
-        lambda: fa.flash_attention_bwd_cuda(q, k, v, g, bias, None, 0.125, heads), iters=10)
-    plain_ms = cuda_time_ms(
-        lambda: fa.flash_attention_bwd_plain(q, k, v, g, bias, None, 0.125, heads), iters=10)
-    leaves = [x.reshape(b, l, heads, 64).detach().requires_grad_() for x in (q, k, v)]
-    bias.requires_grad_()
+def in_turns(fns: dict, iters: int) -> dict:
+    """Mean ms per call of each function, timed in turns (a, b, ..., b, a)."""
+    names = list(fns)
+    turns = {name: [] for name in names}
+    for name in names + names[::-1]:
+        turns[name].append(cuda_time_ms(fns[name], iters))
+    return {name: float(np.mean(turns[name])) for name in names}
 
-    def autograd_plain():
-        out = attention_plain(*leaves, bias, None, 0.125)
-        torch.autograd.grad(out, [*leaves, bias], g.reshape(b, l, heads, 64))
 
-    autograd_ms = cuda_time_ms(autograd_plain, iters=5)
-    q4, k4, v4 = (x.transpose(1, 2) for x in leaves)
-    mask = bias.detach().to(torch.bfloat16)[None].expand(b, -1, -1, -1).requires_grad_()
-    out = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=0.125)
-    g4 = g.reshape(b, l, heads, 64).transpose(1, 2)
-    library_ms = cuda_time_ms(lambda: torch.autograd.grad(out, [*leaves, mask], g4,
-                                                          retain_graph=True), iters=5)
-    # dq, dk, dv and d(bias) from q, k, v, g, the bias: S recomputed, dP, dV, dQ, dK
-    flops = 10 * b * heads * l * l * 64
-    bound = bound_ms(7 * q.numel() * 2 + 2 * bias.numel() * 4, flops,
-                     H100_BF16_PEAK_TFLOPS * 1e12)
-    log(f"attention backward per layer B={b} L={l} bf16: kernel {kernel_ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, autograd through the plain attention (forward included) "
-        f"{autograd_ms:.3f} ms, SDPA's backward (bias broadcast over B) {library_ms:.3f} ms; "
-        f"bound {bound[0]:.3f} ms by {bound[1]} ({card})")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound[0], "bound_by": bound[1]}
+def sdpa_mask(bias, key_bias, b):
+    """The additive bf16 mask SDPA gets: the bias, plus the key bias where
+    there is one ((B, H, L, L) then, else broadcast over B)."""
+    mask = bias[None] if key_bias is None else bias[None] + key_bias[:, None, None, :]
+    return mask.to(torch.bfloat16).expand(b, -1, -1, -1)
+
+
+def time_backward(gen, card: str) -> dict:
+    """Phase 6 times: the backward kernel (given the forward's statistics,
+    as in training) and SDPA's backward in turns, at the image training
+    shape (B=32, L=257, shared bias) and the text one (B=32, L=71 with pads),
+    bf16; each kernel alone (``passes``); the plain version; autograd
+    through the plain attention as information at L=257.  Returns L=257's
+    numbers with the text row under "shapes"."""
+    heads, out = 24, {}
+    extra = torch.Generator(device="cuda").manual_seed(3)  # the text row's (see check_kernel)
+    for b, l, pads in ((32, 257, False), (32, 71, True)):
+        rng = gen if l == 257 else extra
+        q, k, v, g = (torch.randn(b, l, heads * 64, generator=rng, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(4))
+        bias = torch.randn(heads, l, l, generator=rng, device="cuda")
+        key_bias = (torch.zeros(b, l, device="cuda").masked_fill(text_pad_mask(b, l), fa.NEG_INF)
+                    if pads else None)
+        _, stats = fa.flash_attention_cuda(q, k, v, bias, key_bias, 0.125, heads, with_stats=True)
+        leaves = [x.reshape(b, l, heads, 64).transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+        mask = sdpa_mask(bias, key_bias, b).detach().requires_grad_()
+        res = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                               scale=0.125)
+        g4 = g.reshape(b, l, heads, 64).transpose(1, 2)
+        args = (q, k, v, g, bias, key_bias, 0.125, heads)
+        t = in_turns({
+            "kernel": lambda: fa.flash_attention_bwd_cuda(*args, stats=stats),
+            "sdpa": lambda: torch.autograd.grad(res, [*leaves, mask], g4, retain_graph=True)},
+            iters=10)
+        dq_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_cuda(*args, stats=stats, passes=1),
+                             iters=10)
+        dkv_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_cuda(*args, stats=stats, passes=2),
+                              iters=10)
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_plain(*args), iters=5)
+        # dq, dk, dv and d(bias) from q, k, v, g, the bias: S recomputed, dP, dV, dQ, dK
+        flops = 10 * b * heads * l * l * 64
+        bound = bound_ms(7 * q.numel() * 2 + 2 * bias.numel() * 4 + stats.numel() * 4, flops,
+                         H100_BF16_PEAK_TFLOPS * 1e12)
+        plan = fa.bwd_plan(b, l, heads, True)
+        log(f"attention backward per layer B={b} L={l}{' text pads' if pads else ''} bf16: "
+            f"kernel {t['kernel']:.4f} ms (dq kernel {dq_ms:.4f}, dk/dv kernel {dkv_ms:.4f}), "
+            f"{t['kernel'] / t['sdpa']:.3f}x SDPA's backward {t['sdpa']:.4f} ms (in turns); "
+            f"plain {plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]}; plan "
+            f"{DQ_BRANCHES[plan.tiles.resident]}, {DKV_BRANCHES[plan.dkv_slab]}, last tile "
+            f"{plan.tiles.tail} wide, {plan.chunks} chunks of {plan.b_chunk} ({card})")
+        row = {"ms": t["kernel"], "plain_ms": plain_ms, "library_ms": t["sdpa"],
+               "bound_ms": bound[0], "bound_by": bound[1], "dq_ms": dq_ms, "dkv_ms": dkv_ms}
+        if l == 257:
+            leaves32 = [x.detach().float().requires_grad_() for x in leaves]
+            bias.requires_grad_()
+
+            def autograd_plain():
+                o = attention_plain(*(x.transpose(1, 2) for x in leaves32), bias, None, 0.125)
+                torch.autograd.grad(o, [*leaves32, bias], g4.transpose(1, 2).float())
+
+            log(f"attention backward B={b} L={l}: autograd through the plain attention "
+                f"(forward included, fp32) {cuda_time_ms(autograd_plain, iters=3):.3f} ms")
+            out.update(row)
+        else:
+            out.setdefault("shapes", {})[f"L={l} B={b} text pads"] = row
+        del q, k, v, g, bias, key_bias, stats, leaves, mask, res, g4, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def train_config(layers: int, bf16: bool, remat: bool, drop_path: float) -> FrameworkConfig:
@@ -643,29 +766,52 @@ def time_paths(cfg, card: str):
     model.cfg.encoder.attn_impl = "pallas"
     del model, inputs
     torch.cuda.empty_cache()
+    return time_attention(gen, cfg.encoder.attention_heads, frames, card)
 
-    heads = cfg.encoder.attention_heads
+
+def time_attention(gen, heads: int, frames: int, card: str) -> dict:
+    """Phase 5's attention times: ms per layer of the forward kernel and of
+    SDPA with the additive mask, in turns, at the image (B=256, L=257),
+    audio (B=32, L=frames) and text (B=32, L=71, pads) shapes; beside them
+    the kernel writing the statistics a gradient needs, and the plain
+    version.  Returns L=257's numbers with the others under "shapes"."""
     attn_ms = {}
-    for b, l in ((IMG_BATCH, 257), (AUD_BATCH, frames)):
+    for b, l, pads in ((IMG_BATCH, 257, False), (AUD_BATCH, frames, False), (32, 71, True)):
         q, k, v = (torch.randn(b, l, heads * 64, generator=gen, device="cuda",
                                dtype=torch.bfloat16) for _ in range(3))
         bias = torch.randn(heads, l, l, generator=gen, device="cuda")
-        kernel_ms = cuda_time_ms(
-            lambda: fa.flash_attention_cuda(q, k, v, bias, None, 0.125, heads), iters=20)
-        plain_ms = cuda_time_ms(
-            lambda: fa.flash_attention_plain(q, k, v, bias, None, 0.125, heads), iters=20)
+        key_bias = (torch.zeros(b, l, device="cuda").masked_fill(text_pad_mask(b, l), fa.NEG_INF)
+                    if pads else None)
         q4, k4, v4 = (x.view(b, l, heads, 64).transpose(1, 2) for x in (q, k, v))
-        mask = bias.to(torch.bfloat16)[None]
-        library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask, scale=0.125), iters=20)
+        mask = sdpa_mask(bias, key_bias, b)
+        t = in_turns({
+            "kernel": lambda: fa.flash_attention_cuda(q, k, v, bias, key_bias, 0.125, heads),
+            "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, scale=0.125)}, iters=20)
+        stats_ms = cuda_time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, bias, key_bias, 0.125, heads, with_stats=True), iters=20)
+        plain_ms = cuda_time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, bias, key_bias, 0.125, heads), iters=5)
         flops = 4 * b * heads * l * l * 64
-        bound = bound_ms(4 * q.numel() * 2 + bias.numel() * 4, flops, H100_BF16_PEAK_TFLOPS * 1e12)
-        log(f"attention per layer B={b} L={l} bf16: kernel {kernel_ms:.3f} ms "
-            f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, SDPA with the "
-            f"additive mask {library_ms:.3f} ms; bound {bound[0]:.3f} ms by {bound[1]} ({card})")
-        attn_ms[l] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                      "bound_ms": bound[0], "bound_by": bound[1]}
-    return attn_ms[257]
+        kb_bytes = 0 if key_bias is None else key_bias.numel() * 4
+        bound = bound_ms(4 * q.numel() * 2 + bias.numel() * 4 + kb_bytes, flops,
+                         H100_BF16_PEAK_TFLOPS * 1e12)
+        plan = fa.tile_plan(l)
+        log(f"attention per layer B={b} L={l}{' text pads' if pads else ''} bf16: kernel "
+            f"{t['kernel']:.4f} ms ({flops / t['kernel'] / 1e9:.1f} TFLOP/s; with the "
+            f"statistics {stats_ms:.4f}), {t['kernel'] / t['sdpa']:.3f}x SDPA with the additive "
+            f"mask {t['sdpa']:.4f} ms (in turns); plain {plain_ms:.3f} ms; bound "
+            f"{bound[0]:.4f} ms by {bound[1]}; plan {FWD_BRANCHES[plan.resident]}, last tile "
+            f"{plan.tail} wide ({card})")
+        attn_ms[l] = {"ms": t["kernel"], "plain_ms": plain_ms, "library_ms": t["sdpa"],
+                      "bound_ms": bound[0], "bound_by": bound[1], "stats_ms": stats_ms,
+                      "batch": b}
+        del q, k, v, bias, key_bias, q4, k4, v4, mask
+        torch.cuda.empty_cache()
+    main = attn_ms.pop(257)
+    main["shapes"] = {f"L={l} B={row.pop('batch')}" + (" text pads" if l == 71 else ""): row
+                      for l, row in attn_ms.items()}
+    return main
 
 
 FFN_SHAPES = [(65792, 1536, 6144), (65792, 6144, 1536), (65792, 1536, 1536)]  # (M, K, N)
@@ -1636,7 +1782,7 @@ def main() -> None:
                 "source": f"one_peace_tpu_torch/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
                 **{key: times[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                               "library_ms")}}
+                                               "library_ms", "shapes") if key in times}}
 
     gemm = int8_times[FFN_SHAPES[0]]
     quantize_bound = int8_times["quantize_bound"]

@@ -4,60 +4,72 @@
 // `_flash_bwd` / `_make_bwd_kernel`.  Per (batch b, head h), with
 // s = q k^T * scaling + rel_bias + key_bias in fp32, it computes
 //
-//   p32 = softmax(s);  p = p32 rounded to q's dtype
+//   p32 = softmax(s) = exp(s - m) / l     (m, 1/l: the forward's statistics)
+//   p   = p32 rounded to q's dtype
 //   dv  = p^T g;       dp = g v^T                     (fp32 sums)
-//   ds  = p32 * (dp - rowsum(dp * p32))
+//   ds  = p32 * (dp - rowsum(dp * p32))               (the rowsum in fp32)
 //   dsc = ds * scaling rounded to q's dtype
 //   dq  = dsc k;  dk = dsc^T q;  d(rel_bias) = ds     (d(rel_bias) in fp32)
 //
 // on the (B, L, H*64) layout, with d(rel_bias) summed over B when the bias is
-// shared, (H, L, L).  The row statistics are recomputed here, so the forward
-// kernel stays as it is.  The rounding points of p and dsc are the TPU
-// kernel's (:311, :323) and those of flash_attention_bwd_plain.
+// shared, (H, L, L).  The rounding points of p and dsc are the TPU kernel's
+// (:311, :323) and those of flash_attention_bwd_plain.
 //
 // What bounds it on an H100 (4B geometry, H=24, Dh=64, per layer, B=32):
-//   images, L=257: the recompute of s, dp twice and the four gradient
-//     products are ~9 x 2*B*H*L^2*Dh = 58 GFLOP (0.06 ms at the 989 TFLOP/s
-//     bf16 peak); q, k, v, g, dq, dk, dv are 152 MB of HBM traffic (0.05 ms);
-//     the shared bias is read three times per batch row (1.6 GB of reads
-//     over a 6.3 MB table, served from L2) and d(bias) is read and written
-//     once per batch row by its owning block (0.8 GB of L2 traffic).
-//   text, L=71 with pads: small; the launch and the tail of 2 key tiles
-//     (of which the second holds 7 keys) dominate.
-// So, as in the forward, bytes through L2 and the latency of the many small
-// products bound it, not the tensor cores.
+//   images, L=257: s, dp (twice) and the four gradient products are ~8 x
+//     2*B*H*L^2*Dh = 52 GFLOP (0.05 ms at the 989 TFLOP/s bf16 peak); q, k,
+//     v, g, dq, dk, dv are 152 MB of HBM traffic (0.05 ms); the bias is read
+//     per score (0.2 GB from L2 for each reading kernel, a 6.3 MB table).
+//   text, L=71 with pads: two key tiles, the second holding 7 keys.
+// So bytes through L2 and the latency of short products bound it, not the
+// tensor cores.  The first port found m and l again online in its dq
+// kernel, read the bias three times per batch row, added every ds of a
+// shared bias into d(bias) in device memory once per batch row (0.6 GB of
+// L2 read-modify-write at L=257, B=32: the dk/dv kernel took 0.97 of its
+// 1.37 ms on an H100 80GB HBM3 at 700 W), computed 64-wide tiles whether or
+// not their rows exist, and ran on mma.sync.
 //
-// What this design does about it, and where each reduction happens:
-//   - Two kernels on one stream, and a third for a shared bias's chunks.
-//     attn_bwd_dq: one block per (batch, 64-row q tile, head), batch in
-//     blockIdx.x so that neighbouring blocks read the same bias rows from L2.
-//     Pass 1 over the 64-key tiles finds each row's max m, sum l and
-//     rowsum(dp * p32) online (rescaled when m grows); pass 2 recomputes s
-//     and dp and accumulates dq over the key tiles in registers.
-//     It stores m, 1/l and rowsum(dp * p32) per row (3 * B*H*L floats).
-//   - attn_bwd_dkv: one block per (64-key tile, head, chunk of batch rows;
-//     a chunk is one row unless the bias is shared).  It keeps its keys' k
-//     and v in registers and walks the q tiles (q, g and the row statistics
-//     double-buffered with cp.async), recomputing s^T and dp^T from the
-//     statistics; dk and dv are summed over the q tiles in registers.  With
-//     a shared bias the block loops over its chunk of the batch inside, and
-//     adds each row's ds into the d(bias) columns it alone owns for that
-//     chunk; attn_bwd_sum_chunks then adds the chunks' partial sums in
-//     chunk order.  The sum over B is a loop in the block and a second pass,
-//     in a fixed order, with no atomics, so it is deterministic.  The chunks
-//     are sized so that about four blocks per SM are in flight (a loop over
-//     the whole batch in 120 blocks left the card 1 block per SM and made
-//     this kernel 4/5 of the backward's time).  A batched bias gets its ds
-//     stored once.
-//   - bf16 uses the tensor cores through mma.sync m16n8k16 with fp32
-//     accumulation; the accumulator layout of two 8-column score tiles is
-//     the A operand of a 16-deep product, so p and dsc are rounded to bf16
-//     exactly where they enter dv, dq and dk, and never touch memory.  fp32
-//     uses CUDA-core FMA on shared-memory tiles.
-//   - Query rows and keys >= L are zero-filled on load and their scores set
-//     to -1e30 (probability 0), so nothing non-finite meets a zero weight;
-//     padded keys arrive as a -1e30 key bias and get p = ds = 0.
-// Not done yet: wgmma, TMA, saving the forward's row statistics.
+// What this design does (ops/flash_attention.py:tile_plan, bwd_plan):
+//   - the forward writes each row's m and 1/l when a gradient will be taken;
+//     nothing here finds them again or rescales;
+//   - attn_bwd_dq: one block, one warpgroup, per (batch, 64-row q tile,
+//     head), batch in blockIdx.x so that neighbouring blocks read the same
+//     bias rows from L2.  Walk 1 over the key tiles: s = q.k^T and dp = g.v^T
+//     on wgmma (Q and G from registers, K and V from 128-byte-swizzled tiles
+//     double-buffered by cp.async), the bias read from shared memory while
+//     they run (each tile's bias rows copied by cp.async a tile ahead into
+//     the block's region where two blocks fit on an SM, L <= 304, else into
+//     one of two 64 x 72 float buffers), p32 from m and 1/l, rowsum(dp *
+//     p32) in fp32.  Where the row block is resident p32 stays in the region in
+//     place of the bias, and walk 2 recomputes only dp = g.v^T: ds, and dq
+//     += round(ds * scaling) k on wgmma (A from registers).  Keeping p32
+//     saves a second q.k^T, bias read and exp per score: at L=257, B=32 the
+//     dq kernel took 0.267 ms so and 0.392 ms in two walks (H100 80GB HBM3,
+//     700 W; PERF.md).
+//     Longer sequences recompute s and stage the bias again in walk 2.
+//     It stores rowsum(dp * p32) per row for the second kernel;
+//   - attn_bwd_dkv: one block per (64-key tile, head, chunk of batch rows; a
+//     chunk is one row unless the bias is shared).  K and V stay in
+//     registers; the block walks the q tiles (Q, G and the rows' statistics
+//     double-buffered by cp.async) with s^T = k.q^T on wgmma and the bias
+//     read by __ldg while it runs, then dp^T = v.g^T while the exps run, dv
+//     += round(p)^T g and dk += round(dsc)^T q (A from registers).  A shared bias's d(bias)
+//     columns of the block's keys are summed over its chunk in a shared slab
+//     (64 keys x the padded width + 8 floats; each element has one owner
+//     thread for the whole chunk) and written once per chunk; the chunks'
+//     partial sums are added by attn_bwd_sum_chunks in chunk order.  Where
+//     the slab does not fit (L > 768) the block reads, adds and writes
+//     d(bias) in device memory per batch row, as the first port did.  A
+//     batched bias gets its ds stored once.  No atomics: bit-reproducible;
+//   - ragged tails at their own width: the last key tile (dq kernel) and
+//     the last q tile (dk/dv kernel) are as wide as their rows rounded up to
+//     16 (wgmma m64nNk16 and products 16 * ceil(rows / 16) deep), and warps
+//     whose 16 rows all lie past L take part only in the warpgroup's wgmma;
+//   - fp32 (the test path) uses CUDA-core FMA on shared-memory tiles and
+//     finds the statistics itself, as before.
+// Not done yet: TMA; the dk/dv block's bias kept resident across its batch
+// chunk (the slab and the bias together do not fit beside its tiles at two
+// blocks per SM); p32 and dp shared between the two kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,361 +78,284 @@
 
 #include <algorithm>
 
+#include "flash_tiles.cuh"
+
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kTile = 64;                // rows of a q tile, keys of a key tile
-constexpr int kStride = kHeadDim + 8;    // bf16 smem row stride: no bank conflicts
 constexpr int kF32Stride = kHeadDim + 1; // fp32 smem row stride: no bank conflicts
-constexpr float kNegInf = -1e30f;        // as ops/flash_attention.py NEG_INF
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// ---------------------------------------------------------------------------
+// bf16 dq kernel: rows [16w, 16w + 16) of the block's q tile in warp w.
+// ---------------------------------------------------------------------------
 
-// D = A (16x16, row) * B (16x8, col) + D, bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16-byte async copy global -> shared; zero-fills when !valid.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// Rows [row0, row0 + 64) of one head into shared memory, asynchronously;
-// rows >= L are zero.
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int row0, int L, int row_stride) {
-  for (int i = threadIdx.x; i < kTile * 8; i += blockDim.x) {
-    const int r = i >> 3, c = i & 7;
-    const bool valid = row0 + r < L;
-    cp_async_16(dst + r * kStride + c * 8,
-                src + static_cast<size_t>(valid ? row0 + r : 0) * row_stride + c * 8, valid);
-  }
-}
-
-// A fragments (m16n8k16, row-major) of rows [row0, row0 + 16) x 64 of a tile.
-__device__ __forceinline__ void load_a_frags(uint32_t a[4][4], const __nv_bfloat16* tile,
-                                             int row0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const __nv_bfloat16* p0 = tile + (row0 + g) * kStride + kk * 16 + 2 * t;
-    const __nv_bfloat16* p1 = p0 + 8 * kStride;
-    a[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-    a[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-    a[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    a[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-  }
-}
-
-// acc (16 x 64) = A (16 x 64 dims) * tile^T, tile rows = the 64 output
-// columns: acc[j][c] is row g + 8 (c >> 1), column 8j + 2t + (c & 1).
-__device__ __forceinline__ void mma_nt(float acc[8][4], const uint32_t a[4][4],
-                                       const __nv_bfloat16* tile) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-    const __nv_bfloat16* bp = tile + (j * 8 + g) * kStride + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_16816(acc[j], a[kk], *reinterpret_cast<const uint32_t*>(bp + kk * 16),
-                *reinterpret_cast<const uint32_t*>(bp + kk * 16 + 8));
-  }
-}
-
-// o (16 x 64) += round_bf16(x) (16 x 64, accumulator layout) * tile, tile
-// rows = the 64-deep sum index.  The accumulator layout of two adjacent
-// 8-column tiles is the A operand layout of one 16-deep step.
-__device__ __forceinline__ void mma_nn(float o[8][4], const float x[8][4],
-                                       const __nv_bfloat16* tile) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t xa[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-    const __nv_bfloat16* row = tile + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * kStride;
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, row + (n + (mi >> 1)) * 8);
-      mma_16816(o[n], xa, b[0], b[1]);
-      mma_16816(o[n + 1], xa, b[2], b[3]);
-    }
-  }
-}
-
-// Rows [row0, row0 + 16) of a 16 x 64 fp32 accumulator, rounded to bf16,
-// into rows of a (L, H*64) tensor; rows >= L are skipped.
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst, const float acc[8][4],
-                                                const int rows[2], int L, int row_stride) {
-  const int t = (threadIdx.x & 31) & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= L) continue;
-    __nv_bfloat16* p = dst + static_cast<size_t>(rows[r]) * row_stride + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(p + n * 8) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
-}
-
-// --------------------------------------------------------------------------
-// bf16: 4 warps; warp w owns rows [16w, 16w + 16) of the block's tile.
-// --------------------------------------------------------------------------
-
-// Scores of query rows `rows` against keys [k0, k0 + 64): s = acc * scaling
-// + bias + key_bias, -1e30 at keys >= L.  Bias loads are issued first, at
-// clamped addresses, so they overlap the products.
-__device__ __forceinline__ void scores_qk(float s[8][4], const uint32_t qa[4][4],
-                                          const __nv_bfloat16* ks, const int rows[2], int k0,
-                                          int L, float scaling, const float* bias_bh,
-                                          const float* kb) {
-  const int t = (threadIdx.x & 31) & 3;
-  float bv[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = min(rows[c >> 1], L - 1), col = min(k0 + j * 8 + 2 * t + (c & 1), L - 1);
-      bv[j][c] = (bias_bh != nullptr ? __ldg(bias_bh + static_cast<size_t>(row) * L + col) : 0.f) +
-                 (kb != nullptr ? __ldg(kb + col) : 0.f);
-    }
-  mma_nt(s, qa, ks);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      s[j][c] = k0 + j * 8 + 2 * t + (c & 1) < L ? s[j][c] * scaling + bv[j][c] : kNegInf;
-}
-
-// Transposed scores: keys `keys` (rows) against queries [q0, q0 + 64)
-// (columns); -1e30 where the key or the query is >= L.
-__device__ __forceinline__ void scores_kq(float s[8][4], const uint32_t ka[4][4],
-                                          const __nv_bfloat16* qs, const int keys[2], int q0,
-                                          int L, float scaling, const float* bias_bh,
-                                          const float* kb) {
-  const int t = (threadIdx.x & 31) & 3;
-  float bv[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int key = min(keys[c >> 1], L - 1), query = min(q0 + j * 8 + 2 * t + (c & 1), L - 1);
-      bv[j][c] = (bias_bh != nullptr ? __ldg(bias_bh + static_cast<size_t>(query) * L + key) : 0.f) +
-                 (kb != nullptr ? __ldg(kb + key) : 0.f);
-    }
-  mma_nt(s, ka, qs);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      s[j][c] = keys[c >> 1] < L && q0 + j * 8 + 2 * t + (c & 1) < L
-                    ? s[j][c] * scaling + bv[j][c] : kNegInf;
-}
-
-__global__ void __launch_bounds__(128)
+template <bool kResident>
+__global__ void __launch_bounds__(128, 2)
 attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
                  const float* __restrict__ bias, int bias_batched,
-                 const float* __restrict__ key_bias, __nv_bfloat16* __restrict__ dq,
-                 float* __restrict__ stats, int B, int L, int H, float scaling) {
-  __shared__ __align__(16) __nv_bfloat16 ks[2][kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][kTile * kStride];
+                 const float* __restrict__ key_bias, const float* __restrict__ stats,
+                 __nv_bfloat16* __restrict__ dq, float* __restrict__ dsum, int L, int H,
+                 float scaling, TilePlan plan) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  unsigned char* smem = aligned_smem(dyn_smem);
+  unsigned char* ks = smem;                   // [2] swizzled K tiles (Q, G first)
+  unsigned char* vs = smem + 2 * kTileBytes;  // [2] swizzled V tiles
+  // the row block's p32 (kResident), or two staged bias tiles of kStageStride
+  float* region = reinterpret_cast<float*>(smem + 4 * kTileBytes);
 
   const int b = blockIdx.x, q0 = blockIdx.y * kTile, h = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int row_stride = H * kHeadDim;
   const size_t base = static_cast<size_t>(b) * L * row_stride + static_cast<size_t>(h) * kHeadDim;
-  const float* bias_bh = bias == nullptr ? nullptr
-      : bias + (static_cast<size_t>(bias_batched ? b * H : 0) + h) * L * L;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const float* bias_q = bias == nullptr ? nullptr
+      : bias + (static_cast<size_t>(bias_batched ? bh : h) * L + q0) * L;
   const float* kb = key_bias == nullptr ? nullptr : key_bias + static_cast<size_t>(b) * L;
+  const int nrows = min(kTile, L - q0), n_tiles = plan.n_tiles, stride = plan.stride;
+  const bool live = warp * 16 < nrows;
+  const int lr[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  const int rows[2] = {q0 + lr[0], q0 + lr[1]};
+  const int cr[2] = {min(lr[0], nrows - 1), min(lr[1], nrows - 1)};
 
-  // q and g fragments, staged through the K buffers
-  load_tile_async(ks[0], q + base, q0, L, row_stride);
-  load_tile_async(ks[1], g + base, q0, L, row_stride);
+  load_tile_async(ks, q + base, q0, L, row_stride);
+  load_tile_async(ks + kTileBytes, g + base, q0, L, row_stride);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
   uint32_t qa[4][4], ga[4][4];
-  load_a_frags(qa, ks[0], warp * 16);
-  load_a_frags(ga, ks[1], warp * 16);
+  read_a_frags(qa, ks);
+  read_a_frags(ga, ks + kTileBytes);
   __syncthreads();
-  const int rows[2] = {q0 + warp * 16 + (lane >> 2), q0 + warp * 16 + (lane >> 2) + 8};
-  const int n_tiles = (L + kTile - 1) / kTile;
-  float s[8][4], dp[8][4];
+  // exp(s - m) / l = exp2(s log2e - m log2e) * (1 / l)
+  const size_t plane = static_cast<size_t>(gridDim.x) * H * L;
+  float mo[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = rows[r] < L;
+    mo[r] = ok ? -stats[bh * L + rows[r]] * kLog2e : 0.f;
+    inv[r] = ok ? stats[plane + bh * L + rows[r]] : 0.f;
+  }
 
-  // pass 1: row max m, sum l of exp(s - m) and sum a of exp(s - m) * dp
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
-  load_tile_async(ks[0], k + base, 0, L, row_stride);
-  load_tile_async(vs[0], v + base, 0, L, row_stride);
-  cp_async_commit();
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kTile, cur = it & 1;
-    if (it + 1 < n_tiles) {
-      load_tile_async(ks[cur ^ 1], k + base, k0 + kTile, L, row_stride);
-      load_tile_async(vs[cur ^ 1], v + base, k0 + kTile, L, row_stride);
+  auto width = [&](int it) { return it + 1 < n_tiles ? kTile : plan.tail; };
+  // key tile it's bias rows: its columns of the region, or a staging buffer
+  auto bias_tile = [&](int it) {
+    return kResident ? region + it * kTile : region + (it & 1) * kTile * kStageStride;
+  };
+  const int bias_stride = kResident ? stride : kStageStride;
+  auto stage = [&](int it, bool with_bias) {
+    const int buf = it & 1, k0 = it * kTile;
+    load_tile_async(ks + buf * kTileBytes, k + base, k0, L, row_stride);
+    load_tile_async(vs + buf * kTileBytes, v + base, k0, L, row_stride);
+    if (with_bias && bias_q != nullptr)
+      stage_bias(bias_tile(it), bias_stride, bias_q + k0, nrows, min(kTile, L - k0), L);
+  };
+  // p32 of key tile it (8 kN8 keys wide; 0 at keys >= L) into s, and dp =
+  // g v^T: the staged bias is read while both products run.  No branch lies between the products'
+  // issue and their wait, and no register a product wrote is touched while
+  // another runs: either made ptxas serialise the wgmmas (C7517).
+  auto p32_dp = [&](auto n8c, float s[8][4], float dp[8][4], int it) {
+    constexpr int kN8 = decltype(n8c)::value;
+    const int k0 = it * kTile, buf = it & 1;
+    issue_nt<kN8>(s, qa, ks + buf * kTileBytes);
+    issue_nt<kN8>(dp, ga, vs + buf * kTileBytes);
+    float bv[kN8][4];
+#pragma unroll
+    for (int j = 0; j < kN8; ++j) {
+      const int col = k0 + 8 * j + 2 * t;
+      float2 kbv = make_float2(0.f, 0.f);
+      if (kb != nullptr)
+        kbv = make_float2(__ldg(kb + min(col, L - 1)), __ldg(kb + min(col + 1, L - 1)));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2 x = make_float2(0.f, 0.f);
+        if (bias_q != nullptr)
+          x = *reinterpret_cast<const float2*>(bias_tile(it) + cr[r] * bias_stride + 8 * j + 2 * t);
+        bv[j][2 * r] = x.x + kbv.x;
+        bv[j][2 * r + 1] = x.y + kbv.y;
+      }
     }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    scores_qk(s, qa, ks[cur], rows, k0, L, scaling, bias_bh, kb);
-    mma_nt(dp, ga, vs[cur]);
-    float mx[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f}, ra[2] = {0.f, 0.f};
+    wgmma_wait_all();
+    fence_acc(s);
+    fence_acc(dp);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kN8; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const float e = __expf(s[j][c] - mx[c >> 1]);
-        rs[c >> 1] += e;
-        ra[c >> 1] += e * dp[j][c];
+        const int r = c >> 1;
+        s[j][c] = k0 + 8 * j + 2 * t + (c & 1) < L
+                      ? ex2(fmaf(s[j][c] * scaling + bv[j][c], kLog2e, mo[r])) * inv[r]
+                      : 0.f;
       }
+  };
+
+  // walk 1: rowsum(dp * p32); p32 kept in the region where it fits
+  float dsr[2] = {0.f, 0.f};
+  stage(0, true);
+  cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) stage(it + 1, true);
+    cp_async_commit();
+    cp_async_wait_prev();
+    fence_async_shared();
+    __syncthreads();
+    with_width(width(it), [&](auto n8c) {
+      constexpr int kN8 = decltype(n8c)::value;
+      // every warp goes on (rows past L are not stored): an early return here
+      // made ptxas serialise the wgmmas (C7517)
+      float s[8][4], dp[8][4];
+      p32_dp(n8c, s, dp, it);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      ra[r] += __shfl_xor_sync(0xffffffffu, ra[r], 1);
-      ra[r] += __shfl_xor_sync(0xffffffffu, ra[r], 2);
-      const float alpha = __expf(m[r] - mx[r]);
-      l[r] = l[r] * alpha + rs[r];
-      a[r] = a[r] * alpha + ra[r];
-      m[r] = mx[r];
-    }
-    __syncthreads();  // tile it is consumed before its buffer is refilled
+      for (int j = 0; j < kN8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dsr[c >> 1] += s[j][c] * dp[j][c];
+      if constexpr (kResident) {
+        float* rt = region + it * kTile + 2 * t;
+#pragma unroll
+        for (int j = 0; j < kN8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(rt + lr[r] * stride + 8 * j) =
+                make_float2(s[j][2 * r], s[j][2 * r + 1]);
+      }
+    });
+    __syncthreads();  // tile it is consumed before its buffers are refilled
   }
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
-  const float dsum[2] = {a[0] * inv[0], a[1] * inv[1]};
-  if (t == 0) {
-    const size_t plane = static_cast<size_t>(B) * H * L;
-    const size_t off = (static_cast<size_t>(b) * H + h) * L;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dsr[r] += __shfl_xor_sync(0xffffffffu, dsr[r], 1);
+    dsr[r] += __shfl_xor_sync(0xffffffffu, dsr[r], 2);
+  }
+  if (live && t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (rows[r] < L) {
-        stats[off + rows[r]] = m[r];
-        stats[plane + off + rows[r]] = inv[r];
-        stats[2 * plane + off + rows[r]] = dsum[r];
-      }
+      if (rows[r] < L) dsum[bh * L + rows[r]] = dsr[r];
   }
 
-  // pass 2: ds = p32 (dp - dsum), dq += round(ds * scaling) k
+  // walk 2: ds = p32 (dp - rowsum), dq += round(ds * scaling) k
   float o[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-  load_tile_async(ks[0], k + base, 0, L, row_stride);
-  load_tile_async(vs[0], v + base, 0, L, row_stride);
+  stage(0, !kResident);
   cp_async_commit();
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kTile, cur = it & 1;
-    if (it + 1 < n_tiles) {
-      load_tile_async(ks[cur ^ 1], k + base, k0 + kTile, L, row_stride);
-      load_tile_async(vs[cur ^ 1], v + base, k0 + kTile, L, row_stride);
-    }
+    if (it + 1 < n_tiles) stage(it + 1, !kResident);
     cp_async_commit();
     cp_async_wait_prev();
+    fence_async_shared();
     __syncthreads();
-    scores_qk(s, qa, ks[cur], rows, k0, L, scaling, bias_bh, kb);
-    mma_nt(dp, ga, vs[cur]);
+    with_width(width(it), [&](auto n8c) {
+      constexpr int kN8 = decltype(n8c)::value;
+      const int buf = it & 1;
+      float s[8][4], dp[8][4];
+      if constexpr (kResident) {
+        issue_nt<kN8>(dp, ga, vs + buf * kTileBytes);
+        const float* rt = region + it * kTile + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kN8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1;
-        const float p32 = __expf(s[j][c] - m[r]) * inv[r];
-        s[j][c] = p32 * (dp[j][c] - dsum[r]) * scaling;
+          for (int r = 0; r < 2; ++r) {
+            const float2 x = *reinterpret_cast<const float2*>(rt + cr[r] * stride + 8 * j);
+            s[j][2 * r] = x.x;
+            s[j][2 * r + 1] = x.y;
+          }
+        wgmma_wait_all();
+        fence_acc(dp);
+      } else {
+        p32_dp(n8c, s, dp, it);
       }
-    mma_nn(o, s, ks[cur]);
-    __syncthreads();  // tile it is consumed before its buffer is refilled
+      uint32_t dsa[4][4];
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < kN8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[j][c] = s[j][c] * (dp[j][c] - dsr[c >> 1]) * scaling;
+        pack_a<kN8 / 2>(dsa, s);
+      } else {
+        zero_a(dsa);
+      }
+      issue_nn<kN8 / 2>(o, dsa, ks + buf * kTileBytes);
+      wgmma_wait_all();
+      fence_acc(o);
+    });
+    __syncthreads();  // tile it is consumed before its buffers are refilled
   }
   store_rows_bf16(dq + base, o, rows, L, row_stride);
 }
 
-__global__ void __launch_bounds__(128)
+// ---------------------------------------------------------------------------
+// bf16 dk/dv kernel: keys [16w, 16w + 16) of the block's key tile in warp w;
+// scores are transposed (rows keys, columns queries).
+// kDbias: 0 no bias or a batched one (ds stored once), 1 a shared bias summed
+// in the shared slab, 2 a shared bias summed in device memory per row.
+// ---------------------------------------------------------------------------
+
+template <int kDbias>
+__global__ void __launch_bounds__(128, 2)
 attn_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
                   const float* __restrict__ bias, int bias_batched,
                   const float* __restrict__ key_bias, const float* __restrict__ stats,
-                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                  float* __restrict__ dbias, int B, int L, int H, float scaling, int b_chunk) {
-  __shared__ __align__(16) __nv_bfloat16 qs[2][kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 gs[2][kTile * kStride];
-  __shared__ float st[2][3][kTile];  // m, 1/l, dsum of the q tile's rows
+                  const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, float* __restrict__ dbias, int B, int L, int H,
+                  float scaling, int b_chunk, int n_tiles, int tail, int slab_stride) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  unsigned char* smem = aligned_smem(dyn_smem);
+  unsigned char* qs = smem;                   // [2] swizzled Q tiles (K first)
+  unsigned char* gs = smem + 2 * kTileBytes;  // [2] swizzled G tiles (V first)
+  float* slab = reinterpret_cast<float*>(smem + 4 * kTileBytes);  // kDbias 1: [64][slab_stride]
+  __shared__ float st[2][3][kTile];  // m, 1/l, rowsum(dp * p32) of the q tile's rows
 
   const int k0 = blockIdx.x * kTile, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int row_stride = H * kHeadDim;
-  const bool shared_bias = bias != nullptr && !bias_batched;
   const int b_first = blockIdx.z * b_chunk, b_end = min(B, b_first + b_chunk);
-  const int keys[2] = {k0 + warp * 16 + (lane >> 2), k0 + warp * 16 + (lane >> 2) + 8};
-  const int n_tiles = (L + kTile - 1) / kTile;
+  const int nkeys = min(kTile, L - k0);
+  const bool live = warp * 16 < nkeys;
+  const int kr[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  const int keys[2] = {k0 + kr[0], k0 + kr[1]};
+  const int ck[2] = {min(keys[0], L - 1), min(keys[1], L - 1)};
   const size_t plane = static_cast<size_t>(B) * H * L;
+  // a shared bias's chunk z writes plane z of the partial sums
+  float* dbias_z = kDbias == 0 ? nullptr
+      : dbias + (static_cast<size_t>(blockIdx.z) * H + h) * L * L;
+  auto width = [&](int it) { return it + 1 < n_tiles ? kTile : tail; };
 
+  if constexpr (kDbias == 1) {
+    for (int i = threadIdx.x; i < kTile * slab_stride; i += 128) slab[i] = 0.f;
+  }
   for (int b = b_first; b < b_end; ++b) {
     const size_t base = static_cast<size_t>(b) * L * row_stride + static_cast<size_t>(h) * kHeadDim;
-    const size_t bh = static_cast<size_t>(bias_batched ? b * H : 0) + h;
-    const float* bias_bh = bias == nullptr ? nullptr : bias + bh * L * L;
-    // a shared bias's chunk z adds into plane z of the partial sums
-    const size_t dbh = bias_batched ? bh : static_cast<size_t>(blockIdx.z) * H + h;
-    float* dbias_bh = dbias == nullptr ? nullptr : dbias + dbh * L * L;
-    const float* kb = key_bias == nullptr ? nullptr : key_bias + static_cast<size_t>(b) * L;
-    const float* stats_bh = stats + (static_cast<size_t>(b) * H + h) * L;
-    auto load_stats = [&](float (*dst)[kTile], int q0) {
-      for (int i = threadIdx.x; i < 3 * kTile; i += blockDim.x) {
-        const int which = i / kTile, r = i % kTile;
-        dst[which][r] = q0 + r < L ? stats_bh[which * plane + q0 + r] : 0.f;
+    const size_t bh = static_cast<size_t>(b) * H + h;
+    const float* bias_bh = bias == nullptr ? nullptr
+        : bias + static_cast<size_t>(bias_batched ? bh : h) * L * L;
+    const float kbr[2] = {key_bias == nullptr ? 0.f : key_bias[static_cast<size_t>(b) * L + ck[0]],
+                          key_bias == nullptr ? 0.f : key_bias[static_cast<size_t>(b) * L + ck[1]]};
+    auto load_stats = [&](int buf, int q0) {
+      for (int i = threadIdx.x; i < 3 * kTile; i += 128) {
+        const int which = i >> 6, r = i & (kTile - 1);
+        const bool valid = q0 + r < L;
+        const float* src = which < 2 ? stats + which * plane + bh * L : dsum + bh * L;
+        cp_async_4(&st[buf][which][r], src + (valid ? q0 + r : 0), valid);
       }
     };
 
-    __syncthreads();  // the previous batch row's buffers are consumed
-    // this block's k and v rows, staged through the second buffers
-    load_tile_async(qs[1], k + base, k0, L, row_stride);
-    load_tile_async(gs[1], v + base, k0, L, row_stride);
-    load_tile_async(qs[0], q + base, 0, L, row_stride);
-    load_tile_async(gs[0], g + base, 0, L, row_stride);
+    __syncthreads();  // the previous batch row's buffers are consumed (and the slab zeroed)
+    load_tile_async(qs + kTileBytes, k + base, k0, L, row_stride);
+    load_tile_async(gs + kTileBytes, v + base, k0, L, row_stride);
+    load_tile_async(qs, q + base, 0, L, row_stride);
+    load_tile_async(gs, g + base, 0, L, row_stride);
+    load_stats(0, 0);
     cp_async_commit();
-    load_stats(st[0], 0);
     cp_async_wait_all();
     __syncthreads();
     uint32_t ka[4][4], va[4][4];
-    load_a_frags(ka, qs[1], warp * 16);
-    load_a_frags(va, gs[1], warp * 16);
+    read_a_frags(ka, qs + kTileBytes);
+    read_a_frags(va, gs + kTileBytes);
     __syncthreads();  // staging buffers free before tile 1 is prefetched
 
-    float dk_acc[8][4], dv_acc[8][4], s[8][4], dp[8][4];
+    float dk_acc[8][4], dv_acc[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -428,52 +363,123 @@ attn_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
     for (int it = 0; it < n_tiles; ++it) {
       const int q0 = it * kTile, cur = it & 1;
+      unsigned char* qc = qs + cur * kTileBytes;
+      unsigned char* gc = gs + cur * kTileBytes;
       if (it + 1 < n_tiles) {
-        load_tile_async(qs[cur ^ 1], q + base, q0 + kTile, L, row_stride);
-        load_tile_async(gs[cur ^ 1], g + base, q0 + kTile, L, row_stride);
+        load_tile_async(qs + (cur ^ 1) * kTileBytes, q + base, q0 + kTile, L, row_stride);
+        load_tile_async(gs + (cur ^ 1) * kTileBytes, g + base, q0 + kTile, L, row_stride);
+        load_stats(cur ^ 1, q0 + kTile);
       }
       cp_async_commit();
-      if (it + 1 < n_tiles) load_stats(st[cur ^ 1], q0 + kTile);
       cp_async_wait_prev();
+      fence_async_shared();
       __syncthreads();
-      scores_kq(s, ka, qs[cur], keys, q0, L, scaling, bias_bh, kb);
+      with_width(width(it), [&](auto n8c) {
+        constexpr int kN8 = decltype(n8c)::value;
+        float s[8][4], dp[8][4];
+        issue_nt<kN8>(s, ka, qc);  // s^T = k q^T, while the bias is read
+        // no branch between a product's issue and its wait (ptxas serialised
+        // the wgmmas behind one); one accumulator pair at a time in flight
+        // beside dk and dv, or the kernel spilled
+        float bv[kN8][4];  // bias^T + key bias
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int qi = j * 8 + 2 * t + (c & 1);
-          s[j][c] = __expf(s[j][c] - st[cur][0][qi]) * st[cur][1][qi];  // p32^T
-        }
-      mma_nn(dv_acc, s, gs[cur]);  // dv += round(p)^T g
-      mma_nt(dp, va, gs[cur]);     // dp^T = v g^T
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int qi = j * 8 + 2 * t + (c & 1);
-          dp[j][c] = s[j][c] * (dp[j][c] - st[cur][2][qi]);  // ds^T
-        }
-      if (dbias_bh != nullptr) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kN8; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const int key = keys[c >> 1], query = q0 + j * 8 + 2 * t + (c & 1);
-            if (key < L && query < L) {
-              float* d = dbias_bh + static_cast<size_t>(query) * L + key;
-              *d = shared_bias && b > b_first ? *d + dp[j][c] : dp[j][c];
-            }
+            const int query = min(q0 + 8 * j + 2 * t + (c & 1), L - 1);
+            bv[j][c] = (bias_bh != nullptr
+                            ? __ldg(bias_bh + static_cast<size_t>(query) * L + ck[c >> 1])
+                            : 0.f) + kbr[c >> 1];
           }
-      }
+        wgmma_wait_all();
+        fence_acc(s);
+        uint32_t pa[4][4];
+        if (live) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < kN8; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) dp[j][c] *= scaling;
-      mma_nn(dk_acc, dp, qs[cur]);  // dk += round(ds * scaling)^T q
-      __syncthreads();  // tile it is consumed before its buffer is refilled
+            for (int c = 0; c < 4; ++c) {
+              const int qi = 8 * j + 2 * t + (c & 1);
+              s[j][c] = keys[c >> 1] < L && q0 + qi < L
+                            ? ex2(fmaf(s[j][c] * scaling + bv[j][c], kLog2e,
+                                       -st[cur][0][qi] * kLog2e)) * st[cur][1][qi]
+                            : 0.f;  // p32^T
+            }
+          pack_a<kN8 / 2>(pa, s);
+        } else {
+          zero_a(pa);
+        }
+        issue_nn<kN8 / 2>(dv_acc, pa, gc);  // dv += round(p)^T g
+        issue_nt<kN8>(dp, va, gc);          // dp^T = v g^T
+        wgmma_wait_all();
+        fence_acc(dv_acc);
+        fence_acc(dp);
+        uint32_t dsa[4][4];
+        if (live) {
+#pragma unroll
+          for (int j = 0; j < kN8; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              dp[j][c] = s[j][c] * (dp[j][c] - st[cur][2][8 * j + 2 * t + (c & 1)]);  // ds^T
+          if constexpr (kDbias == 0) {
+            if (dbias != nullptr) {  // a batched bias: this (b, h)'s ds, stored once
+              float* d = dbias + bh * L * L;
+#pragma unroll
+              for (int j = 0; j < kN8; ++j)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                  const int query = q0 + 8 * j + 2 * t + (c & 1);
+                  if (keys[c >> 1] < L && query < L)
+                    d[static_cast<size_t>(query) * L + keys[c >> 1]] = dp[j][c];
+                }
+            }
+          } else if constexpr (kDbias == 1) {  // one owner thread per slab element
+#pragma unroll
+            for (int j = 0; j < kN8; ++j)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                float2* p = reinterpret_cast<float2*>(slab + kr[r] * slab_stride + q0 + 8 * j +
+                                                      2 * t);
+                float2 x = *p;
+                x.x += dp[j][2 * r];
+                x.y += dp[j][2 * r + 1];
+                *p = x;
+              }
+          } else {
+#pragma unroll
+            for (int j = 0; j < kN8; ++j)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const int query = q0 + 8 * j + 2 * t + (c & 1);
+                if (keys[c >> 1] < L && query < L) {
+                  float* d = dbias_z + static_cast<size_t>(query) * L + keys[c >> 1];
+                  *d = b > b_first ? *d + dp[j][c] : dp[j][c];
+                }
+              }
+          }
+#pragma unroll
+          for (int j = 0; j < kN8; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) dp[j][c] *= scaling;
+          pack_a<kN8 / 2>(dsa, dp);
+        } else {
+          zero_a(dsa);
+        }
+        issue_nn<kN8 / 2>(dk_acc, dsa, qc);  // dk += round(ds * scaling)^T q
+        wgmma_wait_all();
+        fence_acc(dk_acc);
+      });
+      __syncthreads();  // tile it is consumed before its buffers are refilled
     }
     store_rows_bf16(dk + base, dk_acc, keys, L, row_stride);
     store_rows_bf16(dv + base, dv_acc, keys, L, row_stride);
+  }
+  if constexpr (kDbias == 1) {  // the chunk's sum, once: rows are queries, 64 keys a row
+    __syncthreads();
+    const int c = threadIdx.x & (kTile - 1);
+    if (c < nkeys)
+      for (int qi = threadIdx.x >> 6; qi < L; qi += 2)
+        dbias_z[static_cast<size_t>(qi) * L + k0 + c] = slab[c * slab_stride + qi];
   }
 }
 
@@ -531,7 +537,8 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ g,
                 const float* __restrict__ bias, int bias_batched,
                 const float* __restrict__ key_bias, float* __restrict__ dq,
-                float* __restrict__ stats, int B, int L, int H, float scaling) {
+                float* __restrict__ stats, float* __restrict__ dsum_out, int B, int L, int H,
+                float scaling) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* gs = qs + kTile * kF32Stride;
@@ -607,7 +614,7 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       const size_t off = (static_cast<size_t>(b) * H + h) * L + row;
       stats[off] = m[i];
       stats[plane + off] = inv[i];
-      stats[2 * plane + off] = dsum[i];
+      dsum_out[off] = dsum[i];
     }
   }
 
@@ -665,7 +672,8 @@ attn_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ g,
                  const float* __restrict__ bias, int bias_batched,
                  const float* __restrict__ key_bias, const float* __restrict__ stats,
-                 float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dbias,
+                 const float* __restrict__ dsum, float* __restrict__ dk, float* __restrict__ dv,
+                 float* __restrict__ dbias,
                  int B, int L, int H, float scaling, int b_chunk) {
   extern __shared__ float smem[];
   float* ks = smem;
@@ -690,7 +698,7 @@ attn_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     const size_t dbh = bias_batched ? bh : static_cast<size_t>(blockIdx.z) * H + h;
     float* dbias_bh = dbias == nullptr ? nullptr : dbias + dbh * L * L;
     const float* kb = key_bias == nullptr ? nullptr : key_bias + static_cast<size_t>(b) * L;
-    const float* stats_bh = stats + (static_cast<size_t>(b) * H + h) * L;
+    const size_t bh_off = (static_cast<size_t>(b) * H + h) * L;
 
     __syncthreads();  // the previous batch row's tiles are consumed
     load_tile_f32(ks, k + base, k0, L, row_stride);
@@ -707,7 +715,8 @@ attn_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
       load_tile_f32(gs, g + base, q0, L, row_stride);
       for (int i = threadIdx.x; i < 3 * kTile; i += blockDim.x) {
         const int which = i / kTile, r = i % kTile;
-        st[i] = q0 + r < L ? stats_bh[which * plane + q0 + r] : 0.f;
+        st[i] = q0 + r >= L ? 0.f
+                : which < 2 ? stats[which * plane + bh_off + q0 + r] : dsum[bh_off + q0 + r];
       }
       __syncthreads();
       fma_nt(s, qs, ks);  // (query, key)
@@ -777,47 +786,107 @@ attn_bwd_sum_chunks(const float* __restrict__ partial, float* __restrict__ dbias
   }
 }
 
+
+template <bool kResident>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* g,
+                      const float* bias, int bias_batched, const float* key_bias,
+                      const float* stats, void* dq, float* dsum, dim3 grid, int L, int heads,
+                      float scaling, const TilePlan& plan, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_bf16<kResident>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_bf16<kResident><<<grid, 128, plan.smem, s>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(g), bias, bias_batched, key_bias, stats, static_cast<bf*>(dq), dsum,
+      L, heads, scaling, plan);
+  return cudaGetLastError();
+}
+
+template <int kDbias>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* g,
+                       const float* bias, int bias_batched, const float* key_bias,
+                       const float* stats, const float* dsum, void* dk, void* dv, float* dbias,
+                       dim3 grid, int batch, int L, int heads, float scaling, int b_chunk,
+                       const TilePlan& plan, int slab_stride, int smem, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkv_bf16<kDbias>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkv_bf16<kDbias><<<grid, 128, smem, s>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(g), bias, bias_batched, key_bias, stats, dsum, static_cast<bf*>(dk),
+      static_cast<bf*>(dv), dbias, batch, L, heads, scaling, b_chunk, plan.n_tiles, plan.tail,
+      slab_stride);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches the kernels on `stream` and returns cudaGetLastError() (0 on
 // success).  q, k, v, g, dq, dk, dv: (batch, seq_len, heads * 64), bf16 when
 // is_bf16 else fp32.  bias and dbias: fp32 (heads, L, L), or (batch, heads,
 // L, L) when bias_batched, or both null.  key_bias: fp32 (batch, L) or null.
-// stats: fp32 scratch of 3 * batch * heads * L.  b_chunk: batch rows per
-// dk/dv block with a shared bias (1 otherwise); with more than one chunk,
-// partial is fp32 scratch of ceil(batch / b_chunk) * heads * L * L.
+// stats: fp32 (2, batch, heads, L), each row's max and 1 / sum: the
+// forward's, read by the bf16 kernels; scratch that the fp32 kernels write.
+// dsum: fp32 scratch of batch * heads * L.  passes: a bit mask, 1 the dq
+// kernel, 2 the dk/dv kernel (and the chunk sum).  n_tiles, tail, resident,
+// stride and dq_smem: the bf16 dq kernel's plan (ops/flash_attention.py:
+// tile_plan); dkv_slab, dkv_smem and b_chunk: the dk/dv kernel's
+// (bwd_plan); a launch whose plan differs from the one for seq_len is
+// refused with cudaErrorInvalidValue.  b_chunk: batch rows per dk/dv block
+// with a shared bias (1 otherwise); with more than one chunk, partial is
+// fp32 scratch of ceil(batch / b_chunk) * heads * L * L.
 extern "C" int one_peace_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g, const void* bias,
     int bias_batched, const void* key_bias, void* dq, void* dk, void* dv, void* dbias,
-    void* partial, void* stats, int batch, int seq_len, int heads, float scaling,
-    int is_bf16, int b_chunk, int device, void* stream) {
+    void* partial, void* stats, void* dsum, int batch, int seq_len, int heads, float scaling,
+    int is_bf16, int passes, int n_tiles, int tail, int resident, int stride, int dq_smem,
+    int dkv_slab, int dkv_smem, int b_chunk, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (seq_len + kTile - 1) / kTile;
   const bool shared_bias = bias != nullptr && !bias_batched;
   if (!shared_bias) b_chunk = 1;
   const int chunks = (batch + b_chunk - 1) / b_chunk;
   // with several chunks, the dk/dv kernel writes partial sums of d(bias)
   float* dbias_out = shared_bias && chunks > 1 ? static_cast<float*>(partial)
                                                : static_cast<float*>(dbias);
-  const dim3 grid_dq(batch, n_tiles, heads);
-  const dim3 grid_dkv(n_tiles, heads, chunks);
+  const int q_tiles = (seq_len + kTile - 1) / kTile;
+  const dim3 grid_dq(batch, q_tiles, heads);
+  const dim3 grid_dkv(q_tiles, heads, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bp = static_cast<const float*>(bias);
+  const float* kbp = static_cast<const float*>(key_bias);
+  float* st = static_cast<float*>(stats);
+  float* ds = static_cast<float*>(dsum);
   if (is_bf16) {
-    using bf = __nv_bfloat16;
-    attn_bwd_dq_bf16<<<grid_dq, 128, 0, s>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        static_cast<const bf*>(g), static_cast<const float*>(bias), bias_batched,
-        static_cast<const float*>(key_bias), static_cast<bf*>(dq), static_cast<float*>(stats),
-        batch, seq_len, heads, scaling);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dkv_bf16<<<grid_dkv, 128, 0, s>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        static_cast<const bf*>(g), static_cast<const float*>(bias), bias_batched,
-        static_cast<const float*>(key_bias), static_cast<const float*>(stats),
-        static_cast<bf*>(dk), static_cast<bf*>(dv), dbias_out,
-        batch, seq_len, heads, scaling, b_chunk);
+    const TilePlan plan{n_tiles, tail, resident, stride, dq_smem};
+    const int width = kTile * (n_tiles - 1) + tail;
+    if (!plan_matches(plan, seq_len) || (dkv_slab && !shared_bias) ||
+        dkv_smem != 4 * kTileBytes + (dkv_slab ? kTile * (width + 8) * 4 : 0) + kAlign)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (passes & 1) {
+      err = resident ? launch_dq<true>(q, k, v, g, bp, bias_batched, kbp, st, dq, ds, grid_dq,
+                                       seq_len, heads, scaling, plan, s)
+                     : launch_dq<false>(q, k, v, g, bp, bias_batched, kbp, st, dq, ds, grid_dq,
+                                        seq_len, heads, scaling, plan, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (passes & 2) {
+      if (dkv_slab)
+        err = launch_dkv<1>(q, k, v, g, bp, bias_batched, kbp, st, ds, dk, dv, dbias_out,
+                            grid_dkv, batch, seq_len, heads, scaling, b_chunk, plan, width + 8,
+                            dkv_smem, s);
+      else if (shared_bias)
+        err = launch_dkv<2>(q, k, v, g, bp, bias_batched, kbp, st, ds, dk, dv, dbias_out,
+                            grid_dkv, batch, seq_len, heads, scaling, b_chunk, plan, 0, dkv_smem,
+                            s);
+      else
+        err = launch_dkv<0>(q, k, v, g, bp, bias_batched, kbp, st, ds, dk, dv, dbias_out,
+                            grid_dkv, batch, seq_len, heads, scaling, b_chunk, plan, 0, dkv_smem,
+                            s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   } else {
     err = cudaFuncSetAttribute(attn_bwd_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kDqF32Smem));
@@ -825,23 +894,25 @@ extern "C" int one_peace_flash_attention_bwd(
     err = cudaFuncSetAttribute(attn_bwd_dkv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kDkvF32Smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dq_f32<<<grid_dq, 256, kDqF32Smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(g),
-        static_cast<const float*>(bias), bias_batched, static_cast<const float*>(key_bias),
-        static_cast<float*>(dq), static_cast<float*>(stats), batch, seq_len, heads, scaling);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_dkv_f32<<<grid_dkv, 256, kDkvF32Smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(g),
-        static_cast<const float*>(bias), bias_batched, static_cast<const float*>(key_bias),
-        static_cast<const float*>(stats), static_cast<float*>(dk), static_cast<float*>(dv),
-        dbias_out, batch, seq_len, heads, scaling, b_chunk);
+    if (passes & 1) {
+      attn_bwd_dq_f32<<<grid_dq, 256, kDqF32Smem, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(g), bp, bias_batched, kbp,
+          static_cast<float*>(dq), st, ds, batch, seq_len, heads, scaling);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (passes & 2) {
+      attn_bwd_dkv_f32<<<grid_dkv, 256, kDkvF32Smem, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(g), bp, bias_batched, kbp, st,
+          ds, static_cast<float*>(dk), static_cast<float*>(dv), dbias_out, batch, seq_len, heads,
+          scaling, b_chunk);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
-  if (dbias_out != dbias) {
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (dbias_out != dbias && (passes & 2)) {
     const size_t n = static_cast<size_t>(heads) * seq_len * seq_len;
     const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
     attn_bwd_sum_chunks<<<blocks, 256, 0, s>>>(dbias_out, static_cast<float*>(dbias), n, chunks);

@@ -1,113 +1,76 @@
 // Fused bias-aware attention forward for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel one_peace_tpu/ops/flash_attention.py
+// Replaces the Pallas TPU kernel one_peace_tpu/ops/flash_attention.py:239
 // `_flash_fwd` / `_make_fwd_kernel`.  Per (batch b, head h) it computes
 //
 //   out = softmax(q k^T * scaling + rel_bias + key_bias) v
 //
 // on the (B, L, H*64) layout that the q/k/v projections produce, with the
-// scores and the softmax in fp32.  rel_bias is fp32 (H, L, L) shared over the
-// batch, fp32 (B, H, L, L), or absent; key_bias is fp32 (B, L) (-1e30 at
-// padded keys) or absent.  out has q's dtype.
+// scores and the softmax in fp32 and the probabilities rounded to v's dtype
+// before p.v, where the plain version casts them.  rel_bias is fp32
+// (H, L, L) shared over the batch, fp32 (B, H, L, L), or absent; key_bias is
+// fp32 (B, L) (-1e30 at padded keys) or absent.  out has q's dtype.  When a
+// gradient will be taken it also writes each row's max m and 1 / sum
+// (2, B, H, L) fp32: the backward starts from them.
 //
 // What bounds it on an H100 (4B geometry, H=24, Dh=64, per layer):
 //   images, L=257, B=256: q.k^T + p.v = 4*B*H*L^2*Dh = 104 GFLOP (0.105 ms at
 //     the 989 TFLOP/s bf16 peak); q, k, v and out are 808 MB of HBM traffic
 //     (0.24 ms at 3.35 TB/s); every block also reads its 64 x L slice of the
-//     bias, B*H*L^2*4 = 1.6 GB in all, of which only the 6.3 MB shared table
-//     has to come from HBM.
-//   audio, L=500, B=32: 49 GFLOP (0.05 ms at peak), 197 MB of q/k/v/out
-//     (0.06 ms), 768 MB of bias reads over a 24 MB shared table.
-// So at these short sequences the kernel is bound by bytes, not FLOPs: the
-// q/k/v/out traffic in HBM and the bias reads that must hit L2.
+//     bias, B*H*L^2*4 = 1.6 GB in all from L2 (the shared table is 6.3 MB).
+//   audio, L=500, B=32: 49 GFLOP, 197 MB of q/k/v/out, 768 MB of bias reads.
+// So the kernel is bound by bytes (q/k/v/out in HBM, the bias through L2)
+// and by the latency of short per-score work, not by the tensor cores.  The
+// first port walked the key tiles twice, computing q.k^T, reading the
+// bias and taking exp twice per score, on 64-wide tiles whether or not their
+// keys exist (25 tile pairs for 16.1 of work at L=257), on mma.sync.
 //
-// What this design does about it:
-//   - one block per (batch, 64-row q tile, head), batch in blockIdx.x: the
-//     blocks that run together read the same (head, q tile) rows of a shared
-//     bias, so those rows are served from L2 (the Hopper analogue of the TPU
-//     kernel's batch-innermost grid);
-//   - q is read once per block in 16-byte loads and the (L, L) scores never
-//     leave registers: the block walks 64-key tiles of K (and V) staged in
-//     shared memory, double-buffered with cp.async so the next tile loads
-//     while this one computes, with the softmax statistics (row max and sum)
-//     in fp32;
-//   - the bias is read straight from global memory in the mma accumulator
-//     layout (4 lanes cover 32 contiguous bytes of a row), all 32 loads of a
-//     tile issued before its MMAs, at clamped addresses and without
-//     branches; key columns >= L are masked in the kernel.  Issued one by
-//     one behind their branches, the bias loads had made the kernel 1.7x
-//     slower (PERF.md);
-//   - bf16 inputs use the tensor cores through mma.sync m16n8k16 with fp32
-//     accumulation, in two passes over the key tiles: the first finds each
-//     row's max and sum, the second rounds the normalised P to bf16 before
-//     P.V, exactly where the plain version casts its fp32 probabilities to
-//     v's dtype.  A one-pass online softmax rounds the unnormalised P
-//     instead, and its bf16 embeddings of the 40-layer model drifted from
-//     the plain path's almost to the 0.999 cosine bound (PERF.md).  The
-//     second pass reads K and the bias again;
-//   - fp32 inputs use CUDA-core FMA and a one-pass online softmax (nothing
-//     is rounded, so the order does not matter).
-// Not done yet: wgmma, TMA, warp specialisation, and a single pass that keeps
-// a row block's scores in shared memory where they fit.
+// What this design does (ops/flash_attention.py:tile_plan):
+//   - one block, one warpgroup, per (batch, 64-row q tile, head), batch in
+//     blockIdx.x, so the blocks in flight read the same bias rows from L2;
+//   - one walk over the key tiles where two row blocks fit on an SM (L <=
+//     304: 64 rows of the padded width + 8 floats, 72 KB at L=257, beside
+//     four K/V tiles): each tile's bias rows are copied by cp.async into the
+//     block's region of shared memory a tile ahead, q.k^T runs on wgmma (Q
+//     from registers, K from a 128-byte-swizzled tile), the bias is read from
+//     the region while it runs, and the biased scores go back into the region
+//     in place of the bias.  Then, in registers and shared memory only, m,
+//     one exp per score and l; then p = exp(s - m) / l rounded to bf16
+//     exactly where the plain version rounds it, and p.v on wgmma over V
+//     tiles streamed by cp.async.  One q.k^T, one bias read, one exp per
+//     score (on an H100 80GB HBM3 at 700 W, 0.040 against 0.049 ms in two
+//     walks at L=71, B=32; a tie at L=257, B=256, 1.764 against 1.762;
+//     PERF.md);
+//   - longer sequences walk twice (online m and l first, then p.v), each
+//     tile's bias staged a tile ahead in one of two 64 x 72 float buffers and
+//     read while q.k^T runs: the same function with the same rounding points;
+//     only the order of l's fp32 sum differs between the branches.  With the
+//     row block resident at L=500 the kernel ran one block per SM and lost to
+//     the first port, and reading the bias per score from device memory in
+//     the two walks cost a third more than staging it (PERF.md);
+//   - ragged tails at their own width: the last key tile is as wide as its
+//     keys rounded up to 16 (wgmma m64nNk16, N = 16, 32, 48 or 64, and p.v
+//     only 16 * ceil(keys / 16) deep; each width compiled apart), and in the
+//     last q tile the warps whose 16 rows all lie past L take part only in
+//     the warpgroup's wgmma: no bias, no exp, no stores;
+//   - fp32 inputs (the test path) use CUDA-core FMA and a one-pass online
+//     softmax (nothing is rounded, so the order does not matter).
+// Not done yet: TMA for K, V; 128-row q tiles (half the K/V traffic); a row
+// block for the last q tile narrower than 64 (its idle warps still issue the
+// warpgroup's products); overlapping one tile's p.v with the next q.k^T.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tiles.cuh"
+
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kBlockM = 64;              // query rows per block
-constexpr int kBlockN = 64;              // keys per K/V tile
-constexpr int kStride = kHeadDim + 8;    // bf16 smem row stride: no bank conflicts
+constexpr int kBlockM = kTile;           // query rows per block
+constexpr int kBlockN = kTile;           // keys per K/V tile
 constexpr int kF32Stride = kHeadDim + 1; // fp32 smem row stride: no bank conflicts
-constexpr float kNegInf = -1e30f;        // as ops/flash_attention.py NEG_INF
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D = A (16x16, row) * B (16x8, col) + D, bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16-byte async copy global -> shared; zero-fills when !valid.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// Rows [row0, row0 + 64) of one head into shared memory, asynchronously;
-// rows >= L are zero.
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int row0, int L, int row_stride) {
-  for (int i = threadIdx.x; i < kBlockM * 8; i += blockDim.x) {
-    const int r = i >> 3, c = i & 7;
-    const bool valid = row0 + r < L;
-    cp_async_16(dst + r * kStride + c * 8,
-                src + static_cast<size_t>(valid ? row0 + r : 0) * row_stride + c * 8, valid);
-  }
-}
 
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               int row0, int L, int row_stride) {
@@ -129,166 +92,239 @@ __device__ __forceinline__ float biased_score(float acc, int row, int col, int L
   return x;
 }
 
-// One warp's 16 x 64 tile of scaled, biased and masked scores against the
-// K tile in shared memory, in the mma accumulator layout: s[j][c] is row
-// rows[c >> 1], key k0 + 8j + 2t + (c & 1).  The bias loads are issued
-// first, branch-free at clamped addresses, so they overlap the MMAs.
-__device__ __forceinline__ void score_tile(float s[8][4], const uint32_t qa[4][4],
-                                           const __nv_bfloat16* ks, const int rows[2],
-                                           int k0, int L, float scaling,
-                                           const float* bias_bh, const float* kb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float bv[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = min(rows[c >> 1], L - 1), col = min(k0 + j * 8 + 2 * t + (c & 1), L - 1);
-      // key_bias is 0 or -1e30, so adding it to the bias first rounds alike
-      bv[j][c] = (bias_bh != nullptr ? __ldg(bias_bh + static_cast<size_t>(row) * L + col) : 0.f) +
-                 (kb != nullptr ? __ldg(kb + col) : 0.f);
-    }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-    const __nv_bfloat16* kp = ks + (j * 8 + g) * kStride + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_16816(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kp + kk * 16),
-                *reinterpret_cast<const uint32_t*>(kp + kk * 16 + 8));
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      s[j][c] = k0 + j * 8 + 2 * t + (c & 1) < L ? s[j][c] * scaling + bv[j][c] : kNegInf;
-  }
-}
-
 // 4 warps; warp w owns query rows [16w, 16w + 16) of the block's tile.
-__global__ void __launch_bounds__(128)
+// kResident: one walk, the scores kept in the region (see the header).
+template <bool kResident>
+__global__ void __launch_bounds__(128, 2)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
               int bias_batched, const float* __restrict__ key_bias,
-              __nv_bfloat16* __restrict__ out, int L, int H, float scaling) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kBlockM * kStride];
-  __shared__ __align__(16) __nv_bfloat16 ks[2][kBlockN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][kBlockN * kStride];
+              __nv_bfloat16* __restrict__ out, float* __restrict__ stats, int L, int H,
+              float scaling, TilePlan plan) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  unsigned char* smem = aligned_smem(dyn_smem);
+  unsigned char* ks = smem;                   // [2] swizzled K tiles
+  unsigned char* vs = smem + 2 * kTileBytes;  // [2] swizzled V tiles (Q first)
+  // the row block's scores (kResident), or two staged bias tiles of kStageStride
+  float* region = reinterpret_cast<float*>(smem + 4 * kTileBytes);
 
   const int b = blockIdx.x, q0 = blockIdx.y * kBlockM, h = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int row_stride = H * kHeadDim;
   const size_t base = static_cast<size_t>(b) * L * row_stride + static_cast<size_t>(h) * kHeadDim;
-  const float* bias_bh = bias == nullptr ? nullptr
-      : bias + (static_cast<size_t>(bias_batched ? b * H : 0) + h) * L * L;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const float* bias_q = bias == nullptr ? nullptr
+      : bias + (static_cast<size_t>(bias_batched ? bh : h) * L + q0) * L;  // the block's rows
   const float* kb = key_bias == nullptr ? nullptr : key_bias + static_cast<size_t>(b) * L;
+  const int nrows = min(kBlockM, L - q0), n_tiles = plan.n_tiles, stride = plan.stride;
+  const bool live = warp * 16 < nrows;  // a warp with no row < L only joins the wgmmas
+  const int lr[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  const int rows[2] = {q0 + lr[0], q0 + lr[1]};
+  const int cr[2] = {min(lr[0], nrows - 1), min(lr[1], nrows - 1)};  // rows >= L read row L-1
 
-  load_tile_async(qs, q + base, q0, L, row_stride);
+  load_tile_async(vs, q + base, q0, L, row_stride);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  const int qr = warp * 16 + g;
   uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const __nv_bfloat16* p0 = qs + qr * kStride + kk * 16 + 2 * t;
-    const __nv_bfloat16* p1 = p0 + 8 * kStride;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-  }
-  const int rows[2] = {q0 + qr, q0 + qr + 8};
-  float s[8][4];
+  read_a_frags(qa, vs);
+  __syncthreads();
 
-  // pass 1: running max m and sum l of exp(s - m) per row
+  auto width = [&](int it) { return it + 1 < n_tiles ? kBlockN : plan.tail; };
+  // key tile it's bias rows: its columns of the region, or a staging buffer
+  auto bias_tile = [&](int it) {
+    return kResident ? region + it * kBlockN : region + (it & 1) * kBlockM * kStageStride;
+  };
+  const int bias_stride = kResident ? stride : kStageStride;
+  // K and V tiles of key tile it, and its bias
+  auto stage = [&](int it, bool with_k, bool with_v, bool with_bias) {
+    const int buf = it & 1, k0 = it * kBlockN;
+    if (with_k) load_tile_async(ks + buf * kTileBytes, k + base, k0, L, row_stride);
+    if (with_v) load_tile_async(vs + buf * kTileBytes, v + base, k0, L, row_stride);
+    if (with_bias && bias_q != nullptr)
+      stage_bias(bias_tile(it), bias_stride, bias_q + k0, nrows, min(kBlockN, L - k0), L);
+  };
+  // s = q k^T * scaling + bias + key_bias for key tile it, 8 kN8 keys wide
+  // (-1e30 at keys >= L); the staged bias is read while q.k^T runs
+  auto scores = [&](auto n8c, float s[8][4], int it) {
+    constexpr int kN8 = decltype(n8c)::value;
+    const int k0 = it * kBlockN;
+    issue_nt<kN8>(s, qa, ks + (it & 1) * kTileBytes);
+    // no branch between a product's issue and its wait (ptxas serialised the
+    // wgmmas behind one): every warp reads the bias, at rows clamped below L
+    float bv[kN8][4];
+#pragma unroll
+    for (int j = 0; j < kN8; ++j) {
+      const int col = k0 + 8 * j + 2 * t;
+      float2 kbv = make_float2(0.f, 0.f);
+      if (kb != nullptr)  // key_bias is 0 or -1e30: adding it first rounds alike
+        kbv = make_float2(__ldg(kb + min(col, L - 1)), __ldg(kb + min(col + 1, L - 1)));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2 x = make_float2(0.f, 0.f);
+        if (bias_q != nullptr)
+          x = *reinterpret_cast<const float2*>(bias_tile(it) + cr[r] * bias_stride + 8 * j + 2 * t);
+        bv[j][2 * r] = x.x + kbv.x;
+        bv[j][2 * r + 1] = x.y + kbv.y;
+      }
+    }
+    wgmma_wait_all();
+    fence_acc(s);
+#pragma unroll
+    for (int j = 0; j < kN8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        s[j][c] = k0 + 8 * j + 2 * t + (c & 1) < L ? s[j][c] * scaling + bv[j][c] : kNegInf;
+  };
+
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int n_tiles = (L + kBlockN - 1) / kBlockN;
-  load_tile_async(ks[0], k + base, 0, L, row_stride);
+  // walk 1: the scores, kept in the region, and each row's max; or, in two
+  // walks, the running max and sum
+  stage(0, true, false, true);
   cp_async_commit();
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kBlockN;
-    if (it + 1 < n_tiles) load_tile_async(ks[(it + 1) & 1], k + base, k0 + kBlockN, L, row_stride);
+    if (it + 1 < n_tiles) stage(it + 1, true, false, true);
     cp_async_commit();
     cp_async_wait_prev();
+    fence_async_shared();
     __syncthreads();
-    score_tile(s, qa, ks[it & 1], rows, k0, L, scaling, bias_bh, kb);
-    float mx[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f};
+    with_width(width(it), [&](auto n8c) {
+      constexpr int kN8 = decltype(n8c)::value;
+      float s[8][4];
+      scores(n8c, s, it);
+      if (!live) return;
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kN8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+        for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+      if constexpr (kResident) {
+        float* rt = region + it * kBlockN + 2 * t;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        for (int j = 0; j < kN8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(rt + lr[r] * stride + 8 * j) =
+                make_float2(s[j][2 * r], s[j][2 * r + 1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) m[r] = fmaxf(m[r], mx[r]);
+      } else {
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(m[r], fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2)));
+        }
+        const float off[2] = {-mx[0] * kLog2e, -mx[1] * kLog2e};
+#pragma unroll
+        for (int j = 0; j < kN8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) rs[c >> 1] += ex2(fmaf(s[j][c], kLog2e, off[c >> 1]));
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+          rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+          l[r] = l[r] * ex2((m[r] - mx[r]) * kLog2e) + rs[r];  // exactly l when m holds
+          m[r] = mx[r];
+        }
+      }
+    });
+    __syncthreads();  // tile it is consumed before its buffers are refilled
+  }
+
+  if constexpr (kResident) {
+    stage(0, false, true, false);  // V tile 0 loads while the exps run
+    cp_async_commit();
+    // walk 2, over the region: e = exp(s - m) in place, l = sum of e
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+      }
+      const float off[2] = {-m[0] * kLog2e, -m[1] * kLog2e};
+      const int n8 = (kBlockN * (n_tiles - 1) + plan.tail) >> 3;
+      for (int j = 0; j < n8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float2* p = reinterpret_cast<float2*>(region + lr[r] * stride + 8 * j + 2 * t);
+          float2 x = *p;
+          x.x = ex2(fmaf(x.x, kLog2e, off[r]));
+          x.y = ex2(fmaf(x.y, kLog2e, off[r]));
+          *p = x;
+          l[r] += x.x + x.y;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
     }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) rs[c >> 1] += __expf(s[j][c] - mx[c >> 1]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * __expf(m[r] - mx[r]) + rs[r];
-      m[r] = mx[r];
-    }
-    __syncthreads();  // tile it is consumed before its buffer is refilled
+  } else {
+    stage(0, true, true, true);
+    cp_async_commit();
   }
   const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  if (stats != nullptr && live && t == 0) {
+    const size_t plane = static_cast<size_t>(gridDim.x) * H * L;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (rows[r] < L) {
+        stats[bh * L + rows[r]] = m[r];
+        stats[plane + bh * L + rows[r]] = inv[r];
+      }
+  }
 
-  // pass 2: P = exp(s - m) / l, rounded to bf16, times V
+  // walk 3: P = exp(s - m) / l, rounded to bf16, times V
   float o[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-  load_tile_async(ks[0], k + base, 0, L, row_stride);
-  load_tile_async(vs[0], v + base, 0, L, row_stride);
-  cp_async_commit();
+  const float off[2] = {-m[0] * kLog2e, -m[1] * kLog2e};
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kBlockN;
-    if (it + 1 < n_tiles) {
-      load_tile_async(ks[(it + 1) & 1], k + base, k0 + kBlockN, L, row_stride);
-      load_tile_async(vs[(it + 1) & 1], v + base, k0 + kBlockN, L, row_stride);
-    }
+    if (it + 1 < n_tiles) stage(it + 1, !kResident, true, !kResident);
     cp_async_commit();
     cp_async_wait_prev();
+    fence_async_shared();
     __syncthreads();
-    score_tile(s, qa, ks[it & 1], rows, k0, L, scaling, bias_bh, kb);
+    with_width(width(it), [&](auto n8c) {
+      constexpr int kN8 = decltype(n8c)::value;
+      float p[8][4];
+      if constexpr (kResident) {
+        if (live) {
+          const float* rt = region + it * kBlockN + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < kN8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = __expf(s[j][c] - m[c >> 1]) * inv[c >> 1];
-    // The accumulator layout of two adjacent 8-key score tiles is the A
-    // operand layout of one 16-key step of P.V.
+            for (int r = 0; r < 2; ++r) {
+              const float2 x = *reinterpret_cast<const float2*>(rt + lr[r] * stride + 8 * j);
+              p[j][2 * r] = x.x * inv[r];
+              p[j][2 * r + 1] = x.y * inv[r];
+            }
+        }
+      } else {
+        scores(n8c, p, it);
+        if (live) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int mi = lane >> 3;
-      const __nv_bfloat16* vrow = vs[it & 1] + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * kStride;
+          for (int j = 0; j < kN8; ++j)
 #pragma unroll
-      for (int n = 0; n < 8; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vrow + (n + (mi >> 1)) * 8);
-        mma_16816(o[n], pa, vb[0], vb[1]);
-        mma_16816(o[n + 1], pa, vb[2], vb[3]);
+            for (int c = 0; c < 4; ++c)
+              p[j][c] = ex2(fmaf(p[j][c], kLog2e, off[c >> 1])) * inv[c >> 1];
+        }
       }
-    }
-    __syncthreads();  // tile it is consumed before its buffer is refilled
+      uint32_t pa[4][4];
+      if (live)
+        pack_a<kN8 / 2>(pa, p);
+      else
+        zero_a(pa);
+      issue_nn<kN8 / 2>(o, pa, vs + (it & 1) * kTileBytes);
+      wgmma_wait_all();
+      fence_acc(o);
+    });
+    __syncthreads();  // tile it is consumed before its buffers are refilled
   }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= L) continue;
-    __nv_bfloat16* dst = out + base + static_cast<size_t>(rows[r]) * row_stride + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) = pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
-  }
+  store_rows_bf16(out + base, o, rows, L, row_stride);
 }
 
 // 256 threads as 16 x 16: thread (ty, tx) owns rows 4ty..4ty+3 and, of each
@@ -299,7 +335,8 @@ __global__ void __launch_bounds__(256)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ bias,
              int bias_batched, const float* __restrict__ key_bias,
-             float* __restrict__ out, int L, int H, float scaling) {
+             float* __restrict__ out, float* __restrict__ stats, int L, int H,
+             float scaling) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + kBlockM * kF32Stride;
@@ -399,7 +436,28 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       out[base + static_cast<size_t>(row) * row_stride + tx + 16 * j] = o[i][j] * inv;
+    if (stats != nullptr && tx == 0) {
+      const size_t off = (static_cast<size_t>(b) * H + h) * L + row;
+      stats[off] = m[i];
+      stats[static_cast<size_t>(gridDim.x) * H * L + off] = inv;
+    }
   }
+}
+
+
+template <bool kResident>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float* bias,
+                        int bias_batched, const float* key_bias, void* out, float* stats,
+                        dim3 grid, int L, int heads, float scaling, const TilePlan& plan,
+                        cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_bf16<kResident>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+  if (err != cudaSuccess) return err;
+  attn_fwd_bf16<kResident><<<grid, 128, plan.smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), bias, bias_batched, key_bias,
+      static_cast<__nv_bfloat16*>(out), stats, L, heads, scaling, plan);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -407,31 +465,38 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // q, k, v, out: (batch, seq_len, heads * 64), bf16 when is_bf16 else fp32.
 // bias: fp32 (heads, L, L), or (batch, heads, L, L) when bias_batched, or null.
-// key_bias: fp32 (batch, L) or null.
+// key_bias: fp32 (batch, L) or null.  stats: fp32 (2, batch, heads, L) for each
+// row's max and 1 / sum, or null.  n_tiles, tail, resident, stride and
+// smem_bytes: the bf16 kernel's plan (ops/flash_attention.py:tile_plan); a
+// launch whose plan differs from the one for seq_len is refused with
+// cudaErrorInvalidValue.  The fp32 kernel ignores them.
 extern "C" int one_peace_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, int bias_batched,
-    const void* key_bias, void* out, int batch, int seq_len, int heads,
-    float scaling, int is_bf16, int device, void* stream) {
+    const void* key_bias, void* out, void* stats, int batch, int seq_len, int heads,
+    float scaling, int is_bf16, int n_tiles, int tail, int resident, int stride,
+    int smem_bytes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(batch, (seq_len + kBlockM - 1) / kBlockM, heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bp = static_cast<const float*>(bias);
+  const float* kbp = static_cast<const float*>(key_bias);
+  float* st = static_cast<float*>(stats);
   if (is_bf16) {
-    attn_fwd_bf16<<<grid, 128, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias), bias_batched,
-        static_cast<const float*>(key_bias), static_cast<__nv_bfloat16*>(out),
-        seq_len, heads, scaling);
-  } else {
-    err = cudaFuncSetAttribute(attn_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kF32Smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_fwd_f32<<<grid, 256, kF32Smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(bias), bias_batched,
-        static_cast<const float*>(key_bias), static_cast<float*>(out),
-        seq_len, heads, scaling);
+    const TilePlan plan{n_tiles, tail, resident, stride, smem_bytes};
+    if (!plan_matches(plan, seq_len)) return static_cast<int>(cudaErrorInvalidValue);
+    err = resident ? launch_bf16<true>(q, k, v, bp, bias_batched, kbp, out, st, grid, seq_len,
+                                       heads, scaling, plan, s)
+                   : launch_bf16<false>(q, k, v, bp, bias_batched, kbp, out, st, grid, seq_len,
+                                        heads, scaling, plan, s);
+    return static_cast<int>(err);
   }
+  err = cudaFuncSetAttribute(attn_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kF32Smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_fwd_f32<<<grid, 256, kF32Smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      bp, bias_batched, kbp, static_cast<float*>(out), st, seq_len, heads, scaling);
   return static_cast<int>(cudaGetLastError());
 }
 

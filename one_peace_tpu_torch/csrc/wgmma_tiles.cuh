@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the det attention kernels
-// (det_attention_fwd.cu, det_attention_bwd.cu): cp.async copies into
-// 128-byte-swizzled bf16 tiles of 64 rows x 64 head dims, their wgmma
-// descriptors, and wgmma m64n64k16 with A from registers or from shared
-// memory.  ops/build.py hashes every header here into each library's name.
+// Hopper (sm_90a) building blocks shared by the attention kernels
+// (flash_attention_{fwd,bwd}.cu, det_attention_{fwd,bwd}.cu): cp.async copies
+// into 128-byte-swizzled bf16 tiles of 64 rows x 64 head dims, their wgmma
+// descriptors, wgmma m64n64k16 with A from registers or from shared memory,
+// and wgmma m64nNk16 (N = 16, 32, 48 or 64) with A from registers for a
+// ragged last tile.  ops/build.py hashes every header here into each
+// library's name.
 
 #pragma once
 
@@ -84,6 +86,45 @@ __device__ __forceinline__ void wgmma_64x64x16_ss(float d[8][4], uint64_t desc_a
       : DET_ACC4(0), DET_ACC4(1), DET_ACC4(2), DET_ACC4(3), DET_ACC4(4), DET_ACC4(5),
         DET_ACC4(6), DET_ACC4(7)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
+// d[0 .. kN8) (+)= a . B: wgmma m64nNk16 with N = 8 kN8 (16, 32 or 48; 64 is
+// wgmma_64x64x16), A from registers, B K-major (kTransB 0) or MN-major (1)
+// N rows / columns of a swizzled tile; d[kN8 ..] is left alone.
+template <int kN8, int kTransB>
+__device__ __forceinline__ void wgmma_64xnx16(float d[8][4], const uint32_t a[4], uint64_t desc,
+                                              int accumulate) {
+  static_assert(kN8 == 2 || kN8 == 4 || kN8 == 6 || kN8 == 8, "N is 16, 32, 48 or 64");
+  if constexpr (kN8 == 8) {
+    wgmma_64x64x16<kTransB>(d, a, desc, accumulate);
+  } else if constexpr (kN8 == 2) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : DET_ACC4(0), DET_ACC4(1)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate),
+          "n"(kTransB));
+  } else if constexpr (kN8 == 4) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : DET_ACC4(0), DET_ACC4(1), DET_ACC4(2), DET_ACC4(3)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate),
+          "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+        : DET_ACC4(0), DET_ACC4(1), DET_ACC4(2), DET_ACC4(3), DET_ACC4(4), DET_ACC4(5)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate),
+          "n"(kTransB));
+  }
 }
 #undef DET_ACC4
 

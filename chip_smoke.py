@@ -35,15 +35,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    the kernels' launch counts per step and a falling loss; one step under
    ``torch.profiler`` (its top ops go to ``chiprun_out/train_profile.txt``).
 8. the int8 kernels (row quantize and GEMM) against their plain versions on
-   the card, bit for bit, at the serving path's shapes and ragged ones, and
-   their times beside the plain versions', bf16 ``torch.matmul``'s and
-   ``torch._int_mm``'s;
+   the card, bit for bit, at the serving path's shapes, ragged ones and the
+   edges of the GEMM's plan (M below one tile, a partial last wave of
+   tiles, the audio rows); then
+   the quantize's times at both FFN inputs and the GEMM's at the three FFN
+   shapes, each beside its bound and plain version, the GEMM in turns with
+   bf16 ``torch.matmul`` and ``torch._int_mm`` (its TOPS and share of the
+   bound logged);
 9. int8 serving at full width through the hub: ``from_pretrained`` on a
    2-layer full-width fairseq ``.pt`` written under ``build/``, quantize
    "ffn" and "ffn_attn", fp32 and bf16, text / image / audio embeddings on
    the kernel path against the plain int8 path, the launch counts per
-   forward, ``process_image(on_device=True)``; then images/s and clips/s at
-   depth 40 in bf16 for the bf16, "ffn" and "ffn_attn" paths;
+   forward, ``process_image(on_device=True)``; then at depth 40 in bf16 the
+   GEMM and quantize launches of one "ffn" and one "ffn_attn" image forward
+   (120 / 80 and 280 / 160), and images/s and clips/s for the bf16, "ffn"
+   and "ffn_attn" paths;
 10. the depth-40 golden (``tests/fixtures/full_geometry_golden.npz``): the
    seeded 4B fairseq state regenerated, converted by the port's ``.pt``
    route, and the fp32 model on the kernel path held to the golden
@@ -816,13 +822,16 @@ def time_attention(gen, heads: int, frames: int, card: str) -> dict:
 
 FFN_SHAPES = [(65792, 1536, 6144), (65792, 6144, 1536), (65792, 1536, 1536)]  # (M, K, N)
 RAGGED_SHAPES = [(13, 100, 70), (260, 520, 515)]  # tests/test_quant.py:141's
+# M below one tile; a tile count that leaves a partial last wave on 132 SMs;
+# the audio rows (B=32 at L=501)
+EDGE_SHAPES = [(64, 1536, 6144), (4100, 1536, 6144), (16032, 6144, 1536)]
 
 
-def check_int8_kernels(gen, card: str) -> dict:
-    """Phase 8: the row quantize and the GEMM against their plain versions,
-    bit for bit, at the serving path's shapes (M = 65,792 image rows at
-    B=256, 16,032 audio rows at B=32) and ragged ones; then their times and
-    bf16 ``torch.matmul``'s on the same product (information)."""
+def check_int8_kernels(gen) -> dict:
+    """Phase 8 (a): the row quantize and the GEMM against their plain
+    versions, bit for bit, at the serving path's shapes (M = 65,792 image
+    rows at B=256, 16,032 audio rows at B=32), ragged ones and the GEMM
+    plan's edges.  Returns the largest differences (0)."""
     worst = {"quantize": 0.0, "gemm": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         for m, k in ((65792, 1536), (65792, 6144), (16032, 6144), (13, 100)):
@@ -839,12 +848,17 @@ def check_int8_kernels(gen, card: str) -> dict:
             if not same:
                 raise RuntimeError(f"int8 quantize kernel disagrees at {dtype} ({m}, {k})")
             del x, got, want
-    for m, k, n in FFN_SHAPES + RAGGED_SHAPES:
-        x_q = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
-        w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
-        sx = torch.rand(m, generator=gen, device="cuda") * 0.01 + 1e-4
-        sw = torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-4
-        bias = torch.randn(n, generator=gen, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the plan's edges draw from a generator of their own, so that `gen`
+    # reaches the later phases (11 and 12) in the state it always had
+    extra = torch.Generator(device="cuda").manual_seed(4)
+    for m, k, n in FFN_SHAPES + RAGGED_SHAPES + EDGE_SHAPES:
+        rng = extra if (m, k, n) in EDGE_SHAPES else gen
+        x_q = torch.randint(-127, 128, (m, k), generator=rng, device="cuda", dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (n, k), generator=rng, device="cuda", dtype=torch.int8)
+        sx = torch.rand(m, generator=rng, device="cuda") * 0.01 + 1e-4
+        sw = torch.rand(n, generator=rng, device="cuda") * 0.01 + 1e-4
+        bias = torch.randn(n, generator=rng, device="cuda")
         for out_dtype in (torch.float32, torch.bfloat16):
             for b in (None, bias):
                 got = im.int8_matmul_cuda(x_q, w_q, sx, sw, b, out_dtype)
@@ -856,44 +870,63 @@ def check_int8_kernels(gen, card: str) -> dict:
                     raise RuntimeError(f"int8 GEMM disagrees at ({m}, {k}, {n}) "
                                        f"{out_dtype} bias={b is not None}: max {err}")
                 del got, want
-        log(f"int8 GEMM vs plain ({m}, {k}, {n}): bit-equal in fp32 and bf16, "
-            f"with and without bias")
+        plan = im.gemm_plan(m, n, k, sms)
+        log(f"int8 GEMM vs plain ({m}, {k}, {n}): bit-equal in fp32 and bf16, with and "
+            f"without bias ({plan.tiles_m * plan.tiles_n} tiles on a grid of {plan.grid})")
     torch.cuda.empty_cache()
+    return worst
 
-    times = {"max_abs_err": worst}
-    x = torch.randn(65792, 1536, generator=gen, device="cuda", dtype=torch.bfloat16)
-    times["quantize"] = (cuda_time_ms(lambda: im.int8_quantize_rows_cuda(x), iters=20),
-                         cuda_time_ms(lambda: im.int8_quantize_rows_plain(x), iters=5))
-    times["quantize_bound"] = bound_ms(x.numel() * 3 + x.shape[0] * 4, 3 * x.numel(),
-                                       H100_FP32_PEAK_TFLOPS * 1e12)
-    log(f"int8 quantize (65792 x 1536) bf16: kernel {times['quantize'][0]:.3f} ms, plain "
-        f"{times['quantize'][1]:.3f} ms; bound {times['quantize_bound'][0]:.3f} ms by "
-        f"{times['quantize_bound'][1]} ({card})")
-    del x
+
+def gemm_bound(m: int, k: int, n: int) -> tuple:
+    """x_q, w_q, the scales read once and y written once in bf16; 2MKN
+    integer operations at the int8 peak."""
+    return bound_ms(m * k + n * k + 4 * (m + n) + 2 * m * n, 2 * m * k * n,
+                    H100_INT8_PEAK_TOPS * 1e12)
+
+
+def time_int8_kernels(gen, card: str) -> dict:
+    """Phase 8 (b): the row quantize at both FFN inputs and the GEMM at the
+    three FFN shapes, each beside its plain version; the GEMM in turns with
+    bf16 ``torch.matmul`` on the same product and ``torch._int_mm`` with the
+    scales (information: neither is used by the port)."""
+    times = {}
+    extra = torch.Generator(device="cuda").manual_seed(5)  # the wo input's (see check_int8_kernels)
+    for m, k in ((65792, 1536), (65792, 6144)):
+        x = torch.randn(m, k, generator=gen if k == 1536 else extra, device="cuda",
+                        dtype=torch.bfloat16)
+        kernel_ms = cuda_time_ms(lambda: im.int8_quantize_rows_cuda(x), iters=20)
+        plain_ms = cuda_time_ms(lambda: im.int8_quantize_rows_plain(x), iters=5)
+        bound = bound_ms(x.numel() * 3 + m * 4, 3 * x.numel(), H100_FP32_PEAK_TFLOPS * 1e12)
+        log(f"int8 quantize ({m} x {k}) bf16: kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({100 * bound[0] / kernel_ms:.1f}% of it) ({card})")
+        times[(m, k)] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                         "bound_by": bound[1], "library_ms": None}
+        del x
     for m, k, n in FFN_SHAPES:
         x_q = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
         w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
         sx, sw = torch.rand(m, device="cuda"), torch.rand(n, device="cuda")
         xb = torch.randn(m, k, generator=gen, device="cuda", dtype=torch.bfloat16)
         wb = torch.randn(n, k, generator=gen, device="cuda", dtype=torch.bfloat16)
-        kernel_ms = cuda_time_ms(lambda: im.int8_matmul_cuda(x_q, w_q, sx, sw, None,
-                                                             torch.bfloat16), iters=10)
+        turns = in_turns({
+            "kernel": lambda: im.int8_matmul_cuda(x_q, w_q, sx, sw, None, torch.bfloat16),
+            "bf16": lambda: xb @ wb.T,
+            "library": lambda: (torch._int_mm(x_q, w_q.t()) * sx[:, None]
+                                * sw[None, :]).to(torch.bfloat16)}, iters=10)
         plain_ms = cuda_time_ms(lambda: im.int8_matmul_plain(x_q, w_q, sx, sw, None,
                                                              torch.bfloat16), iters=3, warmup=1)
-        bf16_ms = cuda_time_ms(lambda: xb @ wb.T, iters=10)
-        library_ms = cuda_time_ms(lambda: (torch._int_mm(x_q, w_q.t()) * sx[:, None]
-                                           * sw[None, :]).to(torch.bfloat16), iters=10)
-        bound = bound_ms(m * k + n * k + 4 * (m + n) + 2 * m * n, 2 * m * k * n,
-                         H100_INT8_PEAK_TOPS * 1e12)
-        tops = 2 * m * k * n / kernel_ms / 1e9
-        log(f"int8 GEMM ({m}, {k}, {n}) -> bf16: kernel {kernel_ms:.3f} ms ({tops:.1f} TOPS = "
-            f"{100 * tops / H100_INT8_PEAK_TOPS:.1f}% of {H100_INT8_PEAK_TOPS:.0f}), plain "
-            f"{plain_ms:.3f} ms; bf16 torch.matmul {bf16_ms:.3f} ms "
-            f"({2 * m * k * n / bf16_ms / 1e9:.1f} TFLOP/s); torch._int_mm with the scales "
-            f"{library_ms:.3f} ms; bound {bound[0]:.3f} ms by {bound[1]} ({card})")
-        times[(m, k, n)] = {"ms": kernel_ms, "plain_ms": plain_ms, "bf16_ms": bf16_ms,
-                            "library_ms": library_ms, "bound_ms": bound[0],
-                            "bound_by": bound[1]}
+        bound = gemm_bound(m, k, n)
+        tops = 2 * m * k * n / turns["kernel"] / 1e9
+        log(f"int8 GEMM ({m}, {k}, {n}) -> bf16: kernel {turns['kernel']:.4f} ms ({tops:.1f} "
+            f"TOPS = {100 * tops / H100_INT8_PEAK_TOPS:.1f}% of {H100_INT8_PEAK_TOPS:.0f}; "
+            f"{100 * bound[0] / turns['kernel']:.1f}% of its bound {bound[0]:.4f} ms by "
+            f"{bound[1]}), plain {plain_ms:.3f} ms; bf16 torch.matmul {turns['bf16']:.4f} ms "
+            f"({2 * m * k * n / turns['bf16'] / 1e9:.1f} TFLOP/s); torch._int_mm with the "
+            f"scales {turns['library']:.4f} ms ({card})")
+        times[(m, k, n)] = {"ms": turns["kernel"], "plain_ms": plain_ms,
+                            "bf16_ms": turns["bf16"], "library_ms": turns["library"],
+                            "bound_ms": bound[0], "bound_by": bound[1]}
         del x_q, w_q, xb, wb
     torch.cuda.empty_cache()
     return times
@@ -1049,6 +1082,16 @@ def time_int8_paths(card: str, bpe: str) -> None:
     inputs["audio"]["audio_padding_masks"].zero_()
     images = inputs["image"]["src_images"].bfloat16()
     audio = (inputs["audio"]["src_audios"].bfloat16(), inputs["audio"]["audio_padding_masks"])
+    per_layer = {"ffn": (3, 2), "ffn_attn": (7, 4)}  # (GEMM, quantize) launches per layer
+    for mode, (gemms, quantizes) in per_layer.items():
+        im.launches = im.quantize_launches = 0
+        hubs[mode].extract_image_features(images)
+        counts = (im.launches, im.quantize_launches)
+        want = (gemms * cfg.encoder.layers, quantizes * cfg.encoder.layers)
+        log(f"9: depth 40 image B={IMG_BATCH} {mode}: {counts[0]} GEMM and {counts[1]} "
+            f"quantize launches per forward (expected {want[0]} and {want[1]})")
+        if counts != want:
+            raise RuntimeError(f"9: depth-40 {mode} launched {counts}, expected {want}")
     for modality, b in (("image", IMG_BATCH), ("audio", AUD_BATCH)):
         for mode in ("bf16", "ffn", "ffn_attn", "ffn_attn", "ffn", "bf16"):
             hub = hubs[mode]
@@ -1708,7 +1751,7 @@ def main() -> None:
     log(f"built {', '.join(lib.name for lib in libs.values())} in {time.time() - t0:.1f} s")
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:  # C7508, C7517
                 log(f"  ptxas: {line.strip()}")
 
     # 3. kernel vs plain
@@ -1747,7 +1790,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 8. the int8 kernels vs plain, and their times
-    int8_times = check_int8_kernels(gen, card)
+    int8_worst = check_int8_kernels(gen)
+    int8_times = time_int8_kernels(gen, card)
     # 9. int8 serving through the hub (the counts are read over its kernel-path forwards)
     int8_launches = serve_int8(card)
     if min(int8_launches.values()) == 0:
@@ -1784,20 +1828,23 @@ def main() -> None:
                 **{key: times[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms", "shapes") if key in times}}
 
-    gemm = int8_times[FFN_SHAPES[0]]
-    quantize_bound = int8_times["quantize_bound"]
+    def with_shapes(rows: dict) -> dict:
+        """The first shape's numbers, and every shape's under "shapes"."""
+        return {**next(iter(rows.values())), "shapes": rows}
+
+    gemm = with_shapes({f"(M, K, N) = {shape}": int8_times[shape] for shape in FFN_SHAPES})
     quantize = entry("int8_quantize_rows", "one_peace_tpu/ops/quant.py:46",
-                     int8_launches["quantize"], int8_times["max_abs_err"]["quantize"],
-                     {"ms": int8_times["quantize"][0], "plain_ms": int8_times["quantize"][1],
-                      "bound_ms": quantize_bound[0], "bound_by": quantize_bound[1],
-                      "library_ms": None}, source="int8_matmul")
+                     int8_launches["quantize"], int8_worst["quantize"],
+                     with_shapes({f"(M, K) = {shape}": int8_times[shape]
+                                  for shape in ((65792, 1536), (65792, 6144))}),
+                     source="int8_matmul")
     log(json.dumps({"kernels": [
         entry("flash_attention_fwd", "one_peace_tpu/ops/flash_attention.py:239",
               embed_launches + fwd_train, worst, fwd_times),
         entry("flash_attention_bwd", "one_peace_tpu/ops/flash_attention.py:409",
               bwd_train, bwd_worst, bwd_times),
         entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75", int8_launches["gemm"],
-              int8_times["max_abs_err"]["gemm"], gemm),
+              int8_worst["gemm"], gemm),
         quantize,
         entry("det_attention_fwd", "one_peace_tpu/ops/det_attention.py:277",
               det_launches + det_fwd_train, det_worst, det_times["global"]),

@@ -438,15 +438,21 @@ def det_attention_bwd_cuda(q, k, v, toep, bh, bw, out, dout, lse, hw: Tuple[int,
 class DetAttentionFunction(torch.autograd.Function):
     """The det attention on the (B, L, H*Dh) layout with its gradient
     (``_det_attention_core``'s ``custom_vjp``): the kernels for CUDA
-    tensors, the plain versions for CPU tensors.  The forward saves its
-    output and row log-sum-exp (computed only when a gradient is wanted);
-    the backward recomputes the probabilities from them.  A bias that is
-    absent, or needs no gradient, gets None."""
+    tensors, the plain versions for CPU tensors.  When a gradient will be
+    taken (an input needs one) the forward also writes the row log-sum-exp
+    and saves it with its inputs and output; under ``no_grad`` or
+    ``inference_mode`` nothing extra is written.  The backward recomputes
+    the probabilities from them.  A bias that is absent, or needs no
+    gradient, gets None."""
 
     @staticmethod
-    def forward(ctx, q, k, v, toep, bh, bw, hw, scaling: float, heads: int):
+    def forward(ctx, q, k, v, toep, bh, bw, hw, scaling: float, heads: int,
+                grad_wanted: bool):
+        # grad_wanted: torch.is_grad_enabled() at the call (inside forward
+        # grad mode is off, and needs_input_grad ignores no_grad and
+        # inference_mode)
         fwd = det_attention_plain if q.device.type == "cpu" else det_attention_cuda
-        if not any(ctx.needs_input_grad[:6]):
+        if not (grad_wanted and any(ctx.needs_input_grad[:6])):
             return fwd(q, k, v, toep, bh, bw, hw, scaling, heads)
         out, lse = fwd(q, k, v, toep, bh, bw, hw, scaling, heads, with_lse=True)
         ctx.save_for_backward(q, k, v, toep, bh, bw, out, lse)
@@ -462,7 +468,8 @@ class DetAttentionFunction(torch.autograd.Function):
             grads = det_attention_bwd_plain(*args)
         else:
             grads = det_attention_bwd_cuda(*args, need_dtoep=need[3])
-        return (*(x if want else None for x, want in zip(grads, need[:6])), None, None, None)
+        return (*(x if want else None for x, want in zip(grads, need[:6])),
+                None, None, None, None)
 
 
 def det_flash_attention(
@@ -487,5 +494,6 @@ def det_flash_attention(
     if rel_h is not None:
         bh, bw = compute_decomp(q, rel_h, rel_w, hw)
     q3, k3, v3 = (x.reshape(b, l, heads * dh) for x in (q, k, v))
-    out = DetAttentionFunction.apply(q3, k3, v3, toep, bh, bw, tuple(hw), scaling, heads)
+    out = DetAttentionFunction.apply(q3, k3, v3, toep, bh, bw, tuple(hw), scaling, heads,
+                                     torch.is_grad_enabled())
     return out.reshape(b, l, heads, dh)

@@ -12,7 +12,9 @@ and how the design answers that.
   ``x_q = clamp(round_half_even(x / sx), -127, 127)``.
 - ``int8_matmul(x_q, w_q, sx, sw, bias, out_dtype)``: x_q (M, K) int8 times
   w_q (N, K) int8 (K contiguous), ``(float(acc) * sx[m]) * sw[n] + b[n]`` in
-  fp32, one rounding to ``out_dtype``.
+  fp32, one rounding to ``out_dtype``.  The kernel's launch follows
+  ``gemm_plan`` (tile, ring stages, shared memory, persistent grid, raster
+  group); ``tile_coords`` is its walk over the output tiles.
 
 Each dispatcher sends CUDA tensors to its kernel and CPU tensors to its
 plain version; on the card there is no fallback, and an input the kernel
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +41,67 @@ from .build import build_library
 launches = 0
 quantize_launches = 0
 
-_K_ALIGN = 16  # bytes of K per cp.async chunk
-_MAX_M_TILES = 65535  # the GEMM's grid.y, 128 rows each
+_K_ALIGN = 16  # the TMA row stride of x_q and w_q is a multiple of 16 bytes
+
+# The GEMM kernel's shape (csrc/int8_matmul.cu): 128 x 256 output tiles, two
+# consumer warpgroups of 64 x 256; 128-byte K slabs of x_q (128 rows) and
+# w_q (256 rows) in a ring of GEMM_STAGES stages; each consumer stages its
+# outputs in 16 KB; the 128-byte swizzle wants 1024-byte aligned stages.
+GEMM_TILE_M, GEMM_TILE_N, GEMM_TILE_K = 128, 256, 128
+GEMM_STAGES = 4
+GEMM_RASTER_GROUP = 8  # M-tiles per raster group
+_OUT_BYTES = 16384
+_SWIZZLE_ALIGN = 1024
+SMEM_LIMIT = 232_448  # an H100 block's opt-in shared memory
+
+
+class GemmPlan(NamedTuple):
+    """One launch of the GEMM kernel: its tile, ring depth and shared memory
+    (the C side refuses any other), the output tiles, the persistent grid
+    and the raster group of its walk."""
+    tile_m: int
+    tile_n: int
+    stages: int
+    smem_bytes: int
+    tiles_m: int
+    tiles_n: int
+    grid: int
+    group: int
+
+
+def gemm_smem_bytes(stages: int = GEMM_STAGES) -> int:
+    """The ring, two consumers' output staging, a full and an empty
+    mbarrier per stage, and the slack to align the ring to 1024 bytes."""
+    ring = stages * (GEMM_TILE_M + GEMM_TILE_N) * GEMM_TILE_K
+    return ring + 2 * _OUT_BYTES + 2 * stages * 8 + _SWIZZLE_ALIGN
+
+
+def gemm_plan(m: int, n: int, k: int, num_sms: int) -> GemmPlan:
+    """Plan the GEMM on an (M, K) x (N, K) product: one block per SM at most,
+    each walking tiles ``blockIdx.x + i * grid``."""
+    if min(m, n, k) < 1 or num_sms < 1:
+        raise ValueError(f"int8 GEMM plan needs positive M, N, K and SMs, got "
+                         f"{(m, n, k)} on {num_sms} SMs")
+    tiles_m, tiles_n = -(-m // GEMM_TILE_M), -(-n // GEMM_TILE_N)
+    tiles = tiles_m * tiles_n
+    return GemmPlan(GEMM_TILE_M, GEMM_TILE_N, GEMM_STAGES, gemm_smem_bytes(), tiles_m,
+                    tiles_n, min(tiles, num_sms), min(GEMM_RASTER_GROUP, tiles_m))
+
+
+def tile_coords(plan: GemmPlan, t: int) -> Tuple[int, int]:
+    """(M-tile, N-tile) of the walk's tile t (the kernel's ``tile_origin``):
+    raster groups of ``plan.group`` M-tiles, the last one shorter, M fastest
+    inside a group."""
+    per_group = plan.group * plan.tiles_n
+    first = t // per_group * plan.group
+    rows = min(plan.group, plan.tiles_m - first)
+    r = t % per_group
+    return first + r % rows, r // rows
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def int8_quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -73,7 +134,7 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.one_peace_int8_quantize_rows.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.one_peace_int8_quantize_rows.restype = i
-    lib.one_peace_int8_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.one_peace_int8_matmul.argtypes = [p] * 6 + [i] * 11 + [p]
     lib.one_peace_int8_matmul.restype = i
     lib.one_peace_int8_error_string.argtypes = [i]
     lib.one_peace_int8_error_string.restype = ctypes.c_char_p
@@ -124,9 +185,10 @@ def int8_quantize_rows_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
                      sw: torch.Tensor, bias: Optional[torch.Tensor] = None,
                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Launch the GEMM; arguments and result as ``int8_matmul_plain``.  A K
-    that is not a multiple of 16 is zero-padded here (exact: zeros add
-    nothing to an integer sum); the main path never pads."""
+    """Launch the GEMM on ``gemm_plan`` over the card's SMs; arguments and
+    result as ``int8_matmul_plain``.  A K that is not a multiple of 16 is
+    zero-padded here (exact: zeros add nothing to an integer sum); the main
+    path never pads."""
     global launches
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"int8 GEMM takes int8 x_q and w_q, not {x_q.dtype}, {w_q.dtype}")
@@ -144,11 +206,11 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
     if bias is not None and (bias.dtype != torch.float32 or bias.shape != (n,)):
         raise ValueError(f"int8 GEMM takes an fp32 bias ({n},), got {bias.dtype} "
                          f"{tuple(bias.shape)}")
-    if -(-m // 128) > _MAX_M_TILES:
-        raise ValueError(f"int8 GEMM takes at most {_MAX_M_TILES * 128} rows, got {m}")
+    if max(m, n, k) >= 2 ** 31:
+        raise ValueError(f"int8 GEMM takes M, N and K below 2^31, got {(m, k, n)}")
     tensors = [x for x in (x_q, w_q, sx, sw, bias) if x is not None]
     _check_cuda(tensors, "int8 GEMM")
-    if k % _K_ALIGN:
+    if k % _K_ALIGN or k == 0:
         pad = _K_ALIGN - k % _K_ALIGN
         x_q, w_q = F.pad(x_q, (0, pad)), F.pad(w_q, (0, pad))
         k += pad
@@ -157,11 +219,13 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
     out = torch.empty(m, n, dtype=out_dtype, device=x_q.device)
     if m == 0 or n == 0:
         return out
+    plan = gemm_plan(m, n, k, _num_sms(x_q.device.index))
     lib = _library()
     err = lib.one_peace_int8_matmul(
         x_q.data_ptr(), w_q.data_ptr(), sx.data_ptr(), sw.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        int(out_dtype == torch.bfloat16), x_q.device.index,
+        int(out_dtype == torch.bfloat16), plan.tile_m, plan.tile_n, plan.stages,
+        plan.smem_bytes, plan.grid, plan.group, x_q.device.index,
         torch.cuda.current_stream(x_q.device).cuda_stream)
     _raise_on(lib, err, "int8 GEMM")
     launches += 1

@@ -148,7 +148,8 @@ def test_function_skips_gradients_nobody_wants():
     hg, wg = 3, 4
     q, k, v, g, toep, bh, bw = (_t(x) for x in _operands(3, hg, wg, True, True))
     q.requires_grad_()
-    out = tda.DetAttentionFunction.apply(q, k, v, toep, bh, bw, (hg, wg), SCALING, HEADS)
+    out = tda.DetAttentionFunction.apply(q, k, v, toep, bh, bw, (hg, wg), SCALING, HEADS,
+                                         True)
     (dq,) = torch.autograd.grad(out, [q], g)
     want = tda.det_attention_bwd_plain(q.detach(), k, v, toep, bh, bw, out.detach(), g,
                                        tda.det_attention_plain(q.detach(), k, v, toep, bh, bw,
@@ -157,9 +158,58 @@ def test_function_skips_gradients_nobody_wants():
                                        (hg, wg), SCALING, HEADS)[0]
     torch.testing.assert_close(dq, want)
     with torch.no_grad():
-        plain = tda.DetAttentionFunction.apply(q, k, v, toep, bh, bw, (hg, wg), SCALING, HEADS)
+        plain = tda.DetAttentionFunction.apply(q, k, v, toep, bh, bw, (hg, wg), SCALING,
+                                               HEADS, True)
     assert plain.grad_fn is None
     torch.testing.assert_close(plain, out.detach())
+
+
+def test_function_writes_lse_only_for_a_gradient(monkeypatch):
+    """No log-sum-exp under inference_mode or no_grad with trainable inputs
+    (or without an input needing a gradient); with a gradient the forward
+    writes it and saves it, and the gradients are those of the plain
+    backward on the plain forward's log-sum-exp."""
+    calls = []
+    plain = tda.det_attention_plain
+
+    def fwd(*args, with_lse=False):
+        calls.append(with_lse)
+        return plain(*args, with_lse=with_lse)
+
+    monkeypatch.setattr(tda, "det_attention_plain", fwd)
+    hg, wg = 3, 4
+    q, k, v, g, toep, _, _ = (_t(x) for x in _operands(4, hg, wg, True, True))
+    rng = np.random.RandomState(5)
+    rel_h, rel_w = (_t(rng.randn(2 * n - 1, DH).astype(np.float32) * 0.1) for n in (hg, wg))
+    leaves = [x.reshape(2, hg * wg, HEADS, DH).requires_grad_() for x in (q, k, v)]
+    tables = [x.requires_grad_() for x in (toep, rel_h, rel_w)]
+    with torch.inference_mode():
+        tda.det_flash_attention(*leaves, *tables, (hg, wg), SCALING)
+    with torch.no_grad():
+        tda.det_flash_attention(*leaves, *tables, (hg, wg), SCALING)
+    tda.det_flash_attention(*(x.detach() for x in leaves), *(x.detach() for x in tables),
+                            (hg, wg), SCALING)
+    assert calls == [False, False, False]
+    out = tda.det_flash_attention(*leaves, *tables, (hg, wg), SCALING)
+    assert calls[-1] is True
+    saved = out.grad_fn.next_functions[0][0].saved_tensors
+    assert saved[-1].shape == (2, HEADS, hg * wg) and saved[-1].dtype == torch.float32
+    grads = torch.autograd.grad(out, [*leaves, *tables], g.reshape(out.shape))
+    with torch.enable_grad():
+        bh, bw = tda.compute_decomp(leaves[0], tables[1], tables[2], (hg, wg))
+    flat = [x.reshape(2, hg * wg, HEADS * DH) for x in leaves]
+    ref_out, lse = plain(*(x.detach() for x in flat), toep.detach(), bh.detach(), bw.detach(),
+                         (hg, wg), SCALING, HEADS, with_lse=True)
+    torch.testing.assert_close(saved[-1], lse, rtol=0, atol=0)
+    dq, dk, dv, dtoep, dbh, dbw = tda.det_attention_bwd_plain(
+        *(x.detach() for x in flat), toep.detach(), bh.detach(), bw.detach(), ref_out, g,
+        lse, (hg, wg), SCALING, HEADS)
+    dq_decomp, drel_h, drel_w = torch.autograd.grad((bh, bw), [leaves[0], *tables[1:]],
+                                                    (dbh, dbw))
+    want = [dq.reshape(leaves[0].shape) + dq_decomp, dk.reshape(leaves[1].shape),
+            dv.reshape(leaves[2].shape), dtoep, drel_h, drel_w]
+    for name, got, ref in zip(("q", "k", "v", "toep", "rel_h", "rel_w"), grads, want):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6, msg=name)
 
 
 @pytest.mark.parametrize("hw", [(8, 8), (4, 6)])

@@ -237,6 +237,17 @@ def test_wrappers_raise_without_fallback(monkeypatch):
         im.int8_matmul_cuda(x_q, w_q, sw, sw)
     with pytest.raises(ValueError):  # not on a CUDA device
         im.int8_matmul_cuda(x_q, w_q, sx, sw)
+    # more rows than the first port's grid took (65,535 tiles of 128) pass
+    # the shape checks now; the kernel's int32 M, N, K stop at 2^31
+    rows = 65535 * 128 + 1
+    with pytest.raises(ValueError, match="one CUDA device"):
+        im.int8_matmul_cuda(torch.empty(rows, 32, dtype=torch.int8, **meta), w_q,
+                            torch.empty(rows, **meta), sw)
+    with pytest.raises(ValueError, match="below 2"):
+        im.int8_matmul_cuda(torch.empty(2 ** 31, 32, dtype=torch.int8, **meta), w_q,
+                            torch.empty(2 ** 31, **meta), sw)
+    with pytest.raises(ValueError):  # no tile to plan
+        im.gemm_plan(0, 8, 32, 132)
 
 
 @pytest.mark.cuda

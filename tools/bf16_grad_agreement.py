@@ -31,7 +31,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
 import chip_smoke as cs  # noqa: E402
-from flash_attention_ab import load_tree  # noqa: E402
+from ab_trees import load_tree  # noqa: E402
 from one_peace_tpu_torch.models.one_peace import ModelConfig  # noqa: E402
 from one_peace_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
@@ -75,7 +75,7 @@ def main() -> None:
     for spec in args.trees:
         name, _, src = spec.partition("=")
         trees[name] = this if Path(src).resolve() == ROOT else kernels(
-            load_tree(name, Path(src).resolve()))
+            load_tree(name, Path(src).resolve(), "flash_attention"))
     flat = lambda grads: [torch.cat([g.flatten() for g in grads])]  # noqa: E731
     for smoke_path in args.smoke or [str(ROOT / "chip_smoke.py")]:
         smoke = load_smoke(Path(smoke_path).resolve())

@@ -31,10 +31,8 @@ JSON object as its last line: {tree: {case: {...ms...}}}.
 from __future__ import annotations
 
 import argparse
-import importlib
 import inspect
 import json
-import shutil
 import sys
 from pathlib import Path
 
@@ -42,36 +40,14 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+from ab_trees import load_tree, log  # noqa: E402
 from chip_smoke import card_line, cuda_time_ms as cuda_ms, text_pad_mask  # noqa: E402
 
-PKGS = ROOT / "build" / "ab" / "pkgs"
 HEADS = 24
 FWD_CASES = [  # (name, B, L, text pads)
     ("img", 256, 257, False), ("aud", 32, 500, False), ("txt", 32, 71, True),
     ("vl", 4, 850, False)]
 BWD_CASES = [("img", 32, 257, False), ("txt", 32, 71, True), ("aud", 4, 500, False)]
-
-
-def log(msg: str) -> None:
-    print(msg, flush=True)
-
-
-def load_tree(name: str, src: Path):
-    """Copy the tree's attention wrapper, builder and kernel sources into a
-    package called ``name`` and import its ``ops.flash_attention``."""
-    dst = PKGS / name
-    if dst.exists():
-        shutil.rmtree(dst)
-    (dst / "ops").mkdir(parents=True)
-    pkg = src / "one_peace_tpu_torch"
-    shutil.copytree(pkg / "csrc", dst / "csrc")
-    for f in ("build.py", "flash_attention.py"):
-        shutil.copy(pkg / "ops" / f, dst / "ops" / f)
-    (dst / "__init__.py").write_text("")
-    (dst / "ops" / "__init__.py").write_text("")
-    if str(PKGS) not in sys.path:
-        sys.path.insert(0, str(PKGS))
-    return importlib.import_module(f"{name}.ops.flash_attention")
 
 
 def kernel_ms(fn, iters: int) -> dict:
@@ -239,7 +215,7 @@ def main() -> None:
     trees = {}
     for spec in args.trees:
         name, _, src = spec.partition("=")
-        trees[name] = load_tree(name, Path(src).resolve())
+        trees[name] = load_tree(name, Path(src).resolve(), "flash_attention")
     if args.two_walks:
         for name in list(trees):
             if hasattr(trees[name], "tile_plan"):

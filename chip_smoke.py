@@ -85,7 +85,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    step (``det_train_profile.txt``); (d) ms per global and windowed layer of
    the backward by pass, each pass with no bias, toep only, bh + bw only and
    both, the plain backward and SDPA's backward with the materialised bias
-   needing a gradient, and the backward's ratio to it.
+   needing a gradient, and the backward's ratio to it;
+13. retrieval fine-tuning from data through the CLIs: (a) 160 image-caption
+   pairs as JPEG files under ``build/smoke_retrieval/``, TSVs, a valid JSON
+   of 5 captions for each of 64 valid ids, and a byte-level BPE set; (b)
+   ``cli.train`` at full width and depth 4 (bf16, remat, drop path 0.5,
+   B=8, update_freq=2) straight to 4 updates, and again stopped at the end
+   of epoch 1 (a save at update 2 with a micro-batch pending) and resumed
+   to 4: the updates' losses within 1e-6 relative and the final masters'
+   cosine >= 1-1e-6, then ``cli.evaluate`` on the run's
+   ``checkpoint_best.npz`` (64 images, 320 texts); (c) the recipe at depth
+   40 through ``cli.train`` from the config's init, B=32, 6 updates and one
+   validation, no saves: ms per update from data beside phase 7(b)'s, pairs
+   per second, peak memory, the attention kernels' launches per update and
+   in validation, and one profiled update (``train_cli_profile.txt``).
 
 Every timed kernel also prints its bound: the larger of its bytes over the
 HBM rate and its operations over the peak rate (NVIDIA's data sheet).  The
@@ -98,9 +111,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1736,6 +1751,274 @@ def time_det_backward(gen, card: str) -> dict:
     return times
 
 
+RETRIEVAL_DIR = ROOT / "build" / "smoke_retrieval"
+RETRIEVAL_RECIPE = ROOT / "recipes" / "image_text_retrieval" / "base.yaml"
+WORDS = ("a the red green blue small large dog cat bird boat car tree house river field "
+         "sky cloud two three old young running sitting near under over beside water "
+         "grass road city beach snow mountain").split()
+
+
+def retrieval_images(n: int, rng) -> list:
+    """n PIL RGB images like ``smooth_images``, sizes kept within 256-399 px."""
+    from PIL import Image
+
+    out = []
+    for i in range(n):
+        h, w = 256 + (37 * i) % 144, 256 + (53 * i) % 144
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        chans = [np.sin(xx / (17 + 5 * c + rng.rand() * 9) + yy / (23 + 3 * c)) for c in range(3)]
+        out.append(Image.fromarray(((np.stack(chans, -1) * 0.45 + 0.5) * 255).astype(np.uint8)))
+    return out
+
+
+def write_retrieval_corpus(root: Path, pairs: int = 160, valid: int = 64) -> dict:
+    """Phase 13(a): ``pairs`` image-caption pairs as JPEG files, a train
+    TSV over all of them, a 40-row train TSV (5 micro-batches of 8 an
+    epoch), a valid TSV of the first ``valid`` and ``valid.json`` with 5
+    captions per valid id, and the byte-level BPE set."""
+    rng = np.random.RandomState(13)
+    root.mkdir(parents=True, exist_ok=True)
+    rows, captions = ["id\timage\tcaption"], {}
+    for i, img in enumerate(retrieval_images(pairs, rng)):
+        img.save(root / f"img{i}.jpg", quality=92)
+        captions[i] = [" ".join(WORDS[j] for j in row)
+                       for row in rng.randint(0, len(WORDS), (5, 4 + i % 9))]
+        rows.append(f"{i}\timg{i}.jpg\t{captions[i][0]}")
+    (root / "train.tsv").write_text("\n".join(rows) + "\n")
+    (root / "train40.tsv").write_text("\n".join(rows[:41]) + "\n")
+    (root / "valid.tsv").write_text("\n".join(rows[:valid + 1]) + "\n")
+    (root / "valid.json").write_text(json.dumps({str(i): captions[i] for i in range(valid)}))
+    return {"root": root, "bpe": write_bpe_dir(root / "bpe")}
+
+
+def retrieval_argv(data: dict, save_dir: Path, layers: int, batch: int, extra=()) -> list:
+    """``cli.train`` arguments: the image-text retrieval recipe with the
+    fine-tuning base's optimizer (recipes/finetune_4b_base.yaml) at the 4B
+    width (d 1536, FFN 6144, 24 heads), ``layers`` deep, bf16 over fp32
+    masters, remat, drop path 0.5; then ``extra``."""
+    root = data["root"]
+    return ["--config", str(RETRIEVAL_RECIPE), "--device", "cuda",
+            f"task.data={root}/train.tsv", f"task.valid_data={root}/valid.tsv",
+            f"task.valid_file={root}/valid.json", f"task.bpe_dir={data['bpe']}",
+            "task.selected_cols=id,image,caption",
+            f"model.encoder.layers={layers}", "model.encoder.drop_path_rate=0.5",
+            "model.encoder.checkpoint_activations=true",
+            "common.bf16=true", "common.log_interval=1", "common.seed=3407",
+            "optimizer.adam_betas=(0.9,0.999)", "optimizer.weight_decay=0.05",
+            "lr_scheduler.warmup_ratio=0.1", "lr_scheduler.min_lr=1e-6", "optimization.lr=1e-4",
+            "optimization.clip_norm=0.0", f"dataset.batch_size={batch}",
+            "dataset.batch_size_valid=32", f"checkpoint.save_dir={save_dir}",
+            "checkpoint.reset_optimizer=false", "checkpoint.keep_last_epochs=1",
+            *extra]
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """Record every ``Trainer.train_step`` of the runs inside: its metrics,
+    its start and end on the host clock (the card synchronised at the end),
+    and the attention kernels' launches within it."""
+    real = Trainer.train_step
+    steps = []
+
+    def step(self, batch):
+        f0, b0 = fa.launches, fa.bwd_launches
+        t0 = time.time()
+        metrics = real(self, batch)
+        torch.cuda.synchronize()
+        steps.append({"metrics": metrics, "t0": t0, "t1": time.time(),
+                      "fwd": fa.launches - f0, "bwd": fa.bwd_launches - b0})
+        return metrics
+
+    Trainer.train_step = step
+    try:
+        yield steps
+    finally:
+        Trainer.train_step = real
+
+
+def run_train_cli(argv: list) -> None:
+    from one_peace_tpu_torch.cli import train as train_cli
+
+    if train_cli.main(argv) != 0:
+        raise RuntimeError(f"cli.train exited non-zero: {argv}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def update_losses(log_file: Path) -> list:
+    return [json.loads(line)["loss"] for line in log_file.read_text().splitlines()
+            if json.loads(line)["tag"] == "train_inner"]
+
+
+def check_cli_resume(data: dict, layers: int = 4) -> dict:
+    """Phase 13(b): the recipe at full width, depth ``layers``, B=8,
+    update_freq=2, LayerScale 0.1, on the 40-row TSV (5 micro-batches an
+    epoch), three times:
+    straight to 4 updates; to the end of epoch 1, whose save at update 2
+    holds a pending micro-gradient; and resumed from that save to 4 updates.
+    The updates' losses must agree to 1e-6 relative and the final masters to
+    cosine 1-1e-6.  Then ``cli.evaluate`` reads the straight run's
+    ``checkpoint_best.npz``: 64 images, 320 texts."""
+    from one_peace_tpu_torch.cli import evaluate as evaluate_cli
+    from one_peace_tpu_torch.utils import native_checkpoint as ckpt
+
+    root = data["root"]
+    runs = {"straight": root / "straight", "resumed": root / "resumed"}
+    for d in runs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    # LayerScale at 0.1, not the recipe's 1e-6: at 1e-6 every embedding is
+    # nearly the CLS token's own, each loss is ln(B) and a faulty resume would
+    # agree with the straight run all the same
+    common = [f"task.data={root}/train40.tsv", "optimization.update_freq=2",
+              "optimization.max_update=4", "checkpoint.best_checkpoint_metric=txt_r1",
+              "model.encoder.layer_scale_init_value=0.1"]
+
+    def argv(name, log, *extra):
+        return retrieval_argv(data, runs[name], layers, 8,
+                              [*common, f"common.log_file={runs[name]}/{log}.jsonl", *extra])
+
+    t0 = time.time()
+    run_train_cli(argv("straight", "log"))
+    run_train_cli(argv("resumed", "part1", "optimization.max_epoch=1"))
+    mid = ckpt.restore_train_state(str(runs["resumed"] / "step_2"))["trainer"]
+    if (mid["step"], mid["mini"]) != (2, 1):
+        raise RuntimeError(f"13(b): the epoch-1 save is at step {mid['step']} with "
+                           f"{mid['mini']} micro-gradients pending, not 2 and 1")
+    del mid
+    run_train_cli(argv("resumed", "part2"))
+    straight = update_losses(runs["straight"] / "log.jsonl")
+    resumed = (update_losses(runs["resumed"] / "part1.jsonl")
+               + update_losses(runs["resumed"] / "part2.jsonl"))
+    log(f"13(b) depth {layers}, B=8, update_freq=2: update losses straight {straight}, "
+        f"stopped after update 2 (a micro-batch pending) and resumed {resumed} "
+        f"({time.time() - t0:.1f} s for the three runs)")
+    a = ckpt.restore_train_state(str(runs["straight"] / "step_4"))["trainer"]["params"]
+    b = ckpt.restore_train_state(str(runs["resumed"] / "step_4"))["trainer"]["params"]
+    dot = na = nb = 0.0
+    diff, equal = 0.0, True
+    for name in a:
+        x, y = a[name].cuda().double(), b[name].cuda().double()
+        dot, na, nb = dot + float(x.flatten() @ y.flatten()), na + float(x.norm() ** 2), \
+            nb + float(y.norm() ** 2)
+        diff = max(diff, float((x - y).abs().max()))
+        equal = equal and torch.equal(a[name], b[name])
+    cosine = dot / math.sqrt(na * nb)
+    log(f"13(b) final masters, straight vs resumed: max |diff| {diff:.3e}, cosine "
+        f"{cosine:.12f}, bit-equal {equal}")
+    ok = (len(straight) == len(resumed) == 4 and all(map(math.isfinite, straight))
+          and all(abs(x - y) <= 1e-6 * abs(x) for x, y in zip(straight, resumed))
+          and cosine >= 1 - 1e-6)
+    if not ok:
+        raise RuntimeError("13(b): the resumed run does not end where the straight run does")
+    del a, b
+    out = runs["straight"] / "eval.json"
+    evaluate_cli.main(["--config", str(RETRIEVAL_RECIPE), "--path",
+                       str(runs["straight"] / "checkpoint_best.npz"), "--output", str(out),
+                       *retrieval_argv(data, runs["straight"], layers, 8)[4:]])
+    stats = json.loads(out.read_text())
+    log(f"13(b) cli.evaluate on checkpoint_best.npz: {stats}")
+    if (stats["img_count"], stats["txt_count"]) != (64, 320):
+        raise RuntimeError(f"13(b): evaluation counted {stats['img_count']} images and "
+                           f"{stats['txt_count']} texts, not 64 and 320")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": straight, "max_abs_diff": diff, "cosine": cosine, "bit_equal": equal}
+
+
+def train_cli_full_depth(data: dict, card: str, ms_7b: float) -> dict:
+    """Phase 13(c): the recipe at the 4B geometry (depth 40) through
+    ``cli.train`` from no checkpoint (the config's init), B=32, 6 updates
+    and one validation over the 64 valid rows; no step saves, no best
+    export.  Update 4 runs under torch.profiler, from the end of update 3
+    (so the batch's fetch and copy are inside)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import one_peace_tpu_torch.cli.train as train_cli
+
+    save_dir = data["root"] / "depth40"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    argv = retrieval_argv(data, save_dir, 40, 32, [
+        "optimization.max_update=6", "dataset.validate_interval=2",
+        "checkpoint.save_interval=1000", "checkpoint.best_checkpoint_metric=",
+        f"common.log_file={save_dir}/log.jsonl"])
+    valid_launches = []
+    real_validate = train_cli.validate
+
+    def counted_validate(*args):
+        f0, b0 = fa.launches, fa.bwd_launches
+        stats = real_validate(*args)
+        valid_launches.append((fa.launches - f0, fa.bwd_launches - b0, stats))
+        return stats
+
+    prof = {}
+    real_step = Trainer.train_step
+
+    def profiled_step(self, batch):
+        metrics = real_step(self, batch)
+        if self.step == 3 and "p" not in prof:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["t0"] = time.time()
+        elif self.step == 4 and "t0" in prof and "wall" not in prof:
+            torch.cuda.synchronize()
+            prof["wall"] = 1e3 * (time.time() - prof["t0"])
+            prof["p"].stop()
+        return metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    train_cli.validate = counted_validate
+    Trainer.train_step = profiled_step
+    try:
+        with recorded_steps() as steps:
+            t0 = time.time()
+            run_train_cli(argv)
+            wall = time.time() - t0
+    finally:
+        train_cli.validate = real_validate
+        Trainer.train_step = real_step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [s["metrics"]["loss"] for s in steps]
+    step_ms = [1e3 * (s["t1"] - s["t0"]) for s in steps]
+    update_ms = [1e3 * (b["t1"] - a["t1"]) for a, b in zip(steps, steps[1:])]
+    steady = [ms for i, ms in enumerate(update_ms, 2) if i not in (4, 6)]  # not profiled or rolled over
+    ms = sum(steady) / len(steady)
+    log(f"13(c) cli.train at depth 40, B=32, 6 updates from the config's init in {wall:.1f} s "
+        f"(model build, data and validation included) ({card})")
+    log(f"13(c) losses {[round(x, 5) for x in losses]}; ms inside train_step "
+        f"{[round(x, 1) for x in step_ms]} (update 1 warms up)")
+    log(f"13(c) updates 2-6 from data, each from the end of the last (the batch's fetch and "
+        f"copy included; 4 profiled, 6 after the epoch's end): "
+        f"{[round(x, 1) for x in update_ms]} ms, beside phase 7(b)'s {ms_7b:.1f} ms per step "
+        f"on hand-built batches in this run; steady {ms:.1f} ms per update, "
+        f"{32 / ms * 1e3:.1f} pairs/s, peak {peak:.1f} GiB ({card})")
+    per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
+    log(f"13(c) launches per update (#1, #2): {per_update}; validation: "
+        f"{[(f, b) for f, b, _ in valid_launches]} over 64 images and 320 texts; "
+        f"its stats {[s for _, _, s in valid_launches]}")
+    if "wall" in prof:
+        table = prof["p"].key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
+        out = Path("chiprun_out")
+        out.mkdir(exist_ok=True)
+        total = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
+        busy = (float(total.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[total.group(2)]
+                if total else float("nan"))
+        line = (f"update 4 of cli.train at depth 40, B=32, from the end of update 3: device "
+                f"busy {busy:.1f} ms; idle {100 * (1 - busy / ms):.1f}% of the unprofiled "
+                f"steady {ms:.1f} ms, {100 * (1 - busy / prof['wall']):.1f}% of this "
+                f"profiled update's {prof['wall']:.1f} ms")
+        (out / "train_cli_profile.txt").write_text(f"{card}\n{line}\n\n{table}")
+        log(f"13(c) {line} (chiprun_out/train_cli_profile.txt)")
+    if not all(map(math.isfinite, losses)) or len(losses) != 6:
+        raise RuntimeError(f"13(c): losses {losses}")
+    if min(s["fwd"] for s in steps) == 0 or min(s["bwd"] for s in steps) == 0:
+        raise RuntimeError("13(c): an update launched no attention kernel")
+    if len(valid_launches) != 1 or valid_launches[0][0] == 0 or valid_launches[0][1] != 0:
+        raise RuntimeError(f"13(c): validation launches {valid_launches}")
+    return {"ms": ms, "peak_gib": peak, "launches": per_update,
+            "valid_launches": valid_launches[0][:2], "losses": losses}
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -1816,6 +2099,18 @@ def main() -> None:
     det_fwd_train, det_bwd_train = det_train["pallas"]["total"]
     det_bwd_times = time_det_backward(gen, card)
 
+    # 13. retrieval fine-tuning from data: cli.train's resume at depth 4 and
+    # cli.evaluate on its export, then the depth-40 recipe through cli.train
+    # (the attention kernels' launches counted from 0 here)
+    fa.launches = fa.bwd_launches = 0
+    data = write_retrieval_corpus(RETRIEVAL_DIR)
+    check_cli_resume(data)
+    train_cli_full_depth(data, card, train["pallas"]["ms"])
+    cli_fwd, cli_bwd = fa.launches, fa.bwd_launches
+    log(f"13 launches over the phase: #1 {cli_fwd}, #2 {cli_bwd}")
+    if cli_fwd == 0 or cli_bwd == 0:
+        raise RuntimeError("the retrieval CLI path never launched an attention kernel")
+
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
     if imported:
@@ -1840,9 +2135,9 @@ def main() -> None:
                      source="int8_matmul")
     log(json.dumps({"kernels": [
         entry("flash_attention_fwd", "one_peace_tpu/ops/flash_attention.py:239",
-              embed_launches + fwd_train, worst, fwd_times),
+              embed_launches + fwd_train + cli_fwd, worst, fwd_times),
         entry("flash_attention_bwd", "one_peace_tpu/ops/flash_attention.py:409",
-              bwd_train, bwd_worst, bwd_times),
+              bwd_train + cli_bwd, bwd_worst, bwd_times),
         entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75", int8_launches["gemm"],
               int8_worst["gemm"], gemm),
         quantize,

@@ -1,0 +1,360 @@
+"""Training entry point (counterpart of ``one_peace_tpu/cli/train.py``).
+
+Config layering (defaults <- YAML <- CLI dot-overrides), task, model and
+criterion construction, the epoch loop with validation and saves, the
+best export, and preemption-safe resume, on one card.
+
+  python -m one_peace_tpu_torch.cli.train --config recipes/image_text_retrieval/base.yaml \\
+      task.data=train.tsv task.valid_data=valid.tsv task.valid_file=valid.json \\
+      task.bpe_dir=bpe [checkpoint.restore_file=one-peace.pt] [--device cuda]
+
+- **Weights.** ``checkpoint.restore_file`` is a fairseq ``.pt`` (converted by
+  ``utils/checkpoint_convert``) or a flat ``.npz`` (``load_params`` ->
+  ``params_from_jax``); without one, ``init_weights_`` draws them from
+  ``common.seed``.  Only ``one_peace_retrieval`` is ported (and models a
+  ``--user-dir`` plugin registers); the other model names raise.
+- **Saves.** ``step_<n>/`` train-state bundles every
+  ``checkpoint.save_interval_updates`` updates and every
+  ``checkpoint.save_interval`` epochs, the newest ``keep_last_epochs``
+  kept; ``checkpoint_best.npz`` (the JAX package's ``.npz`` layout) when
+  ``best_checkpoint_metric`` improves, and the k best exports.
+- **Resume.** Unless ``checkpoint.reset_optimizer``, the newest bundle in
+  ``save_dir`` restores the trainer (masters, AdamW state, an accumulation in
+  progress, counters, generator), the iterator's epoch and offset, the best
+  metric and the update's logging window.
+- **Validation** runs on the trainer's compute-dtype copies of the masters
+  (``Trainer._compute_params``) through ``functional_call``: no second model.
+- **Logging** follows the JAX CLI's tags: ``train_inner`` per update,
+  ``train`` per epoch, ``valid`` per validation.  Under ``update_freq > 1``
+  ``train_inner`` logs the mean of the update's micro-batch metrics weighted
+  by their sample counts; the JAX CLI logs the last micro-batch's only.
+- **Profiling**: updates ``[common.profile_start, common.profile_stop)``
+  under ``torch.profiler``, written as a Chrome trace to
+  ``common.profile_dir``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
+
+logger = logging.getLogger("one_peace_tpu_torch.train")
+
+UNPORTED_MODELS = {
+    "one_peace_classify": "ROADMAP queue 1 item 4 (classify)",
+    "one_peace_pretrain": "ROADMAP queue 1 item 6 (pretrain)",
+}
+HOST_KEYS = ("id", "nsentences", "ntokens")  # batch bookkeeping the model does not read
+
+
+def build_model_for_task(cfg, task, device="cuda"):
+    """The task's model on ``device``, fp32 masters, weights not set."""
+    from ..core.registry import MODELS
+    from ..models.one_peace import OnePeaceRetrievalModel
+
+    if hasattr(task, "build_model"):
+        return task.build_model(cfg, device=device)
+    name = cfg.model._name
+    cfg.model.encoder.image_adapter.rel_bucket_size = cfg.task.patch_image_size // 16
+    cfg.model.encoder.text_adapter.vocab_size = len(task.dictionary)
+    cfg.model.head_type = cfg.task.head_type
+    if name in MODELS:  # a --user-dir plugin's
+        return MODELS.get(name)(cfg.model, device=device)
+    if name != "one_peace_retrieval":
+        where = UNPORTED_MODELS.get(name, "no such model in the JAX package either")
+        raise NotImplementedError(f"model {name!r} is not ported to PyTorch: {where}")
+    return OnePeaceRetrievalModel(cfg.model, device=device, dtype=torch.float32)
+
+
+def load_weights(cfg, model, device) -> None:
+    """``checkpoint.restore_file`` into ``model`` (the branches its head
+    uses), or the config's init from ``common.seed`` when there is none."""
+    from ..utils.checkpoint import params_from_jax
+    from ..utils.checkpoint_convert import convert_retrieval_model, load_torch_state_dict
+    from ..utils.native_checkpoint import load_params
+    from ..utils.random_weights import init_weights_
+
+    path = cfg.checkpoint.restore_file
+    if not (path and os.path.exists(path)):
+        init_weights_(model, torch.Generator(device=device).manual_seed(cfg.common.seed),
+                      cfg.model.encoder.layer_scale_init_value)
+        return
+    if path.endswith(".pt"):
+        state = convert_retrieval_model(load_torch_state_dict(path), cfg.model)
+    else:
+        state = params_from_jax(load_params(path))
+    wanted = model.state_dict().keys()
+    model.load_state_dict({k: v for k, v in state.items() if k in wanted}, strict=True)
+
+
+class UpdateWindow:
+    """The micro-batch metrics of the update in progress, for its
+    ``train_inner`` line: their mean weighted by each micro-batch's sample
+    count.  Saved in the train-state bundle, so an update that straddles a
+    resume logs what the uninterrupted run logs."""
+
+    def __init__(self):
+        self.items: List[Tuple[float, Dict[str, float]]] = []
+
+    def add(self, metrics: Dict[str, float], weight: float) -> None:
+        self.items.append((float(weight), dict(metrics)))
+
+    def clear(self) -> None:
+        self.items = []
+
+    def mean(self) -> Dict[str, float]:
+        if len(self.items) == 1:
+            return dict(self.items[0][1])
+        total = sum(w for w, _ in self.items)
+        return {k: sum(w * m[k] for w, m in self.items) / total for k in self.items[0][1]}
+
+    def state_dict(self) -> list:
+        return [[w, dict(m)] for w, m in self.items]
+
+    def load_state_dict(self, state: list) -> None:
+        self.items = [(float(w), dict(m)) for w, m in state]
+
+
+class Profiler:
+    """``torch.profiler`` over the updates in ``[start, stop)``."""
+
+    def __init__(self, common):
+        self.dir, self.start, self.stop = (common.profile_dir, common.profile_start,
+                                           common.profile_stop)
+        self.prof = None
+        self.first = None
+
+    def step(self, step: int) -> None:
+        if not self.dir:
+            return
+        # window membership, not equality: a resume can land inside it
+        in_window = self.start <= step < self.stop
+        if in_window and self.prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            self.prof, self.first = profile(activities=acts), step
+            self.prof.start()
+        elif self.prof is not None and not in_window:
+            self.close(step)
+
+    def close(self, step: int) -> None:
+        if self.prof is None:
+            return
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.prof.export_chrome_trace(
+            os.path.join(self.dir, f"trace_updates_{self.first}-{step}.json"))
+        self.prof = None
+
+
+def main(argv: Optional[list] = None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", default=None)
+    parser.add_argument("--user-dir", default=None,
+                        help="plugin module dir with extra @register'd tasks/models")
+    parser.add_argument("--device", default="cuda", help="torch device to train on")
+    parser.add_argument("overrides", nargs="*")
+    args = parser.parse_args(argv)
+    if args.user_dir:
+        from ..core.registry import load_user_module
+
+        load_user_module(args.user_dir)
+
+    from ..core.config import load_config
+    from ..core.metrics import ProgressLogger, aggregate, build_sinks, log_scalar
+    from ..criterions import build_criterion
+    from ..tasks import build_task
+    from ..trainer import Trainer
+    from ..utils import native_checkpoint as ckpt
+
+    cfg = load_config(args.config, args.overrides)
+    logging.basicConfig(level=logging.INFO)
+    device = torch.device(args.device)
+
+    task = build_task(cfg.task, cfg)
+    if not cfg.criterion._name:
+        cfg.criterion._name = type(task).criterion_name
+    task.load_dataset("train")
+    if cfg.task.valid_data:
+        task.load_dataset("valid")
+    model = build_model_for_task(cfg, task, device)
+    load_weights(cfg, model, device)
+    trainer = Trainer(cfg, model, build_criterion(cfg.criterion))
+
+    progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
+                              cfg.common.tensorboard_logdir, sinks=build_sinks(cfg.common))
+    inner_progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
+                                    tag="train_inner", sinks=progress.sinks)
+    valid_progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
+                                    tag="valid", sinks=progress.sinks)
+    itr = task.get_batch_iterator(
+        "train", cfg.dataset.batch_size, seed=cfg.common.seed,
+        ensure_equal_batch=cfg.dataset.ensure_equal_batch,
+        skip_remainder_batch=cfg.optimization.skip_remainder_batch)
+    best = {"value": None}
+    window = UpdateWindow()
+
+    def full_state():
+        """Everything an exact resume needs: the trainer's host copy, the
+        iterator's position, the best metric and the logging window."""
+        return {
+            "trainer": trainer.state_dict(),
+            "iterator": itr.state_dict(),
+            "best_metric": float("nan") if best["value"] is None else float(best["value"]),
+            "window": window.state_dict(),
+        }
+
+    latest = ckpt.latest_checkpoint(cfg.checkpoint.save_dir)
+    if latest and not cfg.checkpoint.reset_optimizer:
+        logger.info("resuming from %s", latest)
+        state = ckpt.restore_train_state(latest)
+        trainer.load_state_dict(state["trainer"])
+        itr.load_state_dict(state["iterator"])
+        value = float(state["best_metric"])
+        best["value"] = None if value != value else value
+        window.load_state_dict(state["window"])
+        del state
+
+    def save(step):
+        with record_function("checkpoint_save"):
+            ckpt.save_train_state(cfg.checkpoint.save_dir, step, full_state(),
+                                  keep=cfg.checkpoint.keep_last_epochs)
+
+    max_update = cfg.optimization.max_update or int(1e9)
+    max_epoch = cfg.optimization.max_epoch or int(1e9)
+    profiler = Profiler(cfg.common)
+    last_val_step = -1
+    last_save_step = -1
+
+    def run_validation():
+        nonlocal last_val_step
+        with record_function("validate"):
+            stats = validate(cfg, task, model, trainer, valid_progress)
+        _maybe_save_best(cfg, trainer, stats, best)
+        last_val_step = trainer.step
+
+    while trainer.step < max_update and itr.epoch <= max_epoch:
+        epoch = itr.epoch
+        with aggregate(new_root=True) as agg:
+            for batch in itr.next_epoch_itr():
+                profiler.step(trainer.step)
+                prev_step = trainer.step
+                metrics = trainer.train_step({k: v for k, v in batch.items()
+                                              if k not in HOST_KEYS})
+                for k, v in metrics.items():
+                    log_scalar(k, v)
+                window.add(metrics, batch["nsentences"])
+                # one train_inner line per optimizer update
+                if trainer.step != prev_step:
+                    inner_progress.log(window.mean(), trainer.step)
+                    window.clear()
+                # interval actions fire once per optimizer update
+                if (trainer.step > 0 and trainer.step != last_val_step
+                        and _should_validate(cfg, task, trainer.step, epoch,
+                                             end_of_epoch=False)):
+                    # before the interval save, so the bundle holds the new best
+                    run_validation()
+                if (cfg.checkpoint.save_interval_updates
+                        and trainer.step > 0
+                        and trainer.step != last_save_step
+                        and trainer.step % cfg.checkpoint.save_interval_updates == 0):
+                    save(trainer.step)
+                    last_save_step = trainer.step
+                if trainer.step >= max_update:
+                    break
+            progress.print(agg.as_dict(), trainer.step)
+
+        if (_should_validate(cfg, task, trainer.step, epoch, end_of_epoch=True)
+                and trainer.step != last_val_step):
+            run_validation()
+        if epoch % cfg.checkpoint.save_interval == 0:
+            save(trainer.step)
+    profiler.close(trainer.step)
+    ckpt.wait_for_saves()
+    progress.close()
+    return 0
+
+
+def _should_validate(cfg, task, step: int, epoch: int, end_of_epoch: bool) -> bool:
+    """ref train.py:345-358 do_validate: epoch-interval at epoch ends,
+    every ``validate_interval_updates`` updates mid-epoch, and alongside
+    mid-epoch interval saves; all gated on validate_after_updates."""
+    ds = cfg.dataset
+    if not cfg.task.valid_data or ds.disable_validation:
+        return False
+    if step < ds.validate_after_updates:
+        return False
+    if end_of_epoch:
+        return epoch % ds.validate_interval == 0
+    if (cfg.checkpoint.save_interval_updates
+            and step % cfg.checkpoint.save_interval_updates == 0):
+        return True
+    return bool(ds.validate_interval_updates
+                and step % ds.validate_interval_updates == 0)
+
+
+def _maybe_save_best(cfg, trainer, stats, best) -> None:
+    """Track ``best_checkpoint_metric``; export the masters as
+    ``checkpoint_best.npz`` when it improves, and keep the k best exports
+    (ref checkpoint_utils.py save policy)."""
+    from ..utils import native_checkpoint as ckpt
+    from ..utils.checkpoint import params_to_jax
+
+    key = cfg.checkpoint.best_checkpoint_metric
+    if not key or not stats or key not in stats:
+        return
+    value = stats[key]
+    better = (best["value"] is None or
+              (value > best["value"] if cfg.checkpoint.maximize_best_checkpoint_metric
+               else value < best["value"]))
+    export = None
+    if better:
+        best["value"] = value
+        export = params_to_jax(trainer.model.state_dict())
+        path = os.path.join(cfg.checkpoint.save_dir, "checkpoint_best.npz")
+        ckpt.save_params(path, export, metadata={key: float(value), "step": trainer.step})
+        logger.info("new best %s=%.4f -> %s", key, value, path)
+    if cfg.checkpoint.keep_best_checkpoints > 0:
+        if export is None:
+            export = params_to_jax(trainer.model.state_dict())
+        kpath = ckpt.save_best_k(
+            cfg.checkpoint.save_dir, key, float(value),
+            cfg.checkpoint.maximize_best_checkpoint_metric,
+            cfg.checkpoint.keep_best_checkpoints, export, trainer.step)
+        if kpath:
+            logger.info("k-best export %s=%.4f -> %s", key, value, kpath)
+
+
+def validate(cfg, task, model, trainer, progress) -> Dict[str, float]:
+    """One pass over the valid split on the trainer's compute-dtype copies
+    of the masters; prints and returns the task's numeric stats."""
+    from ..metrics.metrics import fetch_once
+
+    with torch.no_grad():
+        params = trainer._compute_params(prefix="")
+    fetches_before = fetch_once.calls
+    task.begin_valid_epoch(model, params)
+    itr = task.get_batch_iterator("valid", cfg.dataset.batch_size_valid,
+                                  ensure_equal_batch=False)
+    for batch in itr.next_epoch_itr():
+        task.valid_step(model, params, batch)
+    stats = task.merge_results()
+    del params
+    stats = {k: v for k, v in stats.items() if isinstance(v, (int, float))}
+    # the whole pass fetches to the host once (Recall.merge_results)
+    stats["eval_batched_fetches"] = fetch_once.calls - fetches_before
+    progress.print(stats, trainer.step)
+    return stats
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,1 +1,2 @@
-"""Configuration (a copy of the JAX package's, so the port imports none of it)."""
+"""Configuration, registries and training metrics (copies of the JAX
+package's, so the port imports none of it)."""

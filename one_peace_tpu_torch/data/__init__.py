@@ -1,1 +1,2 @@
-"""Host-side data helpers: the tokenizer and the FLAC reader."""
+"""Host-side data: the tokenizer, the FLAC reader, TSV tables, collation,
+the epoch batch iterator and the retrieval datasets."""

@@ -91,10 +91,14 @@ class Trainer:
         self.generator = torch.Generator().manual_seed(cfg.common.seed + 1)
         self._call = _CriterionCall(model, criterion)
 
-    def _compute_params(self) -> Dict[str, torch.Tensor]:
+    def _compute_params(self, prefix: str = "model.") -> Dict[str, torch.Tensor]:
+        """The parameters in the compute dtype (the masters themselves in
+        fp32), named for ``functional_call`` on the criterion's module, or
+        on the model itself with ``prefix=""``."""
         if self.compute_dtype == torch.float32:
-            return {f"model.{n}": p for n, p in zip(self._names, self._params)}
-        return {f"model.{n}": p.to(self.compute_dtype) for n, p in zip(self._names, self._params)}
+            return {f"{prefix}{n}": p for n, p in zip(self._names, self._params)}
+        return {f"{prefix}{n}": p.to(self.compute_dtype)
+                for n, p in zip(self._names, self._params)}
 
     def gradients(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
         """(metrics, fp32 gradients of the master parameters) of the loss on
@@ -156,12 +160,14 @@ class Trainer:
         self._updates += 1
 
     def state_dict(self) -> Dict[str, Any]:
-        """A copy of the whole train state: parameters, optimizer state,
-        the accumulation in progress, counters, generator and train time."""
+        """A host copy of the whole train state: parameters, optimizer state,
+        the accumulation in progress, counters, generator and train time.
+        Every tensor is copied to the CPU on its own, so the copy takes no
+        device memory and shares no storage with the live state."""
         return {
-            "params": {n: p.detach().clone() for n, p in zip(self._names, self._params)},
-            "opt_state": copy.deepcopy(self.optimizer.state_dict()),
-            "acc": None if self._acc is None else [a.clone() for a in self._acc],
+            "params": {n: _host(p) for n, p in zip(self._names, self._params)},
+            "opt_state": _walk(self.optimizer.state_dict(), _host),
+            "acc": None if self._acc is None else [_host(a) for a in self._acc],
             "mini": self._mini,
             "updates": self._updates,
             "step": self.step,
@@ -172,14 +178,38 @@ class Trainer:
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore a ``state_dict`` bundle; its tensors are copied to the
+        parameters' device, and the bundle stays unchanged by later steps."""
         for n, p in zip(self._names, self._params):
             p.copy_(state["params"][n])
-        self.optimizer.load_state_dict(copy.deepcopy(state["opt_state"]))
+        opt = state["opt_state"]
+        # the moments go to the device; AdamW's step counts stay host tensors
+        self.optimizer.load_state_dict({
+            "state": {i: {k: (v.clone() if k == "step" else v.to(self.device, copy=True))
+                          if isinstance(v, torch.Tensor) else v for k, v in st.items()}
+                      for i, st in opt["state"].items()},
+            "param_groups": copy.deepcopy(opt["param_groups"])})
         self._acc = None if state["acc"] is None else [
-            a.to(self.device).clone() for a in state["acc"]]
+            a.to(self.device, copy=True) for a in state["acc"]]
         self._mini = int(state["mini"])
         self._updates = int(state["updates"])
         self.step = int(state["step"])
         self._micro = int(state["micro"])
         self.generator.set_state(state["rng"])
         self.train_time = float(state.get("train_time", 0.0))
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def _walk(node: Any, fn) -> Any:
+    """``node`` (dicts, lists, tuples) with ``fn`` applied to every tensor;
+    other leaves are copied."""
+    if isinstance(node, torch.Tensor):
+        return fn(node)
+    if isinstance(node, dict):
+        return {k: _walk(v, fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_walk(v, fn) for v in node)
+    return copy.copy(node)

@@ -2,9 +2,10 @@
 
 ``params_from_jax`` turns the JAX package's parameter tree (nested dicts and
 lists of numpy arrays, as ``utils/checkpoint_convert.convert_retrieval_model``
-or ``model.init`` give it) into this package's ``state_dict``.
-``load_npz`` reads the JAX package's flat ``.npz`` export
-(``utils/native_checkpoint.save_params``) with numpy alone and converts it.
+or ``model.init`` give it) into this package's ``state_dict``;
+``params_to_jax`` is its inverse for the retrieval model, so that a ``.npz``
+the port exports reads in either package.  ``load_npz`` reads the flat
+``.npz`` layout (``utils/native_checkpoint.load_params``) and converts it.
 
 Layout rules:
 
@@ -33,13 +34,13 @@ dimensions keeps its layout.
 
 from __future__ import annotations
 
-import json
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 _CONV_PERMUTE = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_CONV_UNPERMUTE = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
 def _to_torch(x: Any) -> torch.Tensor:
@@ -112,25 +113,63 @@ def params_from_jax(tree: Dict[str, Any],
     return out
 
 
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The retrieval model's ``state_dict`` -> the JAX package's parameter
+    tree, the inverse of ``params_from_jax``: ``weight`` of two or more
+    dimensions becomes ``w`` in the JAX layout, a one-dimensional
+    ``weight`` (a LayerNorm's) becomes ``scale`` and its ``bias`` stays
+    ``bias``, any other ``bias`` becomes ``b``, ``w_q`` goes back to
+    (in, out); the fusion layers are stacked on a leading layer axis, and
+    modules numbered 0..n-1 become lists.  Leaves are numpy arrays, except
+    bf16 ones, which stay bf16 tensors (numpy has no bf16 of its own;
+    ``native_checkpoint.save_params`` takes both)."""
+    root: Dict[str, Any] = {}
+    for key, value in state.items():
+        *parents, name = key.split(".")
+        leaf = value.detach().cpu()
+        siblings = ".".join(parents + ["weight"])
+        if name == "weight":
+            if leaf.ndim >= 2:
+                leaf = leaf.permute(*_CONV_UNPERMUTE[leaf.ndim]).contiguous()
+                name = "w"
+            else:
+                name = "scale"
+        elif name == "bias" and not (siblings in state and state[siblings].ndim == 1):
+            name = "b"
+        elif name == "w_q" and leaf.ndim == 2:
+            leaf = leaf.T.contiguous()
+        node = root
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = leaf if leaf.dtype == torch.bfloat16 else leaf.numpy()
+
+    def stack(layers: Dict[str, Any]) -> Any:
+        first = layers["0"]
+        if isinstance(first, dict):
+            return {k: stack({i: v[k] for i, v in layers.items()}) for k in first}
+        items = [layers[str(i)] for i in range(len(layers))]
+        if isinstance(first, torch.Tensor):
+            return torch.stack(items)
+        return np.stack(items)
+
+    def listify(node: Any, path: tuple) -> Any:
+        if not isinstance(node, dict):
+            return node
+        if path[-2:] == ("fusion", "layers"):
+            return stack(node)
+        keys = list(node)
+        if keys and all(k.isdigit() for k in keys) and \
+                sorted(int(k) for k in keys) == list(range(len(keys))):
+            return [listify(node[str(i)], path + (str(i),)) for i in range(len(keys))]
+        return {k: listify(v, path + (k,)) for k, v in node.items()}
+
+    return listify(root, ())
+
+
 def load_npz(path: str) -> Dict[str, torch.Tensor]:
     """Read the JAX package's flat ``.npz`` export (keys joined with "/",
     bf16 leaves stored as uint16 views listed in ``__bf16_keys__``) and
     return the port's ``state_dict``."""
-    with np.load(path) as data:
-        bf16_keys = (set(json.loads(data["__bf16_keys__"].tobytes()))
-                     if "__bf16_keys__" in data.files else set())
-        flat = {}
-        for key in data.files:
-            if key in ("__metadata__", "__bf16_keys__"):
-                continue
-            arr = data[key]
-            flat[key] = (torch.from_numpy(arr).view(torch.bfloat16)
-                         if key in bf16_keys else torch.from_numpy(arr))
-    root: Dict[str, Any] = {}
-    for key, value in flat.items():
-        *parents, leaf = key.split("/")
-        node = root
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = value
-    return params_from_jax(root)
+    from .native_checkpoint import load_params
+
+    return params_from_jax(load_params(path))

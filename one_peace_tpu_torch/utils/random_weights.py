@@ -11,7 +11,10 @@ except the convs'; ``logit_scale`` ln(1 / 0.07).  Two values differ, as in
 0.1 and the rel-pos tables N(0, 0.05^2) (the detection trunk's decomposed
 ``rel_pos_h`` / ``rel_pos_w`` too), where the JAX init's 1e-6 and zeros would
 leave every layer and the bias invisible in the output.  GroupNorms are one
-and zero, the FCOS box scales one.
+and zero, the FCOS box scales one.  ``init_weights_`` puts those two back to
+the config's values (gammas at ``layer_scale_init_value``, rel-pos tables
+zero): it is the initial state of a training run that restores no
+checkpoint, and ``fill_random_`` is what the tests and the chip smoke use.
 
 Values are drawn in fp32 in a fixed order, so models of different dtypes
 filled from the same seed hold the same weights up to rounding.
@@ -87,4 +90,20 @@ def fill_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     text = getattr(getattr(model, "encoder_wrapper", None), "text_adapter", None)
     if text is not None:
         text.embed_tokens[text.cfg.padding_idx] = 0
+    return model
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, generator: torch.Generator,
+                  layer_scale_init_value: float) -> nn.Module:
+    """``fill_random_``, then the LayerScale gammas at
+    ``layer_scale_init_value`` and the rel-pos tables at zero, as the JAX
+    package's ``model.init`` leaves them; returns ``model``."""
+    fill_random_(model, generator)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("gamma_1", "gamma_2"):
+            p.fill_(layer_scale_init_value)
+        elif leaf in ("rel_pos_table", "rel_pos_h", "rel_pos_w"):
+            p.zero_()
     return model

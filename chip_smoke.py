@@ -98,7 +98,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    40 through ``cli.train`` from the config's init, B=32, 6 updates and one
    validation, no saves: ms per update from data beside phase 7(b)'s, pairs
    per second, peak memory, the attention kernels' launches per update and
-   in validation, and one profiled update (``train_cli_profile.txt``).
+   in validation, and one profiled update (``train_cli_profile.txt``);
+14. detection from data through the CLIs: (a) a synthetic COCO tree under
+   ``build/smoke_coco/``: 16 train and 8 valid JPEGs at 640 x 480, 480 x
+   640, 1024 x 768 and 333 x 500, COCO's 80 non-contiguous category ids,
+   objects as polygons, compressed and uncompressed RLE, a crowd region and
+   a sub-pixel box in each image; (b) ``cli.train`` on the detection recipe
+   at full width and depth 4 (1024 px, B=2, bf16 over fp32 masters, remat,
+   drop path 0.6): 4 updates, one validation and ``checkpoint_best.npz``,
+   whose ``params_from_jax`` read-back must equal the masters bit for bit;
+   then ``cli.evaluate`` on it must detect what the validation detected and
+   print its AP dict (to 1e-6); (c) the recipe at depth 40 through
+   ``cli.train`` from the config's init, B=2, 6 updates and one validation
+   over the 8 valid images, no saves: ms per update from data beside
+   12(c)'s ms per step, images per second, peak memory, the det attention's
+   launches per update (80 forward, 40 backward) and in validation (40),
+   validation's wall time split between ``detect()``, the host's mask paste
+   and AP records and the AP sweep, the host's share at 100 detections per
+   image, and one profiled update (``det_cli_profile.txt``).
 
 Every timed kernel also prints its bound: the larger of its bytes over the
 HBM rate and its operations over the peak rate (NVIDIA's data sheet).  The
@@ -1813,20 +1830,21 @@ def retrieval_argv(data: dict, save_dir: Path, layers: int, batch: int, extra=()
 
 
 @contextlib.contextmanager
-def recorded_steps():
+def recorded_steps(ops=fa):
     """Record every ``Trainer.train_step`` of the runs inside: its metrics,
     its start and end on the host clock (the card synchronised at the end),
-    and the attention kernels' launches within it."""
+    and the launches within it of the attention kernels of ``ops`` (the
+    retrieval attention, or ``da``, the det attention)."""
     real = Trainer.train_step
     steps = []
 
     def step(self, batch):
-        f0, b0 = fa.launches, fa.bwd_launches
+        f0, b0 = ops.launches, ops.bwd_launches
         t0 = time.time()
         metrics = real(self, batch)
         torch.cuda.synchronize()
         steps.append({"metrics": metrics, "t0": t0, "t1": time.time(),
-                      "fwd": fa.launches - f0, "bwd": fa.bwd_launches - b0})
+                      "fwd": ops.launches - f0, "bwd": ops.bwd_launches - b0})
         return metrics
 
     Trainer.train_step = step
@@ -1925,14 +1943,60 @@ def check_cli_resume(data: dict, layers: int = 4) -> dict:
     return {"losses": straight, "max_abs_diff": diff, "cosine": cosine, "bit_equal": equal}
 
 
+@contextlib.contextmanager
+def profiled_update(update: int):
+    """Run update ``update`` of the runs inside under torch.profiler, from
+    the end of the update before (so the batch's fetch and copy are inside).
+    Yields a dict that gets the profiler ("p") and the update's wall ms
+    ("wall")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = {}
+    real_step = Trainer.train_step
+
+    def profiled_step(self, batch):
+        metrics = real_step(self, batch)
+        if self.step == update - 1 and "p" not in prof:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["t0"] = time.time()
+        elif self.step == update and "t0" in prof and "wall" not in prof:
+            torch.cuda.synchronize()
+            prof["wall"] = 1e3 * (time.time() - prof["t0"])
+            prof["p"].stop()
+        return metrics
+
+    Trainer.train_step = profiled_step
+    try:
+        yield prof
+    finally:
+        Trainer.train_step = real_step
+
+
+def write_update_profile(prof: dict, ms: float, what: str, file_name: str, card: str) -> str:
+    """The device's busy time and idle share of the profiled update, against
+    the unprofiled steady ``ms`` and the profiled update's own wall time;
+    the top ops go to ``chiprun_out/<file_name>``.  Returns the line."""
+    table = prof["p"].key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    total = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
+    busy = (float(total.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[total.group(2)]
+            if total else float("nan"))
+    line = (f"{what}: device busy {busy:.1f} ms; idle {100 * (1 - busy / ms):.1f}% of the "
+            f"unprofiled steady {ms:.1f} ms, {100 * (1 - busy / prof['wall']):.1f}% of this "
+            f"profiled update's {prof['wall']:.1f} ms")
+    (out / file_name).write_text(f"{card}\n{line}\n\n{table}")
+    return line
+
+
 def train_cli_full_depth(data: dict, card: str, ms_7b: float) -> dict:
     """Phase 13(c): the recipe at the 4B geometry (depth 40) through
     ``cli.train`` from no checkpoint (the config's init), B=32, 6 updates
     and one validation over the 64 valid rows; no step saves, no best
     export.  Update 4 runs under torch.profiler, from the end of update 3
     (so the batch's fetch and copy are inside)."""
-    from torch.profiler import ProfilerActivity, profile
-
     import one_peace_tpu_torch.cli.train as train_cli
 
     save_dir = data["root"] / "depth40"
@@ -1950,33 +2014,15 @@ def train_cli_full_depth(data: dict, card: str, ms_7b: float) -> dict:
         valid_launches.append((fa.launches - f0, fa.bwd_launches - b0, stats))
         return stats
 
-    prof = {}
-    real_step = Trainer.train_step
-
-    def profiled_step(self, batch):
-        metrics = real_step(self, batch)
-        if self.step == 3 and "p" not in prof:
-            torch.cuda.synchronize()
-            prof["p"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            prof["p"].start()
-            prof["t0"] = time.time()
-        elif self.step == 4 and "t0" in prof and "wall" not in prof:
-            torch.cuda.synchronize()
-            prof["wall"] = 1e3 * (time.time() - prof["t0"])
-            prof["p"].stop()
-        return metrics
-
     torch.cuda.reset_peak_memory_stats()
     train_cli.validate = counted_validate
-    Trainer.train_step = profiled_step
     try:
-        with recorded_steps() as steps:
+        with profiled_update(4) as prof, recorded_steps() as steps:
             t0 = time.time()
             run_train_cli(argv)
             wall = time.time() - t0
     finally:
         train_cli.validate = real_validate
-        Trainer.train_step = real_step
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [s["metrics"]["loss"] for s in steps]
     step_ms = [1e3 * (s["t1"] - s["t0"]) for s in steps]
@@ -1997,17 +2043,8 @@ def train_cli_full_depth(data: dict, card: str, ms_7b: float) -> dict:
         f"{[(f, b) for f, b, _ in valid_launches]} over 64 images and 320 texts; "
         f"its stats {[s for _, _, s in valid_launches]}")
     if "wall" in prof:
-        table = prof["p"].key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
-        out = Path("chiprun_out")
-        out.mkdir(exist_ok=True)
-        total = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
-        busy = (float(total.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[total.group(2)]
-                if total else float("nan"))
-        line = (f"update 4 of cli.train at depth 40, B=32, from the end of update 3: device "
-                f"busy {busy:.1f} ms; idle {100 * (1 - busy / ms):.1f}% of the unprofiled "
-                f"steady {ms:.1f} ms, {100 * (1 - busy / prof['wall']):.1f}% of this "
-                f"profiled update's {prof['wall']:.1f} ms")
-        (out / "train_cli_profile.txt").write_text(f"{card}\n{line}\n\n{table}")
+        line = write_update_profile(prof, ms, "update 4 of cli.train at depth 40, B=32, from "
+                                    "the end of update 3", "train_cli_profile.txt", card)
         log(f"13(c) {line} (chiprun_out/train_cli_profile.txt)")
     if not all(map(math.isfinite, losses)) or len(losses) != 6:
         raise RuntimeError(f"13(c): losses {losses}")
@@ -2017,6 +2054,318 @@ def train_cli_full_depth(data: dict, card: str, ms_7b: float) -> dict:
         raise RuntimeError(f"13(c): validation launches {valid_launches}")
     return {"ms": ms, "peak_gib": peak, "launches": per_update,
             "valid_launches": valid_launches[0][:2], "losses": losses}
+
+
+COCO_DIR = ROOT / "build" / "smoke_coco"
+# COCO's 80 category ids: 1..90 with gaps (instances_*.json "categories")
+COCO_CATEGORY_IDS = (list(range(1, 12)) + list(range(13, 26)) + [27, 28]
+                     + list(range(31, 45)) + list(range(46, 66)) + [67, 70]
+                     + list(range(72, 83)) + list(range(84, 91)))
+COCO_SIZES = ((640, 480), (480, 640), (1024, 768), (333, 500))  # (width, height)
+
+
+def rle_encode(mask: np.ndarray, compressed: bool) -> dict:
+    """A (h, w) 0/1 mask as COCO RLE: column-major runs starting with 0s,
+    as a list, or in pycocotools' compressed string (each run less the one
+    two back from the third on, 5 bits a character, offset 48)."""
+    flat = mask.T.ravel().astype(np.int8)
+    change = np.flatnonzero(np.diff(np.concatenate([[0], flat, [1 - flat[-1]]])))
+    counts = np.diff(np.concatenate([[0], change])).tolist()
+    if not compressed:
+        return {"counts": counts, "size": list(mask.shape)}
+    out = []
+    for i, x in enumerate(counts):
+        x = int(x) - (int(counts[i - 2]) if i > 2 else 0)
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = x != -1 if c & 0x10 else x != 0
+            out.append(chr((c | 0x20 if more else c) + 48))
+    return {"counts": "".join(out), "size": list(mask.shape)}
+
+
+def write_coco_corpus(root: Path, n_train: int, n_valid: int, sizes=COCO_SIZES,
+                      category_ids=COCO_CATEGORY_IDS, ext: str = "jpg", seed: int = 14) -> dict:
+    """Phase 14(a): a synthetic COCO tree under ``root``: ``train/`` and
+    ``valid/`` images at ``sizes`` in turn, and ``instances_{train,valid}.json``
+    with ``category_ids`` (COCO's non-contiguous 80 by default).  Each image
+    holds 2-5 objects painted in a colour of their class, whose masks are in
+    turn a polygon, compressed RLE and uncompressed RLE; one crowd region
+    (uncompressed RLE, as COCO stores crowds); and a box 0.2 px wide, which
+    every resize up to 5x drops.  Returns the paths."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    palette = rng.randint(40, 255, (len(category_ids), 3))
+    paths = {}
+    for split, n in (("train", n_train), ("valid", n_valid)):
+        (root / split).mkdir(parents=True, exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            w, h = sizes[i % len(sizes)]
+            img = rng.randint(0, 40, (h, w, 3)).astype(np.uint8)
+            yy, xx = np.mgrid[0:h, 0:w]
+            objects = []
+            for j in range(rng.randint(2, 6)):
+                bw, bh = rng.uniform(0.15, 0.5) * w, rng.uniform(0.15, 0.5) * h
+                x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                cat = int(rng.randint(len(category_ids)))
+                inside = (((xx + 0.5 - x0 - bw / 2) / (bw / 2)) ** 2
+                          + ((yy + 0.5 - y0 - bh / 2) / (bh / 2)) ** 2) <= 1
+                img[inside] = palette[cat]
+                kind = j % 3
+                if kind == 0:  # a diamond polygon
+                    cx, cy = x0 + bw / 2, y0 + bh / 2
+                    seg = [[cx, y0, x0 + bw, cy, cx, y0 + bh, x0, cy]]
+                    area = bw * bh / 2
+                else:
+                    seg = rle_encode(inside.astype(np.uint8), compressed=kind == 1)
+                    area = float(inside.sum())
+                objects.append((cat, [x0, y0, bw, bh], seg, area, 0))
+            cw, ch = 0.3 * w, 0.3 * h  # a crowd region in a corner
+            crowd = (xx < cw) & (yy >= h - ch)
+            objects.append((int(rng.randint(len(category_ids))), [0.0, h - ch, cw, ch],
+                            rle_encode(crowd.astype(np.uint8), compressed=False),
+                            float(crowd.sum()), 1))
+            objects.append((0, [w / 2, h / 2, 0.2, 0.3 * h],
+                            [[w / 2, h / 2, w / 2 + 0.2, h / 2, w / 2 + 0.2, h * 0.8]], 0.1, 0))
+            name = f"{split}{i}.{ext}"
+            Image.fromarray(img).save(root / split / name)
+            image_id = 1000 * (split == "valid") + 7 * i + 3
+            images.append({"id": image_id, "file_name": name, "width": w, "height": h})
+            for cat, bbox, seg, area, iscrowd in objects:
+                anns.append({"id": len(anns) + 1, "image_id": image_id,
+                             "category_id": category_ids[cat], "bbox": [float(v) for v in bbox],
+                             "area": float(area), "iscrowd": iscrowd, "segmentation": seg})
+        ann = root / f"instances_{split}.json"
+        ann.write_text(json.dumps({"images": images, "annotations": anns, "categories": [
+            {"id": c, "name": f"class{c}"} for c in category_ids]}))
+        paths[split] = {"ann": str(ann), "images": str(root / split)}
+    return paths
+
+
+def det_cli_argv(paths: dict, save_dir: Path, layers: int, extra=()) -> list:
+    """``cli.train`` / ``cli.evaluate`` arguments: the detection recipe (1024
+    px, RPN, cascade and masks, 80 classes; d 1536, FFN 6144, 24 heads; bf16
+    over fp32 masters, remat, drop path 0.6, AdamW with layer decay) on the
+    synthetic COCO tree, ``layers`` deep, B=2, the recipe's valid batch of 8,
+    the warm-up cut to 0 (as in 12(c)), no epoch saves; then ``extra``."""
+    return ["--config", str(DET_RECIPE), "--device", "cuda",
+            f"task.data={paths['train']['ann']}", f"task.image_dir={paths['train']['images']}",
+            f"task.valid_data={paths['valid']['ann']}",
+            f"task.valid_image_dir={paths['valid']['images']}",
+            f"model.encoder.layers={layers}", "dataset.batch_size=2",
+            "lr_scheduler.warmup_updates=0", "common.log_interval=1", "common.seed=3407",
+            f"checkpoint.save_dir={save_dir}", "checkpoint.save_interval=1000",
+            f"common.log_file={save_dir}/log.jsonl", *extra]
+
+
+@contextlib.contextmanager
+def recorded_validation(keep_masters: bool = False):
+    """Record each validation of ``cli.train``: its stats, wall time and det
+    attention launches, and inside it the time of ``detect()`` (the card
+    synchronised), of the rest of ``valid_step`` (the host's mask paste and
+    per-image AP records) and of ``merge_results`` (the AP sweep), and
+    ``detect()``'s outputs; with ``keep_masters``, a host copy of the
+    masters."""
+    import one_peace_tpu_torch.cli.train as train_cli
+
+    runs, cur = [], {}
+    real = (train_cli.validate, CocoDetectionTask.detect, CocoDetectionTask.valid_step,
+            CocoDetectionTask.merge_results)
+
+    def timed(key, fn, sync=False):
+        def run(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            cur[key] = cur.get(key, 0.0) + 1e3 * (time.time() - t0)
+            if key == "detect_ms":
+                cur["dets"] = cur.get("dets", 0) + sum(len(r["boxes"]) for r in out)
+                cur.setdefault("outputs", []).append(out)
+            return out
+        return run
+
+    def validate(cfg, task, model, trainer, progress):
+        cur.clear()
+        if keep_masters:
+            cur["masters"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        f0, b0 = da.launches, da.bwd_launches
+        stats = timed("wall_ms", real[0], sync=True)(cfg, task, model, trainer, progress)
+        runs.append({**cur, "stats": stats, "fwd": da.launches - f0, "bwd": da.bwd_launches - b0})
+        return stats
+
+    train_cli.validate = validate
+    CocoDetectionTask.detect = timed("detect_ms", real[1], sync=True)
+    CocoDetectionTask.valid_step = timed("valid_step_ms", real[2])
+    CocoDetectionTask.merge_results = timed("merge_ms", real[3])
+    try:
+        yield runs
+    finally:
+        (train_cli.validate, CocoDetectionTask.detect, CocoDetectionTask.valid_step,
+         CocoDetectionTask.merge_results) = real
+
+
+def validation_line(run: dict) -> str:
+    paste = run["valid_step_ms"] - run["detect_ms"]
+    rest = run["wall_ms"] - run["valid_step_ms"] - run["merge_ms"]
+    return (f"{run['wall_ms']:.1f} ms: detect() {run['detect_ms']:.1f} ms over "
+            f"{len(run['outputs'])} calls, the host's mask paste and per-image records "
+            f"{paste:.1f} ms, the AP sweep {run['merge_ms']:.1f} ms, data and the rest "
+            f"{rest:.1f} ms; {run['dets']} detections")
+
+
+def check_det_cli(paths: dict, card: str, layers: int = 4) -> dict:
+    """Phase 14(b): the recipe at full width, depth ``layers``, through
+    ``cli.train``: 4 updates at B=2 from the config's init, one validation
+    over the 8 valid images and ``checkpoint_best.npz``.  The export, read
+    back through ``params_from_jax``, must equal the masters at the
+    validation bit for bit; ``cli.evaluate`` on the export (bf16, as the
+    recipe) must detect what the validation detected, bit for bit, and print
+    its AP dict to 1e-6."""
+    from one_peace_tpu_torch.cli import evaluate as evaluate_cli
+    from one_peace_tpu_torch.utils.checkpoint import params_from_jax
+    from one_peace_tpu_torch.utils.native_checkpoint import load_params
+
+    save_dir = COCO_DIR / f"depth{layers}"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    argv = det_cli_argv(paths, save_dir, layers, ["optimization.max_update=4",
+                                                  "dataset.validate_interval_updates=4"])
+    t0 = time.time()
+    with recorded_validation(keep_masters=True) as runs, recorded_steps(da) as steps:
+        run_train_cli(argv)
+    losses = update_losses(save_dir / "log.jsonl")
+    log(f"14(b) cli.train, depth {layers}, B=2: update losses {losses}, launches per update "
+        f"(#4, #5/#6) {sorted({(s['fwd'], s['bwd']) for s in steps})} "
+        f"({time.time() - t0:.1f} s with the model's build)")
+    if len(runs) != 1 or len(losses) != 4 or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"14(b): {len(runs)} validations, losses {losses}")
+    run = runs[0]
+    log(f"14(b) validation: {validation_line(run)}; stats {run['stats']}")
+    best = save_dir / "checkpoint_best.npz"
+    export = params_from_jax(load_params(str(best)))
+    masters = run["masters"]
+    equal = export.keys() == masters.keys() and all(
+        export[k].dtype == masters[k].dtype and torch.equal(export[k], masters[k]) for k in masters)
+    log(f"14(b) checkpoint_best.npz through params_from_jax: {len(export)} tensors, bit-equal "
+        f"to the masters at the validation: {equal}")
+    if not equal:
+        raise RuntimeError("14(b): the best export does not read back as the run's masters")
+    out, outputs = save_dir / "eval.json", []
+    real_detect = CocoDetectionTask.detect
+    CocoDetectionTask.detect = lambda self, *args: outputs.append(real_detect(self, *args)) \
+        or outputs[-1]
+    try:
+        evaluate_cli.main(["--path", str(best), "--output", str(out), *argv])
+    finally:
+        CocoDetectionTask.detect = real_detect
+    stats = json.loads(out.read_text())
+    keys = [k for k in stats if not k.startswith("eval_")]
+    worst = max(abs(stats[k] - run["stats"][k]) for k in keys)
+    same = len(outputs) == len(run["outputs"]) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        for x, y in zip(outputs, run["outputs"]) for a, b in zip(x, y))
+    log(f"14(b) cli.evaluate on checkpoint_best.npz: {stats}; largest difference from the "
+        f"validation's {worst:.3e} over {len(keys)} numbers; its {run['dets']} detections "
+        f"(boxes, scores, labels, masks) bit-equal to the validation's: {same}")
+    if set(keys) - set(run["stats"]) or worst > 1e-6 or not same:
+        raise RuntimeError("14(b): cli.evaluate disagrees with the run's validation")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ap": run["stats"], "eval_diff": worst}
+
+
+def time_host_eval(paths: dict, card: str) -> str:
+    """The host's share of validation at the most detections the recipe keeps
+    (100 per image): ``valid_step`` on one valid batch of 8 with ``detect``
+    replaced by 100 synthetic detections per image (random boxes, labels,
+    scores and 28 x 28 mask probabilities), then ``merge_results``."""
+    cfg = det_config([f"task.valid_data={paths['valid']['ann']}",
+                      f"task.image_dir={paths['valid']['images']}"])
+    task = CocoDetectionTask(cfg.task, cfg)
+    task.load_dataset("valid")
+    batch = next(iter(task.get_batch_iterator("valid", 8, ensure_equal_batch=False)
+                      .next_epoch_itr()))
+    rs = np.random.RandomState(14)
+    size, n = cfg.task.image_size, 100
+    dets = []
+    for _ in range(len(batch["id"])):
+        xy = rs.uniform(0, size * 0.8, (n, 2))
+        wh = rs.uniform(16, size * 0.4, (n, 2))
+        dets.append({"boxes": np.concatenate([xy, np.minimum(xy + wh, size)], 1).astype(np.float32),
+                     "scores": rs.uniform(0.05, 1, n).astype(np.float32),
+                     "labels": rs.randint(0, cfg.task.num_classes, n),
+                     "masks": rs.uniform(0, 1, (n, 28, 28)).astype(np.float32)})
+    task.detect = lambda model, params, images: dets
+    task.begin_valid_epoch(None, None)
+    t0 = time.time()
+    task.valid_step(None, None, batch)
+    t1 = time.time()
+    task.merge_results()
+    t2 = time.time()
+    return (f"{1e3 * (t1 - t0):.1f} ms for the mask paste and per-image records of "
+            f"{len(dets)} images at {n} detections each ({1e3 * (t1 - t0) / len(dets):.1f} ms an "
+            f"image), {1e3 * (t2 - t1):.1f} ms for the AP sweep (host, beside {card})")
+
+
+def train_det_cli_full_depth(paths: dict, card: str, ms_12c: float) -> dict:
+    """Phase 14(c): the recipe at depth 40 through ``cli.train`` from the
+    config's init (``init_detector_``), B=2, 6 updates and one validation
+    over the 8 valid images; no saves, no best export.  Update 4 runs under
+    torch.profiler from the end of update 3.  The det attention must launch
+    80 forward (40 layers and their recompute) and 40 backward per update, as
+    in 12(c), and 40 forward per ``detect()`` in validation (11(b)), no
+    backward."""
+    save_dir = COCO_DIR / "depth40"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    argv = det_cli_argv(paths, save_dir, 40, ["optimization.max_update=6",
+                                              "dataset.validate_interval_updates=6",
+                                              "checkpoint.best_checkpoint_metric="])
+    torch.cuda.reset_peak_memory_stats()
+    with profiled_update(4) as prof, recorded_validation() as runs, \
+            recorded_steps(da) as steps:
+        t0 = time.time()
+        run_train_cli(argv)
+        wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [s["metrics"]["loss"] for s in steps]
+    update_ms = [1e3 * (b["t1"] - a["t1"]) for a, b in zip(steps, steps[1:])]
+    steady = [ms for i, ms in enumerate(update_ms, 2) if i != 4]  # 4 is profiled
+    ms = sum(steady) / len(steady)
+    log(f"14(c) cli.train at depth 40, B=2, 6 updates from the config's init in {wall:.1f} s "
+        f"(model build, data and validation included) ({card})")
+    log(f"14(c) losses {[round(x, 5) for x in losses]}; ms inside train_step "
+        f"{[round(1e3 * (s['t1'] - s['t0']), 1) for s in steps]} (update 1 warms up)")
+    log(f"14(c) updates 2-6 from data, each from the end of the last (the batch's fetch and "
+        f"copy included; 4 profiled): {[round(x, 1) for x in update_ms]} ms, beside phase "
+        f"12(c)'s {ms_12c:.1f} ms per step on a hand-built batch in this run; steady "
+        f"{ms:.1f} ms per update, {2 / ms * 1e3:.2f} images/s, peak {peak:.1f} GiB ({card})")
+    per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
+    if "wall" in prof:
+        line = write_update_profile(prof, ms, "update 4 of cli.train, detection recipe at "
+                                    "depth 40, B=2, from the end of update 3",
+                                    "det_cli_profile.txt", card)
+        log(f"14(c) {line} (chiprun_out/det_cli_profile.txt)")
+    calls = -(-8 // 8)  # detect() calls over 8 valid images at the recipe's valid batch
+    log(f"14(c) launches per update (#4, #5/#6): {per_update} (expected [(80, 40)]); "
+        f"validation: {[(r['fwd'], r['bwd']) for r in runs]} (expected {[(40 * calls, 0)]})")
+    for r in runs:
+        log(f"14(c) validation over 8 images: {validation_line(r)} ({card})")
+        log(f"14(c) validation stats {r['stats']}")
+    log(f"14(c) host evaluation at 100 detections per image: {time_host_eval(paths, card)}")
+    if not all(map(math.isfinite, losses)) or len(losses) != 6:
+        raise RuntimeError(f"14(c): losses {losses}")
+    if per_update != [(80, 40)]:
+        raise RuntimeError(f"14(c): det attention launches per update {per_update}, "
+                           f"expected [(80, 40)]")
+    if [(r["fwd"], r["bwd"]) for r in runs] != [(40 * calls, 0)]:
+        raise RuntimeError("14(c): validation launches differ from 40 per detect() call")
+    return {"ms": ms, "peak_gib": peak, "launches": per_update, "losses": losses,
+            "valid": {k: v for k, v in runs[0].items() if k != "masters"}}
 
 
 def main() -> None:
@@ -2111,6 +2460,18 @@ def main() -> None:
     if cli_fwd == 0 or cli_bwd == 0:
         raise RuntimeError("the retrieval CLI path never launched an attention kernel")
 
+    # 14. detection from data: the synthetic COCO tree, cli.train at depth 4
+    # with its export read back and cli.evaluate, then the depth-40 recipe
+    # (the det attention kernels' launches counted from 0 here)
+    da.launches = da.bwd_launches = 0
+    coco = write_coco_corpus(COCO_DIR, 16, 8)
+    check_det_cli(coco, card)
+    train_det_cli_full_depth(coco, card, det_train["pallas"]["ms"])
+    coco_fwd, coco_bwd = da.launches, da.bwd_launches
+    log(f"14 launches over the phase: #4 {coco_fwd}, #5/#6 {coco_bwd}")
+    if coco_fwd == 0 or coco_bwd == 0:
+        raise RuntimeError("the detection CLI path never launched a det attention kernel")
+
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
     if imported:
@@ -2142,11 +2503,12 @@ def main() -> None:
               int8_worst["gemm"], gemm),
         quantize,
         entry("det_attention_fwd", "one_peace_tpu/ops/det_attention.py:277",
-              det_launches + det_fwd_train, det_worst, det_times["global"]),
-        entry("det_attention_bwd_dq", "one_peace_tpu/ops/det_attention.py:618", det_bwd_train,
-              det_bwd_worst["dq"], det_bwd_times["global"]["dq"], source="det_attention_bwd"),
-        entry("det_attention_bwd_dkv", "one_peace_tpu/ops/det_attention.py:642", det_bwd_train,
-              det_bwd_worst["dkv"], det_bwd_times["global"]["dkv"],
+              det_launches + det_fwd_train + coco_fwd, det_worst, det_times["global"]),
+        entry("det_attention_bwd_dq", "one_peace_tpu/ops/det_attention.py:618",
+              det_bwd_train + coco_bwd, det_bwd_worst["dq"], det_bwd_times["global"]["dq"],
+              source="det_attention_bwd"),
+        entry("det_attention_bwd_dkv", "one_peace_tpu/ops/det_attention.py:642",
+              det_bwd_train + coco_bwd, det_bwd_worst["dkv"], det_bwd_times["global"]["dkv"],
               source="det_attention_bwd")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,22 @@
 """Evaluation entry point (counterpart of ``one_peace_tpu/cli/evaluate.py``).
 
-Loads a checkpoint through ``hub.from_pretrained`` (a fairseq ``.pt`` or a
-flat ``.npz``, such as the training CLI's ``checkpoint_best.npz``), runs the
-task's evaluation loop on ``--device`` and prints its metrics as JSON.
+Loads a checkpoint (a fairseq ``.pt`` or a flat ``.npz``, such as the
+training CLI's ``checkpoint_best.npz``), runs the task's evaluation loop on
+``--device`` and prints its metrics as JSON.
 
   python -m one_peace_tpu_torch.cli.evaluate --config eval.yaml \\
       --path /path/to/ckpt.(pt|npz) [--output metrics.json] [--device cuda] \\
       [task.<k>=v ...]
 
-The retrieval tasks are ported; the vision tasks (detection, segmentation,
-video) raise until their evaluation is (ROADMAP queue 1 items 3 and 8).
+- The retrieval tasks load through ``hub.from_pretrained``.
+- ``coco_detection`` builds the detector with ``task.build_model`` on
+  ``--device``; a ``.npz`` gives every weight (``params_from_jax``), a
+  ``.pt`` the trunk (``load_pretrained``) over the pyramid and heads of
+  ``init_detector_`` from ``common.seed`` (``cli.train.load_weights``).
+  Under ``common.bf16`` the weights are cast to bf16.  It prints box and
+  mask AP (``metrics.DetectionAP``).
+- The segmentation and video tasks are not ported yet (ROADMAP queue 1
+  item 8).
 """
 
 from __future__ import annotations
@@ -17,9 +24,12 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 import time
 from typing import Optional
+
+import torch
 
 logger = logging.getLogger("one_peace_tpu_torch.evaluate")
 
@@ -37,35 +47,41 @@ def main(argv: Optional[list] = None) -> int:
     from ..hub import from_pretrained
     from ..metrics.metrics import fetch_once
     from ..tasks import build_task
+    from .train import load_weights
 
     cfg = load_config(args.config, args.overrides)
     logging.basicConfig(level=logging.INFO)
 
     task = build_task(cfg.task, cfg)
     if hasattr(task, "build_model"):
-        raise NotImplementedError("evaluation of the vision tasks is not ported yet "
-                                  "(ROADMAP queue 1 items 3 and 8)")
-    cfg.model.encoder.text_adapter.vocab_size = len(task.dictionary)
-    cfg.model.head_type = cfg.task.head_type
-    cfg.model.encoder.image_adapter.rel_bucket_size = cfg.task.patch_image_size // 16
-    hub = from_pretrained(
-        args.path, model_type=cfg.model._name,
-        dtype="bf16" if cfg.common.bf16 else "float32",
-        bpe_dir=cfg.task.bpe_dir or None, model_cfg=cfg.model, task_cfg=cfg.task,
-        device=args.device)
+        if not os.path.exists(args.path):
+            raise FileNotFoundError(args.path)
+        model = task.build_model(cfg, device=args.device)
+        load_weights(cfg, model, args.device, args.path)
+        if cfg.common.bf16:
+            model.to(torch.bfloat16)
+    else:
+        cfg.model.encoder.text_adapter.vocab_size = len(task.dictionary)
+        cfg.model.head_type = cfg.task.head_type
+        cfg.model.encoder.image_adapter.rel_bucket_size = cfg.task.patch_image_size // 16
+        model = from_pretrained(
+            args.path, model_type=cfg.model._name,
+            dtype="bf16" if cfg.common.bf16 else "float32",
+            bpe_dir=cfg.task.bpe_dir or None, model_cfg=cfg.model, task_cfg=cfg.task,
+            device=args.device).model
 
     task.load_dataset("valid")
     t0 = time.time()
     fetches_before = fetch_once.calls
-    task.begin_valid_epoch(hub.model, None)
+    task.begin_valid_epoch(model, None)
     itr = task.get_batch_iterator("valid", cfg.dataset.batch_size_valid,
                                   ensure_equal_batch=False)
     for batch in itr.next_epoch_itr():
-        task.valid_step(hub.model, None, batch)
+        task.valid_step(model, None, batch)
     stats = task.merge_results()
     stats["eval_wall_s"] = round(time.time() - t0, 3)
     stats["eval_compiled_programs"] = task.eval_compiles
-    # the whole pass fetches to the host once (Recall.merge_results)
+    # a Recall pass fetches to the host once (Recall.merge_results)
     stats["eval_batched_fetches"] = fetch_once.calls - fetches_before
     printable = {k: v for k, v in stats.items() if isinstance(v, (int, float))}
     print(json.dumps(printable, indent=2))

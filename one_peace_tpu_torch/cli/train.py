@@ -8,11 +8,28 @@ best export, and preemption-safe resume, on one card.
       task.data=train.tsv task.valid_data=valid.tsv task.valid_file=valid.json \\
       task.bpe_dir=bpe [checkpoint.restore_file=one-peace.pt] [--device cuda]
 
-- **Weights.** ``checkpoint.restore_file`` is a fairseq ``.pt`` (converted by
-  ``utils/checkpoint_convert``) or a flat ``.npz`` (``load_params`` ->
-  ``params_from_jax``); without one, ``init_weights_`` draws them from
-  ``common.seed``.  Only ``one_peace_retrieval`` is ported (and models a
+  python -m one_peace_tpu_torch.cli.train \\
+      --config recipes/detection/cascade_mask_rcnn_1024.yaml \\
+      task.data=instances_train2017.json task.image_dir=train2017 \\
+      task.valid_data=instances_val2017.json task.valid_image_dir=val2017 \\
+      [checkpoint.restore_file=one-peace.pt] [--device cuda]
+
+- **Weights.** For the retrieval model, ``checkpoint.restore_file`` is a
+  fairseq ``.pt`` (converted by ``utils/checkpoint_convert``) or a flat
+  ``.npz`` (``load_params`` -> ``params_from_jax``); without one,
+  ``init_weights_`` draws them from ``common.seed``.  For a vision task's
+  model (the detector of ``coco_detection``), a ``.pt`` gives the trunk
+  (``load_pretrained``) and ``init_detector_`` the pyramid and heads from
+  ``common.seed``; a ``.npz`` gives every weight (``params_from_jax``,
+  strict); without one, ``init_detector_`` gives them all.  Only
+  ``one_peace_retrieval`` and the tasks' own models are ported (and models a
   ``--user-dir`` plugin registers); the other model names raise.
+- **Batches.** One card runs the batch it is given: ``dataset.batch_size``
+  samples a micro-batch.  A recipe's ``distributed`` section (the detection
+  recipe's ``fsdp: 8``, with its per-host ``batch_size: 8``) is the TPU
+  layout and is not read.  The batch keys that are evaluation bookkeeping
+  (``HOST_KEYS``: ids, counts, the detection GT's crowd flags, areas and
+  resize factors) stay on the host; the criterion does not read them.
 - **Saves.** ``step_<n>/`` train-state bundles every
   ``checkpoint.save_interval_updates`` updates and every
   ``checkpoint.save_interval`` epochs, the newest ``keep_last_epochs``
@@ -21,9 +38,14 @@ best export, and preemption-safe resume, on one card.
 - **Resume.** Unless ``checkpoint.reset_optimizer``, the newest bundle in
   ``save_dir`` restores the trainer (masters, AdamW state, an accumulation in
   progress, counters, generator), the iterator's epoch and offset, the best
-  metric and the update's logging window.
+  metric and the update's logging window.  A dataset that draws its
+  augmentation from one generator in fetch order (COCO's LSJ) is not
+  rewound: a resumed run draws other crops than the straight run did, as in
+  the JAX CLI.
 - **Validation** runs on the trainer's compute-dtype copies of the masters
   (``Trainer._compute_params``) through ``functional_call``: no second model.
+  The best export is in the JAX package's tree layout
+  (``utils.checkpoint.model_to_jax``), so the JAX CLIs read it.
 - **Logging** follows the JAX CLI's tags: ``train_inner`` per update,
   ``train`` per epoch, ``valid`` per validation.  Under ``update_freq > 1``
   ``train_inner`` logs the mean of the update's micro-batch metrics weighted
@@ -50,7 +72,8 @@ UNPORTED_MODELS = {
     "one_peace_classify": "ROADMAP queue 1 item 4 (classify)",
     "one_peace_pretrain": "ROADMAP queue 1 item 6 (pretrain)",
 }
-HOST_KEYS = ("id", "nsentences", "ntokens")  # batch bookkeeping the model does not read
+# batch bookkeeping the model does not read
+HOST_KEYS = ("id", "nsentences", "ntokens", "gt_crowd", "gt_areas", "im_scale")
 
 
 def build_model_for_task(cfg, task, device="cuda"):
@@ -72,25 +95,38 @@ def build_model_for_task(cfg, task, device="cuda"):
     return OnePeaceRetrievalModel(cfg.model, device=device, dtype=torch.float32)
 
 
-def load_weights(cfg, model, device) -> None:
-    """``checkpoint.restore_file`` into ``model`` (the branches its head
-    uses), or the config's init from ``common.seed`` when there is none."""
+def load_weights(cfg, model, device, path: Optional[str] = None) -> None:
+    """``path`` (by default ``checkpoint.restore_file``) into ``model`` (the
+    branches its head uses), or the config's init from ``common.seed`` when
+    there is none.  A vision task's model (one with ``load_pretrained``)
+    takes a ``.pt`` as its trunk over ``init_detector_``'s pyramid and
+    heads."""
     from ..utils.checkpoint import params_from_jax
     from ..utils.checkpoint_convert import convert_retrieval_model, load_torch_state_dict
     from ..utils.native_checkpoint import load_params
-    from ..utils.random_weights import init_weights_
+    from ..utils.random_weights import init_detector_, init_weights_
 
-    path = cfg.checkpoint.restore_file
+    path = path or cfg.checkpoint.restore_file
+    vision = hasattr(model, "load_pretrained")
+    generator = torch.Generator(device=device).manual_seed(cfg.common.seed)
     if not (path and os.path.exists(path)):
-        init_weights_(model, torch.Generator(device=device).manual_seed(cfg.common.seed),
-                      cfg.model.encoder.layer_scale_init_value)
+        if vision:
+            init_detector_(model, generator)
+        else:
+            init_weights_(model, generator, cfg.model.encoder.layer_scale_init_value)
+        return
+    if path.endswith(".pt") and vision:
+        init_detector_(model, generator)
+        model.load_pretrained(path)
         return
     if path.endswith(".pt"):
         state = convert_retrieval_model(load_torch_state_dict(path), cfg.model)
     else:
         state = params_from_jax(load_params(path))
-    wanted = model.state_dict().keys()
-    model.load_state_dict({k: v for k, v in state.items() if k in wanted}, strict=True)
+    if not vision:
+        wanted = model.state_dict().keys()
+        state = {k: v for k, v in state.items() if k in wanted}
+    model.load_state_dict(state, strict=True)
 
 
 class UpdateWindow:
@@ -307,7 +343,7 @@ def _maybe_save_best(cfg, trainer, stats, best) -> None:
     ``checkpoint_best.npz`` when it improves, and keep the k best exports
     (ref checkpoint_utils.py save policy)."""
     from ..utils import native_checkpoint as ckpt
-    from ..utils.checkpoint import params_to_jax
+    from ..utils.checkpoint import model_to_jax
 
     key = cfg.checkpoint.best_checkpoint_metric
     if not key or not stats or key not in stats:
@@ -319,13 +355,13 @@ def _maybe_save_best(cfg, trainer, stats, best) -> None:
     export = None
     if better:
         best["value"] = value
-        export = params_to_jax(trainer.model.state_dict())
+        export = model_to_jax(trainer.model)
         path = os.path.join(cfg.checkpoint.save_dir, "checkpoint_best.npz")
         ckpt.save_params(path, export, metadata={key: float(value), "step": trainer.step})
         logger.info("new best %s=%.4f -> %s", key, value, path)
     if cfg.checkpoint.keep_best_checkpoints > 0:
         if export is None:
-            export = params_to_jax(trainer.model.state_dict())
+            export = model_to_jax(trainer.model)
         kpath = ckpt.save_best_k(
             cfg.checkpoint.save_dir, key, float(value),
             cfg.checkpoint.maximize_best_checkpoint_metric,

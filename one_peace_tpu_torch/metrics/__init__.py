@@ -1,1 +1,1 @@
-from .metrics import Recall  # noqa: F401
+from .metrics import DetectionAP, Recall  # noqa: F401

@@ -25,6 +25,16 @@ from ..data.tokenizer import TextTokenizer, find_bpe_dir
 from ..data.tsv import load_tables
 
 
+def refuse_shards(num_shards: int) -> None:
+    """Raise for a sharded iterator: each shard's reducer would hold only
+    its part of the evaluation set, and nothing merges the parts yet, so
+    refuse rather than under-count."""
+    if num_shards > 1:
+        raise NotImplementedError(
+            "sharded data needs a cross-process gather in merge_results, which is "
+            "not ported yet (ROADMAP queue 7, metrics/gather.py)")
+
+
 class BaseTask:
     dataset_cls = None  # set by subclasses
     criterion_name = ""
@@ -80,12 +90,7 @@ class BaseTask:
                            shard_id: int = 0, num_shards: int = 1,
                            ensure_equal_batch: bool = True,
                            skip_remainder_batch: bool = False) -> EpochBatchIterator:
-        if num_shards > 1:
-            # each shard's reducer would hold only its part of the set, and
-            # nothing merges the parts yet: refuse rather than under-count
-            raise NotImplementedError(
-                "sharded data needs a cross-process gather in merge_results, which is "
-                "not ported yet (ROADMAP queue 7, metrics/gather.py)")
+        refuse_shards(num_shards)
         dataset = self.datasets[split]
         pad = self.tokenizer.pad
         return EpochBatchIterator(

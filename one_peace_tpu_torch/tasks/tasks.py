@@ -6,8 +6,8 @@ zero-shot ESC-50, ref tasks/audio_tasks/audio_text_retrieval.py:86), then
 the image or audio side per batch into a ``Recall`` reducer, which fetches
 everything to the host once in ``merge_results``.
 
-``coco_detection`` is registered (``vision_tasks.CocoDetectionTask``: its
-dataset and evaluation raise).  Every other task of the JAX package raises
+``coco_detection`` is registered (``vision_tasks.CocoDetectionTask``: COCO
+JSON, LSJ, box and mask AP).  Every other task of the JAX package raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 

@@ -3,8 +3,9 @@
 ``params_from_jax`` turns the JAX package's parameter tree (nested dicts and
 lists of numpy arrays, as ``utils/checkpoint_convert.convert_retrieval_model``
 or ``model.init`` give it) into this package's ``state_dict``;
-``params_to_jax`` is its inverse for the retrieval model, so that a ``.npz``
-the port exports reads in either package.  ``load_npz`` reads the flat
+``params_to_jax`` is its inverse, so that a ``.npz`` the port exports reads in
+either package; ``model_to_jax`` applies it with the layout a model declares
+(the detector's ``jax_layout``).  ``load_npz`` reads the flat
 ``.npz`` layout (``utils/native_checkpoint.load_params``) and converts it.
 
 Layout rules:
@@ -113,16 +114,24 @@ def params_from_jax(tree: Dict[str, Any],
     return out
 
 
-def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The retrieval model's ``state_dict`` -> the JAX package's parameter
-    tree, the inverse of ``params_from_jax``: ``weight`` of two or more
-    dimensions becomes ``w`` in the JAX layout, a one-dimensional
-    ``weight`` (a LayerNorm's) becomes ``scale`` and its ``bias`` stays
-    ``bias``, any other ``bias`` becomes ``b``, ``w_q`` goes back to
-    (in, out); the fusion layers are stacked on a leading layer axis, and
-    modules numbered 0..n-1 become lists.  Leaves are numpy arrays, except
-    bf16 ones, which stay bf16 tensors (numpy has no bf16 of its own;
+def params_to_jax(state: Dict[str, torch.Tensor], periods: Optional[Dict[str, int]] = None,
+                  names: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
+    """A ``state_dict`` -> the JAX package's parameter tree, the inverse of
+    ``params_from_jax``: ``weight`` of two or more dimensions becomes ``w``
+    in the JAX layout (conv and transposed-conv kernels HWIO), a
+    one-dimensional ``weight`` (a LayerNorm's or GroupNorm's) becomes
+    ``scale`` and its ``bias`` stays ``bias``, any other ``bias`` becomes
+    ``b``, ``w_q`` goes back to (in, out); the fusion layers are stacked on a
+    leading layer axis, and modules numbered 0..n-1 become lists.
+
+    ``periods`` maps a module list of the detection trunk (``"backbone.layers"``)
+    to its global period p: its layers ``g * p + s`` are stacked back into
+    ``win_layers`` (groups, p - 1, ...) and ``glob_layers`` (groups, ...)
+    beside it.  ``names`` maps a module's path to its key in the JAX tree
+    (``"fpn.scale_4_0"`` -> ``"scale_4.0"``).  Leaves are numpy arrays,
+    except bf16 ones, which stay bf16 tensors (numpy has no bf16 of its own;
     ``native_checkpoint.save_params`` takes both)."""
+    periods, names = periods or {}, names or {}
     root: Dict[str, Any] = {}
     for key, value in state.items():
         *parents, name = key.split(".")
@@ -139,31 +148,55 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         elif name == "w_q" and leaf.ndim == 2:
             leaf = leaf.T.contiguous()
         node = root
-        for part in parents:
-            node = node.setdefault(part, {})
+        for i, part in enumerate(parents):
+            node = node.setdefault(names.get(".".join(parents[:i + 1]), part), {})
         node[name] = leaf if leaf.dtype == torch.bfloat16 else leaf.numpy()
 
-    def stack(layers: Dict[str, Any]) -> Any:
-        first = layers["0"]
+    def stack(items: list) -> Any:
+        first = items[0]
         if isinstance(first, dict):
-            return {k: stack({i: v[k] for i, v in layers.items()}) for k in first}
-        items = [layers[str(i)] for i in range(len(layers))]
-        if isinstance(first, torch.Tensor):
-            return torch.stack(items)
-        return np.stack(items)
+            return {k: stack([item[k] for item in items]) for k in first}
+        return torch.stack(items) if isinstance(first, torch.Tensor) else np.stack(items)
+
+    def numbered(node: Dict[str, Any]) -> list:
+        return [node[str(i)] for i in range(len(node))]
+
+    def regroup(layers: list, period: int) -> Dict[str, Any]:
+        if period < 2:
+            # the JAX tree keeps (groups, 0, ...) windowed leaves, whose
+            # shapes the state_dict does not hold
+            raise NotImplementedError("a trunk without windowed layers (global period 1)")
+        groups = [layers[g:g + period] for g in range(0, len(layers), period)]
+        return {"win_layers": stack([stack(group[:-1]) for group in groups]),
+                "glob_layers": stack([group[-1] for group in groups])}
 
     def listify(node: Any, path: tuple) -> Any:
         if not isinstance(node, dict):
             return node
         if path[-2:] == ("fusion", "layers"):
-            return stack(node)
+            return stack(numbered(node))
         keys = list(node)
         if keys and all(k.isdigit() for k in keys) and \
                 sorted(int(k) for k in keys) == list(range(len(keys))):
             return [listify(node[str(i)], path + (str(i),)) for i in range(len(keys))]
-        return {k: listify(v, path + (k,)) for k, v in node.items()}
+        out: Dict[str, Any] = {}
+        for k, v in node.items():
+            period = periods.get(".".join(path + (k,)))
+            if period:
+                out.update(regroup(numbered(v), period))
+            else:
+                out[k] = listify(v, path + (k,))
+        return out
 
     return listify(root, ())
+
+
+def model_to_jax(model: torch.nn.Module) -> Dict[str, Any]:
+    """``params_to_jax`` of ``model.state_dict()`` with the layout the model
+    declares through a ``jax_layout()`` method (the detector's trunk period
+    and pyramid names), if it has one."""
+    layout = model.jax_layout() if hasattr(model, "jax_layout") else {}
+    return params_to_jax(model.state_dict(), **layout)
 
 
 def load_npz(path: str) -> Dict[str, torch.Tensor]:

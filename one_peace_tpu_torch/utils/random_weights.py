@@ -15,6 +15,8 @@ and zero, the FCOS box scales one.  ``init_weights_`` puts those two back to
 the config's values (gammas at ``layer_scale_init_value``, rel-pos tables
 zero): it is the initial state of a training run that restores no
 checkpoint, and ``fill_random_`` is what the tests and the chip smoke use.
+``init_detector_`` is the detector's initial state, as
+``OnePeaceDetector.init`` of the JAX package draws it.
 
 Values are drawn in fp32 in a fixed order, so models of different dtypes
 filled from the same seed hold the same weights up to rounding.
@@ -106,4 +108,61 @@ def init_weights_(model: nn.Module, generator: torch.Generator,
             p.fill_(layer_scale_init_value)
         elif leaf in ("rel_pos_table", "rel_pos_h", "rel_pos_w"):
             p.zero_()
+    return model
+
+
+@torch.no_grad()
+def init_detector_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The initial state of a detection fine-tuning run, with the
+    distributions and constants of the JAX package's
+    ``OnePeaceDetector.init`` (``vision/zoo.py``): every conv, transposed
+    conv and the hMLP stem's weights uniform within sqrt(3 / fan_in) and
+    biases within 1 / sqrt(fan_in) (``models.components.init_conv2d``); the
+    trunk's dense weights truncated N(0, 0.02^2) within one sigma, the
+    cascade heads' Xavier-uniform (``init_linear``), their biases zero;
+    ``pos_embed`` N(0, 1 / d); LayerNorms and GroupNorms one and zero; the
+    LayerScale gammas 1e-2; the rel-pos tables zero; the FCOS class bias at
+    -log(99) and its box scales one (``vision/detection.FCOSHead.init``).
+    Values are drawn in fp32 in a fixed order; returns ``model``."""
+
+    def draw(p, kind: str, scale: float) -> None:
+        x = torch.empty(p.shape, device=p.device, dtype=torch.float32)
+        if kind == "trunc":
+            nn.init.trunc_normal_(x, 0.0, 1.0, -1.0, 1.0, generator=generator)
+        elif kind == "normal":
+            x.normal_(0.0, 1.0, generator=generator)
+        else:
+            x.uniform_(-1.0, 1.0, generator=generator)
+        p.copy_(x * scale)
+
+    for name, m in model.named_modules():
+        if isinstance(m, LayerNorm):  # GroupNorm too
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, Linear):
+            out_f, in_f = m.weight.shape
+            if name.startswith("backbone."):
+                draw(m.weight, "trunc", 0.02)
+            else:
+                draw(m.weight, "uniform", math.sqrt(6.0 / (in_f + out_f)))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, Conv):
+            fan_in = m.weight[0].numel()  # in * kh * kw, transposed convs too
+            draw(m.weight, "uniform", math.sqrt(3.0 / fan_in))
+            if m.bias is not None:
+                draw(m.bias, "uniform", 1.0 / math.sqrt(fan_in))
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "pos_embed":
+            draw(p, "normal", p.shape[-1] ** -0.5)
+        elif leaf in ("rel_pos_table", "rel_pos_h", "rel_pos_w"):
+            p.zero_()
+        elif leaf in ("gamma_1", "gamma_2"):
+            p.fill_(1e-2)
+        elif leaf == "scales":  # the FCOS head's per-level box scales
+            p.fill_(1.0)
+    cls_pred = getattr(getattr(model, "proposer", None), "cls_pred", None)
+    if cls_pred is not None:  # FCOS: a background-heavy prior of 0.01
+        cls_pred.bias.fill_(-math.log((1 - 0.01) / 0.01))
     return model

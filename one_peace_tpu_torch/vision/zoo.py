@@ -68,6 +68,14 @@ class OnePeaceDetector(nn.Module):
             raise KeyError(f"the checkpoint left trunk weights unset: {sorted(missing)[:5]}")
         return self
 
+    def jax_layout(self) -> Dict[str, Dict]:
+        """What ``utils.checkpoint.params_to_jax`` needs to rebuild the JAX
+        package's tree from this model's ``state_dict``: the trunk's global
+        period (its layers regroup into ``win_layers`` / ``glob_layers``) and
+        the JAX keys of the pyramid's levels (``scale_4_0`` -> ``scale_4.0``)."""
+        return {"periods": {"backbone.layers": self.backbone.global_period},
+                "names": {f"fpn.{self.fpn.stage_name(s)}": f"scale_{s}" for s in self.fpn.scales}}
+
     def features(self, images: torch.Tensor):
         """images (B, 3, H, W) -> (the pyramid dict, the proposer's outputs
         per level)."""

@@ -51,9 +51,10 @@ def test_port_imports_nothing_of_the_jax_package():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count = int(proc.stdout.split()[0])
-    # every module was walked: the vision slice's, and the data, task, metric,
-    # checkpoint and CLI modules of the retrieval fine-tuning slice
-    assert count >= 63, proc.stdout
+    # every module was walked: the vision slice's, the data, task, metric,
+    # checkpoint and CLI modules of the retrieval fine-tuning slice, and the
+    # COCO dataset and mask paste of detection from data
+    assert count >= 65, proc.stdout
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)

@@ -115,7 +115,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches per update (80 forward, 40 backward) and in validation (40),
    validation's wall time split between ``detect()``, the host's mask paste
    and AP records and the AP sweep, the host's share at 100 detections per
-   image, and one profiled update (``det_cli_profile.txt``).
+   image, and one profiled update (``det_cli_profile.txt``);
+15. classification: (e) first, #1 and #2 alone at the slice's shapes (L=577
+   at B=32, the 384 px image; L=750 at B=8, 15 s clips with key pads;
+   L=971 at B=4, VQA's 480 px image and text with pads) against their plain
+   versions with phase 3's and 6's bounds, then in turns with SDPA and its
+   backward, beside their bounds and plain versions, with the plans'
+   branches; then, the launches counted from 0: (a) ``from_pretrained(
+   model_type="one_peace_classify")`` on 2-layer full-width fairseq ``.pt``
+   files written under ``build/`` (16 x 16 pretrained image tables, a
+   seeded head): an image head at 384 px with attention pooling, a vl head
+   at 480 px and an audio head, fp32 and bf16, the kernel path against the
+   plain path (cosine of the logits per sample >= 1-1e-6 / 0.999, 2 launches
+   of #1 per forward), then quantize="ffn" against the plain int8 path;
+   (b) each task's gradients at 4 layers, full width, through ``Trainer``
+   and the classify criterion (image_classify at 384 px, B=8, Mixup and
+   CutMix soft targets; VQA at 480 px, B=4, BCE over 3129 answers;
+   VGGSound B=8, clips of 5-15 s), kernel path against plain path with
+   7(a)'s bounds, then 3 AdamW steps on each; (c) synthetic JPEGs, a VQA
+   TSV, WAV clips and a BPE set under ``build/smoke_classify/``, and each
+   recipe through ``cli.train`` at depth 4 (4 updates, one validation,
+   ``checkpoint_best.npz`` read back bit-equal to the masters) and
+   ``cli.evaluate`` on the export (the validation's accuracy to 1e-6);
+   (d) the image_classify recipe at depth 40, 384 px, B=32 through
+   ``cli.train`` from the config's init: 6 updates and one validation over
+   64 images, no saves: ms per update, images/s, MFU, peak memory, the
+   launches per update (80 / 40) and in validation (40 / 0), a falling loss
+   and one profiled update (``classify_cli_profile.txt``).
 
 Every timed kernel also prints its bound: the larger of its bytes over the
 HBM rate and its operations over the peak rate (NVIDIA's data sheet).  The
@@ -145,7 +171,9 @@ from one_peace_tpu_torch import hub as port_hub
 from one_peace_tpu_torch.core.config import FrameworkConfig, TaskConfig, load_config
 from one_peace_tpu_torch.data.tokenizer import bytes_to_unicode
 from one_peace_tpu_torch.criterions import build_criterion
+from one_peace_tpu_torch.data.mixup import Mixup
 from one_peace_tpu_torch.models.adapters.audio import conv_output_length
+from one_peace_tpu_torch.models.classify import OnePeaceClassifyModel
 from one_peace_tpu_torch.models.one_peace import ModelConfig, OnePeaceRetrievalModel
 from one_peace_tpu_torch.ops import build
 from one_peace_tpu_torch.ops import det_attention as da
@@ -198,16 +226,18 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def analytic_flops(cfg, seq_len: int, batch: int, frontend: str, wav_samples: int = 0) -> float:
+def analytic_flops(cfg, seq_len: int, batch: int, frontend: str, wav_samples: int = 0,
+                   image_size: int = 256) -> float:
     """bench.py's closed form (2 FLOPs per MAC: trunk matmuls, attention,
-    frontend convs), with the hMLP stem's real channels (d/4 -> d/4 -> d)."""
+    frontend convs), with the hMLP stem's real channels (d/4 -> d/4 -> d)
+    at ``image_size`` px."""
     enc = cfg.encoder
     d, f, L = enc.embed_dim, enc.ffn_embed_dim, seq_len
     flops = enc.layers * (2 * (4 * L * d * d) + 2 * (2 * L * L * d) + 2 * (3 * L * d * f))
     if frontend == "text":
         pass
     elif frontend == "image":
-        hw = 256
+        hw = image_size
         flops += 2 * ((hw // 4) ** 2 * (d // 4) * 3 * 16
                       + (hw // 8) ** 2 * (d // 4) * (d // 4) * 4
                       + (hw // 16) ** 2 * d * (d // 4) * 4)
@@ -2368,6 +2398,605 @@ def train_det_cli_full_depth(paths: dict, card: str, ms_12c: float) -> dict:
             "valid": {k: v for k, v in runs[0].items() if k != "masters"}}
 
 
+CLASSIFY_DIR = ROOT / "build" / "smoke_classify"
+CLASSIFY_RECIPES = {task: ROOT / "recipes" / task / "base.yaml"
+                    for task in ("image_classify", "vqa", "vggsound")}
+VQA_ANSWERS = 3129  # VqaDataset's answer_cnt
+VGGSOUND_CLASSES = 309
+
+
+def write_wav(path: Path, samples: np.ndarray, rate: int = 16000) -> None:
+    import wave
+
+    with wave.open(str(path), "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(rate)
+        wf.writeframes(np.asarray(samples, np.int16).tobytes())
+
+
+def write_classify_corpus(root: Path, n_train: int = 48, n_valid: int = 16,
+                          clip_seconds=(5.0, 15.0)) -> dict:
+    """Phase 15(c): ``n_train + n_valid`` JPEGs (256-399 px) with an
+    image_classify TSV of 10 classes and a VQA TSV (``id, image, question,
+    refs``, each ref ``answer|!+label|!+confidence`` over the 3129 answers,
+    joined by ``&&``), WAV clips of ``clip_seconds`` with a VGGSound TSV
+    (``id, audio, label, duration``, 10 of its 309 classes), each split into
+    train and valid, and the byte-level BPE set.  Returns the paths."""
+    rng = np.random.RandomState(15)
+    root.mkdir(parents=True, exist_ok=True)
+    n = n_train + n_valid
+    tables = {"image_classify": ["image\tlabel"], "vqa": ["id\timage\tquestion\trefs"],
+              "vggsound": ["id\taudio\tlabel\tduration"]}
+    for i, img in enumerate(retrieval_images(n, rng)):
+        img.save(root / f"img{i}.jpg", quality=92)
+        tables["image_classify"].append(f"img{i}.jpg\t{i % 10}")
+        question = " ".join(WORDS[j] for j in rng.randint(0, len(WORDS), 3 + i % 8))
+        answers = rng.choice(VQA_ANSWERS, 1 + i % 3, replace=False)
+        refs = "&&".join(f"{WORDS[a % len(WORDS)]}|!+{a}|!+{rng.choice([0.3, 0.6, 0.9, 1.0])}"
+                         for a in answers)
+        tables["vqa"].append(f"{i}\timg{i}.jpg\t{question}?\t{refs}")
+        samples = int(16000 * rng.uniform(*clip_seconds))
+        t = np.arange(samples)
+        wav = np.sin(t * (0.01 + 0.002 * (i % 10))) * 6000 + rng.randn(samples) * 700
+        write_wav(root / f"clip{i}.wav", wav)
+        tables["vggsound"].append(f"{i}\tclip{i}.wav\t{i % 10}\t{samples / 16000:.3f}")
+    out = {"root": root, "bpe": write_bpe_dir(root / "bpe")}
+    for task, rows in tables.items():
+        for split, part in (("train", rows[1:n_train + 1]), ("valid", rows[n_train + 1:])):
+            (root / f"{task}_{split}.tsv").write_text("\n".join([rows[0], *part]) + "\n")
+        out[task] = {split: str(root / f"{task}_{split}.tsv") for split in ("train", "valid")}
+    return out
+
+
+CLASSIFY_HEADS = {  # task: (head type, px, classes, the head's kwargs in 15(a) and 15(b))
+    "image_classify": ("image", 384, 1000, {"attn_pooling": True}),
+    "vqa": ("vl", 480, VQA_ANSWERS, {}),
+    "vggsound": ("audio", 256, VGGSOUND_CLASSES, {}),
+}
+HEAD_MODALITIES = {"image": ("image",), "vl": ("text", "image"), "audio": ("audio",)}
+VQA_QUESTIONS = ["what color is the dog on the left", "how many people are there",
+                 "is it raining", "what is the man holding in his hand"]
+
+
+def classify_head_state(d: int, heads: int, num_classes: int, attn_pooling: bool,
+                        seed: int) -> dict:
+    """A seeded fairseq ``classify_head`` (the names of
+    ``tests/torch_fixture.add_classify_head_state``): norm, the attention
+    pooling's k/v/out projections and query, and ``classifier.{0,1,3}``."""
+    rng = np.random.RandomState(seed)
+
+    def draw(*shape, scale):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    sd = {"classify_head.norm.weight": 1 + draw(d, scale=0.1),
+          "classify_head.norm.bias": draw(d, scale=0.02)}
+    if attn_pooling:
+        pre = "classify_head.attn_pooling_func"
+        sd.update({f"{pre}.k_proj.weight": draw(d, d, scale=0.02),
+                   f"{pre}.v_proj.weight": draw(d, d, scale=0.02),
+                   f"{pre}.v_proj.bias": draw(d, scale=0.02),
+                   f"{pre}.out_proj.weight": draw(d, d, scale=0.02),
+                   f"{pre}.out_proj.bias": draw(d, scale=0.02),
+                   f"{pre}.q": draw(1, 1, heads, d // heads, scale=0.1)})
+    sd.update({"classify_head.classifier.0.weight": draw(d, d, scale=0.02),
+               "classify_head.classifier.0.bias": draw(d, scale=0.02),
+               "classify_head.classifier.1.weight": 1 + draw(d, scale=0.1),
+               "classify_head.classifier.1.bias": draw(d, scale=0.02),
+               "classify_head.classifier.3.weight": draw(num_classes, d, scale=0.02),
+               "classify_head.classifier.3.bias": draw(num_classes, scale=0.02)})
+    return sd
+
+
+def audio_clips(lengths, rng) -> tuple:
+    """Waveforms of ``lengths`` samples padded to the longest, on the card,
+    and their frame padding masks (CLS kept)."""
+    spec = ModelConfig().encoder.audio_adapter.feature_encoder_spec
+    wav = np.zeros((len(lengths), max(lengths)), np.float32)
+    pad = np.ones((len(lengths), conv_output_length(max(lengths), spec) + 1), bool)
+    for i, n in enumerate(lengths):
+        wav[i, :n] = rng.randn(n) * 0.5
+        pad[i, :conv_output_length(n, spec) + 1] = False
+    return torch.from_numpy(wav).cuda(), torch.from_numpy(pad).cuda()
+
+
+def classify_logits(hub, head: str, inputs: dict) -> torch.Tensor:
+    """The hub's classify forward: ``extract_image_features`` /
+    ``extract_audio_features`` give the logits; a vl head takes text and
+    image together, so it runs the model under inference mode."""
+    if head == "image":
+        return hub.extract_image_features(inputs["src_images"])
+    if head == "audio":
+        return hub.extract_audio_features(inputs["src_audios"], inputs["audio_padding_masks"])
+    with torch.inference_mode():
+        return hub.model(**inputs)
+
+
+def serve_classify(card: str) -> dict:
+    """Phase 15(a): classify serving at full width through the hub.  A
+    2-layer full-width fairseq ``.pt`` per head (the trunk's branches the
+    head uses, 16 x 16 pretrained image tables, a seeded head), loaded by
+    ``from_pretrained(model_type="one_peace_classify")``: an image head at
+    384 px with attention pooling, a vl head at 480 px, an audio head.  fp32
+    and bf16: the kernel path against the plain path (cosine per sample
+    >= 1-1e-6 / 0.999), 2 launches of #1 per forward; then quantize="ffn",
+    the int8 kernels against the plain int8 path, with their launches.
+    Returns the int8 kernels' launches over the kernel-path forwards."""
+    work = ROOT / "build" / "smoke_classify_hub"
+    work.mkdir(parents=True, exist_ok=True)
+    bpe = write_bpe_dir(work / "bpe")
+    base = ModelConfig(head_type="val")
+    base.encoder.layers = 2
+    enc = base.encoder
+    t0 = time.time()
+    trunk = make_random_state_dict(base, seed=15)
+    log(f"15(a) seeded a 2-layer full-width fairseq trunk in {time.time() - t0:.1f} s")
+    rng = np.random.RandomState(151)
+    launched = {"gemm": 0, "quantize": 0}
+    bounds = {"float32": 1 - 1e-6, "bf16": 0.999}
+    for task, (head, px, classes, kw) in CLASSIFY_HEADS.items():
+        drop = [m for m in ("text", "image", "audio") if m not in HEAD_MODALITIES[head]]
+        sd = {k: v for k, v in trunk.items()
+              if not any(f".{m}_{part}" in k for m in drop
+                         for part in ("adapter.", "ffn.", "layer_norm."))}
+        sd.update(classify_head_state(enc.embed_dim, enc.attention_heads, classes,
+                                      kw.get("attn_pooling", False), seed=len(task)))
+        pt = work / f"{task}.pt"
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, pt)
+        del sd
+        cfg = copy.deepcopy(base)
+        cfg._name, cfg.head_type = "one_peace_classify", head
+        cfg.encoder.image_adapter.rel_bucket_size = px // 16
+        task_cfg = TaskConfig(patch_image_size=px)
+        inputs = None
+        for dtype in ("float32", "bf16"):
+            reference = None
+            for quantize in ("none", "ffn"):
+                t0 = time.time()
+                hub = port_hub.from_pretrained(
+                    str(pt), model_type="one_peace_classify", dtype=dtype, bpe_dir=bpe,
+                    model_cfg=cfg, task_cfg=task_cfg, num_classes=classes, classify_kwargs=kw,
+                    quantize=quantize, device="cuda")
+                model = hub.model
+                if inputs is None:
+                    inputs = {}
+                    if head in ("image", "vl"):
+                        inputs["src_images"] = hub.process_image(smooth_images(4, rng))
+                        table = model.encoder_wrapper.image_adapter.rel_pos_table
+                        grid = 2 * (px // 16) - 1
+                        log(f"15(a) {task}: the 16 x 16 pretrained rel-pos tables loaded as "
+                            f"{tuple(table.shape)} ({grid} x {grid} + 3 rows at {px} px)")
+                        if tuple(table.shape) != (2, grid * grid + 3, enc.attention_heads):
+                            raise RuntimeError(f"15(a) {task}: rel-pos table {table.shape}")
+                    if head == "vl":
+                        inputs["src_tokens"] = hub.process_text(VQA_QUESTIONS)
+                    if head == "audio":
+                        inputs["src_audios"], inputs["audio_padding_masks"] = hub.process_audio(
+                            [rng.randn(16000 * s).astype(np.float32) * 0.1 for s in (15, 5, 9, 12)])
+                inputs = {k: v.to(hub.dtype) if v.is_floating_point() else v
+                          for k, v in inputs.items()}
+                if quantize == "none":
+                    outs = {}
+                    for impl in ("pallas", "xla"):
+                        model.cfg.encoder.attn_impl = impl
+                        before = fa.launches
+                        outs[impl] = classify_logits(hub, head, inputs).float()
+                        torch.cuda.synchronize()
+                        want = 2 if impl == "pallas" else 0
+                        if fa.launches - before != want:
+                            raise RuntimeError(f"15(a) {task} {impl}: {fa.launches - before} "
+                                               f"launches of #1 per forward, expected {want}")
+                    model.cfg.encoder.attn_impl = "pallas"
+                    got, plain = outs["pallas"], outs["xla"]
+                    reference = plain
+                    what, counts = "plain path", "2 launches of #1 per kernel-path forward"
+                else:
+                    before = (im.launches, im.quantize_launches)
+                    got = classify_logits(hub, head, inputs).float()
+                    torch.cuda.synchronize()
+                    counts = (im.launches - before[0], im.quantize_launches - before[1])
+                    per = len(HEAD_MODALITIES[head]) * enc.layers
+                    if counts != (3 * per, 2 * per):
+                        raise RuntimeError(f"15(a) {task} ffn: launches {counts}, expected "
+                                           f"{(3 * per, 2 * per)}")
+                    launched["gemm"] += counts[0]
+                    launched["quantize"] += counts[1]
+                    with plain_int8():
+                        plain = classify_logits(hub, head, inputs).float()
+                    what = "plain int8 path"
+                    counts = (f"{counts[0]} GEMM and {counts[1]} quantize per forward; "
+                              f"vs unquantized {dtype} {min_cosine(got, reference):.6f}")
+                b = got.shape[0]
+                if got.shape != (b, classes) or not torch.isfinite(got).all():
+                    raise RuntimeError(f"15(a) {task}: bad logits {tuple(got.shape)}")
+                cos = min_cosine(got, plain)
+                log(f"15(a) {task} {head} head {px} px {dtype} quantize={quantize} B={b}: min "
+                    f"cosine of the logits kernel vs {what} {cos:.9f} (bound {bounds[dtype]}); "
+                    f"{counts}; from_pretrained and the forwards {time.time() - t0:.1f} s")
+                if cos < bounds[dtype]:
+                    raise RuntimeError(f"15(a) {task} {dtype} {quantize}: the kernel path "
+                                       f"disagrees with the {what}")
+                del hub, model
+                torch.cuda.empty_cache()
+        pt.unlink()
+    return launched
+
+
+def classify_train_config(task: str, layers: int, bf16: bool, remat: bool,
+                          drop_path: float) -> FrameworkConfig:
+    """The task's fine-tune at the 4B width, ``layers`` deep: the classify
+    criterion (BCE over the answers for VQA, label smoothing 0.1 for
+    VGGSound), AdamW as ``train_config``."""
+    head, px, classes, _ = CLASSIFY_HEADS[task]
+    cfg = train_config(layers, bf16, remat, drop_path)
+    cfg.model = ModelConfig(_name="one_peace_classify", head_type=head)
+    enc = cfg.model.encoder
+    enc.layers, enc.checkpoint_activations, enc.drop_path_rate = layers, remat, drop_path
+    enc.image_adapter.rel_bucket_size = px // 16
+    cfg.task.patch_image_size, cfg.task.num_classes = px, classes
+    cfg.criterion._name = "classify_criterion"
+    cfg.criterion.use_multi_label = task == "vqa"
+    cfg.criterion.label_smoothing = 0.1 if task == "vggsound" else 0.0
+    return cfg
+
+
+def classify_trainer(cfg, task: str, seed: int = 0) -> Trainer:
+    model = OnePeaceClassifyModel(cfg.model, cfg.task.num_classes, device="cuda",
+                                  **CLASSIFY_HEADS[task][3])
+    fill_random_(model, torch.Generator(device="cuda").manual_seed(seed))
+    return Trainer(cfg, model, build_criterion(cfg.criterion))
+
+
+def classify_batch(task: str, rng) -> dict:
+    """15(b)'s batch: image_classify B=8 at 384 px through Mixup + CutMix
+    (soft targets over 1000 classes); VQA B=4 at 480 px with 70-token
+    questions with pads and 1-3 answer confidences of 3129; VGGSound B=8
+    clips of 5-15 s (key pads)."""
+    if task == "image_classify":
+        images = rng.randn(8, 3, 384, 384).astype(np.float32)
+        mixer = Mixup(0.8, 1.0, label_smoothing=0.1, num_classes=1000, seed=15)
+        images, target = mixer(images, rng.randint(0, 1000, 8))
+        return {"src_images": torch.from_numpy(images).cuda(),
+                "target": torch.from_numpy(target).cuda()}
+    if task == "vqa":
+        tokens = torch.from_numpy(rng.randint(4, 260, (4, 70))).cuda()
+        tokens[text_pad_mask(4, 71)[:, 1:]] = ModelConfig().encoder.text_adapter.padding_idx
+        target = np.zeros((4, VQA_ANSWERS), np.float32)
+        for row in target:
+            row[rng.choice(VQA_ANSWERS, 3, replace=False)] = (0.3, 0.6, 1.0)
+        return {"src_tokens": tokens,
+                "src_images": torch.from_numpy(rng.randn(4, 3, 480, 480).astype(np.float32)).cuda(),
+                "target": torch.from_numpy(target).cuda()}
+    wav, pad = audio_clips([int(16000 * s) for s in rng.uniform(5, 15, 8)], rng)
+    return {"src_audios": wav, "audio_padding_masks": pad,
+            "target": torch.from_numpy(rng.randint(0, VGGSOUND_CLASSES, 8)).cuda()}
+
+
+def check_classify_train_paths() -> None:
+    """Phase 15(b): each task's fine-tuning gradients at 4 layers, full
+    width, through ``Trainer`` with the classify criterion, kernel path
+    against plain path on the same weights and batch, with phase 7(a)'s
+    bounds: fp32 losses within 1e-5 and every gradient's cosine >= 1-1e-6;
+    bf16 the kernel path no further from the fp32 gradients than the plain
+    path (per parameter within 0.01, all together >= 0.999), losses within
+    2e-3.  Then 3 AdamW steps on each path (losses within 1e-4 / 2e-2)."""
+    rng = np.random.RandomState(152)
+    for task in CLASSIFY_HEADS:
+        batch = classify_batch(task, rng)
+        lengths = {k: tuple(v.shape) for k, v in batch.items()}
+        ref32 = None
+        for bf16 in (False, True):
+            name = "bf16" if bf16 else "fp32"
+            cfg = classify_train_config(task, 4, bf16, False, 0.0)
+            trainer = classify_trainer(cfg, task)
+            runs = {}
+            for impl in ("pallas", "xla"):
+                trainer.model.cfg.encoder.attn_impl = impl
+                before = (fa.launches, fa.bwd_launches)
+                metrics, grads = trainer.gradients(batch)
+                torch.cuda.synchronize()
+                launched = (fa.launches - before[0], fa.bwd_launches - before[1])
+                want = (4, 4) if impl == "pallas" else (0, 0)
+                if launched != want:
+                    raise RuntimeError(f"15(b) {task} {name} {impl}: launches {launched}, "
+                                       f"expected {want}")
+                if not all(torch.isfinite(g).all() for g in grads):
+                    raise RuntimeError(f"15(b) {task} {name} {impl}: non-finite gradient")
+                runs[impl] = (float(metrics["loss"]), float(metrics["accuracy"]), grads)
+            names = trainer._names
+            del trainer
+            (loss_k, acc_k, grads_k), (loss_p, acc_p, grads_p) = runs["pallas"], runs["xla"]
+            cos = grad_cosines(grads_k, grads_p)
+            worst = min(range(len(cos)), key=cos.__getitem__)
+            log(f"15(b) {task} {name} 4 layers {lengths}: loss kernel {loss_k:.7f} plain "
+                f"{loss_p:.7f} (accuracy {acc_k:.3f} / {acc_p:.3f}); gradient cosine kernel vs "
+                f"plain per parameter min {cos[worst]:.9f} ({names[worst]}), {len(cos)} "
+                f"parameters")
+            if not bf16:
+                ok = abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and cos[worst] >= 1 - 1e-6
+                ref32 = grads_p
+            else:
+                cos_k, cos_p = grad_cosines(grads_k, ref32), grad_cosines(grads_p, ref32)
+                gap = max(range(len(cos)), key=lambda i: cos_p[i] - cos_k[i])
+                total = grad_cosines([torch.cat([g.flatten() for g in grads_k])],
+                                     [torch.cat([g.flatten() for g in grads_p])])[0]
+                log(f"15(b) {task} bf16 vs the fp32 gradients: min cosine kernel path "
+                    f"{min(cos_k):.6f}, plain path {min(cos_p):.6f}; largest shortfall of the "
+                    f"kernel path {cos_p[gap] - cos_k[gap]:.2e} ({names[gap]}); all parameters "
+                    f"together kernel vs plain {total:.9f}")
+                ok = (abs(loss_k - loss_p) <= 2e-3 * abs(loss_p) and total >= 0.999
+                      and cos_p[gap] - cos_k[gap] <= 0.01)
+            if not ok:
+                raise RuntimeError(f"15(b) {task} {name}: kernel and plain paths disagree")
+            del runs, grads_k, grads_p
+            losses = {}
+            for impl in ("pallas", "xla"):
+                trainer = classify_trainer(cfg, task)
+                trainer.model.cfg.encoder.attn_impl = impl
+                losses[impl] = [trainer.train_step(batch)["loss"] for _ in range(3)]
+                del trainer
+            log(f"15(b) {task} {name} 3 AdamW steps: losses kernel {losses['pallas']}, "
+                f"plain {losses['xla']}")
+            tol = 2e-2 if bf16 else 1e-4
+            if any(abs(a - b) > tol * abs(b) for a, b in zip(losses["pallas"], losses["xla"])):
+                raise RuntimeError(f"15(b) {task} {name}: step losses disagree")
+            torch.cuda.empty_cache()
+        del ref32
+
+
+CLASSIFY_TASK_ARGS = {  # each recipe's task settings as its users run it
+    "image_classify": ["task.mixup=0.8", "task.cutmix=1.0", "task.label_smoothing=0.1"],
+    "vqa": [f"task.num_classes={VQA_ANSWERS}"],
+    "vggsound": [f"task.num_classes={VGGSOUND_CLASSES}"],
+}
+CLASSIFY_BATCH = {"image_classify": 8, "vqa": 4, "vggsound": 8}
+
+
+def classify_argv(data: dict, task: str, save_dir: Path, layers: int, batch: int,
+                  extra=()) -> list:
+    """``cli.train`` / ``cli.evaluate`` arguments: the task's recipe at the 4B
+    width, ``layers`` deep, bf16 over fp32 masters, remat, drop path 0.5,
+    the fine-tuning base's AdamW (recipes/finetune_4b_base.yaml), no epoch
+    saves; then ``extra``."""
+    return ["--config", str(CLASSIFY_RECIPES[task]), "--device", "cuda",
+            f"task.data={data[task]['train']}", f"task.valid_data={data[task]['valid']}",
+            f"task.bpe_dir={data['bpe']}", *CLASSIFY_TASK_ARGS[task],
+            f"model.encoder.layers={layers}", "model.encoder.drop_path_rate=0.5",
+            "model.encoder.checkpoint_activations=true", "common.bf16=true",
+            "common.log_interval=1", "common.seed=3407", "optimizer.adam_betas=(0.9,0.999)",
+            "optimizer.weight_decay=0.05", "lr_scheduler.warmup_ratio=0.1",
+            "lr_scheduler.min_lr=1e-6", "optimization.lr=1e-4", "optimization.clip_norm=0.0",
+            f"dataset.batch_size={batch}", f"checkpoint.save_dir={save_dir}",
+            "checkpoint.save_interval=1000", f"common.log_file={save_dir}/log.jsonl", *extra]
+
+
+def check_classify_cli(data: dict, card: str, layers: int = 4) -> dict:
+    """Phase 15(c): each task's recipe at full width, depth ``layers``,
+    through ``cli.train`` from the config's init: 4 updates, one validation
+    over the 64 valid rows and ``checkpoint_best.npz``, whose
+    ``params_from_jax`` read-back must equal the masters at the validation
+    bit for bit; then ``cli.evaluate`` on the export must print the
+    validation's accuracy within 1e-6."""
+    from one_peace_tpu_torch.cli import evaluate as evaluate_cli
+    from one_peace_tpu_torch.utils.checkpoint import params_from_jax
+    from one_peace_tpu_torch.utils.native_checkpoint import load_params
+
+    out = {}
+    for task in CLASSIFY_HEADS:
+        save_dir = CLASSIFY_DIR / f"{task}_depth{layers}"
+        shutil.rmtree(save_dir, ignore_errors=True)
+        argv = classify_argv(data, task, save_dir, layers, CLASSIFY_BATCH[task],
+                             ["optimization.max_update=4", "dataset.validate_interval_updates=4"])
+        t0 = time.time()
+        with recorded_validation(keep_masters=True) as runs, recorded_steps() as steps:
+            run_train_cli(argv)
+        losses = update_losses(save_dir / "log.jsonl")
+        log(f"15(c) {task} cli.train, depth {layers}, B={CLASSIFY_BATCH[task]}: update losses "
+            f"{losses}, launches per update (#1, #2) {sorted({(s['fwd'], s['bwd']) for s in steps})}"
+            f" ({time.time() - t0:.1f} s with the model's build)")
+        if len(runs) != 1 or len(losses) != 4 or not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"15(c) {task}: {len(runs)} validations, losses {losses}")
+        stats = runs[0]["stats"]
+        best = save_dir / "checkpoint_best.npz"
+        export = params_from_jax(load_params(str(best)))
+        masters = runs[0]["masters"]
+        equal = export.keys() == masters.keys() and all(
+            export[k].dtype == masters[k].dtype and torch.equal(export[k], masters[k])
+            for k in masters)
+        log(f"15(c) {task} validation {stats}; checkpoint_best.npz through params_from_jax: "
+            f"{len(export)} tensors, bit-equal to the masters at the validation: {equal}")
+        if not equal:
+            raise RuntimeError(f"15(c) {task}: the best export does not read back as the masters")
+        result = save_dir / "eval.json"
+        evaluate_cli.main(["--path", str(best), "--output", str(result), *argv])
+        evaluated = json.loads(result.read_text())
+        diff = abs(evaluated["accuracy"] - stats["accuracy"])
+        log(f"15(c) {task} cli.evaluate on checkpoint_best.npz: {evaluated}; accuracy differs "
+            f"from the validation's by {diff:.3e}")
+        if diff > 1e-6 or evaluated["count"] != stats["count"]:
+            raise RuntimeError(f"15(c) {task}: cli.evaluate disagrees with the validation")
+        out[task] = {"losses": losses, "accuracy": stats["accuracy"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_classify_full_depth(data: dict, card: str) -> dict:
+    """Phase 15(d): the image_classify recipe at depth 40, 384 px, through
+    ``cli.train`` from the config's init: B=32 (Mixup + CutMix, label
+    smoothing 0.1), 6 updates over 96 train images (3 an epoch) and one
+    validation over the 64 valid images at the end of epoch 2, no saves.
+    Update 5 runs under torch.profiler from the end of update 4.  #1 must
+    launch 80 times and #2 40 times per update (remat), #1 40 times per
+    valid forward and #2 never in validation; the loss must fall."""
+    import one_peace_tpu_torch.cli.train as train_cli
+
+    save_dir = CLASSIFY_DIR / "image_classify_depth40"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    argv = classify_argv(data, "image_classify", save_dir, 40, 32, [
+        "optimization.max_update=6", "dataset.validate_interval=2",
+        "checkpoint.best_checkpoint_metric="])
+    valid = []
+    real_validate = train_cli.validate
+
+    def counted_validate(*args):
+        torch.cuda.synchronize()
+        f0, b0, t0 = fa.launches, fa.bwd_launches, time.time()
+        stats = real_validate(*args)
+        torch.cuda.synchronize()
+        valid.append((fa.launches - f0, fa.bwd_launches - b0, 1e3 * (time.time() - t0), stats))
+        return stats
+
+    torch.cuda.reset_peak_memory_stats()
+    train_cli.validate = counted_validate
+    try:
+        with profiled_update(5) as prof, recorded_steps() as steps:
+            t0 = time.time()
+            run_train_cli(argv)
+            wall = time.time() - t0
+    finally:
+        train_cli.validate = real_validate
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [s["metrics"]["loss"] for s in steps]
+    update_ms = [1e3 * (b["t1"] - a["t1"]) for a, b in zip(steps, steps[1:])]
+    steady = [ms for i, ms in enumerate(update_ms, 2) if i not in (4, 5)]  # rolled over, profiled
+    ms = sum(steady) / len(steady)
+    cfg = load_config(str(CLASSIFY_RECIPES["image_classify"]), argv[4:])
+    flops = 4 * analytic_flops(cfg.model, 577, 32, "image", image_size=384)
+    tflops = flops / ms / 1e9
+    log(f"15(d) cli.train, image_classify at depth 40, 384 px, B=32, 6 updates from the "
+        f"config's init in {wall:.1f} s (model build, data and validation included) ({card})")
+    log(f"15(d) losses {[round(x, 5) for x in losses]}; ms inside train_step "
+        f"{[round(1e3 * (s['t1'] - s['t0']), 1) for s in steps]} (update 1 warms up)")
+    log(f"15(d) updates 2-6 from data, each from the end of the last (4 after the epoch's end, "
+        f"5 profiled): {[round(x, 1) for x in update_ms]} ms; steady {ms:.1f} ms per update, "
+        f"{32 / ms * 1e3:.1f} images/s, {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% MFU of {H100_BF16_PEAK_TFLOPS:.0f}, peak "
+        f"{peak:.1f} GiB ({card})")
+    per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
+    log(f"15(d) launches per update (#1, #2): {per_update} (expected [(80, 40)]); validation: "
+        f"{[(f, b) for f, b, _, _ in valid]} over 64 images (expected [(40, 0)]) in "
+        f"{[round(w, 1) for _, _, w, _ in valid]} ms; its stats {[v[3] for v in valid]}")
+    if "wall" in prof:
+        line = write_update_profile(prof, ms, "update 5 of cli.train, image_classify at depth "
+                                    "40, 384 px, B=32, from the end of update 4",
+                                    "classify_cli_profile.txt", card)
+        log(f"15(d) {line} (chiprun_out/classify_cli_profile.txt)")
+    if not all(map(math.isfinite, losses)) or len(losses) != 6:
+        raise RuntimeError(f"15(d): losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"15(d): the loss did not fall: {losses}")
+    if per_update != [(80, 40)]:
+        raise RuntimeError(f"15(d): launches per update {per_update}, expected [(80, 40)]")
+    if [(f, b) for f, b, _, _ in valid] != [(40, 0)]:
+        raise RuntimeError(f"15(d): validation launches {[(f, b) for f, b, _, _ in valid]}")
+    return {"ms": ms, "peak_gib": peak, "losses": losses, "mfu": tflops / H100_BF16_PEAK_TFLOPS}
+
+
+CLASSIFY_ATTENTION = [  # (B, L, what): the slice's shapes
+    (32, 577, "image_classify 384 px, no pads"),
+    (8, 750, "VGGSound clips of 5-15 s, key pads"),
+    (4, 971, "VQA 480 px + 70 text tokens, text pads"),
+]
+
+
+def classify_key_bias(b: int, l: int, what: str, rng):
+    """None for the image rows; the audio rows keep CLS and the frames of
+    clips of 5-15 s; the VQA rows pad the text (its first 70 positions)
+    after 9 + 7i tokens."""
+    if what.startswith("image"):
+        return None
+    mask = torch.zeros(b, l, dtype=torch.bool)
+    if what.startswith("VGGSound"):
+        spec = ModelConfig().encoder.audio_adapter.feature_encoder_spec
+        for row, seconds in enumerate(rng.uniform(5, 15, b)):
+            mask[row, 1 + conv_output_length(int(16000 * seconds), spec):] = True
+    else:
+        for row in range(b):
+            mask[row, 9 + 7 * row:70] = True
+    return torch.zeros(b, l).masked_fill(mask, fa.NEG_INF).cuda()
+
+
+def time_classify_attention(card: str) -> tuple:
+    """Phase 15(e): #1 and #2 at the slice's shapes (CLASSIFY_ATTENTION), bf16,
+    each against its plain version with phase 3's and phase 6's bounds, then
+    timed in turns with SDPA (forward: the additive mask; backward: SDPA's
+    backward), beside its bound and plain version, with the plan's branch.
+    Returns the forward's and the backward's rows by shape."""
+    heads = 24
+    gen = torch.Generator(device="cuda").manual_seed(155)
+    rng = np.random.RandomState(155)
+    fwd_rows, bwd_rows = {}, {}
+    for b, l, what in CLASSIFY_ATTENTION:
+        q, k, v, g = (torch.randn(b, l, heads * 64, generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(4))
+        bias = torch.randn(heads, l, l, generator=gen, device="cuda")
+        key_bias = classify_key_bias(b, l, what, rng)
+        args = (q, k, v, bias, key_bias, 0.125, heads)
+        out, stats = fa.flash_attention_cuda(*args, with_stats=True)
+        want = fa.flash_attention_plain(*(x.float() for x in (q, k, v)), bias, key_bias,
+                                        0.125, heads)
+        err = (out.float() - want).abs()
+        fwd_err = err.max().item()
+        grads = fa.flash_attention_bwd_cuda(q, k, v, g, bias, key_bias, 0.125, heads, stats=stats)
+        plain_grads = fa.flash_attention_bwd_plain(q, k, v, g, bias, key_bias, 0.125, heads)
+        rel = []
+        for x, y in zip(grads, plain_grads):
+            d = (x.float() - y.float()).abs()
+            rel.append((d.max().item() / y.float().abs().max().item(),
+                        d.mean().item() / y.float().abs().mean().item()))
+        plan, bplan = fa.tile_plan(l), fa.bwd_plan(b, l, heads, True)
+        log(f"15(e) B={b} L={l} ({what}) bf16: forward vs plain max |d| {fwd_err:.3e} mean "
+            f"{err.mean().item():.3e}; backward dq/dk/dv/d(bias) max/mean relative "
+            f"{', '.join(f'{a:.2e}/{m:.2e}' for a, m in rel)}; plan {FWD_BRANCHES[plan.resident]}, "
+            f"last tile {plan.tail} wide; {DQ_BRANCHES[bplan.tiles.resident]}, "
+            f"{DKV_BRANCHES[bplan.dkv_slab]}, {bplan.chunks} chunks of {bplan.b_chunk}")
+        if fwd_err > BF16_MAX_ERR or err.mean().item() > BF16_MEAN_ERR:
+            raise RuntimeError(f"15(e) B={b} L={l}: the forward kernel disagrees")
+        if any(a > 2e-2 or m > 5e-3 for a, m in rel):
+            raise RuntimeError(f"15(e) B={b} L={l}: the backward kernel disagrees")
+        del out, want, err, grads, plain_grads
+        q4, k4, v4 = (x.view(b, l, heads, 64).transpose(1, 2) for x in (q, k, v))
+        mask = sdpa_mask(bias, key_bias, b)
+        t = in_turns({"kernel": lambda: fa.flash_attention_cuda(*args),
+                      "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                          q4, k4, v4, attn_mask=mask, scale=0.125)}, iters=10)
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(*args), iters=3)
+        flops = 4 * b * heads * l * l * 64
+        kb_bytes = 0 if key_bias is None else key_bias.numel() * 4
+        bound = bound_ms(4 * q.numel() * 2 + bias.numel() * 4 + kb_bytes, flops,
+                         H100_BF16_PEAK_TFLOPS * 1e12)
+        log(f"15(e) attention forward per layer B={b} L={l} bf16: kernel {t['kernel']:.4f} ms, "
+            f"{t['kernel'] / t['sdpa']:.3f}x SDPA with the additive mask {t['sdpa']:.4f} ms (in "
+            f"turns); plain {plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({card})")
+        fwd_rows[f"L={l} B={b} {what}"] = {
+            "ms": t["kernel"], "plain_ms": plain_ms, "library_ms": t["sdpa"],
+            "bound_ms": bound[0], "bound_by": bound[1]}
+        del mask
+        leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+        mask = sdpa_mask(bias, key_bias, b).detach().requires_grad_()
+        res = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                               scale=0.125)
+        g4 = g.view(b, l, heads, 64).transpose(1, 2)
+        bargs = (q, k, v, g, bias, key_bias, 0.125, heads)
+        t = in_turns({
+            "kernel": lambda: fa.flash_attention_bwd_cuda(*bargs, stats=stats),
+            "sdpa": lambda: torch.autograd.grad(res, [*leaves, mask], g4, retain_graph=True)},
+            iters=5)
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_plain(*bargs), iters=2)
+        bound = bound_ms(7 * q.numel() * 2 + 2 * bias.numel() * 4 + stats.numel() * 4,
+                         10 * b * heads * l * l * 64, H100_BF16_PEAK_TFLOPS * 1e12)
+        log(f"15(e) attention backward per layer B={b} L={l} bf16: kernel {t['kernel']:.4f} ms, "
+            f"{t['kernel'] / t['sdpa']:.3f}x SDPA's backward {t['sdpa']:.4f} ms (in turns); plain "
+            f"{plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({card})")
+        bwd_rows[f"L={l} B={b} {what}"] = {
+            "ms": t["kernel"], "plain_ms": plain_ms, "library_ms": t["sdpa"],
+            "bound_ms": bound[0], "bound_by": bound[1]}
+        del q, k, v, g, bias, key_bias, stats, q4, k4, v4, leaves, mask, res, g4, args, bargs
+        torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -2472,6 +3101,27 @@ def main() -> None:
     if coco_fwd == 0 or coco_bwd == 0:
         raise RuntimeError("the detection CLI path never launched a det attention kernel")
 
+    # 15. classification: #1 and #2 alone at the slice's shapes against
+    # their plain versions and SDPA (15(e)); then, the launches counted from
+    # 0, classify serving through the hub (15(a)), the three tasks'
+    # gradients at 4 layers (15(b)), their recipes from files through the
+    # CLIs at depth 4 (15(c)) and image_classify at depth 40 (15(d))
+    t15 = time.time()
+    cls_fwd_rows, cls_bwd_rows = time_classify_attention(card)
+    fa.launches = fa.bwd_launches = im.launches = im.quantize_launches = 0
+    cls_int8 = serve_classify(card)
+    check_classify_train_paths()
+    cls_data = write_classify_corpus(CLASSIFY_DIR, 96, 64)
+    check_classify_cli(cls_data, card)
+    train_classify_full_depth(cls_data, card)
+    cls_fwd, cls_bwd = fa.launches, fa.bwd_launches
+    log(f"15 launches over the phase: #1 {cls_fwd}, #2 {cls_bwd}, int8 GEMM {im.launches}, "
+        f"quantize {im.quantize_launches}; the phase took {time.time() - t15:.1f} s")
+    if cls_fwd == 0 or cls_bwd == 0 or im.launches == 0 or im.quantize_launches == 0:
+        raise RuntimeError("the classification path never launched one of its kernels")
+    fwd_times.setdefault("shapes", {}).update(cls_fwd_rows)
+    bwd_times.setdefault("shapes", {}).update(cls_bwd_rows)
+
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
     if imported:
@@ -2490,17 +3140,17 @@ def main() -> None:
 
     gemm = with_shapes({f"(M, K, N) = {shape}": int8_times[shape] for shape in FFN_SHAPES})
     quantize = entry("int8_quantize_rows", "one_peace_tpu/ops/quant.py:46",
-                     int8_launches["quantize"], int8_worst["quantize"],
+                     int8_launches["quantize"] + cls_int8["quantize"], int8_worst["quantize"],
                      with_shapes({f"(M, K) = {shape}": int8_times[shape]
                                   for shape in ((65792, 1536), (65792, 6144))}),
                      source="int8_matmul")
     log(json.dumps({"kernels": [
         entry("flash_attention_fwd", "one_peace_tpu/ops/flash_attention.py:239",
-              embed_launches + fwd_train + cli_fwd, worst, fwd_times),
+              embed_launches + fwd_train + cli_fwd + cls_fwd, worst, fwd_times),
         entry("flash_attention_bwd", "one_peace_tpu/ops/flash_attention.py:409",
-              bwd_train + cli_bwd, bwd_worst, bwd_times),
-        entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75", int8_launches["gemm"],
-              int8_worst["gemm"], gemm),
+              bwd_train + cli_bwd + cls_bwd, bwd_worst, bwd_times),
+        entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75",
+              int8_launches["gemm"] + cls_int8["gemm"], int8_worst["gemm"], gemm),
         quantize,
         entry("det_attention_fwd", "one_peace_tpu/ops/det_attention.py:277",
               det_launches + det_fwd_train + coco_fwd, det_worst, det_times["global"]),

@@ -8,7 +8,10 @@ training CLI's ``checkpoint_best.npz``), runs the task's evaluation loop on
       --path /path/to/ckpt.(pt|npz) [--output metrics.json] [--device cuda] \\
       [task.<k>=v ...]
 
-- The retrieval tasks load through ``hub.from_pretrained``.
+- The retrieval and classification tasks load through
+  ``hub.from_pretrained``; a classify model gets ``task.num_classes``
+  classes.  ``image_classify`` and ``vggsound`` print top-1 accuracy, ``vqa``
+  the soft score of the argmax answer (``metrics.Accuracy``).
 - ``coco_detection`` builds the detector with ``task.build_model`` on
   ``--device``; a ``.npz`` gives every weight (``params_from_jax``), a
   ``.pt`` the trunk (``load_pretrained``) over the pyramid and heads of
@@ -68,7 +71,7 @@ def main(argv: Optional[list] = None) -> int:
             args.path, model_type=cfg.model._name,
             dtype="bf16" if cfg.common.bf16 else "float32",
             bpe_dir=cfg.task.bpe_dir or None, model_cfg=cfg.model, task_cfg=cfg.task,
-            device=args.device).model
+            num_classes=cfg.task.num_classes, device=args.device).model
 
     task.load_dataset("valid")
     t0 = time.time()

@@ -14,16 +14,27 @@ best export, and preemption-safe resume, on one card.
       task.valid_data=instances_val2017.json task.valid_image_dir=val2017 \\
       [checkpoint.restore_file=one-peace.pt] [--device cuda]
 
-- **Weights.** For the retrieval model, ``checkpoint.restore_file`` is a
-  fairseq ``.pt`` (converted by ``utils/checkpoint_convert``) or a flat
-  ``.npz`` (``load_params`` -> ``params_from_jax``); without one,
-  ``init_weights_`` draws them from ``common.seed``.  For a vision task's
+  python -m one_peace_tpu_torch.cli.train --config recipes/vqa/base.yaml \
+      task.data=train.tsv task.valid_data=valid.tsv task.bpe_dir=bpe \
+      task.num_classes=3129 [checkpoint.restore_file=one-peace.pt] [--device cuda]
+
+- **Weights.** For the retrieval and classify models,
+  ``checkpoint.restore_file`` is a fairseq ``.pt`` (converted by
+  ``utils/checkpoint_convert``: ``convert_retrieval_model`` or
+  ``convert_classify_model``) or a flat ``.npz`` (``load_params`` ->
+  ``params_from_jax``); without one, ``init_weights_`` draws them from
+  ``common.seed``.  The classify model is built with
+  ``task.num_classes`` classes and the head's defaults (CLS pooling, no
+  pooler), as the JAX CLI builds it; a ``.pt`` without a ``classify_head``
+  (a pretrained checkpoint) raises, since the strict load needs the
+  head.  For a vision task's
   model (the detector of ``coco_detection``), a ``.pt`` gives the trunk
   (``load_pretrained``) and ``init_detector_`` the pyramid and heads from
   ``common.seed``; a ``.npz`` gives every weight (``params_from_jax``,
   strict); without one, ``init_detector_`` gives them all.  Only
-  ``one_peace_retrieval`` and the tasks' own models are ported (and models a
-  ``--user-dir`` plugin registers); the other model names raise.
+  ``one_peace_retrieval``, ``one_peace_classify`` and the tasks' own models
+  are ported (and models a ``--user-dir`` plugin registers); the other
+  model names raise.
 - **Batches.** One card runs the batch it is given: ``dataset.batch_size``
   samples a micro-batch.  A recipe's ``distributed`` section (the detection
   recipe's ``fsdp: 8``, with its per-host ``batch_size: 8``) is the TPU
@@ -68,10 +79,7 @@ from torch.profiler import record_function
 
 logger = logging.getLogger("one_peace_tpu_torch.train")
 
-UNPORTED_MODELS = {
-    "one_peace_classify": "ROADMAP queue 1 item 4 (classify)",
-    "one_peace_pretrain": "ROADMAP queue 1 item 6 (pretrain)",
-}
+UNPORTED_MODELS = {"one_peace_pretrain": "ROADMAP queue 1 item 6 (pretrain)"}
 # batch bookkeeping the model does not read
 HOST_KEYS = ("id", "nsentences", "ntokens", "gt_crowd", "gt_areas", "im_scale")
 
@@ -79,6 +87,7 @@ HOST_KEYS = ("id", "nsentences", "ntokens", "gt_crowd", "gt_areas", "im_scale")
 def build_model_for_task(cfg, task, device="cuda"):
     """The task's model on ``device``, fp32 masters, weights not set."""
     from ..core.registry import MODELS
+    from ..models.classify import OnePeaceClassifyModel
     from ..models.one_peace import OnePeaceRetrievalModel
 
     if hasattr(task, "build_model"):
@@ -87,6 +96,9 @@ def build_model_for_task(cfg, task, device="cuda"):
     cfg.model.encoder.image_adapter.rel_bucket_size = cfg.task.patch_image_size // 16
     cfg.model.encoder.text_adapter.vocab_size = len(task.dictionary)
     cfg.model.head_type = cfg.task.head_type
+    if name == "one_peace_classify":
+        return OnePeaceClassifyModel(cfg.model, num_classes=cfg.task.num_classes,
+                                     device=device, dtype=torch.float32)
     if name in MODELS:  # a --user-dir plugin's
         return MODELS.get(name)(cfg.model, device=device)
     if name != "one_peace_retrieval":
@@ -100,9 +112,12 @@ def load_weights(cfg, model, device, path: Optional[str] = None) -> None:
     branches its head uses), or the config's init from ``common.seed`` when
     there is none.  A vision task's model (one with ``load_pretrained``)
     takes a ``.pt`` as its trunk over ``init_detector_``'s pyramid and
-    heads."""
+    heads; the classify model takes a pretrained ``.pt`` (one without a
+    ``classify_head``) as its encoder over the config's init of the
+    head."""
     from ..utils.checkpoint import params_from_jax
-    from ..utils.checkpoint_convert import convert_retrieval_model, load_torch_state_dict
+    from ..utils.checkpoint_convert import (convert_classify_model, convert_retrieval_model,
+                                            load_torch_state_dict)
     from ..utils.native_checkpoint import load_params
     from ..utils.random_weights import init_detector_, init_weights_
 
@@ -120,12 +135,18 @@ def load_weights(cfg, model, device, path: Optional[str] = None) -> None:
         model.load_pretrained(path)
         return
     if path.endswith(".pt"):
-        state = convert_retrieval_model(load_torch_state_dict(path), cfg.model)
+        convert = (convert_classify_model if cfg.model._name == "one_peace_classify"
+                   else convert_retrieval_model)
+        state = convert(load_torch_state_dict(path), cfg.model)
     else:
         state = params_from_jax(load_params(path))
     if not vision:
         wanted = model.state_dict().keys()
         state = {k: v for k, v in state.items() if k in wanted}
+        head = {k for k in wanted if k.startswith("classify_head.")}
+        if head and not head & state.keys():  # a pretrained encoder: a fresh head
+            init_weights_(model, generator, cfg.model.encoder.layer_scale_init_value)
+            state = {**{k: v for k, v in model.state_dict().items() if k in head}, **state}
     model.load_state_dict(state, strict=True)
 
 

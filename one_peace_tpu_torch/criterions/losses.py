@@ -2,8 +2,10 @@
 
 The contrastive loss runs over the whole batch with the gallery side
 detached, as the JAX package and the reference do: each direction's gradient
-flows only through its query-side embeddings.  DCL and the classification,
-grounding and hinge losses are not ported yet.
+flows only through its query-side embeddings.  The classification losses
+(cross entropy with label smoothing, BCE over multi-hot targets, soft-target
+cross entropy) compute in fp32 and sum over the batch, as the JAX package's
+do.  DCL and the grounding and hinge losses are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,3 +39,27 @@ def itc_loss(emb_a: torch.Tensor, emb_b: torch.Tensor, logit_scale: torch.Tensor
     metrics = {"a2b_ncorrect": (sim_a2b.argmax(1) == targets).sum(),
                "b2a_ncorrect": (sim_b2a.argmax(1) == targets).sum()}
     return loss, metrics
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       label_smoothing: float = 0.0, reduction: str = "sum") -> torch.Tensor:
+    """Cross entropy in fp32; label smoothing spreads uniformly over all C
+    classes, the target included (``F.cross_entropy``'s rule)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -lp.gather(-1, targets[:, None].long())[:, 0]
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * -lp.mean(-1)
+    return nll.sum() if reduction == "sum" else nll.mean()
+
+
+def bce_with_logits_loss(logits: torch.Tensor, targets: torch.Tensor,
+                         reduction: str = "sum") -> torch.Tensor:
+    """Multi-label BCE with logits in fp32, in the JAX package's stable form."""
+    lf = logits.float()
+    per = lf.clamp(min=0) - lf * targets + torch.log1p(torch.exp(-lf.abs()))
+    return per.sum() if reduction == "sum" else per.mean()
+
+
+def soft_target_ce_loss(logits: torch.Tensor, soft_targets: torch.Tensor) -> torch.Tensor:
+    """Cross entropy against (B, C) soft targets (mixup), summed."""
+    return -(soft_targets * torch.log_softmax(logits.float(), dim=-1)).sum()

@@ -1,13 +1,20 @@
-"""Task datasets: the retrieval part of ``one_peace_tpu/data/datasets.py``,
-copied (held equal by ``tests/test_torch_port_retrieval_data.py``).
-Host-side numpy sample builders; batching happens in ``data/collate.py``.
+"""Task datasets: the retrieval and classification parts of
+``one_peace_tpu/data/datasets.py``, copied (held equal by
+``tests/test_torch_port_retrieval_data.py`` and
+``tests/test_torch_port_classify_data.py``).  Host-side numpy sample
+builders; batching happens in ``data/collate.py``.
 
 - ImageTextRetrievalDataset   ref vl_data/image_text_retrieval_dataset.py
 - AudioTextRetrievalDataset   ref audio_data/audio_text_retrieval_dataset.py
+- VqaDataset                  ref vl_data/vqa_dataset.py
+- VggsoundDataset             ref audio_data/vggsound_dataset.py
+- ImageClassifyDataset        ref vision_data/image_classify_dataset.py
 
-The pretrain, VQA, NLVR2, RefCOCO, audio-classification, AQA and
-image-classification datasets (and the masking, mixup and RandAugment
-helpers they use) are not ported yet.
+``ImageClassifyDataset`` draws its flips from one ``RandomState(seed)`` and
+its distortion, blur and RandAugment from generators seeded seed+1..+3, in
+fetch order; the iterator's prefetch thread fetches in order, so a run
+draws what the JAX package's draws.  The pretrain, NLVR2, RefCOCO, FSD50K
+and AQA datasets (and the masking helpers) are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +22,15 @@ from __future__ import annotations
 
 import numpy as np
 
-from .base_dataset import BaseDataset, audio_postprocess, clean_text, normalize_image, resize_image
+from .base_dataset import (
+    BaseDataset,
+    audio_postprocess,
+    center_crop_image,
+    clean_text,
+    horizontal_flip,
+    normalize_image,
+    resize_image,
+)
 
 DEFAULT_SPEC = ((512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2),
                 (512, 3, 2), (512, 2, 2), (512, 2, 2))
@@ -74,4 +89,99 @@ class AudioTextRetrievalDataset(BaseDataset):
             "source_text": text,
             "source_audio": feats,
             "audio_padding_mask": np.zeros(t + 1, bool),
+        }
+
+
+class VqaDataset(BaseDataset):
+    def __init__(self, split, table, tokenizer, dataset_dir="",
+                 max_src_length=70, patch_image_size=480, answer_cnt=3129):
+        super().__init__(split, table, tokenizer, dataset_dir)
+        self.max_src_length = max_src_length
+        self.patch_image_size = patch_image_size
+        self.answer_cnt = answer_cnt
+
+    def __getitem__(self, index):
+        uniq_id, image, question, refs = self.table[index]
+        img = resize_image(self.read_image(image), self.patch_image_size)
+        question = clean_text(question)
+        text = self.encode_text(f" {question}", self.max_src_length)
+        label = np.zeros(self.answer_cnt, np.float32)
+        for item in refs.strip().split("&&"):
+            _, label_id, conf = item.split("|!+")
+            label[int(label_id)] = float(conf)
+        return {
+            "id": int(uniq_id),
+            "source_text": text,
+            "source_image": normalize_image(np.asarray(img)),
+            "target": label,
+        }
+
+
+class VggsoundDataset(BaseDataset):
+    def __init__(self, split, table, tokenizer, dataset_dir="",
+                 max_duration=15, feature_encoder_spec=DEFAULT_SPEC,
+                 num_classes=309):
+        super().__init__(split, table, tokenizer, dataset_dir)
+        self.max_duration = max_duration
+        self.spec = feature_encoder_spec
+        self.num_classes = num_classes
+
+    def __getitem__(self, index):
+        uniq_id, audio, text, duration = self.table[index]
+        wav, sr = self.read_audio(audio)
+        feats = audio_postprocess(wav, sr, self.max_duration)
+        t = self.conv_length(len(feats), self.spec)
+        return {
+            "id": coerce_id(uniq_id, index),
+            "source_audio": feats,
+            "audio_padding_mask": np.zeros(t + 1, bool),
+            "target": np.int64(int(text.strip())),
+        }
+
+
+class ImageClassifyDataset(BaseDataset):
+    """ImageNet finetuning (ref vision_data/image_classify_dataset.py).
+    Training uses the reference's raw_transform pipeline: resize +
+    distortion + blur + flip + RandAugment; batch-level mixup/cutmix is
+    applied by the image_classify task iterator (tasks.py)."""
+
+    def __init__(self, split, table, tokenizer, dataset_dir="",
+                 patch_image_size=384, center_crop=False, seed=3407,
+                 **_unused):
+        super().__init__(split, table, tokenizer, dataset_dir)
+        self.patch_image_size = patch_image_size
+        self.center_crop = center_crop
+        self.rng = np.random.RandomState(seed)
+        if split == "train":
+            from .randaugment import GaussianBlur, RandomAugment, RandomDistortion
+
+            # distinct per-transform seeds: sharing one seed gives four
+            # IDENTICAL random streams, correlating blur/distort/augment
+            # decisions sample-by-sample
+            self.distort = RandomDistortion(0.4, 0.4, 0.4, 0, 0.5,
+                                            seed=seed + 1)
+            self.blur = GaussianBlur(0.5, seed=seed + 2)
+            self.randaug = RandomAugment(
+                2, 7, augs=["Identity", "Equalize", "Brightness", "Sharpness",
+                            "ShearX", "ShearY", "TranslateX", "TranslateY",
+                            "Rotate"], seed=seed + 3)
+
+    def __getitem__(self, index):
+        image, label = self.table[index][:2]
+        img = self.read_image(image)
+        if self.split != "train" and self.center_crop:
+            # ref image_classify_dataset.py:78-84: shorter-side bicubic
+            # resize + center crop instead of the square stretch
+            img = center_crop_image(img, self.patch_image_size)
+        else:
+            img = resize_image(img, self.patch_image_size)
+        if self.split == "train":
+            img = self.distort(img)
+            img = self.blur(img)
+            img = horizontal_flip(self.rng, img)
+            img = self.randaug(img)
+        return {
+            "id": index,
+            "source_image": normalize_image(np.asarray(img)),
+            "target": np.int64(int(label)),
         }

@@ -3,10 +3,13 @@
 
 ``from_pretrained`` loads a fairseq ``.pt`` checkpoint (converted on the fly
 by ``utils/checkpoint_convert.py``) or the JAX package's flat ``.npz`` export
-into the retrieval model on ``device``, casts it to ``dtype``, and with
-``quantize`` converts the trunk's projections to int8 (``ops/quant.py``), in
-that order, as the JAX hub does.  The interface exposes
-``process_text/image/audio`` and ``extract_{text,image,audio,vl}_features``.
+into the retrieval model, or with ``model_type="one_peace_classify"`` into
+the classify model (``num_classes`` and ``classify_kwargs`` build its head),
+on ``device``; casts it to ``dtype``, and with ``quantize`` converts the
+trunk's projections to int8 (``ops/quant.py``), in that order, as the JAX
+hub does.  The interface exposes ``process_text/image/audio`` and
+``extract_{text,image,audio,vl}_features``; on a classify model the
+``extract_*`` calls return its logits and take no ``encoder_type``.
 
 Preprocessing is the JAX hub's (ref hub_interface.py:92-193):
 - text: ``' ' + lower()`` -> GPT-2 BPE -> dict ids -> trunc 70 -> + EOS;
@@ -19,9 +22,8 @@ Preprocessing is the JAX hub's (ref hub_interface.py:92-193):
   with the JAX package's decoder (``data/flac.py``, no JAX).
 
 The extraction runs eagerly under ``torch.inference_mode()``: there is no
-jit, so no shape buckets.  Not ported: the classify model
-(``model_type="one_peace_classify"``), fp16 (the attention kernel takes bf16
-and fp32), and orbax checkpoint directories; each raises
+jit, so no shape buckets.  Not ported: fp16 (the attention kernel takes bf16
+and fp32) and orbax checkpoint directories; each raises
 ``NotImplementedError``.
 """
 
@@ -38,11 +40,13 @@ from .core.config import ModelConfig, TaskConfig
 from .data.tokenizer import TextTokenizer, find_bpe_dir
 
 from .models.adapters.audio import conv_output_length
+from .models.classify import OnePeaceClassifyModel
 from .models.one_peace import OnePeaceRetrievalModel
 from .ops.preprocess import LogMelFbank, resize_normalize
 from .ops.quant import quantize_ffn_
 from .utils.checkpoint import load_npz
-from .utils.checkpoint_convert import convert_retrieval_model, load_torch_state_dict
+from .utils.checkpoint_convert import (convert_classify_model, convert_retrieval_model,
+                                       load_torch_state_dict)
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -107,17 +111,21 @@ def from_pretrained(
     model_cfg: Optional[ModelConfig] = None,
     task_cfg: Optional[TaskConfig] = None,
     attn_impl: str = "pallas",
+    num_classes: Optional[int] = None,
+    classify_kwargs: Optional[dict] = None,
     quantize: str = "none",
     device="cuda",
 ) -> "OnePeaceHubInterface":
-    """Load a checkpoint into the retrieval model on ``device``.
+    """Load a checkpoint into the retrieval model, or the classify model
+    with ``model_type="one_peace_classify"``, on ``device``.
 
     ``model_path`` is a fairseq ``.pt`` or the JAX package's ``.npz``.
-    ``dtype`` is "float32" or "bf16".  ``quantize``: "ffn" serves the
-    per-modality FFN projections in int8, "ffn_attn" also the self-attention
-    q/k/v/out projections, "none" (default) keeps the exact path."""
-    if model_type == "one_peace_classify":
-        raise NotImplementedError("the classify model is not ported to PyTorch yet")
+    ``dtype`` is "float32" or "bf16".  The classify head has
+    ``num_classes`` classes (2 when not given, as in the JAX hub) and takes
+    ``classify_kwargs`` (``attn_pooling``, ``use_pooler``, ...).
+    ``quantize``: "ffn" serves the per-modality FFN projections in int8,
+    "ffn_attn" also the self-attention q/k/v/out projections, "none"
+    (default) keeps the exact path; the classify head stays as it is."""
     if dtype == "fp16":
         raise NotImplementedError("fp16 is not ported: the attention kernel takes bf16 "
                                   "and fp32")
@@ -135,14 +143,21 @@ def from_pretrained(
         # keep the image rel-pos grid in step with the eval resolution
         model_cfg.encoder.image_adapter.rel_bucket_size = task_cfg.patch_image_size // 16
 
+    classify = model_type == "one_peace_classify"
     if model_path.endswith(".pt"):
-        state = convert_retrieval_model(load_torch_state_dict(model_path), model_cfg)
+        convert = convert_classify_model if classify else convert_retrieval_model
+        state = convert(load_torch_state_dict(model_path), model_cfg)
     elif os.path.isdir(model_path):
         raise NotImplementedError("orbax checkpoint directories are not ported: export "
                                   "the params to .npz (utils/native_checkpoint.save_params)")
     else:
         state = load_npz(model_path)
-    model = OnePeaceRetrievalModel(model_cfg, device=device, dtype=DTYPES[dtype])
+    if classify:
+        model = OnePeaceClassifyModel(model_cfg, num_classes=num_classes or 2,
+                                      **(classify_kwargs or {}), device=device,
+                                      dtype=DTYPES[dtype])
+    else:
+        model = OnePeaceRetrievalModel(model_cfg, device=device, dtype=DTYPES[dtype])
     # branches the head does not use are pruned (ref one_peace_retrieval.py:143-150)
     wanted = model.state_dict().keys()
     model.load_state_dict({k: v for k, v in state.items() if k in wanted}, strict=True)
@@ -180,6 +195,15 @@ class OnePeaceHubInterface:
 
     def _to_device(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device, dtype=dtype)
+
+    def _forward(self, encoder_type: str, **net_input) -> torch.Tensor:
+        """The model on ``net_input`` under ``torch.inference_mode()``: the
+        embeddings of ``encoder_type``, or a classify model's logits."""
+        net_input = {k: self._to_device(v) for k, v in net_input.items()}
+        with torch.inference_mode():
+            if isinstance(self.model, OnePeaceClassifyModel):
+                return self.model(**net_input)
+            return self.model(**net_input, encoder_type=encoder_type)
 
     # ------------------------------------------------------------------
     # preprocessing
@@ -278,18 +302,14 @@ class OnePeaceHubInterface:
     # ------------------------------------------------------------------
 
     def extract_text_features(self, src_tokens) -> torch.Tensor:
-        with torch.inference_mode():
-            return self.model(src_tokens=self._to_device(src_tokens), encoder_type="text")
+        return self._forward("text", src_tokens=src_tokens)
 
     def extract_image_features(self, src_images) -> torch.Tensor:
-        with torch.inference_mode():
-            return self.model(src_images=self._to_device(src_images), encoder_type="image")
+        return self._forward("image", src_images=src_images)
 
     def extract_audio_features(self, src_audios, audio_padding_masks) -> torch.Tensor:
-        with torch.inference_mode():
-            return self.model(src_audios=self._to_device(src_audios),
-                              audio_padding_masks=self._to_device(audio_padding_masks),
-                              encoder_type="audio")
+        return self._forward("audio", src_audios=src_audios,
+                             audio_padding_masks=audio_padding_masks)
 
     def extract_vl_features(self, src_images, src_tokens):
         """Joint VL forward: the per-modality features (text, image, None)."""

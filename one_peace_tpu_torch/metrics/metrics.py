@@ -7,12 +7,16 @@ the JAX package's (held equal by ``tests/test_torch_port_retrieval_data.py``).
 ``DetectionAP``: COCO-protocol box and mask AP (pycocotools semantics), a
 copy of the JAX package's with its ragged pack / unpack helpers (held equal
 by ``tests/test_torch_port_coco_data.py``).
+``Accuracy``: the classification tasks' top-1 accuracy, or VQA's summed
+soft scores (``ncorrect``/``count``), after the JAX package's (held equal by
+``tests/test_torch_port_classify_data.py``); each batch's count stays on
+the card and ``merge_results`` fetches them all at once.
 One card holds the whole evaluation set, so nothing is gathered across
 processes: a sharded evaluation raises in the task's
 ``get_batch_iterator``, and the JAX reducer's ``_sync_across_processes``
 is not copied.
 
-The accuracy, IoU, mAP and mIoU reducers are not ported yet.
+The IoU, mAP and mIoU reducers are not ported yet.
 """
 
 from __future__ import annotations
@@ -126,6 +130,28 @@ _COCO_AREA_RANGES = {
     "m": (32.0 ** 2, 96.0 ** 2),
     "l": (96.0 ** 2, 1e10),
 }
+
+
+class Accuracy:
+    def initialize(self):
+        self.ncorrect_list: List = []
+        self.total = 0
+
+    def compute(self, logits=None, targets=None, ncorrect=None, count=None):
+        """Either ``logits`` (B, C) and integer ``targets`` (B,), counted
+        by top-1, or an already summed ``ncorrect`` over ``count`` samples.
+        The per-batch count stays where it was computed."""
+        if ncorrect is not None:
+            self.ncorrect_list.append(ncorrect)
+            self.total += int(count)
+        else:
+            targets = torch.as_tensor(np.asarray(targets), device=logits.device)
+            self.ncorrect_list.append((logits.argmax(-1) == targets).sum())
+            self.total += len(targets)
+
+    def merge_results(self) -> Dict:
+        ncorrect = float(sum(float(x) for x in fetch_once(self.ncorrect_list)))
+        return {"accuracy": 100.0 * ncorrect / max(self.total, 1), "count": self.total}
 
 
 class DetectionAP:

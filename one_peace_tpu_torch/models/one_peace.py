@@ -4,8 +4,11 @@
 splits the concatenated output back into per-modality features;
 ``OnePeaceRetrievalModel`` adds the per-modality projection heads and the
 L2 normalisation; ``logit_scale`` trains through the straight-through
-clamp of ``logit_scale_exp``.  The classify and pretrain models are not
-ported yet.
+clamp of ``logit_scale_exp``.  ``AttentionPooling`` and ``ClassifyHead``
+are the classify model's head (``models/classify.py``): CLS or single-query
+attention pooling, an optional tanh pooler, an optional second image's
+features concatenated, then ``fc1 -> LN -> GELU -> fc2``.  The pretrain
+model is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from ..core.config import EncoderConfig, ModelConfig
 from .adapters.audio import AudioAdapter
 from .adapters.image import ImageAdapter
 from .adapters.text import TextAdapter
-from .components import Linear, empty_param, split_generator
+from .components import (LayerNorm, Linear, dropout, empty_param, gelu, generator_on,
+                         split_generator)
 from .encoder import FusionEncoder
 
 ENCODER_TYPES = ("text", "image", "audio", "vl", "al", "val")
@@ -180,3 +184,94 @@ class OnePeaceRetrievalModel(nn.Module):
         out = getattr(self, f"{encoder_type}_proj")(feats[:, 0])
         outf = out.float()
         return (outf / torch.linalg.vector_norm(outf, dim=-1, keepdim=True)).to(out.dtype)
+
+
+class AttentionPooling(nn.Module):
+    """Single learned query per head over the tokens (``attention_pooling``).
+    The logits q·k carry no 1/sqrt(d) scaling, as in the reference; they are
+    computed in fp32, padded keys set to the fp32 minimum, and the
+    probabilities cast to x's dtype before they weight v."""
+
+    def __init__(self, embed_dim: int, num_heads: int, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.num_heads = num_heads
+        self.k_proj = Linear(embed_dim, embed_dim, bias=False, **kw)
+        self.v_proj = Linear(embed_dim, embed_dim, **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, **kw)
+        self.q = empty_param(1, 1, num_heads, embed_dim // num_heads, **kw)
+
+    def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor) -> torch.Tensor:
+        """x (B, L, D), key_padding_mask (B, L) True at pads -> (B, D)."""
+        b, l, d = x.shape
+        h = self.num_heads
+        k = self.k_proj(x).reshape(b, l, h, d // h)
+        v = self.v_proj(x).reshape(b, l, h, d // h)
+        logits = torch.einsum("qhd,bkhd->bhk", self.q[0].float(), k.float())
+        logits = logits.masked_fill(key_padding_mask[:, None, :], torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        return self.out_proj(torch.einsum("bhk,bkhd->bhd", probs, v).reshape(b, d))
+
+
+class Classifier(nn.Module):
+    """``fc1 -> LN -> GELU -> fc2``."""
+
+    def __init__(self, in_dim: int, inner_dim: int, num_classes: int, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.fc1 = Linear(in_dim, inner_dim, **kw)
+        self.ln = LayerNorm(inner_dim, **kw)
+        self.fc2 = Linear(inner_dim, num_classes, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu(self.ln(self.fc1(x))))
+
+
+class ClassifyHead(nn.Module):
+    """CLS-token or attention pooling -> classifier (``ClassifyHead``).
+
+    With attention pooling the tokens after CLS are pooled and then
+    ``norm``-ed (``norm`` exists either way, as in the JAX tree).  The
+    optional pooler is dropout -> tanh(linear) in fp32 -> dropout.  A second
+    image's features go through the same pooling, with the first image's
+    padding mask and the same dropout masks, and are concatenated before
+    ``fc1``."""
+
+    def __init__(self, attn_pooling: bool, use_pooler: bool, pooler_dropout: float,
+                 input_dim: int, num_heads: int, head_scale_ratio: float, num_classes: int,
+                 use_two_images: bool = False, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.pooler_dropout = pooler_dropout
+        self.norm = LayerNorm(input_dim, **kw)
+        self.attn_pooling = AttentionPooling(input_dim, num_heads, **kw) if attn_pooling else None
+        self.pooler = Linear(input_dim, input_dim, **kw) if use_pooler else None
+        cin = input_dim * 2 if use_two_images else input_dim
+        self.classifier = Classifier(cin, int(input_dim * head_scale_ratio), num_classes, **kw)
+
+    def forward_features(self, features: torch.Tensor, padding_mask: torch.Tensor,
+                         deterministic: bool, seed: Optional[int]) -> torch.Tensor:
+        if self.attn_pooling is not None:
+            x = self.norm(self.attn_pooling(features[:, 1:], padding_mask[:, 1:]))
+        else:
+            x = features[:, 0]
+        if self.pooler is not None:
+            gens = [None, None] if seed is None else [
+                generator_on(g, x.device)
+                for g in split_generator(torch.Generator().manual_seed(seed), 2)]
+            x = dropout(x, self.pooler_dropout, deterministic, gens[0])
+            x = torch.tanh(self.pooler(x).float()).to(x.dtype)
+            x = dropout(x, self.pooler_dropout, deterministic, gens[1])
+        return x
+
+    def forward(self, features_1: torch.Tensor, features_2: Optional[torch.Tensor],
+                padding_mask: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, num_classes) logits; ``generator`` draws the pooler's dropout."""
+        seed = None if generator is None else int(
+            torch.randint(0, 2**62, (), generator=generator, device=generator.device))
+        x = self.forward_features(features_1, padding_mask, deterministic, seed)
+        if features_2 is not None:
+            x2 = self.forward_features(features_2, padding_mask, deterministic, seed)
+            x = torch.cat([x, x2], dim=1)
+        return self.classifier(x)

@@ -1,10 +1,19 @@
-"""Registered tasks: the retrieval part of ``one_peace_tpu/tasks/tasks.py``.
+"""Registered tasks: the retrieval and classification parts of
+``one_peace_tpu/tasks/tasks.py``.
 
 The retrieval tasks embed all validation texts in ``begin_valid_epoch``
 (chunks of 50, with the optional "This is a sound of ..." template of
 zero-shot ESC-50, ref tasks/audio_tasks/audio_text_retrieval.py:86), then
 the image or audio side per batch into a ``Recall`` reducer, which fetches
 everything to the host once in ``merge_results``.
+
+The classification tasks (``image_classify``, ``vqa``, ``vggsound``) run the
+classify model on each validation batch into an ``Accuracy`` reducer: top-1
+hits, or for VQA the soft score of the argmax answer, each batch's count
+kept on the card until ``merge_results``.  ``image_classify`` mixes its
+training batches (Mixup / CutMix, soft targets) in the iterator's collate
+when ``task.mixup`` or ``task.cutmix`` is set; its ``Mixup`` starts from
+seed 0 at every ``get_batch_iterator``, as the JAX task's does.
 
 ``coco_detection`` is registered (``vision_tasks.CocoDetectionTask``: COCO
 JSON, LSJ, box and mask AP).  Every other task of the JAX package raises
@@ -17,23 +26,23 @@ import json
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..core.registry import TASKS
 from ..data import datasets as D
-from ..metrics import Recall
+from ..data.mixup import Mixup
+from ..metrics import Accuracy, Recall
+from ..models.classify import NET_INPUT_KEYS
 from .base_task import BaseTask
 from .vision_tasks import CocoDetectionTask
 
 UNPORTED = {
     "image_text_pretrain": "ROADMAP queue 1 item 6 (pretrain)",
     "audio_text_pretrain": "ROADMAP queue 1 item 6 (pretrain)",
-    "vqa": "ROADMAP queue 1 item 4 (classify)",
-    "nlvr2": "ROADMAP queue 1 item 4 (classify)",
-    "image_classify": "ROADMAP queue 1 item 4 (classify)",
-    "vggsound": "ROADMAP queue 1 item 4 (classify)",
-    "fsd50k": "ROADMAP queue 1 item 4 (classify)",
-    "aqa": "ROADMAP queue 1 item 4 (classify)",
-    "refcoco": "ROADMAP queue 1 item 4 (classify)",
+    "nlvr2": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
+    "fsd50k": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
+    "aqa": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
+    "refcoco": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "ade20k_seg": "ROADMAP queue 1 item 8 (segmentation and video)",
     "k400_video": "ROADMAP queue 1 item 8 (segmentation and video)",
 }
@@ -119,6 +128,86 @@ class AudioTextRetrievalTask(RetrievalTaskMixin, BaseTask):
     def dataset_kwargs(self):
         return {"max_src_length": self.cfg.max_src_length,
                 "max_duration": self.cfg.max_duration,
+                "feature_encoder_spec": self.audio_conv_spec()}
+
+
+class ClassifyTaskBase(BaseTask):
+    """Accuracy-scored classification family."""
+
+    criterion_name = "classify_criterion"
+
+    def __init__(self, cfg, framework_cfg=None):
+        super().__init__(cfg, framework_cfg)
+        self.metric = Accuracy()
+
+    def begin_valid_epoch(self, model, params):
+        self.metric.initialize()
+
+    def _net_input(self, batch):
+        return {k: batch[k] for k in NET_INPUT_KEYS if k in batch}
+
+    def valid_step(self, model, params, batch):
+        logits = self.eval_model(model, params, self._net_input(batch))
+        self.metric.compute(logits, np.asarray(batch["target"]))
+
+    def merge_results(self) -> Dict:
+        return self.metric.merge_results()
+
+
+@TASKS.register("vqa")
+class VqaTask(ClassifyTaskBase):
+    """VQA scored by the soft score of the argmax answer (ref
+    tasks/vl_tasks/vqa.py)."""
+
+    dataset_cls = D.VqaDataset
+
+    def valid_step(self, model, params, batch):
+        logits = self.eval_model(model, params, self._net_input(batch))
+        preds = logits.argmax(-1)
+        targets = torch.as_tensor(np.asarray(batch["target"]), device=logits.device)
+        score = targets.gather(1, preds[:, None]).sum()
+        self.metric.compute(ncorrect=score, count=int(preds.shape[0]))
+
+
+@TASKS.register("image_classify")
+class ImageClassifyTask(ClassifyTaskBase):
+    dataset_cls = D.ImageClassifyDataset
+
+    def dataset_kwargs(self):
+        return {"patch_image_size": self.cfg.patch_image_size,
+                "center_crop": self.cfg.center_crop}
+
+    def get_batch_iterator(self, split, batch_size, **kw):
+        """Training batches pass through Mixup / CutMix after collation when
+        ``task.mixup`` or ``task.cutmix`` is set (ref
+        image_classify_dataset.py:46-58; mode and minmax forwarded), hard
+        labels becoming (B, num_classes) soft targets."""
+        itr = super().get_batch_iterator(split, batch_size, **kw)
+        c = self.cfg
+        if split == "train" and (c.mixup > 0 or c.cutmix > 0):
+            minmax = (tuple(float(x) for x in c.cutmix_minmax.split(","))
+                      if c.cutmix_minmax else None)
+            mixer = Mixup(c.mixup, c.cutmix, c.mixup_prob, c.mixup_switch_prob,
+                          c.label_smoothing, c.num_classes,
+                          mode=c.mixup_mode, cutmix_minmax=minmax)
+            base_collate = itr.collate_fn
+
+            def collate_with_mixup(samples):
+                batch = base_collate(samples)
+                batch["src_images"], batch["target"] = mixer(batch["src_images"],
+                                                             batch["target"])
+                return batch
+
+            itr.collate_fn = collate_with_mixup
+        return itr
+
+
+@TASKS.register("vggsound")
+class VggsoundTask(ClassifyTaskBase):
+    dataset_cls = D.VggsoundDataset
+
+    def dataset_kwargs(self):
+        return {"max_duration": self.cfg.max_duration,
                 "feature_encoder_spec": self.audio_conv_spec()}
 
 

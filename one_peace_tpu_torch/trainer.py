@@ -17,7 +17,10 @@ What the JAX ``Trainer`` does inside one jitted step, in the same order:
   (``optim/adamw.py``), their lr set from the schedule at the count of
   applied updates, as ``scale_by_learning_rate`` counts;
 - ``step`` counts optimizer updates (``micro // update_freq``) and
-  ``micro`` counts ``train_step`` calls.
+  ``micro`` counts ``train_step`` calls;
+- a criterion whose ``__call__`` takes ``num_updates`` gets the count of
+  updates before this micro-step (``micro // update_freq``), which drives
+  the classify model's ``freeze_finetune_updates``.
 
 The fp16 loss scaler, the EMA, Adan, ``trainable_mask`` and ``valid_step``
 are not ported yet; a config that asks for the first three raises.
@@ -27,6 +30,7 @@ Everything runs on the device of the model's parameters.
 from __future__ import annotations
 
 import copy
+import inspect
 import time
 from typing import Any, Dict, Optional
 
@@ -50,9 +54,15 @@ class _CriterionCall(nn.Module):
         super().__init__()
         self.model = model
         self.criterion = criterion
+        try:
+            params = inspect.signature(criterion.__call__).parameters
+        except (TypeError, ValueError):
+            params = {}
+        self.takes_updates = "num_updates" in params
 
-    def forward(self, batch, generator):
-        return self.criterion(self.model, batch, generator=generator, deterministic=False)
+    def forward(self, batch, generator, num_updates: int):
+        kw = {"num_updates": num_updates} if self.takes_updates else {}
+        return self.criterion(self.model, batch, generator=generator, deterministic=False, **kw)
 
 
 class Trainer:
@@ -106,8 +116,9 @@ class Trainer:
         them), computed on the compute-dtype copies; nothing is updated."""
         batch = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
                  .to(self.device) for k, v in batch.items()}
-        loss, metrics = torch.func.functional_call(self._call, self._compute_params(),
-                                                   (batch, generator))
+        loss, metrics = torch.func.functional_call(
+            self._call, self._compute_params(),
+            (batch, generator, self._micro // self._update_freq))
         grads = torch.autograd.grad(loss, self._params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self._params, grads)]
         return {k: v.detach() for k, v in metrics.items()}, grads

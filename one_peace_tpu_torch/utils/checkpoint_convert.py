@@ -1,14 +1,16 @@
 """Fairseq ``.pt`` checkpoints into the port (counterpart of
 ``one_peace_tpu/utils/checkpoint_convert.py``).
 
-``convert_retrieval_model`` applies the JAX package's numpy rules (legacy
-rel-table rename and broadcast to per-layer tables, image position tables
-interpolated to the model's resolution, the per-module conversions) and
-returns the port's ``state_dict`` through ``params_from_jax``.  The rules
-(``load_torch_state_dict`` to ``convert_encoder_layer``) are the port's copy of
-the JAX module's (``tests/test_torch_port_copies.py`` holds them equal); in
-place of its ``_stack_layers`` each fusion layer is converted on its own and
-walked into ``fusion.layers.{i}``.
+``convert_retrieval_model`` and ``convert_classify_model`` apply the JAX
+package's numpy rules (legacy rel-table rename and broadcast to per-layer
+tables, image position tables interpolated to the model's resolution, the
+per-module conversions) and return the port's ``state_dict`` through
+``params_from_jax``.  The rules (``load_torch_state_dict`` to
+``convert_encoder_layer``, and the classify head's in
+``convert_classify_head``) are the port's copy of the JAX module's
+(``tests/test_torch_port_copies.py`` holds them equal); in place of its
+``_stack_layers`` each fusion layer is converted on its own and walked into
+``fusion.layers.{i}``.
 
 Host memory: the fairseq entries are popped as they are converted (the
 caller's dict is consumed), so converting the 16 GB fp32 state of the 4B
@@ -27,7 +29,7 @@ from .checkpoint import params_from_jax
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["convert_retrieval_model", "load_torch_state_dict"]
+__all__ = ["convert_classify_model", "convert_retrieval_model", "load_torch_state_dict"]
 
 
 # --- the JAX package's conversion rules, copied -----------------------------
@@ -287,16 +289,12 @@ def _pop_prefix(sd: Dict[str, np.ndarray], prefix: str) -> None:
         del sd[key]
 
 
-def convert_retrieval_model(sd: Dict[str, np.ndarray], model_cfg) -> Dict[str, torch.Tensor]:
-    """fairseq ``one_peace_retrieval`` state dict ({name: np.ndarray}, as
-    ``load_torch_state_dict`` gives it) -> the port's ``state_dict``, fp32.
-    The entries of ``sd`` are consumed."""
-    enc = model_cfg.encoder
-    num_rel = enc.layers if model_cfg.copy_rel_pos_table else 1
-    sd_up = upgrade_state_dict(sd, num_rel)
-    sd.clear()
+def _convert_encoder_wrapper(sd_up: Dict[str, np.ndarray], enc) -> Dict[str, torch.Tensor]:
+    """The ``encoder_wrapper`` entries of an upgraded fairseq state dict
+    (adapters, with the image tables brought to the model's resolution;
+    fusion layers; the modality norms) as the port's ``state_dict``
+    entries.  The converted entries are popped from ``sd_up``."""
     pre = "encoder_wrapper"
-
     wrapper: Dict[str, Any] = {}
     if any(k.startswith(f"{pre}.text_adapter.") for k in sd_up):
         wrapper["text_adapter"] = convert_text_adapter(sd_up, f"{pre}.text_adapter")
@@ -327,11 +325,64 @@ def convert_retrieval_model(sd: Dict[str, np.ndarray], model_cfg) -> Dict[str, t
     fusion = {f"{mod}_layer_norm": _ln(sd_up, f"{pre}.fusion_model.{mod}_layer_norm")
               for mod in ("text", "image", "audio")
               if f"{pre}.fusion_model.{mod}_layer_norm.weight" in sd_up}
-    tree: Dict[str, Any] = {pre: {**wrapper, "fusion": fusion}}
+    out.update(params_from_jax({pre: {**wrapper, "fusion": fusion}}))
+    return out
+
+
+def convert_retrieval_model(sd: Dict[str, np.ndarray], model_cfg) -> Dict[str, torch.Tensor]:
+    """fairseq ``one_peace_retrieval`` state dict ({name: np.ndarray}, as
+    ``load_torch_state_dict`` gives it) -> the port's ``state_dict``, fp32.
+    The entries of ``sd`` are consumed."""
+    enc = model_cfg.encoder
+    num_rel = enc.layers if model_cfg.copy_rel_pos_table else 1
+    sd_up = upgrade_state_dict(sd, num_rel)
+    sd.clear()
+    out = _convert_encoder_wrapper(sd_up, enc)
+    tree: Dict[str, Any] = {}
     for mod in ("text", "image", "audio"):
         if f"{mod}_proj.weight" in sd_up:
             tree[f"{mod}_proj"] = _lin(sd_up, f"{mod}_proj")
     if "logit_scale" in sd_up:
         tree["logit_scale"] = sd_up["logit_scale"].reshape(())
     out.update(params_from_jax(tree))
+    return out
+
+
+def convert_classify_head(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """The ``classify_head`` of a fairseq ``one_peace_classify`` state dict
+    as the JAX package's tree (``convert_classify_model``'s rule, copied):
+    ``norm``, ``attn_pooling_func`` -> ``attn_pooling``, ``pooler.1`` ->
+    ``pooler``, ``classifier.{0,1,3}`` -> ``classifier.{fc1,ln,fc2}``."""
+    head: Dict[str, Any] = {"norm": _ln(sd, "classify_head.norm")}
+    if "classify_head.attn_pooling_func.q" in sd:
+        ap = {
+            "k_proj": _lin(sd, "classify_head.attn_pooling_func.k_proj"),
+            "v_proj": _lin(sd, "classify_head.attn_pooling_func.v_proj"),
+            "out_proj": _lin(sd, "classify_head.attn_pooling_func.out_proj"),
+            "q": sd["classify_head.attn_pooling_func.q"],
+        }
+        head["attn_pooling"] = ap
+    if "classify_head.pooler.1.weight" in sd:
+        head["pooler"] = _lin(sd, "classify_head.pooler.1")
+    head["classifier"] = {
+        "fc1": _lin(sd, "classify_head.classifier.0"),
+        "ln": _ln(sd, "classify_head.classifier.1"),
+        "fc2": _lin(sd, "classify_head.classifier.3"),
+    }
+    return head
+
+
+def convert_classify_model(sd: Dict[str, np.ndarray], model_cfg) -> Dict[str, torch.Tensor]:
+    """fairseq ``one_peace_classify`` state dict -> the port's
+    ``state_dict``, fp32, by the JAX package's rule: one rel-pos table per
+    layer always, the image tables at the model's resolution (a 16 x 16
+    pretrained table becomes 24 x 24 at 384 px, 30 x 30 at 480 px), and the
+    head.  A pretrained checkpoint, which has no ``classify_head``, gives
+    the encoder only (the JAX rule raises there).  The entries of ``sd`` are
+    consumed."""
+    sd_up = upgrade_state_dict(sd, model_cfg.encoder.layers)
+    sd.clear()
+    out = _convert_encoder_wrapper(sd_up, model_cfg.encoder)
+    if "classify_head.norm.weight" in sd_up:
+        out.update(params_from_jax({"classify_head": convert_classify_head(sd_up)}))
     return out

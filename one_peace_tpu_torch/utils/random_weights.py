@@ -3,7 +3,10 @@
 The distributions are the JAX package's init (``model.init``): dense
 weights of the encoder, embeddings and positional tables truncated
 N(0, 0.02^2) within one sigma; the projection heads and the audio
-post-extract projection Xavier-uniform; the hMLP stem and the audio
+post-extract projection Xavier-uniform; the classify head as
+``ClassifyHead.init`` and ``init_attention_pooling`` draw it (its dense
+layers Xavier-uniform through ``init_linear``, the attention pooling's
+``k_proj`` and query truncated N(0, 0.02^2)); the hMLP stem and the audio
 positional convs PyTorch's conv default (uniform, bound sqrt(3 / fan_in));
 the audio feature convs He-normal; LayerNorms one and zero; biases zero
 except the convs'; ``logit_scale`` ln(1 / 0.07).  Two values differ, as in
@@ -57,7 +60,8 @@ def fill_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.zero_()
         elif isinstance(m, Linear):
             out_f, in_f = m.weight.shape
-            if leaf in XAVIER_LINEARS:
+            if leaf in XAVIER_LINEARS or (name.startswith("classify_head.")
+                                          and leaf != "k_proj"):
                 draw(m.weight, "uniform", math.sqrt(6.0 / (in_f + out_f)))
             else:
                 draw(m.weight, "trunc", 0.02)
@@ -75,7 +79,7 @@ def fill_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, p in model.named_parameters(recurse=True):
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("embed_tokens", "embed_positions", "cls_embedding", "pos_embed",
-                    "cls_pos_embed", "mask_embedding"):
+                    "cls_pos_embed", "mask_embedding") or name.endswith("attn_pooling.q"):
             draw(p, "trunc", 0.02)
         elif leaf in ("type_embedding", "type_embedding_2"):
             p.zero_()

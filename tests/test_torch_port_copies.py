@@ -1,9 +1,13 @@
 """The port imports nothing of the JAX package, and its copies of that
 package's JAX-free host modules stay equal to the originals: the config
 dataclasses and ``load_config``, the BPE tokenizer, the FLAC reader, the
-interpolation matrices and the fairseq conversion rules."""
+interpolation matrices, the fairseq conversion rules (the classify model's
+among them), and the classification data path's verbatim copies (Mixup,
+RandAugment, the VQA, VGGSound and image-classify datasets), whose
+behaviour ``tests/test_torch_port_classify_data.py`` also holds equal."""
 
 import dataclasses
+import inspect
 import json
 import subprocess
 import sys
@@ -17,12 +21,18 @@ from helpers import tiny_model_config
 from torch_fixture import make_random_state_dict
 
 from one_peace_tpu.core import config as jax_config
+from one_peace_tpu.data import datasets as jax_datasets
 from one_peace_tpu.data import flac as jax_flac
+from one_peace_tpu.data import mixup as jax_mixup
+from one_peace_tpu.data import randaugment as jax_randaugment
 from one_peace_tpu.data import tokenizer as jax_tokenizer
 from one_peace_tpu.utils import checkpoint_convert as jax_convert
 from one_peace_tpu.utils import interpolate as jax_interpolate
 from one_peace_tpu_torch.core import config as port_config
+from one_peace_tpu_torch.data import datasets as port_datasets
 from one_peace_tpu_torch.data import flac as port_flac
+from one_peace_tpu_torch.data import mixup as port_mixup
+from one_peace_tpu_torch.data import randaugment as port_randaugment
 from one_peace_tpu_torch.data import tokenizer as port_tokenizer
 from one_peace_tpu_torch.utils import checkpoint_convert as port_convert
 from one_peace_tpu_torch.utils import interpolate as port_interpolate
@@ -45,16 +55,18 @@ def test_port_imports_nothing_of_the_jax_package():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'one_peace_tpu' or m.startswith('one_peace_tpu.'))\n"
-        "print(len(names), bad)\n"
+        "print(len(names), bad, 'one_peace_tpu_torch.models.classify' in names)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count = int(proc.stdout.split()[0])
     # every module was walked: the vision slice's, the data, task, metric,
-    # checkpoint and CLI modules of the retrieval fine-tuning slice, and the
-    # COCO dataset and mask paste of detection from data
-    assert count >= 65, proc.stdout
+    # checkpoint and CLI modules of the retrieval fine-tuning slice, the
+    # COCO dataset and mask paste of detection from data, and the classify
+    # model with the Mixup and RandAugment copies
+    assert count >= 68, proc.stdout
+    assert proc.stdout.split()[-1] == "True", proc.stdout
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)
@@ -149,8 +161,26 @@ def _assert_tree_equal(got, want):
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
+VERBATIM_COPIES = [
+    (port_mixup, jax_mixup, "one_hot"), (port_mixup, jax_mixup, "rand_bbox"),
+    (port_mixup, jax_mixup, "rand_bbox_minmax"), (port_mixup, jax_mixup, "Mixup"),
+    (port_randaugment, jax_randaugment, "apply_op"),
+    (port_randaugment, jax_randaugment, "RandomAugment"),
+    (port_randaugment, jax_randaugment, "RandomDistortion"),
+    (port_randaugment, jax_randaugment, "GaussianBlur"),
+    (port_datasets, jax_datasets, "VqaDataset"), (port_datasets, jax_datasets, "VggsoundDataset"),
+    (port_datasets, jax_datasets, "ImageClassifyDataset")]
+
+
+@pytest.mark.parametrize("port,original,name", VERBATIM_COPIES,
+                         ids=[f"{o.__name__.rsplit('.', 1)[-1]}.{n}" for _, o, n in VERBATIM_COPIES])
+def test_verbatim_copies_equal(port, original, name):
+    """The classification data path's copies keep the original's source."""
+    assert inspect.getsource(getattr(port, name)) == inspect.getsource(getattr(original, name))
+
+
 @pytest.mark.parametrize("rule", ["text", "image", "audio", "layers", "upgrade", "resolution",
-                                  "load"])
+                                  "load", "classify"])
 def test_conversion_rules_equal(rule, tmp_path):
     cfg = tiny_model_config(head_type="val")
     sd = make_random_state_dict(cfg, seed=3)
@@ -186,6 +216,21 @@ def test_conversion_rules_equal(rule, tmp_path):
         jax_convert.upgrade_image_adapter_resolution(want, f"{pre}.image_adapter", 4, 3)
         assert got[f"{pre}.image_adapter.pos_embed"].shape[0] == 17
         _assert_tree_equal(got, want)
+    elif rule == "classify":
+        from torch_fixture import add_classify_head_state
+
+        from one_peace_tpu_torch.utils.checkpoint import params_from_jax
+
+        for head, kw in (("image", dict(attn_pooling=True, use_pooler=True)), ("audio", {})):
+            cfg = tiny_model_config(head_type=head)
+            sd = add_classify_head_state(make_random_state_dict(cfg, seed=3), cfg, 7, **kw)
+            got = port_convert.convert_classify_model(dict(sd), cfg)
+            want = params_from_jax(jax_convert.convert_classify_model(dict(sd), cfg))
+            assert got.keys() == want.keys()
+            for key in want:
+                np.testing.assert_array_equal(got[key].numpy(), want[key].numpy())
+            _assert_tree_equal(port_convert.convert_classify_head(sd),
+                               jax_convert.convert_classify_model(dict(sd), cfg)["classify_head"])
     else:
         path = tmp_path / "model.pt"
         torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)

@@ -464,7 +464,7 @@ def test_task_evaluation_matches_jax(corpus, side):
     assert further.any() and err[~further].max() <= EMB_TOL, err.tolist()
 
 
-@pytest.mark.parametrize("name,queue", [("image_text_pretrain", "item 6"), ("vqa", "item 4"),
+@pytest.mark.parametrize("name,queue", [("image_text_pretrain", "item 6"), ("nlvr2", "item 4b"),
                                         ("refcoco", "item 4"), ("ade20k_seg", "item 8")])
 def test_unported_tasks_raise(corpus, name, queue):
     cfg = _framework_cfg(corpus, "image")
@@ -473,7 +473,7 @@ def test_unported_tasks_raise(corpus, name, queue):
         build_task(cfg.task, cfg)
 
 
-@pytest.mark.parametrize("name", ["one_peace_classify", "one_peace_pretrain"])
+@pytest.mark.parametrize("name", ["one_peace_pretrain"])
 def test_unported_models_raise(corpus, name):
     from one_peace_tpu_torch.cli.train import build_model_for_task
 

@@ -51,9 +51,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (120 / 80 and 280 / 160), and images/s and clips/s for the bf16, "ffn"
    and "ffn_attn" paths;
 10. the depth-40 golden (``tests/fixtures/full_geometry_golden.npz``): the
-   seeded 4B fairseq state regenerated, converted by the port's ``.pt``
-   route, and the fp32 model on the kernel path held to the golden
-   embeddings at cosine >= 1-1e-3;
+   seeded 4B fairseq state regenerated and converted by the port's ``.pt``
+   route in a process of its own, started with the script so that its
+   minutes on the host overlap phases 2-9 (it holds no card), and the fp32
+   model on the kernel path held to the golden embeddings at cosine >=
+   1-1e-3;
 11. detection serving: (a) the det attention kernel against its plain
    version, bf16 and fp32, with and without the LSE, at the 1024 px global
    grid (B=2, 64 x 64), its windows (B=32, 16 x 16; with each bias alone and
@@ -142,6 +144,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    64 images, no saves: ms per update, images/s, MFU, peak memory, the
    launches per update (80 / 40) and in validation (40 / 0), a falling loss
    and one profiled update (``classify_cli_profile.txt``).
+16. pretraining: (a) first, #1 and #2 alone at the slice's new shapes (the
+   students' per-sample (B, H, L, L) biases at L=65 and 124, B=32, and at
+   L=338 and 456, B=16, the two-walk branch; the 768-d decoder's 12 heads
+   without a bias at L=329, B=32 and L=822, B=16) against their plain
+   versions with phase 3's and 6's bounds, then in turns with SDPA and its
+   backward; then, the launches counted from 0: (b) both pretrain
+   criterions at 4 layers, full width, with the decoder, B=8 from the
+   corpus, kernel path against plain path with 7(a)'s bounds; (c)
+   synthetic JPEGs, 14-15 s WAV clips and captions under
+   ``build/smoke_pretrain/``, the VL recipe through ``cli.train`` at depth 4
+   with its export read back bit-equal, then the AL stage-2 recipe
+   restoring it: the shared leaves carried bit-equal, ``logit_scale``
+   reset, the frozen parameters bit-unchanged after 3 updates; (d) both
+   recipes at depth 40 (VL B=32, AL B=16), 10 updates each: the median ms
+   per update, pairs or clips per second, MFU, peak memory, the launches
+   per update, one profiled update each (``pretrain_{vl,al}_profile.txt``:
+   the idle share and the per-sample bias gathers' index backward).
 
 Every timed kernel also prints its bound: the larger of its bytes over the
 HBM rate and its operations over the peak rate (NVIDIA's data sheet).  The
@@ -157,8 +176,10 @@ import copy
 import gc
 import json
 import math
+import multiprocessing
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -455,10 +476,17 @@ def in_turns(fns: dict, iters: int) -> dict:
     return {name: float(np.mean(turns[name])) for name in names}
 
 
-def sdpa_mask(bias, key_bias, b):
-    """The additive bf16 mask SDPA gets: the bias, plus the key bias where
-    there is one ((B, H, L, L) then, else broadcast over B)."""
-    mask = bias[None] if key_bias is None else bias[None] + key_bias[:, None, None, :]
+def sdpa_mask(bias, key_bias, b, heads=None, l=None):
+    """The additive bf16 mask SDPA gets: a shared (H, L, L) or per-sample
+    (B, H, L, L) bias plus the key bias where there is one, expanded to
+    (B, H, L, L); without a bias (give ``heads`` and ``l``) the key bias
+    alone."""
+    if bias is None:
+        mask = key_bias[:, None, None, :].expand(b, heads, l, l)
+    else:
+        mask = bias if bias.ndim == 4 else bias[None]
+        if key_bias is not None:
+            mask = mask + key_bias[:, None, None, :]
     return mask.to(torch.bfloat16).expand(b, -1, -1, -1)
 
 
@@ -1166,26 +1194,86 @@ def time_int8_paths(card: str, bpe: str) -> None:
     torch.cuda.empty_cache()
 
 
-def check_golden() -> dict:
+def _golden_state_child(conn) -> None:
+    """Phase 10's host half, in a process of its own: the seeded 4B fairseq
+    state regenerated (numpy's Gaussian draws hold the GIL, so a thread
+    would slow the parent's host-bound phases) and converted by the port's
+    ``.pt`` route, then sent through ``conn`` tensor by tensor."""
+    try:
+        torch.set_num_threads(1)
+        cfg = ModelConfig(head_type="val")
+        t0 = time.time()
+        sd = make_random_state_dict(cfg, seed=golden.SD_SEED)
+        t_gen = time.time() - t0
+        t0 = time.time()
+        state = convert_retrieval_model(sd, cfg)
+        conn.send({"names": list(state), "t_gen": t_gen, "t_conv": time.time() - t0})
+        for name in list(state):
+            t = state.pop(name).contiguous()
+            conn.send((str(t.dtype).removeprefix("torch."), tuple(t.shape)))
+            conn.send_bytes(t.numpy().reshape(-1).view(np.uint8))
+    except BaseException as e:
+        conn.send({"error": repr(e)})
+        raise
+    finally:
+        conn.close()
+
+
+class GoldenState:
+    """Starts ``_golden_state_child`` (spawned: it never touches the card)
+    and receives its state into a model on the card."""
+
+    def __init__(self):
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_golden_state_child, args=(child,), daemon=True)
+        self.proc.start()
+        child.close()
+
+    def load_into(self, model: torch.nn.Module) -> dict:
+        """The child's state into ``model`` (strict: the same names and
+        shapes).  Returns its times and this call's wait."""
+        t0 = time.time()
+        head = self.conn.recv()
+        waited = time.time() - t0
+        if "error" in head:
+            raise RuntimeError(f"10: the golden state's process failed: {head['error']}")
+        params = model.state_dict()
+        if sorted(head["names"]) != sorted(params):
+            raise RuntimeError("10: the converted state's names are not the model's")
+        for name in head["names"]:
+            dtype, shape = self.conn.recv()
+            if tuple(params[name].shape) != shape:
+                raise RuntimeError(f"10: {name} is {shape}, the model has "
+                                   f"{tuple(params[name].shape)}")
+            buf = torch.empty(shape, dtype=getattr(torch, dtype))
+            self.conn.recv_bytes_into(buf.numpy().reshape(-1).view(np.uint8))
+            params[name].copy_(buf)
+        self.stop(wait=60.0)
+        return {**head, "waited": waited}
+
+    def stop(self, wait: float = 0.0) -> None:
+        """Close the pipe; end the child if it is not done within ``wait`` s."""
+        self.conn.close()
+        self.proc.join(wait)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
+
+
+def check_golden(source: GoldenState) -> dict:
     """Phase 10: the depth-40 golden through the port's .pt route, fp32,
-    kernel path.  Returns the cosines."""
+    kernel path, the state from ``source``.  Returns the cosines."""
     cfg = ModelConfig(head_type="val")  # the defaults are the golden's 4B geometry
     enc = cfg.encoder
     if (enc.embed_dim, enc.ffn_embed_dim, enc.layers, enc.attention_heads) != (1536, 6144, 40, 24):
         raise RuntimeError("10: the port's ModelConfig defaults are not the 4B geometry")
     t0 = time.time()
-    sd = make_random_state_dict(cfg, seed=golden.SD_SEED)
-    t_gen = time.time() - t0
-    t0 = time.time()
-    state = convert_retrieval_model(sd, cfg)
-    t_conv = time.time() - t0
-    t0 = time.time()
     model = OnePeaceRetrievalModel(cfg, device="cuda", dtype=torch.float32)
-    model.load_state_dict(state, strict=True)
-    del state
-    t_load = time.time() - t0
-    log(f"10: 4B state from the seed in {t_gen:.1f} s, converted by the port in {t_conv:.1f} s, "
-        f"on the card in {t_load:.1f} s")
+    got = source.load_into(model)
+    log(f"10: 4B state from the seed in {got['t_gen']:.1f} s, converted by the port in "
+        f"{got['t_conv']:.1f} s, in a process started with the script; this phase waited "
+        f"{got['waited']:.1f} s for it and had it on the card after {time.time() - t0:.1f} s")
     imgs = torch.from_numpy(np.random.RandomState(golden.IMAGE_SEED).randn(
         *golden.IMAGE_SHAPE).astype(np.float32)).cuda()
     wav = torch.from_numpy(np.random.RandomState(golden.AUDIO_SEED).randn(
@@ -2004,6 +2092,15 @@ def profiled_update(update: int):
         Trainer.train_step = real_step
 
 
+def profile_busy_ms(prof: dict) -> float:
+    """The profiled update's device busy time: the table's "Self CUDA time
+    total"."""
+    table = prof["p"].key_averages().table(sort_by="self_cuda_time_total", row_limit=1)
+    total = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
+    return (float(total.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[total.group(2)]
+            if total else float("nan"))
+
+
 def write_update_profile(prof: dict, ms: float, what: str, file_name: str, card: str) -> str:
     """The device's busy time and idle share of the profiled update, against
     the unprofiled steady ``ms`` and the profiled update's own wall time;
@@ -2011,9 +2108,7 @@ def write_update_profile(prof: dict, ms: float, what: str, file_name: str, card:
     table = prof["p"].key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    total = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
-    busy = (float(total.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[total.group(2)]
-            if total else float("nan"))
+    busy = profile_busy_ms(prof)
     line = (f"{what}: device busy {busy:.1f} ms; idle {100 * (1 - busy / ms):.1f}% of the "
             f"unprofiled steady {ms:.1f} ms, {100 * (1 - busy / prof['wall']):.1f}% of this "
             f"profiled update's {prof['wall']:.1f} ms")
@@ -2918,20 +3013,32 @@ def classify_key_bias(b: int, l: int, what: str, rng):
 
 
 def time_classify_attention(card: str) -> tuple:
-    """Phase 15(e): #1 and #2 at the slice's shapes (CLASSIFY_ATTENTION), bf16,
-    each against its plain version with phase 3's and phase 6's bounds, then
-    timed in turns with SDPA (forward: the additive mask; backward: SDPA's
-    backward), beside its bound and plain version, with the plan's branch.
-    Returns the forward's and the backward's rows by shape."""
-    heads = 24
-    gen = torch.Generator(device="cuda").manual_seed(155)
-    rng = np.random.RandomState(155)
+    """Phase 15(e): #1 and #2 at the classification shapes
+    (CLASSIFY_ATTENTION, 24 heads, a shared bias) through
+    ``time_attention_cases``."""
+    cases = [(b, l, 24, "shared", what) for b, l, what in CLASSIFY_ATTENTION]
+    return time_attention_cases("15(e)", cases, card, 155, classify_key_bias)
+
+
+def time_attention_cases(tag: str, cases, card: str, seed: int, key_bias_fn) -> tuple:
+    """#1 and #2 alone, bf16, at ``cases`` of (B, L, heads, bias, what): the
+    bias "shared" (H, L, L), "per-sample" (B, H, L, L) or None, the key bias
+    from ``key_bias_fn(b, l, what, rng)``.  Each against its plain version
+    with phase 3's and phase 6's bounds, then timed in turns with SDPA
+    (forward: the additive mask; backward: SDPA's backward, the mask taking
+    a gradient where there is a bias), beside its bound and plain version,
+    with the plan's branch.  Returns the forward's and the backward's rows
+    by shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.RandomState(seed)
     fwd_rows, bwd_rows = {}, {}
-    for b, l, what in CLASSIFY_ATTENTION:
+    for b, l, heads, bias_kind, what in cases:
         q, k, v, g = (torch.randn(b, l, heads * 64, generator=gen, device="cuda",
                                   dtype=torch.bfloat16) for _ in range(4))
-        bias = torch.randn(heads, l, l, generator=gen, device="cuda")
-        key_bias = classify_key_bias(b, l, what, rng)
+        bias_shape = {"shared": (heads, l, l), "per-sample": (b, heads, l, l)}.get(bias_kind)
+        bias = (None if bias_shape is None else
+                torch.randn(*bias_shape, generator=gen, device="cuda"))
+        key_bias = key_bias_fn(b, l, what, rng)
         args = (q, k, v, bias, key_bias, 0.125, heads)
         out, stats = fa.flash_attention_cuda(*args, with_stats=True)
         want = fa.flash_attention_plain(*(x.float() for x in (q, k, v)), bias, key_bias,
@@ -2942,31 +3049,36 @@ def time_classify_attention(card: str) -> tuple:
         plain_grads = fa.flash_attention_bwd_plain(q, k, v, g, bias, key_bias, 0.125, heads)
         rel = []
         for x, y in zip(grads, plain_grads):
+            if y is None:
+                continue
             d = (x.float() - y.float()).abs()
             rel.append((d.max().item() / y.float().abs().max().item(),
                         d.mean().item() / y.float().abs().mean().item()))
-        plan, bplan = fa.tile_plan(l), fa.bwd_plan(b, l, heads, True)
-        log(f"15(e) B={b} L={l} ({what}) bf16: forward vs plain max |d| {fwd_err:.3e} mean "
-            f"{err.mean().item():.3e}; backward dq/dk/dv/d(bias) max/mean relative "
-            f"{', '.join(f'{a:.2e}/{m:.2e}' for a, m in rel)}; plan {FWD_BRANCHES[plan.resident]}, "
-            f"last tile {plan.tail} wide; {DQ_BRANCHES[bplan.tiles.resident]}, "
-            f"{DKV_BRANCHES[bplan.dkv_slab]}, {bplan.chunks} chunks of {bplan.b_chunk}")
+        plan, bplan = fa.tile_plan(l), fa.bwd_plan(b, l, heads, bias_kind == "shared")
+        name = f"B={b} L={l} H={heads}, {bias_kind or 'no'} bias ({what})"
+        log(f"{tag} {name} bf16: forward vs plain max |d| {fwd_err:.3e} mean "
+            f"{err.mean().item():.3e}; backward dq/dk/dv{'/d(bias)' if bias is not None else ''} "
+            f"max/mean relative {', '.join(f'{a:.2e}/{m:.2e}' for a, m in rel)}; plan "
+            f"{FWD_BRANCHES[plan.resident]}, last tile {plan.tail} wide; "
+            f"{DQ_BRANCHES[bplan.tiles.resident]}, {DKV_BRANCHES[bplan.dkv_slab]}, "
+            f"{bplan.chunks} chunks of {bplan.b_chunk}")
         if fwd_err > BF16_MAX_ERR or err.mean().item() > BF16_MEAN_ERR:
-            raise RuntimeError(f"15(e) B={b} L={l}: the forward kernel disagrees")
+            raise RuntimeError(f"{tag} {name}: the forward kernel disagrees")
         if any(a > 2e-2 or m > 5e-3 for a, m in rel):
-            raise RuntimeError(f"15(e) B={b} L={l}: the backward kernel disagrees")
+            raise RuntimeError(f"{tag} {name}: the backward kernel disagrees")
         del out, want, err, grads, plain_grads
         q4, k4, v4 = (x.view(b, l, heads, 64).transpose(1, 2) for x in (q, k, v))
-        mask = sdpa_mask(bias, key_bias, b)
+        mask = sdpa_mask(bias, key_bias, b, heads, l)
         t = in_turns({"kernel": lambda: fa.flash_attention_cuda(*args),
                       "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
                           q4, k4, v4, attn_mask=mask, scale=0.125)}, iters=10)
         plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(*args), iters=3)
         flops = 4 * b * heads * l * l * 64
         kb_bytes = 0 if key_bias is None else key_bias.numel() * 4
-        bound = bound_ms(4 * q.numel() * 2 + bias.numel() * 4 + kb_bytes, flops,
+        bias_bytes = 0 if bias is None else bias.numel() * 4
+        bound = bound_ms(4 * q.numel() * 2 + bias_bytes + kb_bytes, flops,
                          H100_BF16_PEAK_TFLOPS * 1e12)
-        log(f"15(e) attention forward per layer B={b} L={l} bf16: kernel {t['kernel']:.4f} ms, "
+        log(f"{tag} attention forward per layer {name} bf16: kernel {t['kernel']:.4f} ms, "
             f"{t['kernel'] / t['sdpa']:.3f}x SDPA with the additive mask {t['sdpa']:.4f} ms (in "
             f"turns); plain {plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({card})")
         fwd_rows[f"L={l} B={b} {what}"] = {
@@ -2974,27 +3086,419 @@ def time_classify_attention(card: str) -> tuple:
             "bound_ms": bound[0], "bound_by": bound[1]}
         del mask
         leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
-        mask = sdpa_mask(bias, key_bias, b).detach().requires_grad_()
+        mask = sdpa_mask(bias, key_bias, b, heads, l).detach().requires_grad_(bias is not None)
         res = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask,
                                                                scale=0.125)
         g4 = g.view(b, l, heads, 64).transpose(1, 2)
         bargs = (q, k, v, g, bias, key_bias, 0.125, heads)
+        wrt = [*leaves, mask] if bias is not None else leaves
         t = in_turns({
             "kernel": lambda: fa.flash_attention_bwd_cuda(*bargs, stats=stats),
-            "sdpa": lambda: torch.autograd.grad(res, [*leaves, mask], g4, retain_graph=True)},
+            "sdpa": lambda: torch.autograd.grad(res, wrt, g4, retain_graph=True)},
             iters=5)
         plain_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_plain(*bargs), iters=2)
-        bound = bound_ms(7 * q.numel() * 2 + 2 * bias.numel() * 4 + stats.numel() * 4,
+        bound = bound_ms(7 * q.numel() * 2 + 2 * bias_bytes + kb_bytes + stats.numel() * 4,
                          10 * b * heads * l * l * 64, H100_BF16_PEAK_TFLOPS * 1e12)
-        log(f"15(e) attention backward per layer B={b} L={l} bf16: kernel {t['kernel']:.4f} ms, "
-            f"{t['kernel'] / t['sdpa']:.3f}x SDPA's backward {t['sdpa']:.4f} ms (in turns); plain "
-            f"{plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({card})")
+        log(f"{tag} attention backward per layer {name} bf16: kernel {t['kernel']:.4f} ms, "
+            f"{t['kernel'] / t['sdpa']:.3f}x SDPA's backward {t['sdpa']:.4f} ms (in turns); "
+            f"plain {plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({card})")
         bwd_rows[f"L={l} B={b} {what}"] = {
             "ms": t["kernel"], "plain_ms": plain_ms, "library_ms": t["sdpa"],
             "bound_ms": bound[0], "bound_by": bound[1]}
         del q, k, v, g, bias, key_bias, stats, q4, k4, v4, leaves, mask, res, g4, args, bargs
+        del wrt
         torch.cuda.empty_cache()
     return fwd_rows, bwd_rows
+
+
+PRETRAIN_DIR = ROOT / "build" / "smoke_pretrain"
+PRETRAIN_RECIPES = {stage: ROOT / "recipes" / "pretrain" / f"pretrain_{stage}_4b.yaml"
+                    for stage in ("vl", "al")}
+
+
+def write_pretrain_corpus(root: Path, n_train: int = 64, n_valid: int = 32,
+                          clip_seconds=(5.0, 15.0)) -> dict:
+    """Phase 16(c): ``n_train + n_valid`` JPEGs (256-399 px) with captions,
+    as the VL recipe's TSV (``image_id, image, caption``), and as many WAV
+    clips of ``clip_seconds`` with the same captions, as the AL recipe's
+    (``uniq_id, audio, text, duration``), each split into train and valid;
+    ``valid.json`` with 5 captions for each valid id, and the byte-level BPE
+    set.  Returns the paths."""
+    rng = np.random.RandomState(16)
+    root.mkdir(parents=True, exist_ok=True)
+    n = n_train + n_valid
+    tables = {"vl": ["image_id\timage\tcaption"], "al": ["uniq_id\taudio\ttext\tduration"]}
+    captions = {}
+    for i, img in enumerate(retrieval_images(n, rng)):
+        img.save(root / f"img{i}.jpg", quality=92)
+        captions[i] = [" ".join(WORDS[j] for j in row)
+                       for row in rng.randint(0, len(WORDS), (5, 4 + i % 9))]
+        tables["vl"].append(f"{i}\timg{i}.jpg\t{captions[i][0]}")
+        samples = int(16000 * rng.uniform(*clip_seconds))
+        wav = (np.sin(np.arange(samples) * (0.01 + 0.002 * (i % 10))) * 6000
+               + rng.randn(samples) * 700)
+        write_wav(root / f"clip{i}.wav", wav)
+        tables["al"].append(f"{i}\tclip{i}.wav\t{captions[i][0]}\t{samples / 16000:.3f}")
+    out = {"root": root, "bpe": write_bpe_dir(root / "bpe"), "valid_json": str(root / "valid.json")}
+    (root / "valid.json").write_text(json.dumps({str(i): captions[i] for i in range(n_train, n)}))
+    for stage, rows in tables.items():
+        for split, part in (("train", rows[1:n_train + 1]), ("valid", rows[n_train + 1:])):
+            (root / f"{stage}_{split}.tsv").write_text("\n".join([rows[0], *part]) + "\n")
+        out[stage] = {split: str(root / f"{stage}_{split}.tsv") for split in ("train", "valid")}
+    return out
+
+
+def pretrain_argv(data: dict, stage: str, save_dir: Path, layers: int, batch: int,
+                  extra=()) -> list:
+    """``cli.train`` arguments: the stage's pretrain recipe as it stands (4B
+    width, the 768-d decoder, bf16 over fp32 masters, remat, drop path 0.4,
+    AdamW, clip 3.0, stage 2's freezing and logit-scale reset), ``layers``
+    deep, on the corpus of ``write_pretrain_corpus``, no epoch saves; then
+    ``extra``."""
+    return ["--config", str(PRETRAIN_RECIPES[stage]), "--device", "cuda",
+            f"task.data={data[stage]['train']}", f"task.valid_data={data[stage]['valid']}",
+            f"task.valid_file={data['valid_json']}", f"task.bpe_dir={data['bpe']}",
+            f"model.encoder.layers={layers}", "common.log_interval=1",
+            f"dataset.batch_size={batch}", "dataset.batch_size_valid=32",
+            f"checkpoint.save_dir={save_dir}", "checkpoint.save_interval=1000",
+            f"common.log_file={save_dir}/log.jsonl", *extra]
+
+
+def pretrain_launches(stage: str, enc_layers: int, dec_layers: int, remat: bool) -> tuple:
+    """(#1, #2) launches of one pretrain update: the criterion's encoder
+    passes with a gradient (VL: both teachers and three students; AL: the
+    audio teacher and two students) launch #1 once a layer (twice under
+    remat) and #2 once; its no-gradient passes (VL: the VL teacher; AL: the
+    text and AL teachers) #1 once; each student's decoder pass #1 and #2
+    once a decoder layer."""
+    grad, nograd, students = (5, 1, 3) if stage == "vl" else (3, 2, 2)
+    fwd = grad * enc_layers * (2 if remat else 1) + nograd * enc_layers + students * dec_layers
+    return fwd, grad * enc_layers + students * dec_layers
+
+
+def pretrain_trainer(data: dict, stage: str, overrides=()) -> tuple:
+    """(trainer, first training batch) of the stage's recipe with
+    ``overrides``, the model built as ``cli.train`` builds it and filled by
+    ``fill_random_`` from seed 0; the batch from the task's own iterator
+    (masks and preserve ids as the dataset draws them), bookkeeping keys
+    dropped."""
+    from one_peace_tpu_torch.cli import train as train_cli
+    from one_peace_tpu_torch.tasks import build_task
+
+    argv = pretrain_argv(data, stage, PRETRAIN_DIR / "unused", 4, 8, overrides)
+    cfg = load_config(argv[1], argv[4:])
+    task = build_task(cfg.task, cfg)
+    task.load_dataset("train")
+    model = train_cli.build_model_for_task(cfg, task, device="cuda")
+    fill_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    batch = next(iter(task.get_batch_iterator("train", 8, seed=3407).next_epoch_itr()))
+    batch = {k: v for k, v in batch.items() if k not in train_cli.HOST_KEYS}
+    return Trainer(cfg, model, build_criterion(cfg.criterion)), batch
+
+
+def check_pretrain_train_paths(data: dict) -> None:
+    """Phase 16(b): both pretrain criterions at 4 layers, full width, with
+    the 768-d decoder, B=8 from the corpus, kernel path against plain path
+    on the same weights and batch, with phase 7(a)'s bounds: fp32 losses
+    within 1e-5 and every trainable gradient's cosine >= 1-1e-6; bf16 the
+    kernel path no further from the fp32 gradients than the plain path (per
+    parameter within 0.01, all together >= 0.999), losses within 2e-3.  The
+    AL recipe freezes its trunk (stage 2): only the trainable parameters
+    have gradients.  #1 and #2 launch as ``pretrain_launches`` says
+    (no remat here)."""
+    for stage in ("vl", "al"):
+        ref32 = None
+        for bf16 in (False, True):
+            name = "bf16" if bf16 else "fp32"
+            trainer, batch = pretrain_trainer(data, stage, [
+                "model.encoder.drop_path_rate=0.0", "model.encoder.checkpoint_activations=false",
+                f"common.bf16={str(bf16).lower()}"])
+            lengths = {k: tuple(v.shape) for k, v in batch.items() if "preserve" in k}
+            runs = {}
+            for impl in ("pallas", "xla"):
+                trainer.model.cfg.encoder.attn_impl = trainer.model.cfg.decoder.attn_impl = impl
+                before = (fa.launches, fa.bwd_launches)
+                metrics, grads = trainer.gradients(batch)
+                torch.cuda.synchronize()
+                launched = (fa.launches - before[0], fa.bwd_launches - before[1])
+                want = pretrain_launches(stage, 4, 2, False) if impl == "pallas" else (0, 0)
+                if launched != want:
+                    raise RuntimeError(f"16(b) {stage} {name} {impl}: launches {launched}, "
+                                       f"expected {want}")
+                if not all(torch.isfinite(g).all() for g in grads):
+                    raise RuntimeError(f"16(b) {stage} {name} {impl}: non-finite gradient")
+                runs[impl] = ({k: float(v) for k, v in metrics.items()}, grads)
+            names, total_params = trainer._names, len(list(trainer.model.parameters()))
+            del trainer
+            (m_k, grads_k), (m_p, grads_p) = runs["pallas"], runs["xla"]
+            loss_k, loss_p = m_k["loss"], m_p["loss"]
+            cos = grad_cosines(grads_k, grads_p)
+            worst = min(range(len(cos)), key=cos.__getitem__)
+            log(f"16(b) {stage} {name} 4 layers, B=8, preserve ids {lengths}: loss kernel "
+                f"{loss_k:.7f} plain {loss_p:.7f} ({', '.join(f'{k} {v:.5f}' for k, v in m_k.items() if k.endswith('_loss') and k != 'loss')}); "
+                f"gradient cosine kernel vs plain per parameter min {cos[worst]:.9f} "
+                f"({names[worst]}), {len(cos)} trainable of {total_params} parameters")
+            if not bf16:
+                ok = abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and cos[worst] >= 1 - 1e-6
+                ref32 = grads_p
+            else:
+                cos_k, cos_p = grad_cosines(grads_k, ref32), grad_cosines(grads_p, ref32)
+                gap = max(range(len(cos)), key=lambda i: cos_p[i] - cos_k[i])
+                total = grad_cosines([torch.cat([g.flatten() for g in grads_k])],
+                                     [torch.cat([g.flatten() for g in grads_p])])[0]
+                log(f"16(b) {stage} bf16 vs the fp32 gradients: min cosine kernel path "
+                    f"{min(cos_k):.6f}, plain path {min(cos_p):.6f}; largest shortfall of the "
+                    f"kernel path {cos_p[gap] - cos_k[gap]:.2e} ({names[gap]}); all parameters "
+                    f"together kernel vs plain {total:.9f}")
+                ok = (abs(loss_k - loss_p) <= 2e-3 * abs(loss_p) and total >= 0.999
+                      and cos_p[gap] - cos_k[gap] <= 0.01)
+            if not ok:
+                raise RuntimeError(f"16(b) {stage} {name}: kernel and plain paths disagree")
+            del runs, grads_k, grads_p
+            gc.collect()
+            torch.cuda.empty_cache()
+        del ref32
+
+
+def check_pretrain_cli(data: dict, card: str, layers: int = 4) -> dict:
+    """Phase 16(c): at full width, depth ``layers``, through ``cli.train``:
+    the VL recipe from the config's init, B=8, 4 updates, one validation and
+    ``checkpoint_best.npz`` (read back bit-equal to the masters at the
+    validation); then the AL stage-2 recipe restoring that export, B=8, 3
+    updates and one validation.  ``load_weights`` must carry every leaf the
+    two trees share bit for bit and reset ``logit_scale``; the AL run's
+    export must hold every frozen parameter bit-unchanged and the trainable
+    ones moved."""
+    from one_peace_tpu_torch.cli import train as train_cli
+    from one_peace_tpu_torch.tasks import build_task
+    from one_peace_tpu_torch.utils.checkpoint import params_from_jax
+    from one_peace_tpu_torch.utils.native_checkpoint import load_params
+
+    vl_dir, al_dir = PRETRAIN_DIR / f"vl_depth{layers}", PRETRAIN_DIR / f"al_depth{layers}"
+    for d in (vl_dir, al_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = pretrain_argv(data, "vl", vl_dir, layers, 8, [
+        "optimization.max_update=4", "dataset.validate_interval_updates=4"])
+    t0 = time.time()
+    with recorded_validation(keep_masters=True) as runs, recorded_steps() as steps:
+        run_train_cli(argv)
+    losses = update_losses(vl_dir / "log.jsonl")
+    per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
+    log(f"16(c) VL cli.train, depth {layers}, B=8: update losses {losses}, launches per update "
+        f"(#1, #2) {per_update} ({time.time() - t0:.1f} s with the model's build)")
+    if len(runs) != 1 or len(losses) != 4 or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"16(c) VL: {len(runs)} validations, losses {losses}")
+    if per_update != [pretrain_launches("vl", layers, 2, True)]:
+        raise RuntimeError(f"16(c) VL: launches per update {per_update}")
+    best = vl_dir / "checkpoint_best.npz"
+    stage1 = params_from_jax(load_params(str(best)))
+    masters = runs[0]["masters"]
+    equal = stage1.keys() == masters.keys() and all(torch.equal(stage1[k], masters[k])
+                                                     for k in masters)
+    log(f"16(c) VL validation {runs[0]['stats']}; checkpoint_best.npz: {len(stage1)} tensors, "
+        f"bit-equal to the masters at the validation: {equal}")
+    if not equal:
+        raise RuntimeError("16(c): the VL export does not read back as the masters")
+    del runs, masters
+
+    argv = pretrain_argv(data, "al", al_dir, layers, 8, [
+        f"checkpoint.restore_file={best}", "optimization.max_update=3",
+        "dataset.validate_interval_updates=3"])
+    cfg = load_config(argv[1], argv[4:])
+    model = train_cli.build_model_for_task(cfg, build_task(cfg.task, cfg), device="cuda")
+    train_cli.load_weights(cfg, model, "cuda")
+    loaded = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    mask = model.trainable_mask()
+    del model
+    shared = [k for k in loaded if k in stage1 and stage1[k].shape == loaded[k].shape
+              and k != "logit_scale"]
+    carried = all(torch.equal(loaded[k], stage1[k]) for k in shared)
+    reset = (loaded["logit_scale"].item() == np.float32(math.log(1 / 0.07))
+             and loaded["logit_scale"].item() != stage1["logit_scale"].item())
+    t0 = time.time()
+    with recorded_steps() as steps:
+        run_train_cli(argv)
+    losses = update_losses(al_dir / "log.jsonl")
+    after = params_from_jax(load_params(str(al_dir / "checkpoint_best.npz")))
+    frozen = [k for k, train in mask.items() if not train]
+    unchanged = all(torch.equal(after[k], loaded[k]) for k in frozen)
+    trainable = [k for k, train in mask.items() if train]
+    moved = sum(not torch.equal(after[k], loaded[k]) for k in trainable)
+    per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
+    log(f"16(c) AL stage 2 from the VL export, depth {layers}, B=8: {len(shared)} shared leaves "
+        f"carried bit-equal: {carried}; logit_scale reset to ln(1/0.07) "
+        f"({loaded['logit_scale'].item():.6f}, the export's {stage1['logit_scale'].item():.6f}): "
+        f"{reset}; update losses {losses}, launches per update {per_update}; after the updates "
+        f"{len(frozen)} frozen parameters bit-unchanged: {unchanged}, {moved} of {len(trainable)} "
+        f"trainable moved ({time.time() - t0:.1f} s)")
+    if not (carried and reset and unchanged and moved > 0.9 * len(trainable)
+            and len(shared) > len(loaded) / 2 and len(losses) == 3
+            and all(map(math.isfinite, losses))):
+        raise RuntimeError("16(c): the stage-2 restore, reset or freeze does not hold")
+    if per_update != [pretrain_launches("al", layers, 2, True)]:
+        raise RuntimeError(f"16(c) AL: launches per update {per_update}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"vl_losses": update_losses(vl_dir / "log.jsonl"), "al_losses": losses}
+
+
+def pretrain_update_flops(cfg, batch: dict, stage: str) -> float:
+    """Closed-form FLOPs of one pretrain update (``analytic_flops``'s terms,
+    2 per MAC) on ``batch``'s shapes: each encoder pass's trunk at its
+    length and its frontend (the hMLP stem or the audio convs, which run on
+    the whole input also in a student pass), each student's decoder pass at
+    the whole sequence's length and its two projections.  A pass with a
+    gradient counts three times its forward (forward, and a backward of
+    twice it), except that a stage-2 pass through the frozen trunk counts
+    its trunk's backward once (input gradients only) plus the weight
+    gradients of the audio FFNs on the audio tokens; a pass without a
+    gradient counts its forward.  Remat's recompute is not counted."""
+    from types import SimpleNamespace
+
+    enc, dec = cfg.model.encoder, cfg.model.decoder
+    b = batch["src_tokens"].shape[0]
+    lt = batch["src_tokens"].shape[1] + 1
+
+    def trunk(layers_cfg, l):
+        return analytic_flops(SimpleNamespace(encoder=layers_cfg), l, b, "text")
+
+    def heads(l):  # decoder_{mod}_embed and {mod}_mask_head
+        return 2 * 2 * b * l * enc.embed_dim * dec.embed_dim
+
+    if stage == "vl":
+        img = analytic_flops(cfg.model, 0, b, "image")
+        li = 257
+        pt, pi = (batch[k].shape[1] for k in ("text_preserve_ids", "image_preserve_ids"))
+        pvl = sum(batch[k].shape[1] for k in ("vl_text_preserve_ids", "vl_image_preserve_ids"))
+        grad = [trunk(enc, lt), trunk(enc, li) + img,
+                trunk(enc, pt) + trunk(dec, lt) + heads(lt),
+                trunk(enc, pi) + img + trunk(dec, li) + heads(li),
+                trunk(enc, pvl) + img + trunk(dec, lt + li) + heads(lt + li)]
+        return 3 * sum(grad) + trunk(enc, lt + li) + img
+    wav = batch["src_audios"].shape[1]
+    audio = analytic_flops(cfg.model, 0, b, "audio", wav_samples=wav)
+    la = batch["audio_padding_masks"].shape[1]
+    pa = batch["audio_preserve_ids"].shape[1]
+    pal = sum(batch[k].shape[1] for k in ("al_text_preserve_ids", "al_audio_preserve_ids"))
+    ffn_wgrad = lambda l: enc.layers * 2 * (3 * b * l * enc.embed_dim * enc.ffn_embed_dim)
+    passes = [(trunk(enc, la), audio, 0, la - 1),
+              (trunk(enc, pa), audio, trunk(dec, la) + heads(la), pa - 1),
+              (trunk(enc, pal), audio, trunk(dec, lt + la) + heads(lt + la),
+               batch["al_audio_preserve_ids"].shape[1] - 1)]
+    total = sum(2 * t + 3 * f + 3 * d + ffn_wgrad(n) for t, f, d, n in passes)
+    return total + trunk(enc, lt) + trunk(enc, lt + la) + audio
+
+
+def index_backward_share(prof: dict) -> str:
+    """The profiled update's device time in PyTorch's sort-based index
+    backward (``indexing_backward_kernel``: the per-sample rel-pos bias
+    gathers' backward), and its share of the device's busy time."""
+    events = prof["p"].key_averages()
+    index = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                for e in events if "indexing_backward" in e.key) / 1e3
+    busy = profile_busy_ms(prof)
+    return f"indexing_backward_kernel {index:.1f} ms, {100 * index / busy:.1f}% of the busy {busy:.1f} ms"
+
+
+def train_pretrain_full_depth(data: dict, stage: str, card: str) -> dict:
+    """Phase 16(d): the stage's recipe at depth 40 through ``cli.train``
+    from the config's init (AL with its stage-2 freezing), 10 updates (VL at
+    B=32, AL at B=16 on 14-15 s clips), no validation, no saves.  Update 5
+    runs under torch.profiler from the end of update 4 (the device's idle
+    share, the index backward's share); ``ms`` is the median of the other
+    updates after the first that do not open an epoch.  #1 and #2 launch
+    per update as ``pretrain_launches`` says (remat); the losses must be
+    finite."""
+    batch = 32 if stage == "vl" else 16
+    save_dir = PRETRAIN_DIR / f"{stage}_depth40"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    argv = pretrain_argv(data, stage, save_dir, 40, batch, [
+        f"optimization.max_update={PRETRAIN_UPDATES}", "dataset.disable_validation=true",
+        "checkpoint.best_checkpoint_metric="])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with profiled_update(5) as prof, recorded_steps() as steps:
+        t0 = time.time()
+        run_train_cli(argv)
+        wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [s["metrics"]["loss"] for s in steps]
+    update_ms = [1e3 * (b["t1"] - a["t1"]) for a, b in zip(steps, steps[1:])]
+    cfg = load_config(argv[1], argv[4:])
+    from one_peace_tpu_torch.tasks import build_task
+
+    task = build_task(cfg.task, cfg)
+    task.load_dataset("train")
+    rolled = len(task.datasets["train"]) // batch + 1  # the first update of epoch 2
+    steady = [ms for i, ms in enumerate(update_ms, 2) if i not in (5, rolled)]  # 5: profiled
+    ms = statistics.median(steady)
+    shapes = next(iter(task.get_batch_iterator("train", batch, seed=3407).next_epoch_itr()))
+    flops = pretrain_update_flops(cfg, shapes, stage)
+    tflops = flops / ms / 1e9
+    what = "pairs" if stage == "vl" else "clips"
+    log(f"16(d) cli.train, {stage.upper()} pretrain at depth 40, B={batch}, {PRETRAIN_UPDATES} "
+        f"updates from the "
+        f"config's init in {wall:.1f} s (model build and data included) ({card})")
+    log(f"16(d) {stage} losses {[round(x, 5) for x in losses]}; ms inside train_step "
+        f"{[round(1e3 * (s['t1'] - s['t0']), 1) for s in steps]} (update 1 warms up)")
+    log(f"16(d) {stage} updates 2-{PRETRAIN_UPDATES} from data, each from the end of the last "
+        f"(5 profiled, {rolled} after the epoch's end where it is <= {PRETRAIN_UPDATES}): "
+        f"{[round(x, 1) for x in update_ms]} ms; steady: median {ms:.1f} ms per update of "
+        f"{len(steady)} (mean {statistics.fmean(steady):.1f}, min {min(steady):.1f}, "
+        f"max {max(steady):.1f}), "
+        f"{batch / ms * 1e3:.2f} {what}/s, {flops / 1e12:.1f} TFLOP an update, "
+        f"{tflops:.1f} TFLOP/s = {100 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% MFU of "
+        f"{H100_BF16_PEAK_TFLOPS:.0f}, peak {peak:.1f} GiB ({card})")
+    per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
+    want = pretrain_launches(stage, 40, 2, True)
+    log(f"16(d) {stage} launches per update (#1, #2): {per_update} (expected [{want}])")
+    if "wall" in prof:
+        line = write_update_profile(prof, ms, f"update 5 of cli.train, {stage.upper()} pretrain "
+                                    f"at depth 40, B={batch}, from the end of update 4",
+                                    f"pretrain_{stage}_profile.txt", card)
+        log(f"16(d) {stage} {line} (pretrain_{stage}_profile.txt); "
+            f"{index_backward_share(prof)}")
+    if not all(map(math.isfinite, losses)) or len(losses) != PRETRAIN_UPDATES:
+        raise RuntimeError(f"16(d) {stage}: losses {losses}")
+    if per_update != [want]:
+        raise RuntimeError(f"16(d) {stage}: launches per update {per_update}, expected {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gib": peak, "losses": losses, "mfu": tflops / H100_BF16_PEAK_TFLOPS}
+
+
+PRETRAIN_UPDATES = 10  # 16(d)'s window
+
+
+PRETRAIN_ATTENTION = [  # (B, L, heads, bias, what): the pretrain slice's new shapes
+    (32, 65, 24, "per-sample", "image student: CLS + 64 of 256 patches"),
+    (32, 124, 24, "per-sample", "VL student: text and CLS + 80 patches, text pads"),
+    (16, 338, 24, "per-sample", "audio student: 15 s clips, pads"),
+    (16, 456, 24, "per-sample", "AL student: text and frames of 15 s clips, pads"),
+    (32, 329, 12, None, "VL decoder: 72 text + 257 image, text pads"),
+    (16, 822, 12, None, "AL decoder: 72 text + 750 frames, pads"),
+]
+
+
+def pretrain_key_bias(b: int, l: int, what: str, rng):
+    """None where a case has no pads; else row r > 0 pads its last 0 to
+    l / 8 keys (the -1s of ragged preserve ids, short clips, short text)."""
+    if "pads" not in what:
+        return None
+    mask = torch.zeros(b, l, dtype=torch.bool)
+    for row in range(1, b):
+        n = int(rng.randint(0, l // 8 + 1))
+        if n:
+            mask[row, l - n:] = True
+    return torch.zeros(b, l).masked_fill(mask, fa.NEG_INF).cuda()
+
+
+def time_pretrain_attention(card: str) -> tuple:
+    """Phase 16(a): #1 and #2 at the pretrain slice's shapes (per-sample
+    rel-pos biases of the student passes, the decoder's 12 heads without a
+    bias) through ``time_attention_cases``."""
+    return time_attention_cases("16(a)", PRETRAIN_ATTENTION, card, 166, pretrain_key_bias)
 
 
 def main() -> None:
@@ -3003,6 +3507,23 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false: no card to run on")
     card = card_line()
     log(card)
+    clock = [time.time(), time.time()]
+    golden_state = GoldenState()  # phase 10's host work, beside phases 2-9
+    try:
+        run_phases(card, clock, golden_state)
+    finally:
+        golden_state.stop()
+
+
+def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
+    """Phases 2-16 and the two last lines."""
+
+    def mark(phase: str) -> None:
+        """Log the phase's wall time and the script's so far."""
+        now = time.time()
+        log(f"phase {phase} took {now - clock[1]:.1f} s ({now - clock[0]:.1f} s so far)")
+        clock[1] = now
+
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
@@ -3015,12 +3536,16 @@ def main() -> None:
             if "registers" in line or "spill" in line or "C75" in line:  # C7508, C7517
                 log(f"  ptxas: {line.strip()}")
 
+    mark("2")
+
     # 3. kernel vs plain
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = check_kernel(gen)
+
+    mark("3")
 
     # 4. the embedding slice at full width: fp32, then bf16
     cfg = ModelConfig(head_type="val")
@@ -3034,13 +3559,19 @@ def main() -> None:
         raise RuntimeError("the embedding path never launched the attention kernel")
     torch.cuda.empty_cache()
 
+    mark("4")
+
     # 5. times
     fwd_times = time_paths(cfg, card)
+
+    mark("5")
 
     # 6. the backward kernel vs plain
     bwd_worst = check_backward_kernel(gen)
     bwd_times = time_backward(gen, card)
     torch.cuda.empty_cache()
+
+    mark("6")
 
     # 7. the training slice
     check_train_paths(gen)
@@ -3050,15 +3581,23 @@ def main() -> None:
         raise RuntimeError("the training path never launched the backward kernel")
     torch.cuda.empty_cache()
 
+    mark("7")
+
     # 8. the int8 kernels vs plain, and their times
     int8_worst = check_int8_kernels(gen)
     int8_times = time_int8_kernels(gen, card)
+    mark("8")
+
     # 9. int8 serving through the hub (the counts are read over its kernel-path forwards)
     int8_launches = serve_int8(card)
     if min(int8_launches.values()) == 0:
         raise RuntimeError(f"the int8 serving path never launched a kernel: {int8_launches}")
+    mark("9")
+
     # 10. the depth-40 golden through the .pt route
-    check_golden()
+    check_golden(golden_state)
+
+    mark("10")
 
     # 11. detection serving: the det attention kernel vs plain, the 1024 px
     # detector at depth 40 through it (its launches counted from 0 here), and times
@@ -3068,6 +3607,8 @@ def main() -> None:
         raise RuntimeError("the detection path never launched the det attention kernel")
     det_times = time_det_attention(gen, card)
 
+    mark("11")
+
     # 12. detection fine-tuning: the backward kernels vs plain, the 4-layer
     # full-width objective on both paths, the depth-40 recipe through the
     # Trainer (its launches counted from 0 after a warm-up step), and times
@@ -3076,6 +3617,8 @@ def main() -> None:
     det_train = train_det_full_depth(gen, card)
     det_fwd_train, det_bwd_train = det_train["pallas"]["total"]
     det_bwd_times = time_det_backward(gen, card)
+
+    mark("12")
 
     # 13. retrieval fine-tuning from data: cli.train's resume at depth 4 and
     # cli.evaluate on its export, then the depth-40 recipe through cli.train
@@ -3089,6 +3632,8 @@ def main() -> None:
     if cli_fwd == 0 or cli_bwd == 0:
         raise RuntimeError("the retrieval CLI path never launched an attention kernel")
 
+    mark("13")
+
     # 14. detection from data: the synthetic COCO tree, cli.train at depth 4
     # with its export read back and cli.evaluate, then the depth-40 recipe
     # (the det attention kernels' launches counted from 0 here)
@@ -3100,6 +3645,8 @@ def main() -> None:
     log(f"14 launches over the phase: #4 {coco_fwd}, #5/#6 {coco_bwd}")
     if coco_fwd == 0 or coco_bwd == 0:
         raise RuntimeError("the detection CLI path never launched a det attention kernel")
+
+    mark("14")
 
     # 15. classification: #1 and #2 alone at the slice's shapes against
     # their plain versions and SDPA (15(e)); then, the launches counted from
@@ -3121,6 +3668,34 @@ def main() -> None:
         raise RuntimeError("the classification path never launched one of its kernels")
     fwd_times.setdefault("shapes", {}).update(cls_fwd_rows)
     bwd_times.setdefault("shapes", {}).update(cls_bwd_rows)
+    mark("15")
+
+    # 16. pretraining: #1 and #2 alone at the slice's shapes against their
+    # plain versions and SDPA (16(a)); then, the launches counted from 0,
+    # both criterions' gradients at 4 layers (16(b)), the VL recipe and the
+    # AL stage-2 recipe from its export through cli.train at depth 4 (16(c)),
+    # and both recipes at depth 40 (16(d))
+    t16 = time.time()
+    pre_fwd_rows, pre_bwd_rows = time_pretrain_attention(card)
+    mark("16(a)")
+    fa.launches = fa.bwd_launches = 0
+    # 11 VL batches of 32: no epoch ends inside 16(d)'s window
+    pre_data = write_pretrain_corpus(PRETRAIN_DIR, 352, 32, (14.0, 15.0))
+    mark("16's corpus")
+    check_pretrain_train_paths(pre_data)
+    mark("16(b)")
+    check_pretrain_cli(pre_data, card)
+    mark("16(c)")
+    for stage in ("vl", "al"):
+        train_pretrain_full_depth(pre_data, stage, card)
+    pre_fwd, pre_bwd = fa.launches, fa.bwd_launches
+    log(f"16 launches over the phase: #1 {pre_fwd}, #2 {pre_bwd}; the phase took "
+        f"{time.time() - t16:.1f} s")
+    mark("16(d)")
+    if pre_fwd == 0 or pre_bwd == 0:
+        raise RuntimeError("the pretrain path never launched an attention kernel")
+    fwd_times["shapes"].update(pre_fwd_rows)
+    bwd_times["shapes"].update(pre_bwd_rows)
 
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
@@ -3146,9 +3721,9 @@ def main() -> None:
                      source="int8_matmul")
     log(json.dumps({"kernels": [
         entry("flash_attention_fwd", "one_peace_tpu/ops/flash_attention.py:239",
-              embed_launches + fwd_train + cli_fwd + cls_fwd, worst, fwd_times),
+              embed_launches + fwd_train + cli_fwd + cls_fwd + pre_fwd, worst, fwd_times),
         entry("flash_attention_bwd", "one_peace_tpu/ops/flash_attention.py:409",
-              bwd_train + cli_bwd + cls_bwd, bwd_worst, bwd_times),
+              bwd_train + cli_bwd + cls_bwd + pre_bwd, bwd_worst, bwd_times),
         entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75",
               int8_launches["gemm"] + cls_int8["gemm"], int8_worst["gemm"], gemm),
         quantize,

@@ -18,6 +18,10 @@ best export, and preemption-safe resume, on one card.
       task.data=train.tsv task.valid_data=valid.tsv task.bpe_dir=bpe \
       task.num_classes=3129 [checkpoint.restore_file=one-peace.pt] [--device cuda]
 
+  python -m one_peace_tpu_torch.cli.train --config recipes/pretrain/pretrain_al_4b.yaml \
+      task.data=train.tsv task.valid_data=valid.tsv task.valid_file=valid.json \
+      task.bpe_dir=bpe checkpoint.restore_file=stage1/checkpoint_best.npz [--device cuda]
+
 - **Weights.** For the retrieval and classify models,
   ``checkpoint.restore_file`` is a fairseq ``.pt`` (converted by
   ``utils/checkpoint_convert``: ``convert_retrieval_model`` or
@@ -27,14 +31,18 @@ best export, and preemption-safe resume, on one card.
   ``task.num_classes`` classes and the head's defaults (CLS pooling, no
   pooler), as the JAX CLI builds it; a ``.pt`` without a ``classify_head``
   (a pretrained checkpoint) raises, since the strict load needs the
-  head.  For a vision task's
-  model (the detector of ``coco_detection``), a ``.pt`` gives the trunk
+  head.  The pretrain model (``one_peace_pretrain``) restores a ``.npz``
+  export only; with ``model.stage2_pretrain`` or
+  ``model.reset_logit_scale`` it is overlaid onto the config's init by
+  ``upgrade_stage1_params`` (stage 2 from a stage-1 export: the audio
+  branch fresh, ``logit_scale`` reset), as the JAX CLI does.  For a vision
+  task's model (the detector of ``coco_detection``), a ``.pt`` gives the trunk
   (``load_pretrained``) and ``init_detector_`` the pyramid and heads from
   ``common.seed``; a ``.npz`` gives every weight (``params_from_jax``,
-  strict); without one, ``init_detector_`` gives them all.  Only
-  ``one_peace_retrieval``, ``one_peace_classify`` and the tasks' own models
-  are ported (and models a ``--user-dir`` plugin registers); the other
-  model names raise.
+  strict); without one, ``init_detector_`` gives them all.  Every model of
+  the JAX package is ported (``one_peace_retrieval``,
+  ``one_peace_classify``, ``one_peace_pretrain`` and the tasks' own), and
+  models a ``--user-dir`` plugin registers.
 - **Batches.** One card runs the batch it is given: ``dataset.batch_size``
   samples a micro-batch.  A recipe's ``distributed`` section (the detection
   recipe's ``fsdp: 8``, with its per-host ``batch_size: 8``) is the TPU
@@ -79,7 +87,6 @@ from torch.profiler import record_function
 
 logger = logging.getLogger("one_peace_tpu_torch.train")
 
-UNPORTED_MODELS = {"one_peace_pretrain": "ROADMAP queue 1 item 6 (pretrain)"}
 # batch bookkeeping the model does not read
 HOST_KEYS = ("id", "nsentences", "ntokens", "gt_crowd", "gt_areas", "im_scale")
 
@@ -89,6 +96,7 @@ def build_model_for_task(cfg, task, device="cuda"):
     from ..core.registry import MODELS
     from ..models.classify import OnePeaceClassifyModel
     from ..models.one_peace import OnePeaceRetrievalModel
+    from ..models.pretrain import OnePeacePretrainModel
 
     if hasattr(task, "build_model"):
         return task.build_model(cfg, device=device)
@@ -99,11 +107,14 @@ def build_model_for_task(cfg, task, device="cuda"):
     if name == "one_peace_classify":
         return OnePeaceClassifyModel(cfg.model, num_classes=cfg.task.num_classes,
                                      device=device, dtype=torch.float32)
+    if name == "one_peace_pretrain":
+        # the decoder's text embedding keeps the config's vocabulary, as in
+        # the JAX CLI, so that the two packages' trees exchange weights
+        return OnePeacePretrainModel(cfg.model, device=device, dtype=torch.float32)
     if name in MODELS:  # a --user-dir plugin's
         return MODELS.get(name)(cfg.model, device=device)
     if name != "one_peace_retrieval":
-        where = UNPORTED_MODELS.get(name, "no such model in the JAX package either")
-        raise NotImplementedError(f"model {name!r} is not ported to PyTorch: {where}")
+        raise NotImplementedError(f"model {name!r}: no such model in the JAX package either")
     return OnePeaceRetrievalModel(cfg.model, device=device, dtype=torch.float32)
 
 
@@ -133,6 +144,18 @@ def load_weights(cfg, model, device, path: Optional[str] = None) -> None:
     if path.endswith(".pt") and vision:
         init_detector_(model, generator)
         model.load_pretrained(path)
+        return
+    if hasattr(model, "upgrade_stage1_params"):  # the pretrain model
+        if path.endswith(".pt"):
+            raise NotImplementedError("the pretrain model restores from a .npz export; the "
+                                      "JAX package has no .pt conversion for it either")
+        tree = load_params(path)
+        if cfg.model.stage2_pretrain or cfg.model.reset_logit_scale:
+            init_weights_(model, generator, cfg.model.encoder.layer_scale_init_value)
+            state = model.upgrade_stage1_params(tree)
+        else:
+            state = params_from_jax(tree)
+        model.load_state_dict(state, strict=True)
         return
     if path.endswith(".pt"):
         convert = (convert_classify_model if cfg.model._name == "one_peace_classify"

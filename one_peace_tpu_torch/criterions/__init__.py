@@ -1,8 +1,10 @@
 """Training criterions (counterpart of ``one_peace_tpu/criterions``)."""
 
-from .criterions import (AudioTextRetrievalCriterion, ClassifyCriterion,
+from .criterions import (AudioTextPretrainCriterion, AudioTextRetrievalCriterion,
+                         ClassifyCriterion, ImageTextPretrainCriterion,
                          ImageTextRetrievalCriterion, build_criterion)
 from .vision_criterions import DetectionCriterion
 
-__all__ = ["AudioTextRetrievalCriterion", "ClassifyCriterion", "DetectionCriterion",
-           "ImageTextRetrievalCriterion", "build_criterion"]
+__all__ = ["AudioTextPretrainCriterion", "AudioTextRetrievalCriterion", "ClassifyCriterion",
+           "DetectionCriterion", "ImageTextPretrainCriterion", "ImageTextRetrievalCriterion",
+           "build_criterion"]

@@ -2,15 +2,18 @@
 
 The contrastive loss runs over the whole batch with the gallery side
 detached, as the JAX package and the reference do: each direction's gradient
-flows only through its query-side embeddings.  The classification losses
-(cross entropy with label smoothing, BCE over multi-hot targets, soft-target
-cross entropy) compute in fp32 and sum over the batch, as the JAX package's
-do.  DCL and the grounding and hinge losses are not ported yet.
+flows only through its query-side embeddings.  The denoising contrastive
+loss (DCL) of pretraining scores each masked student token against the
+teacher's tokens of its gallery (the batch, or ``gallery_chunks`` equal
+parts of it).  The classification losses (cross entropy with label
+smoothing, BCE over multi-hot targets, soft-target cross entropy) compute
+in fp32 and sum over the batch, as the JAX package's do.  The grounding and
+hinge losses are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,6 +42,55 @@ def itc_loss(emb_a: torch.Tensor, emb_b: torch.Tensor, logit_scale: torch.Tensor
     metrics = {"a2b_ncorrect": (sim_a2b.argmax(1) == targets).sum(),
                "b2a_ncorrect": (sim_b2a.argmax(1) == targets).sum()}
     return loss, metrics
+
+
+def dcl_loss(student: torch.Tensor, teacher: torch.Tensor, mask_indices: torch.Tensor,
+             padding_mask: Optional[torch.Tensor] = None, logit_scale: float = 2.5,
+             label_smoothing: float = 0.0, gallery_chunks: int = 1) -> torch.Tensor:
+    """Denoising contrastive loss (``losses.dcl_loss``).
+
+    student, teacher: (B, L, D) with CLS at position 0; mask_indices: (B, L)
+    True where a token was masked (scored); padding_mask: (B, L-1) or
+    (B, L) True at padding, or None.  CLS is dropped and the rest flattened
+    to N = B (L-1) tokens.  Each scored token's cosine similarity times
+    ``logit_scale`` against every non-padding teacher token of its gallery
+    (padding columns at -inf, so they leave the softmax) gives a
+    log-softmax whose target is the token's own teacher token, with label
+    smoothing spread over the gallery's valid columns less one.  The
+    teacher is detached.  With ``gallery_chunks`` g > 1 the N tokens form g
+    galleries of B/g samples each (the reference's per-rank galleries); the
+    NLL is summed over every scored row and divided by their count.
+    Unscored rows are dropped with ``where``: a padded row's own column is
+    -inf, so its NLL is inf."""
+    b, l, d = student.shape
+    n = b * (l - 1)
+    sf = student[:, 1:].float().reshape(n, d)
+    tf = teacher[:, 1:].detach().float().reshape(n, d)
+    scored = mask_indices[:, 1:].reshape(n)
+    if padding_mask is not None:
+        pad = padding_mask[:, -(l - 1):].reshape(n)
+        scored = scored & ~pad
+        col_valid = ~pad
+    else:
+        col_valid = torch.ones(n, dtype=torch.bool, device=student.device)
+    g = max(int(gallery_chunks), 1)
+    if b % g:
+        raise ValueError(f"a batch of {b} does not split into {g} DCL galleries")
+    sf, tf = sf.reshape(g, n // g, d), tf.reshape(g, n // g, d)
+    scored, col_valid = scored.reshape(g, n // g), col_valid.reshape(g, n // g)
+    sn = sf / torch.linalg.vector_norm(sf, dim=-1, keepdim=True).clamp(min=1e-6)
+    tn = tf / torch.linalg.vector_norm(tf, dim=-1, keepdim=True).clamp(min=1e-6)
+    sim = logit_scale * (sn @ tn.transpose(1, 2))  # (g, N/g, N/g)
+    sim = sim.masked_fill(~col_valid[:, None, :], float("-inf"))
+    lprobs = torch.log_softmax(sim, dim=-1)
+    nll = -lprobs.diagonal(dim1=1, dim2=2)
+    if label_smoothing > 0.0:
+        n_valid = col_valid.float().sum(-1, keepdim=True)
+        smooth = -torch.where(col_valid[:, None, :], lprobs, 0.0).sum(-1)
+        eps_i = label_smoothing / (n_valid - 1).clamp(min=1.0)
+        nll = (1.0 - label_smoothing - eps_i) * nll + eps_i * smooth
+    total = torch.where(scored, nll, 0.0).sum()
+    return total / scored.float().sum().clamp(min=1.0)
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,

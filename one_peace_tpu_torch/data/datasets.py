@@ -1,9 +1,13 @@
-"""Task datasets: the retrieval and classification parts of
+"""Task datasets: the pretrain, retrieval and classification parts of
 ``one_peace_tpu/data/datasets.py``, copied (held equal by
-``tests/test_torch_port_retrieval_data.py`` and
-``tests/test_torch_port_classify_data.py``).  Host-side numpy sample
-builders; batching happens in ``data/collate.py``.
+``tests/test_torch_port_copies.py``, ``tests/test_torch_port_retrieval_data.py``,
+``tests/test_torch_port_classify_data.py`` and
+``tests/test_torch_port_pretrain_data.py``).  Each sample is built on the
+host in numpy; batching happens in ``data/collate.py``, the masks come
+from ``data/masking.py``.
 
+- ImageTextPretrainDataset    ref pretrain_data/image_text_pretrain_dataset.py
+- AudioTextPretrainDataset    ref pretrain_data/audio_text_pretrain_dataset.py
 - ImageTextRetrievalDataset   ref vl_data/image_text_retrieval_dataset.py
 - AudioTextRetrievalDataset   ref audio_data/audio_text_retrieval_dataset.py
 - VqaDataset                  ref vl_data/vqa_dataset.py
@@ -13,8 +17,10 @@ builders; batching happens in ``data/collate.py``.
 ``ImageClassifyDataset`` draws its flips from one ``RandomState(seed)`` and
 its distortion, blur and RandAugment from generators seeded seed+1..+3, in
 fetch order; the iterator's prefetch thread fetches in order, so a run
-draws what the JAX package's draws.  The pretrain, NLVR2, RefCOCO, FSD50K
-and AQA datasets (and the masking helpers) are not ported yet.
+draws what the JAX package's draws.  The pretrain datasets draw
+every mask (and the VL crop) from one ``RandomState(seed)`` in fetch order,
+as the JAX package's do; a resumed run does not rewind it.  The NLVR2,
+RefCOCO, FSD50K and AQA datasets are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,11 +35,128 @@ from .base_dataset import (
     clean_text,
     horizontal_flip,
     normalize_image,
+    random_resized_crop,
     resize_image,
+)
+from .masking import (
+    add_whole_word_mask,
+    compute_block_mask_1d,
+    nested_subset_mask,
+    random_patch_mask,
+    superset_patch_mask,
+    to_preserve_ids,
+    whole_word_starts,
+    with_cls,
 )
 
 DEFAULT_SPEC = ((512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2),
                 (512, 3, 2), (512, 2, 2), (512, 2, 2))
+
+
+class ImageTextPretrainDataset(BaseDataset):
+    def __init__(self, split, table, tokenizer, dataset_dir="",
+                 max_src_length=70, patch_image_size=256, text_mask_ratio=0.15,
+                 image_mask_ratio=0.75, vl_text_mask_ratio=0.4,
+                 vl_image_mask_ratio=0.6875, min_scale=0.9, seed=3407):
+        super().__init__(split, table, tokenizer, dataset_dir)
+        self.max_src_length = max_src_length
+        self.patch_image_size = patch_image_size
+        self.num_patches = (patch_image_size // 16) ** 2
+        self.text_mask_ratio = text_mask_ratio
+        self.image_mask_ratio = image_mask_ratio
+        self.vl_text_mask_ratio = vl_text_mask_ratio
+        self.vl_image_mask_ratio = vl_image_mask_ratio
+        self.min_scale = min_scale
+        self.word_starts = whole_word_starts(tokenizer.dictionary, tokenizer.bpe)
+        self.rng = np.random.RandomState(seed)
+
+    def __getitem__(self, index):
+        uniq_id, image, caption = self.table[index]
+        rng = self.rng
+        caption = clean_text(caption)
+        text = self.encode_text(f" {caption}", self.max_src_length, append_eos=False)
+        text_mask = add_whole_word_mask(rng, text, self.word_starts, self.text_mask_ratio)
+        vl_text_mask = nested_subset_mask(rng, text_mask, self.vl_text_mask_ratio)
+
+        img = self.read_image(image)
+        if self.split == "train":
+            img = random_resized_crop(rng, img, self.patch_image_size, self.min_scale)
+        else:
+            img = resize_image(img, self.patch_image_size)
+        patch_image = normalize_image(np.asarray(img))
+
+        image_mask = random_patch_mask(rng, self.num_patches, self.image_mask_ratio)
+        vl_image_mask = superset_patch_mask(rng, image_mask, self.vl_image_mask_ratio)
+
+        text = np.concatenate([text, [self.eos]])
+        text_mask = with_cls(text_mask, trailing_false=True)
+        vl_text_mask = with_cls(vl_text_mask, trailing_false=True)
+        image_mask = with_cls(image_mask)
+        vl_image_mask = with_cls(vl_image_mask)
+        return {
+            "id": coerce_id(uniq_id, index),
+            "source_text": text,
+            "text_mask_indices": text_mask,
+            "text_preserve_ids": to_preserve_ids(text_mask),
+            "source_image": patch_image,
+            "image_mask_indices": image_mask,
+            "image_preserve_ids": to_preserve_ids(image_mask),
+            "vl_text_mask_indices": vl_text_mask,
+            "vl_text_preserve_ids": to_preserve_ids(vl_text_mask),
+            "vl_image_mask_indices": vl_image_mask,
+            "vl_image_preserve_ids": to_preserve_ids(vl_image_mask),
+        }
+
+
+class AudioTextPretrainDataset(BaseDataset):
+    def __init__(self, split, table, tokenizer, dataset_dir="",
+                 max_src_length=70, max_duration=15,
+                 feature_encoder_spec=DEFAULT_SPEC, audio_mask_ratio=0.55,
+                 al_text_mask_ratio=0.4, al_audio_mask_ratio=0.45,
+                 audio_mask_prob_adjust=0.1, audio_mask_length=5, seed=3407):
+        super().__init__(split, table, tokenizer, dataset_dir)
+        self.max_src_length = max_src_length
+        self.max_duration = max_duration
+        self.spec = feature_encoder_spec
+        self.audio_mask_ratio = audio_mask_ratio
+        self.al_text_mask_ratio = al_text_mask_ratio
+        self.al_audio_mask_ratio = al_audio_mask_ratio
+        self.adjust = audio_mask_prob_adjust
+        self.mask_length = audio_mask_length
+        self.word_starts = whole_word_starts(tokenizer.dictionary, tokenizer.bpe)
+        self.rng = np.random.RandomState(seed)
+
+    def __getitem__(self, index):
+        uniq_id, audio, caption, duration = self.table[index]
+        rng = self.rng
+        caption = clean_text(caption)
+        text = self.encode_text(f" {caption}", self.max_src_length, append_eos=False)
+        al_text_mask = add_whole_word_mask(rng, text, self.word_starts,
+                                           self.al_text_mask_ratio)
+        text = np.concatenate([text, [self.eos]])
+
+        wav, sr = self.read_audio(audio)
+        feats = audio_postprocess(wav, sr, self.max_duration)
+        t = self.conv_length(len(feats), self.spec)
+        audio_mask = compute_block_mask_1d(rng, t, self.audio_mask_ratio,
+                                           self.mask_length, self.adjust)
+        al_audio_mask = compute_block_mask_1d(rng, t, self.al_audio_mask_ratio,
+                                              self.mask_length, self.adjust)
+        audio_mask = with_cls(audio_mask)
+        al_audio_mask = with_cls(al_audio_mask)
+        al_text_mask = with_cls(al_text_mask, trailing_false=True)
+        return {
+            "id": coerce_id(uniq_id, index),
+            "source_text": text,
+            "source_audio": feats,
+            "audio_padding_mask": np.zeros(t + 1, bool),
+            "audio_mask_indices": audio_mask,
+            "audio_preserve_ids": to_preserve_ids(audio_mask),
+            "al_text_mask_indices": al_text_mask,
+            "al_text_preserve_ids": to_preserve_ids(al_text_mask),
+            "al_audio_mask_indices": al_audio_mask,
+            "al_audio_preserve_ids": to_preserve_ids(al_audio_mask),
+        }
 
 
 def coerce_id(uniq_id, fallback):

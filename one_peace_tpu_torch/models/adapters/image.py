@@ -3,8 +3,14 @@
 hMLP patch embedding (conv4 -> LN -> GELU -> conv2 -> LN -> GELU -> conv2;
 overall stride 16) + CLS + learned 2-D absolute positions (bicubic-resized
 for other resolutions, through ``utils.interpolate``) + the
-2-D relative-position bias.  Images arrive NCHW and run NHWC.  The
-preserve-id paths are not ported yet.
+2-D relative-position bias.  Images arrive NCHW and run NHWC.
+
+The masked-pretraining paths, as in the text adapter: a student pass
+(``preserve_ids``) keeps the preserved patches (CLS is position 0), their
+positions and their per-sample rel-pos bias; the decoder pass
+(``preserve_embed``) puts the student's features back over ``mask_token``.
+The decoder's adapter has no stem (``vision_encoder_type: "none"``): it
+only runs that path.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ from ...core.config import ImageAdapterConfig
 from ...utils.interpolate import bicubic_resize_matrix
 
 from ..components import (Conv, LayerNorm, conv2d, dropout, empty_param, gather_rel_bias,
-                          gelu, generator_on)
+                          gather_rows, gelu, generator_on, scatter_preserved, shrink,
+                          student_positions)
 from ..rel_pos import make_image_bucket_position
 
 
@@ -96,11 +103,16 @@ class ImageAdapter(nn.Module):
             return None
         return gather_rel_bias(self.rel_pos_table, self.rp_bucket)
 
-    def forward(self, src_images: torch.Tensor, is_second_image: bool = False,
+    def forward(self, src_images: torch.Tensor, preserve_ids: Optional[torch.Tensor] = None,
+                preserve_embed: Optional[torch.Tensor] = None,
+                mask_token: Optional[torch.Tensor] = None, is_second_image: bool = False,
                 deterministic: bool = True, generator: Optional[torch.Generator] = None):
         """src_images: (B, 3, H, W).  Returns (x (B, win**2+1, D), an
-        all-False padding mask, rel_bias (tables, H, L, L) or None).
-        ``cfg.dropout`` applies to x unless deterministic."""
+        all-False padding mask, rel_bias (tables, H, L, L) or None); a
+        student pass (``preserve_ids`` (B, P), -1 padded) gives (B, P, D), the
+        -1s as pads, and (tables, B, H, P, P); the decoder pass
+        (``preserve_embed`` and ``mask_token`` too) reads only the images'
+        shape.  ``cfg.dropout`` applies to x unless deterministic."""
         cfg = self.cfg
         bsz = src_images.shape[0]
         window_size = src_images.shape[2] // 16
@@ -111,15 +123,28 @@ class ImageAdapter(nn.Module):
                 f"patch grid but rel_bucket_size is {cfg.rel_bucket_size}; set "
                 f"image_adapter.rel_bucket_size = patch_image_size // 16")
         padding_mask = torch.zeros(bsz, seq_len, dtype=torch.bool, device=src_images.device)
-        patches = self.embed_patches(src_images.permute(0, 2, 3, 1))
-        cls = self.cls_embedding.expand(bsz, 1, self.embed_dim)
-        x = torch.cat([cls, patches], dim=1)
-        if self.layernorm_embedding is not None:
-            x = self.layernorm_embedding(x)
-        x = x + self.get_pos_embed(window_size)
+        pos_embed = self.get_pos_embed(window_size).expand(bsz, -1, -1)
+        if preserve_embed is not None:
+            x = scatter_preserved(mask_token, preserve_ids, preserve_embed, seq_len)
+            rel_bias = self.rel_pos_bias()
+        else:
+            patches = self.embed_patches(src_images.permute(0, 2, 3, 1))
+            cls = self.cls_embedding.expand(bsz, 1, self.embed_dim)
+            x = torch.cat([cls, patches], dim=1)
+            if preserve_ids is None:
+                rel_bias = self.rel_pos_bias()
+            else:
+                padding_mask, pos, idx = student_positions(
+                    preserve_ids, None if self.rel_pos_table is None else self.rp_bucket)
+                x, pos_embed = gather_rows(x, pos), gather_rows(pos_embed, pos)
+                rel_bias = None if idx is None else gather_rel_bias(self.rel_pos_table, idx)
+            if self.layernorm_embedding is not None:
+                x = self.layernorm_embedding(x)
+            x = shrink(x, cfg.shrink_alpha)
+        x = x + pos_embed.to(x.dtype)
         if self.type_embedding is not None:
             x = x + self.type_embedding
             if is_second_image:
                 x = x + self.type_embedding_2
         x = dropout(x, cfg.dropout, deterministic, generator_on(generator, x.device))
-        return x, padding_mask, self.rel_pos_bias()
+        return x, padding_mask, rel_bias

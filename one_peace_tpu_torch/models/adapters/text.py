@@ -2,8 +2,14 @@
 
 Token embedding + prepended CLS + learned absolute positions + the
 relative-position bias from log-bucketed distances, returned
-batch-independent as (tables, H, L, L).  The masked-pretraining preserve-id
-paths are not ported yet.
+batch-independent as (tables, H, L, L).
+
+The masked-pretraining paths: a student pass (``preserve_ids``) keeps the
+preserved positions of the embedded sequence, their absolute positions and
+their rel-pos bias, which becomes per-sample (tables, B, H, P, P); the
+decoder pass (``preserve_embed``) puts the student's projected features
+back at their positions over ``mask_token`` and adds the absolute
+positions (no token embedding, no LayerNorm).
 """
 
 from __future__ import annotations
@@ -16,7 +22,8 @@ from torch import nn
 
 from ...core.config import TextAdapterConfig
 
-from ..components import LayerNorm, dropout, empty_param, gather_rel_bias, generator_on
+from ..components import (LayerNorm, dropout, empty_param, gather_rel_bias, gather_rows,
+                          generator_on, scatter_preserved, shrink, student_positions)
 from ..rel_pos import make_token_bucket_position_with_cls
 
 
@@ -49,23 +56,41 @@ class TextAdapter(nn.Module):
             return None
         return gather_rel_bias(self.rel_pos_table, self.rp_bucket[:seq_len, :seq_len])
 
-    def forward(self, src_tokens: torch.Tensor, deterministic: bool = True,
+    def forward(self, src_tokens: torch.Tensor, preserve_ids: Optional[torch.Tensor] = None,
+                preserve_embed: Optional[torch.Tensor] = None,
+                mask_token: Optional[torch.Tensor] = None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        """Returns (x (B, Lt+1, D), padding_mask (B, Lt+1) True at pads,
-        rel_bias (tables, H, Lt+1, Lt+1) or None).  ``cfg.dropout`` applies
-        to x unless deterministic."""
+        """Returns (x, padding_mask True at pads, rel_bias or None).  By
+        default x is (B, Lt+1, D) and rel_bias (tables, H, Lt+1, Lt+1); a
+        student pass (``preserve_ids`` (B, P), -1 padded) gives (B, P, D), the
+        -1s as pads, and (tables, B, H, P, P); the decoder pass
+        (``preserve_embed`` (B, P, D) and ``mask_token`` (1, D) too) gives
+        (B, Lt+1, D).  ``cfg.dropout`` applies to x unless deterministic."""
         bsz, tok_len = src_tokens.shape
         seq_len = tok_len + 1  # CLS prepended
         padding_mask = torch.cat(
             [torch.zeros(bsz, 1, dtype=torch.bool, device=src_tokens.device),
              src_tokens == self.cfg.padding_idx], dim=1)
-        tok = F.embedding(src_tokens, self.embed_tokens)
-        cls = self.cls_embedding.expand(bsz, 1, self.embed_dim)
-        x = torch.cat([cls, tok], dim=1)
-        if self.layernorm_embedding is not None:
-            x = self.layernorm_embedding(x)
-        x = x + self.embed_positions[:seq_len][None]
+        pos_embed = self.embed_positions[:seq_len][None].expand(bsz, -1, -1)
+        if preserve_embed is not None:
+            x = scatter_preserved(mask_token, preserve_ids, preserve_embed, seq_len)
+            rel_bias = self.rel_pos_bias(seq_len)
+        else:
+            tok = F.embedding(src_tokens, self.embed_tokens)
+            cls = self.cls_embedding.expand(bsz, 1, self.embed_dim)
+            x = torch.cat([cls, tok], dim=1)
+            if preserve_ids is None:
+                rel_bias = self.rel_pos_bias(seq_len)
+            else:
+                padding_mask, pos, idx = student_positions(
+                    preserve_ids, None if self.rel_pos_table is None else self.rp_bucket)
+                x, pos_embed = gather_rows(x, pos), gather_rows(pos_embed, pos)
+                rel_bias = None if idx is None else gather_rel_bias(self.rel_pos_table, idx)
+            if self.layernorm_embedding is not None:
+                x = self.layernorm_embedding(x)
+            x = shrink(x, self.cfg.shrink_alpha)
+        x = x + pos_embed.to(x.dtype)
         if self.type_embedding is not None:
             x = x + self.type_embedding
         x = dropout(x, self.cfg.dropout, deterministic, generator_on(generator, x.device))
-        return x, padding_mask, self.rel_pos_bias(seq_len)
+        return x, padding_mask, rel_bias

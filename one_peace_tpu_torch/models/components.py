@@ -34,12 +34,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ weight.T + bias`` with weight (out, in)."""
     return F.linear(x, weight, bias)
+
+
+def shrink(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """x in value, its gradient scaled by alpha (the adapters'
+    ``shrink_alpha``)."""
+    return x if alpha == 1.0 else x * alpha + x.detach() * (1 - alpha)
 
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
@@ -158,9 +165,42 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
 
 def gather_rel_bias(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """A (tables, R, H) rel-pos table gathered at (L, L) bucket indices, as
-    contiguous fp32 (tables, H, L, L): contiguous once here, so the kernel
-    takes each layer's slice without a copy."""
-    return table.float()[:, idx].permute(0, 3, 1, 2).contiguous()
+    contiguous fp32 (tables, H, L, L), or at a student pass's per-sample
+    (B, P, P) indices, as (tables, B, H, P, P): contiguous once here, so the
+    kernel takes each layer's slice without a copy."""
+    return table.float()[:, idx].movedim(-1, -3).contiguous()
+
+
+def student_positions(preserve_ids: torch.Tensor, rp_bucket: Optional[torch.Tensor]):
+    """A student pass's gather of the preserved positions (``preserve_ids``
+    (B, P), right-padded with -1): (padding mask (B, P) True at the -1s,
+    positions (B, P) with each -1 read as the last position P - 1, and the
+    per-sample (B, P, P) rel-pos bucket indices, or None without
+    ``rp_bucket``)."""
+    pad = preserve_ids == -1
+    pos = torch.where(pad, preserve_ids.shape[1] - 1, preserve_ids)
+    idx = None if rp_bucket is None else rp_bucket[pos[:, :, None], pos[:, None, :]]
+    return pad, pos, idx
+
+
+def gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """x (B, L, D) at positions (B, P) -> (B, P, D) (``take_along_axis``)."""
+    return x.gather(1, pos[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def scatter_preserved(mask_token: torch.Tensor, preserve_ids: torch.Tensor,
+                      preserve_embed: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """The decoder's input (B, seq_len, D) in the mask token's dtype: the
+    mask token everywhere, and each preserved embedding (B, P, D) put back
+    at its position; a -1 of ``preserve_ids`` puts nothing.  Each position
+    holds exactly one of the two, as the JAX package's one-hot merge gives
+    it.  The -1s write into one extra column that is cut off."""
+    b, p, d = preserve_embed.shape
+    keep = preserve_ids >= 0
+    pos = torch.where(keep, preserve_ids, seq_len)
+    base = mask_token.expand(b, seq_len + 1, d)
+    x = base.scatter(1, pos[..., None].expand(-1, -1, d), preserve_embed.to(mask_token.dtype))
+    return x[:, :seq_len]
 
 
 def split_generator(generator: Optional[torch.Generator], n: int) -> List[Optional[torch.Generator]]:
@@ -210,6 +250,25 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
     scale = np.float32(1.0) / max(keep, np.float32(1e-8)) if keep > 0 else 0.0
     scaled = x * torch.tensor(float(scale), dtype=x.dtype, device=x.device)
     return torch.where(mask, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def checkpoint_module(module: nn.Module, *args, make_kwargs=None) -> torch.Tensor:
+    """``module(*args, **make_kwargs())`` under ``torch.utils.checkpoint``:
+    only the inputs are kept, and the backward pass runs the module again.
+    Its parameters enter the checkpoint as inputs, so that the recompute
+    sees the tensors the forward saw, also when ``torch.func.functional_call``
+    swapped them in (the trainer's compute-dtype copies) and has since put
+    the masters back.  ``make_kwargs`` runs again in the recompute, so a
+    generator it seeds draws the same masks."""
+    named = list(module.named_parameters())
+    names, params = [n for n, _ in named], [p for _, p in named]
+
+    def run(*inputs):
+        kwargs = {} if make_kwargs is None else make_kwargs()
+        return torch.func.functional_call(module, dict(zip(names, inputs[len(args):])),
+                                          inputs[:len(args)], kwargs)
+
+    return checkpoint(run, *args, *params, use_reentrant=False, preserve_rng_state=False)
 
 
 def empty_param(*shape, device=None, dtype=None) -> nn.Parameter:

@@ -18,19 +18,18 @@ the layer runs, so the recompute draws the same masks.  The ``qkv`` and
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..core.config import EncoderConfig
 
 from ..ops.attention import multihead_attention
 from ..ops.quant import shared_input_linears
-from .components import LayerNorm, Linear, drop_path, dropout, empty_param, gelu
+from .components import (LayerNorm, Linear, checkpoint_module, drop_path, dropout, empty_param,
+                         gelu)
 
 MODALITIES = ("text", "image", "audio")
 
@@ -129,8 +128,6 @@ class EncoderLayer(nn.Module):
         self.audio_ffn = GeGLU(cfg, **kw) if cfg.use_audio_moe else None
         self.gamma_1 = empty_param(d, **kw) if cfg.use_layer_scale else None
         self.gamma_2 = empty_param(d, **kw) if cfg.use_layer_scale else None
-        # under remat these enter the checkpoint as inputs (see _run_layer)
-        self.param_names = [name for name, _ in self.named_parameters()]
 
     def forward(self, x, key_padding_mask, rel_bias, encoder_type: str,
                 split_lens: Tuple[int, int, int], drop_path_rate: float = 0.0,
@@ -156,23 +153,17 @@ class EncoderLayer(nn.Module):
 
 def _run_layer(layer: EncoderLayer, x, key_mask, bias, encoder_type, split_lens,
                rate: float, deterministic: bool, seed: Optional[int], remat: bool):
-    """One layer, its masks drawn from a generator seeded with ``seed``.
-    Under remat the layer's parameters enter ``checkpoint`` as inputs: the
-    recompute then sees the tensors the forward saw, also when they were
-    swapped in by ``torch.func.functional_call`` (the trainer's bf16
-    copies), which no longer holds when the backward pass runs."""
+    """One layer, its masks drawn from a generator seeded with ``seed``;
+    under remat through ``checkpoint_module``."""
 
-    def run(x, bias, *params):
-        gen = None if seed is None else torch.Generator(device=x.device).manual_seed(seed)
-        args = (x, key_mask, bias, encoder_type, split_lens, rate, deterministic, gen)
-        if not params:
-            return layer(*args)
-        return torch.func.functional_call(layer, dict(zip(layer.param_names, params)), args)
+    def kwargs():
+        return dict(generator=None if seed is None
+                    else torch.Generator(device=x.device).manual_seed(seed))
 
+    args = (x, key_mask, bias, encoder_type, split_lens, rate, deterministic)
     if not remat:
-        return run(x, bias)
-    params = [functools.reduce(getattr, name.split("."), layer) for name in layer.param_names]
-    return checkpoint(run, x, bias, *params, use_reentrant=False, preserve_rng_state=False)
+        return layer(*args, **kwargs())
+    return checkpoint_module(layer, *args, make_kwargs=kwargs)
 
 
 class FusionEncoder(nn.Module):

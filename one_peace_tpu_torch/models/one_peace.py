@@ -8,7 +8,8 @@ clamp of ``logit_scale_exp``.  ``AttentionPooling`` and ``ClassifyHead``
 are the classify model's head (``models/classify.py``): CLS or single-query
 attention pooling, an optional tanh pooler, an optional second image's
 features concatenated, then ``fc1 -> LN -> GELU -> fc2``.  The pretrain
-model is not ported yet.
+model (``models/pretrain.py``) runs two ``ModelWrapper``s, the encoder and
+the masked-denoising decoder.
 """
 
 from __future__ import annotations
@@ -74,17 +75,27 @@ class ModelWrapper(nn.Module):
                              if cfg.use_text_moe else None)
         self.image_adapter = (ImageAdapter(cfg.image_adapter, *args, **kw)
                               if cfg.use_image_moe else None)
-        self.audio_adapter = (AudioAdapter(cfg.audio_adapter, *args, **kw)
+        self.audio_adapter = (AudioAdapter(cfg.audio_adapter, *args,
+                                           remat=cfg.checkpoint_activations, **kw)
                               if cfg.use_audio_moe else None)
         self.fusion = FusionEncoder(cfg, use_text_norm, use_image_norm, use_audio_norm, **kw)
 
     def forward(
         self,
         src_tokens: Optional[torch.Tensor] = None,
+        text_preserve_ids: Optional[torch.Tensor] = None,
+        text_preserve_embed: Optional[torch.Tensor] = None,
+        text_mask_token: Optional[torch.Tensor] = None,
         src_images: Optional[torch.Tensor] = None,
+        image_preserve_ids: Optional[torch.Tensor] = None,
+        image_preserve_embed: Optional[torch.Tensor] = None,
+        image_mask_token: Optional[torch.Tensor] = None,
         is_second_image: bool = False,
         src_audios: Optional[torch.Tensor] = None,
         audio_padding_masks: Optional[torch.Tensor] = None,
+        audio_preserve_ids: Optional[torch.Tensor] = None,
+        audio_preserve_embed: Optional[torch.Tensor] = None,
+        audio_mask_token: Optional[torch.Tensor] = None,
         encoder_type: str = "text",
         deterministic: bool = True,
         return_padding_mask: bool = False,
@@ -93,18 +104,26 @@ class ModelWrapper(nn.Module):
         """Returns the per-modality features (None where absent), each
         (B, l_mod, D), and their padding masks when requested.  With
         ``deterministic=False`` the adapters' dropout and the encoder's
-        dropout, drop path and LayerDrop draw from ``generator``."""
+        dropout, drop path and LayerDrop draw from ``generator``.  The
+        ``*_preserve_ids`` / ``*_preserve_embed`` / ``*_mask_token`` of a
+        modality select its adapter's student or decoder pass (the pretrain
+        model's)."""
         if encoder_type not in ENCODER_TYPES:
             raise NotImplementedError(f"unknown encoder_type {encoder_type!r}")
         gens = split_generator(generator, 4)
         infos: List = [None, None, None]
         if encoder_type in ("text", "vl", "al", "val"):
-            infos[0] = self.text_adapter(src_tokens, deterministic, gens[0])
+            infos[0] = self.text_adapter(
+                src_tokens, text_preserve_ids, text_preserve_embed, text_mask_token,
+                deterministic=deterministic, generator=gens[0])
         if encoder_type in ("image", "vl", "val"):
-            infos[1] = self.image_adapter(src_images, is_second_image, deterministic, gens[1])
+            infos[1] = self.image_adapter(
+                src_images, image_preserve_ids, image_preserve_embed, image_mask_token,
+                is_second_image, deterministic=deterministic, generator=gens[1])
         if encoder_type in ("audio", "al", "val"):
-            infos[2] = self.audio_adapter(src_audios, audio_padding_masks, deterministic,
-                                          gens[2])
+            infos[2] = self.audio_adapter(
+                src_audios, audio_padding_masks, audio_preserve_ids, audio_preserve_embed,
+                audio_mask_token, deterministic=deterministic, generator=gens[2])
 
         present = [i for i in infos if i is not None]
         lens = [i[0].shape[1] for i in present]

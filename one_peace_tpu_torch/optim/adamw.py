@@ -37,8 +37,10 @@ def decay_mask(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, bo
 
 
 def layer_id_for_path(name: str, num_layers: int) -> Optional[int]:
-    """0 for the adapters, i + 1 for encoder layer i, num_layers + 1 for the
-    rest (final norms, heads, logit scale); None for an adapter's rel-pos
+    """0 for the adapters, i + 1 for encoder layer i (and for layer i of the
+    pretrain model's decoder, as the JAX package scales any stacked
+    ``fusion/layers``), num_layers + 1 for the rest (final norms, heads,
+    logit scale, the decoder's adapters); None for an adapter's rel-pos
     table, whose scale goes per table.  The detector (``OnePeaceDetector``)
     as detectron2's recipe: ``backbone.image_adapter`` 0, trunk layer i
     i + 1, everything else (the pyramid, the proposer, the heads and the
@@ -55,6 +57,8 @@ def layer_id_for_path(name: str, num_layers: int) -> Optional[int]:
         return None if "rel_pos_table" in p else 0
     if p.startswith("fusion.layers."):
         return int(p.split(".")[2]) + 1
+    if p.startswith("decoder_wrapper.fusion.layers."):
+        return int(p.split(".")[3]) + 1
     return num_layers + 1
 
 

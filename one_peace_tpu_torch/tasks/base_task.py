@@ -81,10 +81,15 @@ class BaseTask:
                             self.cfg.reader_separator)
         dataset_dir = os.path.dirname(os.path.abspath(
             spec.split(",")[0])) if spec else ""
-        self.datasets[split] = self.dataset_cls(
-            split, table, self.tokenizer, dataset_dir=dataset_dir,
-            **self.dataset_kwargs())
+        cls, kwargs = self.dataset_for(split)
+        self.datasets[split] = cls(split, table, self.tokenizer, dataset_dir=dataset_dir,
+                                   **kwargs)
         return self.datasets[split]
+
+    def dataset_for(self, split: str):
+        """(dataset class, constructor args) of ``split``; one class for
+        every split unless a task says otherwise."""
+        return self.dataset_cls, self.dataset_kwargs()
 
     def get_batch_iterator(self, split: str, batch_size: int, seed: int = 3407,
                            shard_id: int = 0, num_shards: int = 1,

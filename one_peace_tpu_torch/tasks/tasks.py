@@ -15,6 +15,12 @@ training batches (Mixup / CutMix, soft targets) in the iterator's collate
 when ``task.mixup`` or ``task.cutmix`` is set; its ``Mixup`` starts from
 seed 0 at every ``get_batch_iterator``, as the JAX task's does.
 
+The pretrain tasks (``image_text_pretrain``, ``audio_text_pretrain``) train
+on the masked pretrain datasets and validate as the retrieval tasks do, on
+the retrieval datasets (no masks) with ``Recall``; the pretrain model's
+teacher pass returns (logits, features), of which the flow takes the
+logits.
+
 ``coco_detection`` is registered (``vision_tasks.CocoDetectionTask``: COCO
 JSON, LSJ, box and mask AP).  Every other task of the JAX package raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
@@ -37,8 +43,6 @@ from .base_task import BaseTask
 from .vision_tasks import CocoDetectionTask
 
 UNPORTED = {
-    "image_text_pretrain": "ROADMAP queue 1 item 6 (pretrain)",
-    "audio_text_pretrain": "ROADMAP queue 1 item 6 (pretrain)",
     "nlvr2": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "fsd50k": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "aqa": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
@@ -74,8 +78,8 @@ class RetrievalTaskMixin:
             if self.cfg.use_template:
                 batch_texts = ["This is a sound of " + t for t in batch_texts]
             tokens = self.tokenizer.encode_batch(list(batch_texts))
-            logits_list.append(self.eval_model(model, params, {"src_tokens": tokens},
-                                               encoder_type="text"))
+            out = self.eval_model(model, params, {"src_tokens": tokens}, encoder_type="text")
+            logits_list.append(out[0] if isinstance(out, tuple) else out)
         self.metric.initialize(np.asarray(self.text_ids), logits_list)
 
     def valid_step(self, model, params, batch):
@@ -88,6 +92,8 @@ class RetrievalTaskMixin:
                 {"src_audios": batch["src_audios"],
                  "audio_padding_masks": batch["audio_padding_masks"]},
                 encoder_type="audio")
+        if isinstance(out, tuple):  # the pretrain model's (logits, features)
+            out = out[0]
         # the embeddings stay on the card; Recall fetches them all at merge
         self.metric.compute(np.asarray(batch["id"]), out)
 
@@ -129,6 +135,54 @@ class AudioTextRetrievalTask(RetrievalTaskMixin, BaseTask):
         return {"max_src_length": self.cfg.max_src_length,
                 "max_duration": self.cfg.max_duration,
                 "feature_encoder_spec": self.audio_conv_spec()}
+
+
+@TASKS.register("image_text_pretrain")
+class ImageTextPretrainTask(RetrievalTaskMixin, BaseTask):
+    """Stage-1 pretraining; validation is image-text retrieval's Recall
+    (ref tasks/pretrain_tasks/image_text_pretrain.py:52-136)."""
+
+    dataset_cls = D.ImageTextPretrainDataset
+    criterion_name = "image_text_pretrain_loss"
+    side = "image"
+
+    def __init__(self, cfg, framework_cfg=None):
+        super().__init__(cfg, framework_cfg)
+        self.metric = Recall()
+
+    def dataset_for(self, split: str):
+        c = self.cfg
+        if split != "train":
+            return D.ImageTextRetrievalDataset, {"max_src_length": c.max_src_length,
+                                                 "patch_image_size": c.patch_image_size}
+        return self.dataset_cls, {
+            "max_src_length": c.max_src_length, "patch_image_size": c.patch_image_size,
+            "text_mask_ratio": c.text_mask_ratio, "image_mask_ratio": c.image_mask_ratio,
+            "vl_text_mask_ratio": c.vl_text_mask_ratio,
+            "vl_image_mask_ratio": c.vl_image_mask_ratio, "min_scale": c.min_scale}
+
+
+@TASKS.register("audio_text_pretrain")
+class AudioTextPretrainTask(RetrievalTaskMixin, BaseTask):
+    """Stage-2 pretraining; validation is audio-text retrieval's Recall."""
+
+    dataset_cls = D.AudioTextPretrainDataset
+    criterion_name = "audio_text_pretrain_loss"
+    side = "audio"
+
+    def __init__(self, cfg, framework_cfg=None):
+        super().__init__(cfg, framework_cfg)
+        self.metric = Recall()
+
+    def dataset_for(self, split: str):
+        c = self.cfg
+        kwargs = {"max_src_length": c.max_src_length, "max_duration": c.max_duration,
+                  "feature_encoder_spec": self.audio_conv_spec()}
+        if split != "train":
+            return D.AudioTextRetrievalDataset, kwargs
+        return self.dataset_cls, {**kwargs, "audio_mask_ratio": c.audio_mask_ratio,
+                                  "al_text_mask_ratio": c.al_text_mask_ratio,
+                                  "al_audio_mask_ratio": c.al_audio_mask_ratio}
 
 
 class ClassifyTaskBase(BaseTask):

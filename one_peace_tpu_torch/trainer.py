@@ -20,10 +20,18 @@ What the JAX ``Trainer`` does inside one jitted step, in the same order:
   ``micro`` counts ``train_step`` calls;
 - a criterion whose ``__call__`` takes ``num_updates`` gets the count of
   updates before this micro-step (``micro // update_freq``), which drives
-  the classify model's ``freeze_finetune_updates``.
+  the classify model's ``freeze_finetune_updates``;
+- a model's ``trainable_mask()`` (stage-2 pretraining) freezes parameters:
+  the JAX ``Trainer`` gives them ``optax.set_to_zero`` updates, so that
+  clipping and weight decay see only the trainable ones.  Here a frozen
+  parameter takes no gradient at all (``requires_grad`` is off, so its
+  weight-gradient GEMMs are never run) and stays out of AdamW, the clip
+  and the accumulation; it keeps its compute-dtype copy.  ``gnorm`` is
+  logged over the trainable gradients, where the JAX ``Trainer`` logs it
+  over every gradient, frozen ones included (ROADMAP section 3).
 
-The fp16 loss scaler, the EMA, Adan, ``trainable_mask`` and ``valid_step``
-are not ported yet; a config that asks for the first three raises.
+The fp16 loss scaler, the EMA, Adan and ``valid_step`` are not ported yet;
+a config that asks for the first three raises.
 Everything runs on the device of the model's parameters.
 """
 
@@ -76,14 +84,16 @@ class Trainer:
         self.model = model
         self.criterion = criterion
         self.compute_dtype = torch.bfloat16 if cfg.common.bf16 else torch.float32
-        self._names, self._params = [], []
+        trainable = model.trainable_mask() if hasattr(model, "trainable_mask") else {}
+        self._names, self._params = [], []  # the trainable masters
         for name, p in model.named_parameters():
             if p.dtype != torch.float32:
                 raise TypeError(f"master parameter {name} is {p.dtype}, not float32")
-            p.requires_grad_(True)
-            self._names.append(name)
-            self._params.append(p)
-        self.device = self._params[0].device
+            p.requires_grad_(trainable.get(name, True))
+            if p.requires_grad:
+                self._names.append(name)
+                self._params.append(p)
+        self.device = next(model.parameters()).device
 
         total = total_updates or cfg.optimization.max_update or 100000
         self.lr_schedule = build_lr_schedule(cfg.lr_scheduler, cfg.optimization, total)
@@ -105,15 +115,16 @@ class Trainer:
         """The parameters in the compute dtype (the masters themselves in
         fp32), named for ``functional_call`` on the criterion's module, or
         on the model itself with ``prefix=""``."""
+        named = self.model.named_parameters()
         if self.compute_dtype == torch.float32:
-            return {f"{prefix}{n}": p for n, p in zip(self._names, self._params)}
-        return {f"{prefix}{n}": p.to(self.compute_dtype)
-                for n, p in zip(self._names, self._params)}
+            return {f"{prefix}{n}": p for n, p in named}
+        return {f"{prefix}{n}": p.to(self.compute_dtype) for n, p in named}
 
     def gradients(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
-        """(metrics, fp32 gradients of the master parameters) of the loss on
-        ``batch`` (numpy arrays or tensors, as the data pipeline collates
-        them), computed on the compute-dtype copies; nothing is updated."""
+        """(metrics, fp32 gradients of the trainable master parameters, in
+        the order of ``_names``) of the loss on ``batch`` (numpy arrays or
+        tensors, as the data pipeline collates them), computed on the
+        compute-dtype copies; nothing is updated."""
         batch = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
                  .to(self.device) for k, v in batch.items()}
         loss, metrics = torch.func.functional_call(
@@ -176,7 +187,7 @@ class Trainer:
         Every tensor is copied to the CPU on its own, so the copy takes no
         device memory and shares no storage with the live state."""
         return {
-            "params": {n: _host(p) for n, p in zip(self._names, self._params)},
+            "params": {n: _host(p) for n, p in self.model.named_parameters()},
             "opt_state": _walk(self.optimizer.state_dict(), _host),
             "acc": None if self._acc is None else [_host(a) for a in self._acc],
             "mini": self._mini,
@@ -191,7 +202,7 @@ class Trainer:
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Restore a ``state_dict`` bundle; its tensors are copied to the
         parameters' device, and the bundle stays unchanged by later steps."""
-        for n, p in zip(self._names, self._params):
+        for n, p in self.model.named_parameters():
             p.copy_(state["params"][n])
         opt = state["opt_state"]
         # the moments go to the device; AdamW's step counts stay host tensors

@@ -6,7 +6,9 @@ N(0, 0.02^2) within one sigma; the projection heads and the audio
 post-extract projection Xavier-uniform; the classify head as
 ``ClassifyHead.init`` and ``init_attention_pooling`` draw it (its dense
 layers Xavier-uniform through ``init_linear``, the attention pooling's
-``k_proj`` and query truncated N(0, 0.02^2)); the hMLP stem and the audio
+``k_proj`` and query truncated N(0, 0.02^2)); the pretrain model's
+``decoder_*_embed`` and ``*_mask_head`` Xavier-uniform and its mask tokens
+truncated N(0, 0.02^2); the hMLP stem and the audio
 positional convs PyTorch's conv default (uniform, bound sqrt(3 / fan_in));
 the audio feature convs He-normal; LayerNorms one and zero; biases zero
 except the convs'; ``logit_scale`` ln(1 / 0.07).  Two values differ, as in
@@ -36,7 +38,9 @@ from ..models.components import Conv, LayerNorm, Linear
 
 LAYER_SCALE = 0.1
 REL_POS_STD = 0.05
-XAVIER_LINEARS = ("text_proj", "image_proj", "audio_proj", "post_extract_proj")
+XAVIER_LINEARS = ("text_proj", "image_proj", "audio_proj", "post_extract_proj") + tuple(
+    head for mod in ("text", "image", "audio")
+    for head in (f"decoder_{mod}_embed", f"{mod}_mask_head"))
 
 
 @torch.no_grad()
@@ -79,7 +83,8 @@ def fill_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, p in model.named_parameters(recurse=True):
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("embed_tokens", "embed_positions", "cls_embedding", "pos_embed",
-                    "cls_pos_embed", "mask_embedding") or name.endswith("attn_pooling.q"):
+                    "cls_pos_embed", "mask_embedding") or name.endswith(
+                        ("attn_pooling.q", "_mask_token")):
             draw(p, "trunc", 0.02)
         elif leaf in ("type_embedding", "type_embedding_2"):
             p.zero_()
@@ -93,9 +98,10 @@ def fill_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.fill_(1.0)
         elif leaf == "logit_scale":
             p.fill_(math.log(1 / 0.07))
-    text = getattr(getattr(model, "encoder_wrapper", None), "text_adapter", None)
-    if text is not None:
-        text.embed_tokens[text.cfg.padding_idx] = 0
+    for wrapper in ("encoder_wrapper", "decoder_wrapper"):
+        text = getattr(getattr(model, wrapper, None), "text_adapter", None)
+        if text is not None:
+            text.embed_tokens[text.cfg.padding_idx] = 0
     return model
 
 

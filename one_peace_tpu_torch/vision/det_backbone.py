@@ -31,17 +31,15 @@ stride-2 subsample of p32 as p64.  Everything is NHWC, as in the JAX package.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..models.adapters.image import HMLP
-from ..models.components import (Conv, LayerNorm, Linear, conv2d, conv_transpose2d, drop_path,
-                                 empty_param, gelu, max_pool)
+from ..models.components import (Conv, LayerNorm, Linear, checkpoint_module, conv2d,
+                                 conv_transpose2d, drop_path, empty_param, gelu, max_pool)
 from ..models.rel_pos import make_image_bucket_position
 from ..ops.det_attention import det_flash_attention, interpolate_rel_table, toeplitz_tables
 
@@ -222,8 +220,6 @@ class DetLayer(nn.Module):
         self.image_ffn = DetFFN(d, f, **kw)
         self.gamma_1 = empty_param(d, **kw)
         self.gamma_2 = empty_param(d, **kw)
-        # under remat these enter the checkpoint as inputs (see _run_layer)
-        self.param_names = [name for name, _ in self.named_parameters()]
 
     def forward(self, x: torch.Tensor, shared_bias, toep, window_size: int, use_kernel: bool,
                 drop_path_rate: float = 0.0, deterministic: bool = True,
@@ -241,23 +237,16 @@ class DetLayer(nn.Module):
 
 
 def _run_layer(layer: DetLayer, x, bias, toep, static: dict, seed: Optional[int], remat: bool):
-    """One layer, its masks drawn from a generator seeded with ``seed``.
-    Under remat the layer's parameters enter ``checkpoint`` as inputs, so the
-    recompute sees the tensors the forward saw, also when they were swapped
-    in by ``torch.func.functional_call`` (the trainer's bf16 copies)."""
+    """One layer, its masks drawn from a generator seeded with ``seed``;
+    under remat through ``checkpoint_module``."""
 
-    def run(x, bias, toep, *params):
-        gen = None if seed is None else torch.Generator(device=x.device).manual_seed(seed)
-        args, kwargs = (x, bias, toep), dict(static, generator=gen)
-        if not params:
-            return layer(*args, **kwargs)
-        return torch.func.functional_call(layer, dict(zip(layer.param_names, params)), args,
-                                          kwargs)
+    def kwargs():
+        return dict(static, generator=None if seed is None
+                    else torch.Generator(device=x.device).manual_seed(seed))
 
     if not remat:
-        return run(x, bias, toep)
-    params = [functools.reduce(getattr, name.split("."), layer) for name in layer.param_names]
-    return checkpoint(run, x, bias, toep, *params, use_reentrant=False, preserve_rng_state=False)
+        return layer(x, bias, toep, **kwargs())
+    return checkpoint_module(layer, x, bias, toep, make_kwargs=kwargs)
 
 
 class DetBackbone(nn.Module):

@@ -171,12 +171,31 @@ def test_unported_classify_tasks_raise(name, corpus):
         build_task(TaskConfig(_name=name, bpe_dir=corpus["bpe"]))
 
 
-def test_pretrain_model_raises(corpus):
+def _pretrain_model(corpus):
     cfg = load_config(str(CLASSIFY_RECIPES["image_classify"]),
                       ["model._name=one_peace_pretrain", f"task.bpe_dir={corpus['bpe']}"])
     task = build_task(cfg.task, cfg)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train.build_model_for_task(cfg, task, "cpu")
+    return cfg, train.build_model_for_task(cfg, task, "meta")
+
+
+def test_pretrain_model_builds(corpus):
+    """``one_peace_pretrain`` builds (here on the meta device, at the
+    recipe's size) with the 768-d decoder."""
+    from one_peace_tpu_torch.models.pretrain import OnePeacePretrainModel
+
+    _, model = _pretrain_model(corpus)
+    assert isinstance(model, OnePeacePretrainModel)
+    assert model.decoder_wrapper.cfg.embed_dim == 768
+
+
+def test_pretrain_model_raises(corpus, tmp_path):
+    """The pretrain model restores only from a ``.npz`` export: a fairseq
+    ``.pt`` raises, since the JAX package has no conversion for it."""
+    cfg, model = _pretrain_model(corpus)
+    path = tmp_path / "one-peace.pt"
+    path.write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="npz export"):
+        train.load_weights(cfg, model, "cpu", str(path))
 
 
 def test_layer_decay_refused_for_per_layer_tables(runs):

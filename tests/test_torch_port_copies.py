@@ -2,9 +2,11 @@
 package's JAX-free host modules stay equal to the originals: the config
 dataclasses and ``load_config``, the BPE tokenizer, the FLAC reader, the
 interpolation matrices, the fairseq conversion rules (the classify model's
-among them), and the classification data path's verbatim copies (Mixup,
+among them), the classification data path's verbatim copies (Mixup,
 RandAugment, the VQA, VGGSound and image-classify datasets), whose
-behaviour ``tests/test_torch_port_classify_data.py`` also holds equal."""
+behaviour ``tests/test_torch_port_classify_data.py`` also holds equal, and
+the pretrain data path's (the masking helpers and both pretrain datasets),
+whose behaviour ``tests/test_torch_port_pretrain_data.py`` holds equal."""
 
 import dataclasses
 import inspect
@@ -23,6 +25,7 @@ from torch_fixture import make_random_state_dict
 from one_peace_tpu.core import config as jax_config
 from one_peace_tpu.data import datasets as jax_datasets
 from one_peace_tpu.data import flac as jax_flac
+from one_peace_tpu.data import masking as jax_masking
 from one_peace_tpu.data import mixup as jax_mixup
 from one_peace_tpu.data import randaugment as jax_randaugment
 from one_peace_tpu.data import tokenizer as jax_tokenizer
@@ -31,6 +34,7 @@ from one_peace_tpu.utils import interpolate as jax_interpolate
 from one_peace_tpu_torch.core import config as port_config
 from one_peace_tpu_torch.data import datasets as port_datasets
 from one_peace_tpu_torch.data import flac as port_flac
+from one_peace_tpu_torch.data import masking as port_masking
 from one_peace_tpu_torch.data import mixup as port_mixup
 from one_peace_tpu_torch.data import randaugment as port_randaugment
 from one_peace_tpu_torch.data import tokenizer as port_tokenizer
@@ -55,7 +59,9 @@ def test_port_imports_nothing_of_the_jax_package():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'one_peace_tpu' or m.startswith('one_peace_tpu.'))\n"
-        "print(len(names), bad, 'one_peace_tpu_torch.models.classify' in names)\n"
+        "print(len(names), bad, 'one_peace_tpu_torch.models.classify' in names,\n"
+        "      'one_peace_tpu_torch.models.pretrain' in names,\n"
+        "      'one_peace_tpu_torch.data.masking' in names)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
@@ -63,10 +69,11 @@ def test_port_imports_nothing_of_the_jax_package():
     count = int(proc.stdout.split()[0])
     # every module was walked: the vision slice's, the data, task, metric,
     # checkpoint and CLI modules of the retrieval fine-tuning slice, the
-    # COCO dataset and mask paste of detection from data, and the classify
-    # model with the Mixup and RandAugment copies
-    assert count >= 68, proc.stdout
-    assert proc.stdout.split()[-1] == "True", proc.stdout
+    # COCO dataset and mask paste of detection from data, the classify
+    # model with the Mixup and RandAugment copies, and the pretrain model
+    # with the masking copy
+    assert count >= 70, proc.stdout
+    assert proc.stdout.split()[-3:] == ["True"] * 3, proc.stdout
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)
@@ -169,13 +176,19 @@ VERBATIM_COPIES = [
     (port_randaugment, jax_randaugment, "RandomDistortion"),
     (port_randaugment, jax_randaugment, "GaussianBlur"),
     (port_datasets, jax_datasets, "VqaDataset"), (port_datasets, jax_datasets, "VggsoundDataset"),
-    (port_datasets, jax_datasets, "ImageClassifyDataset")]
+    (port_datasets, jax_datasets, "ImageClassifyDataset"),
+    (port_datasets, jax_datasets, "ImageTextPretrainDataset"),
+    (port_datasets, jax_datasets, "AudioTextPretrainDataset")] + [
+    (port_masking, jax_masking, name) for name in (
+        "whole_word_starts", "add_whole_word_mask", "nested_subset_mask", "random_patch_mask",
+        "superset_patch_mask", "compute_block_mask_1d", "to_preserve_ids", "with_cls")]
 
 
 @pytest.mark.parametrize("port,original,name", VERBATIM_COPIES,
                          ids=[f"{o.__name__.rsplit('.', 1)[-1]}.{n}" for _, o, n in VERBATIM_COPIES])
 def test_verbatim_copies_equal(port, original, name):
-    """The classification data path's copies keep the original's source."""
+    """The classification and pretrain data paths' copies keep the
+    original's source."""
     assert inspect.getsource(getattr(port, name)) == inspect.getsource(getattr(original, name))
 
 

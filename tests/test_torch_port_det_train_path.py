@@ -219,8 +219,12 @@ def test_trainer_steps_lower_the_loss(proposer):
 def test_entry_points_default_to_the_card():
     """Every public entry point builds on cuda unless the caller asks for
     another device."""
+    from one_peace_tpu_torch.cli.train import build_model_for_task
+    from one_peace_tpu_torch.models.pretrain import OnePeacePretrainModel
+
     for fn in (OnePeaceRetrievalModel.__init__, OnePeaceDetector.__init__, hub.from_pretrained,
-               CocoDetectionTask.build_model):
+               CocoDetectionTask.build_model, OnePeacePretrainModel.__init__,
+               build_model_for_task):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
     seen = {}

@@ -161,6 +161,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    per update, pairs or clips per second, MFU, peak memory, the launches
    per update, one profiled update each (``pretrain_{vl,al}_profile.txt``:
    the idle share and the per-sample bias gathers' index backward).
+17. segmentation serving: (a) first, #1 alone at the 896 px trunk's shape
+   (L = 3137, B=1 and 8, 24 heads, one shared fp32 (H, L, L) bias, no key
+   bias; two walks, the last key tile holding one key) against its plain
+   version with phase 3's bounds, bf16 and fp32, then in turns with SDPA;
+   then, the launches counted from 0: (b) the UperNet and the recipe's
+   Mask2Former segmenters at full width and depth 4, 896 px, B=2, kernel
+   path against plain path in fp32 (cosine per image >= 1-1e-6) and bf16
+   (>= 0.999) on the pyramid and the class scores, the share of flipped
+   mask-attention keys, 4 launches per forward; (c) the Mask2Former recipe
+   at depth 40 through ``load_config`` and ``Ade20kSegTask.build_model`` in
+   bf16: kernel path against plain path, 40 launches per forward, images/s
+   of ``logits`` at B = 1, 2 and 8, peak memory, one profiled forward
+   (``seg_profile.txt``: the idle share); (d) a synthetic ADE20K tree and a
+   depth-4 fairseq ``.pt`` under ``build/smoke_ade/``, ``cli.evaluate`` under
+   the whole, slide and ms_flip protocols, the whole one's mIoU equal to a
+   direct ``valid_step`` loop.
 
 Every timed kernel also prints its bound: the larger of its bytes over the
 HBM rate and its operations over the peak rate (NVIDIA's data sheet).  The
@@ -3501,6 +3517,375 @@ def time_pretrain_attention(card: str) -> tuple:
     return time_attention_cases("16(a)", PRETRAIN_ATTENTION, card, 166, pretrain_key_bias)
 
 
+ADE_DIR = ROOT / "build" / "smoke_ade"
+ADE_SIZES = ((683, 512), (512, 683), (1024, 436), (371, 500))  # (width, height)
+
+
+def write_ade_corpus(root: Path, n_train: int, n_valid: int, sizes=ADE_SIZES,
+                     num_classes: int = 150, seed: int = 17) -> dict:
+    """Phase 17(d): a synthetic ADE20K tree under ``root`` in mmseg's layout
+    (``images/{training,validation}/*.jpg``, ``annotations/.../*.png``),
+    images at ``sizes`` in turn, the valid split going on where the train
+    split stopped.  Each label map holds regions of raw ADE
+    classes 1..``num_classes`` (a coarse random grid, nearest-upsampled, with
+    each region's colour in the image), a band of label 0 (ignored after
+    ``reduce_zero_label``) and a patch of 255 (ignored as it is).  Returns
+    the ``task.data`` / ``task.valid_data`` specs ("images:annotations")."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    palette = rng.randint(0, 255, (256, 3))  # a colour for every raw label
+    specs, count = {}, 0
+    for split, folder, n in (("train", "training", n_train), ("valid", "validation", n_valid)):
+        img_dir, ann_dir = root / "images" / folder, root / "annotations" / folder
+        img_dir.mkdir(parents=True, exist_ok=True)
+        ann_dir.mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            w, h = sizes[count % len(sizes)]
+            count += 1
+            grid = rng.randint(1, num_classes + 1, (rng.randint(2, 6), rng.randint(2, 6)))
+            ys = np.arange(h) * grid.shape[0] // h
+            xs = np.arange(w) * grid.shape[1] // w
+            label = grid[ys[:, None], xs[None, :]].astype(np.uint8)
+            label[: max(1, h // 10)] = 0
+            label[h // 2:h // 2 + max(1, h // 8), w // 3:w // 3 + max(1, w // 8)] = 255
+            img = palette[label].astype(np.int64) + rng.randint(-20, 21, (h, w, 3))
+            name = f"ADE_{split}_{i:08d}"
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(img_dir / f"{name}.jpg")
+            Image.fromarray(label).save(ann_dir / f"{name}.png")
+        specs[split] = f"{img_dir}:{ann_dir}"
+    return specs
+
+
+SEG_RECIPE = ROOT / "recipes" / "segmentation" / "mask2former_896.yaml"
+SEG_PX, SEG_HEADS = 896, 24
+SEG_L = (SEG_PX // 16) ** 2 + 1  # 3137 trunk tokens at 896 px
+
+
+def seg_encoder(layers: int):
+    """The 4B encoder (d 1536, FFN 6144, 24 heads) at ``layers``, its image
+    grids at 896 px (56 x 56)."""
+    enc = ModelConfig().encoder
+    enc.layers = layers
+    enc.image_adapter.bucket_size = enc.image_adapter.rel_bucket_size = SEG_PX // 16
+    return enc
+
+
+def time_seg_attention(card: str) -> tuple:
+    """Phase 17(a): #1 alone at the segmentation trunk's shape (L = 3137,
+    24 heads of 64, one shared fp32 (H, L, L) bias, no key bias) at B=1 and
+    8: bf16 and fp32 against the plain version with phase 3's bounds
+    (forward only), the plan's branch, then bf16 times in turns with SDPA on
+    the additive mask, beside the bound and the plain version.  Returns the
+    largest max |diff| and the timed rows by shape."""
+    gen = torch.Generator(device="cuda").manual_seed(177)
+    heads, l = SEG_HEADS, SEG_L
+    plan = fa.tile_plan(l)
+    bias = torch.randn(heads, l, l, generator=gen, device="cuda")
+    worst, rows = 0.0, {}
+    for b in (1, 8):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(b, l, heads * 64, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            got = fa.flash_attention_cuda(q, k, v, bias, None, 0.125, heads).float()
+            want = fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, None, 0.125,
+                                            heads)
+            err = (got - want).abs()
+            mx, mean = err.max().item(), err.mean().item()
+            worst = max(worst, mx)
+            log(f"17(a) kernel vs plain {str(dtype)[6:]} B={b} L={l} H={heads} shared bias, no "
+                f"key bias: max|d| {mx:.3e} mean|d| {mean:.3e}; plan "
+                f"{FWD_BRANCHES[plan.resident]}, {plan.n_tiles} key tiles, the last "
+                f"{plan.tail} wide holding {l - fa.TILE * (plan.n_tiles - 1)} key(s)")
+            if not torch.isfinite(got).all():
+                raise RuntimeError("17(a): kernel output is not finite")
+            if dtype == torch.bfloat16 and (mx > BF16_MAX_ERR or mean > BF16_MEAN_ERR):
+                raise RuntimeError(f"17(a) bf16 B={b}: the kernel disagrees: max {mx} mean {mean}")
+            if dtype == torch.float32 and mx > FP32_MAX_ERR:
+                raise RuntimeError(f"17(a) fp32 B={b}: the kernel disagrees: max {mx}")
+            del got, want, err
+            if dtype == torch.bfloat16:
+                args = (q, k, v, bias, None, 0.125, heads)
+                q4, k4, v4 = (x.view(b, l, heads, 64).transpose(1, 2) for x in (q, k, v))
+                mask = sdpa_mask(bias, None, b)
+                t = in_turns({"kernel": lambda: fa.flash_attention_cuda(*args),
+                              "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                                  q4, k4, v4, attn_mask=mask, scale=0.125)}, iters=5)
+                plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(*args), iters=2,
+                                        warmup=1)
+                bound = bound_ms(4 * q.numel() * 2 + bias.numel() * 4, 4 * b * heads * l * l * 64,
+                                 H100_BF16_PEAK_TFLOPS * 1e12)
+                log(f"17(a) attention forward per layer B={b} L={l} H={heads} shared bias bf16: "
+                    f"kernel {t['kernel']:.4f} ms, {t['kernel'] / t['sdpa']:.3f}x SDPA with the "
+                    f"additive mask {t['sdpa']:.4f} ms (in turns); plain {plain_ms:.3f} ms; bound "
+                    f"{bound[0]:.4f} ms by {bound[1]} ({card})")
+                rows[f"L={l} B={b} segmentation trunk, 896 px"] = {
+                    "ms": t["kernel"], "plain_ms": plain_ms, "library_ms": t["sdpa"],
+                    "bound_ms": bound[0], "bound_by": bound[1]}
+                del q4, k4, v4, mask
+            del q, k, v
+            torch.cuda.empty_cache()
+    del bias
+    torch.cuda.empty_cache()
+    return worst, rows
+
+
+@contextlib.contextmanager
+def recorded_seg_launches():
+    """Observe #1's launches (the wrapper itself counts them): each one's
+    length, whether it had a key bias and its bias's shape."""
+    seen, kernel = [], fa.flash_attention_cuda
+
+    def recording(q, k, v, rel_bias, key_bias, *args, **kwargs):
+        seen.append((q.shape[1], key_bias is None,
+                     None if rel_bias is None else tuple(rel_bias.shape)))
+        return kernel(q, k, v, rel_bias, key_bias, *args, **kwargs)
+
+    fa.flash_attention_cuda = recording
+    try:
+        yield seen
+    finally:
+        fa.flash_attention_cuda = kernel
+
+
+def seg_outputs(model, images) -> tuple:
+    """The pyramid and the class scores of ``model.logits`` (fp32), and for
+    Mask2Former each round's blocked keys (``blocked_keys`` of its masks at
+    the level the next round attends)."""
+    from one_peace_tpu_torch.vision.mask2former import blocked_keys, semantic_inference
+
+    with torch.no_grad():
+        feats = model.backbone(images)
+        blocked = []
+        if model.is_mask2former:
+            all_cls, all_masks = model.head(feats)
+            scores = semantic_inference(all_cls[-1], all_masks[-1])
+            shapes = [tuple(f.shape[1:3]) for f in (feats[3], feats[2], feats[1])]
+            blocked = [blocked_keys(all_masks[j], shapes[j % 3])
+                       for j in range(all_masks.shape[0] - 1)]
+            del all_cls, all_masks
+        else:
+            scores = model.head(feats)
+    outs = {f"f{4 << i}": f.float() for i, f in enumerate(feats)}
+    outs["scores"] = scores.float()
+    return outs, blocked
+
+
+def compare_seg_paths(model, images, tag: str, min_cos: float) -> dict:
+    """The kernel path against the plain path on the same weights and
+    images: each output's cosine per image, the share of mask-attention keys
+    whose blocked state flips, and #1's launches per kernel-path forward (one
+    per trunk layer, L = 3137, no key bias, the layer's (H, L, L) table)."""
+    b, layers = images.shape[0], model.backbone.cfg.layers
+    outs, blocked = {}, {}
+    for impl in ("pallas", "xla"):
+        model.backbone.cfg.attn_impl = impl
+        with recorded_seg_launches() as seen:
+            outs[impl], blocked[impl] = seg_outputs(model, images)
+            torch.cuda.synchronize()
+        want = [(SEG_L, True, (SEG_HEADS, SEG_L, SEG_L))] * layers if impl == "pallas" else []
+        if seen != want:
+            raise RuntimeError(f"{tag} {impl}: #1 launches {seen[:3]}... ({len(seen)}), "
+                               f"not {layers} at L={SEG_L} without a key bias")
+        if not all(torch.isfinite(x).all() for x in outs[impl].values()):
+            raise RuntimeError(f"{tag} {impl}: non-finite output")
+    model.backbone.cfg.attn_impl = "pallas"
+    cos = {key: min_cosine(outs["pallas"][key].reshape(b, -1), outs["xla"][key].reshape(b, -1))
+           for key in outs["pallas"]}
+    flipped = total = 0
+    for x, y in zip(blocked["pallas"], blocked["xla"]):
+        flipped += int((x != y).sum())
+        total += x.numel()
+    share = flipped / total if total else float("nan")
+    log(f"{tag}: kernel vs plain path, cosine per image (min over {b}): "
+        + ", ".join(f"{k} {v:.7f}" for k, v in cos.items())
+        + (f"; mask-attention keys flipped {flipped} of {total} ({100 * share:.4f}%)"
+           if total else "") + f"; {layers} launches of #1 per forward")
+    if min(cos.values()) < min_cos:
+        raise RuntimeError(f"{tag}: the kernel path disagrees with the plain path: {cos}")
+    return {"cos": cos, "flipped": share}
+
+
+def check_segmenters(card: str) -> None:
+    """Phase 17(b): both segmenters at full width (d 1536, 24 heads) and
+    depth 4, 896 px, 150 classes, on seeded random weights: UperNet and the
+    recipe's Mask2Former (feat 1024, 200 queries, 9 decoder and 6 pixel
+    layers), the kernel path against the plain path in fp32 (cosine per image
+    >= 1-1e-6) and bf16 (>= 0.999) on the pyramid and the class scores, with
+    the share of flipped mask-attention keys."""
+    from one_peace_tpu_torch.vision.zoo import (OnePeaceMask2FormerSegmenter,
+                                                 OnePeaceSegmenter)
+
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    images = torch.randn(2, 3, SEG_PX, SEG_PX, generator=gen, device="cuda")
+    builds = {"UperNet": lambda: OnePeaceSegmenter(seg_encoder(4), device="cuda"),
+              "Mask2Former": lambda: OnePeaceMask2FormerSegmenter(
+                  seg_encoder(4), feat_channels=1024, num_queries=200, dec_layers=9,
+                  pixel_layers=6, device="cuda")}
+    for name, build_model in builds.items():
+        t0 = time.time()
+        model = fill_random_(build_model(), torch.Generator(device="cuda").manual_seed(172)).eval()
+        log(f"17(b) {name} segmenter, depth 4: "
+            f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B parameters "
+            f"({time.time() - t0:.1f} s to build and fill)")
+        for dtype, bound in ((torch.float32, 1 - 1e-6), (torch.bfloat16, 0.999)):
+            model.to(dtype)
+            compare_seg_paths(model, images, f"17(b) {name} {str(dtype)[6:]} B=2", bound)
+        del model
+        torch.cuda.empty_cache()
+
+
+def seg_images_per_second(model, b: int, gen, card: str):
+    """``model.logits`` at batch ``b`` in bf16: the median ms of 3 calls
+    after one warm-up (host clock, synchronised), images per second and the
+    peak memory; None if the batch does not fit."""
+    try:
+        images = torch.randn(b, 3, SEG_PX, SEG_PX, generator=gen, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        with torch.no_grad():
+            for i in range(4):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                model.logits(images)
+                torch.cuda.synchronize()
+                if i:
+                    times.append(1e3 * (time.time() - t0))
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        log(f"17(c) B={b} does not fit in the card's memory")
+        return None
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"17(c) Mask2Former depth 40 bf16 logits B={b}: {ms:.1f} ms per call "
+        f"({min(times):.1f}-{max(times):.1f}), {1e3 * b / ms:.2f} images/s, peak "
+        f"{peak:.1f} GiB ({card})")
+    return {"b": b, "ms": ms, "images": images, "peak": peak}
+
+
+def serve_seg_full_depth(card: str) -> None:
+    """Phase 17(c): the Mask2Former recipe at depth 40 through
+    ``load_config`` and ``Ade20kSegTask.build_model`` in bf16 on seeded
+    random weights: the kernel path against the plain path (as 17(b)), 40
+    launches of #1 per forward, images per second of ``logits`` at B = 1, 2
+    and 8 (each that fits), its peak memory, and one profiled forward at the
+    largest (``chiprun_out/seg_profile.txt``: the device's idle share)."""
+    from one_peace_tpu_torch.tasks.vision_tasks import Ade20kSegTask
+
+    cfg = load_config(str(SEG_RECIPE), [])
+    t0 = time.time()
+    model = Ade20kSegTask.build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    fill_random_(model, torch.Generator(device="cuda").manual_seed(173)).eval()
+    log(f"17(c) the recipe's Mask2Former segmenter, depth {cfg.model.encoder.layers}: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B parameters "
+        f"({time.time() - t0:.1f} s to build and fill)")
+    gen = torch.Generator(device="cuda").manual_seed(174)
+    images = torch.randn(1, 3, SEG_PX, SEG_PX, generator=gen, device="cuda")
+    compare_seg_paths(model, images, "17(c) Mask2Former depth 40 bf16 B=1", 0.999)
+    del images
+    torch.cuda.empty_cache()
+    best = None
+    for b in (1, 2, 8):
+        run = seg_images_per_second(model, b, gen, card)
+        if run is not None:
+            if best is not None:
+                del best["images"]
+            best = run
+        torch.cuda.empty_cache()
+    if best is None:
+        raise RuntimeError("17(c): no batch fits")
+    profile_call(lambda: model.logits(best["images"]), best["ms"], f"17(c) B={best['b']}",
+                 "seg_profile.txt")
+    del model, best
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def recorded_miou():
+    """Observe each ``MIoU.merge_results``: its per-class intersection and
+    union counts at the call."""
+    from one_peace_tpu_torch.metrics.metrics import MIoU
+
+    seen, merge = [], MIoU.merge_results
+
+    def recording(self):
+        seen.append((self.intersection.copy(), self.union.copy()))
+        return merge(self)
+
+    MIoU.merge_results = recording
+    try:
+        yield seen
+    finally:
+        MIoU.merge_results = merge
+
+
+def check_seg_cli(card: str, layers: int = 4) -> None:
+    """Phase 17(d): a synthetic ADE20K tree under ``build/smoke_ade/``, a
+    fairseq ``.pt`` of the 4B encoder at ``layers`` from
+    ``make_random_state_dict`` (16 x 16 pretrain tables), and ``cli.evaluate``
+    on the Mask2Former recipe at ``layers`` from it under the whole, slide and
+    ms_flip protocols; the whole protocol's mIoU must equal a direct
+    ``valid_step`` loop on the same weights to 1e-6, and its per-class
+    intersection and union counts must be the same (random weights may give
+    an mIoU of 0)."""
+    from one_peace_tpu_torch.cli import evaluate as port_evaluate
+    from one_peace_tpu_torch.cli.train import load_weights
+    from one_peace_tpu_torch.tasks import build_task
+
+    t0 = time.time()
+    specs = write_ade_corpus(ADE_DIR, 2, 2)
+    mcfg = ModelConfig(head_type="val")
+    mcfg.encoder.layers = layers
+    # the segmenter reads the image adapter and the layers' attention and
+    # image FFNs only: the text and audio adapters are drawn small, and they
+    # and the text and audio FFNs are left out of the file
+    mcfg.encoder.text_adapter.vocab_size = 8
+    mcfg.encoder.audio_adapter.feature_encoder_spec = ((16, 4, 2),)
+    mcfg.encoder.audio_adapter.feature_embed_dim = 16
+    pt = ADE_DIR / "one-peace.pt"
+    sd = make_random_state_dict(mcfg, seed=17)
+    unread = ("encoder_wrapper.text_adapter.", "encoder_wrapper.audio_adapter.")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()
+                          if not k.startswith(unread)
+                          and ".text_ffn." not in k and ".audio_ffn." not in k}}, pt)
+    del sd
+    log(f"17(d) corpus and a {layers}-layer fairseq .pt written in {time.time() - t0:.1f} s")
+    overrides = [f"task.data={specs['train']}", f"task.valid_data={specs['valid']}",
+                 f"model.encoder.layers={layers}", "dataset.batch_size_valid=2"]
+    results, counts = {}, {}
+    for protocol in ("whole", "slide", "ms_flip"):
+        out = ADE_DIR / f"metrics_{protocol}.json"
+        t0 = time.time()
+        argv = ["--config", str(SEG_RECIPE), "--path", str(pt), "--output", str(out),
+                "--device", "cuda", *overrides, f"task.seg_eval_protocol={protocol}"]
+        with contextlib.redirect_stdout(sys.stderr), recorded_miou() as seen:
+            if port_evaluate.main(argv) != 0:
+                raise RuntimeError(f"17(d) cli.evaluate {protocol} failed")
+        results[protocol], counts[protocol] = json.loads(out.read_text()), seen[-1]
+        log(f"17(d) cli.evaluate {protocol} ({time.time() - t0:.1f} s): {results[protocol]}; "
+            f"pixels counted {int(seen[-1][1].sum())}")
+    cfg = load_config(str(SEG_RECIPE), overrides)
+    task = build_task(cfg.task, cfg)
+    model = task.build_model(cfg, device="cuda")
+    load_weights(cfg, model, "cuda", str(pt))
+    model.to(torch.bfloat16)
+    task.load_dataset("valid")
+    task.begin_valid_epoch(model, None)
+    for batch in task.get_batch_iterator("valid", 2, ensure_equal_batch=False).next_epoch_itr():
+        task.valid_step(model, None, batch)
+    with recorded_miou() as seen:
+        direct = task.merge_results()
+    log(f"17(d) direct valid_step loop: {direct}")
+    # with random weights the mIoU may well be 0: the per-class intersection
+    # and union counts are compared too
+    same = all(np.array_equal(a, b) for a, b in zip(seen[-1], counts["whole"]))
+    if abs(direct["miou"] - results["whole"]["miou"]) > 1e-6 or not same:
+        raise RuntimeError(f"17(d): cli.evaluate's mIoU {results['whole']['miou']} or its "
+                           f"per-class counts differ from the direct loop's {direct['miou']}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -3516,7 +3901,7 @@ def main() -> None:
 
 
 def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
-    """Phases 2-16 and the two last lines."""
+    """Phases 2-17 and the two last lines."""
 
     def mark(phase: str) -> None:
         """Log the phase's wall time and the script's so far."""
@@ -3697,6 +4082,27 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     fwd_times["shapes"].update(pre_fwd_rows)
     bwd_times["shapes"].update(pre_bwd_rows)
 
+    # 17. segmentation serving: #1 alone at the trunk's L = 3137 against its
+    # plain version and SDPA (17(a)); then, the launches counted from 0, both
+    # segmenters at depth 4 on both paths (17(b)), the Mask2Former recipe at
+    # depth 40 (17(c)) and cli.evaluate from files under three protocols (17(d))
+    t17 = time.time()
+    seg_worst, seg_rows = time_seg_attention(card)
+    worst = max(worst, seg_worst)
+    mark("17(a)")
+    fa.launches = 0
+    check_segmenters(card)
+    mark("17(b)")
+    serve_seg_full_depth(card)
+    mark("17(c)")
+    check_seg_cli(card)
+    seg_fwd = fa.launches
+    log(f"17 launches over the phase: #1 {seg_fwd}; the phase took {time.time() - t17:.1f} s")
+    mark("17(d)")
+    if seg_fwd == 0:
+        raise RuntimeError("the segmentation path never launched the attention kernel")
+    fwd_times["shapes"].update(seg_rows)
+
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
     if imported:
@@ -3721,7 +4127,8 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
                      source="int8_matmul")
     log(json.dumps({"kernels": [
         entry("flash_attention_fwd", "one_peace_tpu/ops/flash_attention.py:239",
-              embed_launches + fwd_train + cli_fwd + cls_fwd + pre_fwd, worst, fwd_times),
+              embed_launches + fwd_train + cli_fwd + cls_fwd + pre_fwd + seg_fwd, worst,
+              fwd_times),
         entry("flash_attention_bwd", "one_peace_tpu/ops/flash_attention.py:409",
               bwd_train + cli_bwd + cls_bwd + pre_bwd, bwd_worst, bwd_times),
         entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75",

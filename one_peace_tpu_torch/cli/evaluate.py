@@ -18,8 +18,12 @@ training CLI's ``checkpoint_best.npz``), runs the task's evaluation loop on
   ``init_detector_`` from ``common.seed`` (``cli.train.load_weights``).
   Under ``common.bf16`` the weights are cast to bf16.  It prints box and
   mask AP (``metrics.DetectionAP``).
-- The segmentation and video tasks are not ported yet (ROADMAP queue 1
-  item 8).
+- ``ade20k_seg`` builds the segmenter of ``task.seg_head`` (``mask2former``
+  or ``upernet``) the same way: a ``.npz`` gives every weight, a ``.pt`` the
+  image adapter and encoder layers over ``init_segmenter_``'s priors,
+  interactions and head.  It prints mIoU (``metrics.MIoU``) by
+  ``task.seg_eval_protocol`` (``whole``, ``slide`` or ``ms_flip``).
+- The video task is not ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -122,27 +122,30 @@ def load_weights(cfg, model, device, path: Optional[str] = None) -> None:
     """``path`` (by default ``checkpoint.restore_file``) into ``model`` (the
     branches its head uses), or the config's init from ``common.seed`` when
     there is none.  A vision task's model (one with ``load_pretrained``)
-    takes a ``.pt`` as its trunk over ``init_detector_``'s pyramid and
-    heads; the classify model takes a pretrained ``.pt`` (one without a
-    ``classify_head``) as its encoder over the config's init of the
-    head."""
+    takes a ``.pt`` as its trunk over the rest of its init
+    (``init_detector_``'s pyramid and heads, ``init_segmenter_``'s priors,
+    interactions and head); the classify model takes a pretrained ``.pt``
+    (one without a ``classify_head``) as its encoder over the config's init
+    of the head."""
     from ..utils.checkpoint import params_from_jax
     from ..utils.checkpoint_convert import (convert_classify_model, convert_retrieval_model,
                                             load_torch_state_dict)
     from ..utils.native_checkpoint import load_params
-    from ..utils.random_weights import init_detector_, init_weights_
+    from ..utils.random_weights import init_detector_, init_segmenter_, init_weights_
+    from ..vision.zoo import OnePeaceSegmenter
 
     path = path or cfg.checkpoint.restore_file
     vision = hasattr(model, "load_pretrained")
+    init_vision_ = init_segmenter_ if isinstance(model, OnePeaceSegmenter) else init_detector_
     generator = torch.Generator(device=device).manual_seed(cfg.common.seed)
     if not (path and os.path.exists(path)):
         if vision:
-            init_detector_(model, generator)
+            init_vision_(model, generator)
         else:
             init_weights_(model, generator, cfg.model.encoder.layer_scale_init_value)
         return
     if path.endswith(".pt") and vision:
-        init_detector_(model, generator)
+        init_vision_(model, generator)
         model.load_pretrained(path)
         return
     if hasattr(model, "upgrade_stage1_params"):  # the pretrain model
@@ -263,12 +266,13 @@ def main(argv: Optional[list] = None) -> int:
     task = build_task(cfg.task, cfg)
     if not cfg.criterion._name:
         cfg.criterion._name = type(task).criterion_name
+    criterion = build_criterion(cfg.criterion)  # before any data: an unported one raises
     task.load_dataset("train")
     if cfg.task.valid_data:
         task.load_dataset("valid")
     model = build_model_for_task(cfg, task, device)
     load_weights(cfg, model, device)
-    trainer = Trainer(cfg, model, build_criterion(cfg.criterion))
+    trainer = Trainer(cfg, model, criterion)
 
     progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
                               cfg.common.tensorboard_logdir, sinks=build_sinks(cfg.common))

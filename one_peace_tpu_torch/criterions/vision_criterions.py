@@ -2,7 +2,9 @@
 ``one_peace_tpu/criterions/vision_criterions.py`` ``DetectionCriterion``):
 the cascade mask R-CNN objective of ``vision/det_train.py`` over static
 padded GT, with the criterion contract of ``criterions.py``.  The
-segmentation and video criterions are not ported yet."""
+segmentation criterion (segmentation training; segmentation serving and
+evaluation are ported) and the video criterion are not ported yet (ROADMAP
+queue 1 item 8)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
-"""The COCO detection dataset and ``vision_collate``: the COCO part of
+"""The COCO detection and ADE20K segmentation datasets and
+``vision_collate``: the COCO and ADE20K parts of
 ``one_peace_tpu/data/vision_datasets.py``, copied (held equal by
-``tests/test_torch_port_coco_data.py``).
+``tests/test_torch_port_coco_data.py``, ``tests/test_torch_port_seg_data.py``
+and ``tests/test_torch_port_copies.py``).
 
 - :class:`CocoDetectionDataset` -- COCO ``instances_*.json`` annotations,
   detectron2-style large-scale-jitter augmentation (ResizeScale 0.1-2.0 +
@@ -8,6 +10,10 @@
   a fixed ``max_boxes`` slot budget with a ``gt_valid`` mask so the whole
   batch is one static shape; instance masks rasterized from polygons /
   RLE at stride ``mask_stride``.
+- :class:`Ade20kSegDataset` -- mmseg-style ``images/ + annotations/`` dirs
+  (ref seg/configs/_base_/datasets/ade20k.py): train = ratio resize
+  0.5-2.0 + random crop + flip, val = fixed-size resize; ADE20K
+  ``reduce_zero_label`` relabeling (0 -> ignore, k -> k-1).
 
 Samples are fixed-shape numpy arrays; ``vision_collate`` just stacks them.
 Images are normalized with the CLIP statistics the trunk was pretrained
@@ -15,8 +21,8 @@ with.  The dataset draws every random choice from one
 ``np.random.RandomState(seed)`` in fetch order, as the JAX package's does,
 so two runs that fetch the same samples in the same order see the same
 crops; ``data.iterators.EpochBatchIterator`` fetches in order on its one
-prefetch thread.  The ADE20K and video datasets are not ported yet
-(ROADMAP queue 1 item 8).
+prefetch thread.  The video dataset is not ported yet (ROADMAP queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -254,6 +260,92 @@ class CocoDetectionDataset:
         if gt_masks is not None:
             sample["gt_masks"] = gt_masks
         return sample
+
+
+class Ade20kSegDataset:
+    """Semantic segmentation over an mmseg-style directory pair
+    (ref seg/configs/_base_/datasets/ade20k.py).
+
+    Each sample:
+      src_images (3, S, S) float32   CLIP-normalized
+      target     (S, S)    int32     class ids, ``ignore_index`` padded
+    """
+
+    def __init__(self, split: str, img_dir: str, ann_dir: str,
+                 crop_size: int = 896, num_classes: int = 150,
+                 ignore_index: int = 255, reduce_zero_label: bool = True,
+                 scale_range: Tuple[float, float] = (0.5, 2.0),
+                 seed: int = 3407, img_suffix: str = ".jpg",
+                 ann_suffix: str = ".png"):
+        self.split = split
+        self.crop_size = crop_size
+        self.num_classes = num_classes
+        self.ignore_index = ignore_index
+        self.reduce_zero_label = reduce_zero_label
+        self.scale_range = scale_range
+        self.rng = np.random.RandomState(seed)
+        self.pairs: List[Tuple[str, str]] = []
+        for name in sorted(os.listdir(img_dir)):
+            if not name.endswith(img_suffix):
+                continue
+            stem = name[: -len(img_suffix)]
+            ann = os.path.join(ann_dir, stem + ann_suffix)
+            if os.path.exists(ann):
+                self.pairs.append((os.path.join(img_dir, name), ann))
+
+    def __len__(self) -> int:
+        return len(self.pairs)
+
+    def _load_label(self, path: str) -> np.ndarray:
+        from PIL import Image
+
+        lab = np.asarray(Image.open(path)).astype(np.int32)
+        if lab.ndim == 3:
+            lab = lab[..., 0]
+        if self.reduce_zero_label:
+            # mmseg ADE20K convention: 0 -> ignore, k -> k-1 (and pixels
+            # already at ignore_index stay ignored after the shift)
+            ign = self.ignore_index
+            lab = np.where(lab == 0, ign + 1, lab) - 1
+            lab = np.where(lab == ign - 1, ign, lab)
+        return lab
+
+    def __getitem__(self, index: int):
+        from PIL import Image
+
+        img_path, ann_path = self.pairs[index]
+        img = _load_pil(img_path)
+        lab = self._load_label(ann_path)
+        size = self.crop_size
+        rng = self.rng
+
+        if self.split == "train":
+            w0, h0 = img.size
+            s = rng.uniform(*self.scale_range)
+            f = s * size / min(h0, w0)  # ratio-jittered short side
+            new_w, new_h = max(1, int(round(w0 * f))), max(1, int(round(h0 * f)))
+            img = img.resize((new_w, new_h), Image.BILINEAR)
+            lab_img = Image.fromarray(lab.astype(np.int32))  # mode "I"
+            lab = np.asarray(
+                lab_img.resize((new_w, new_h), Image.NEAREST)).astype(np.int32)
+            if rng.rand() < 0.5:
+                img = img.transpose(Image.FLIP_LEFT_RIGHT)
+                lab = lab[:, ::-1]
+            top = rng.randint(0, max(new_h - size, 0) + 1)
+            left = rng.randint(0, max(new_w - size, 0) + 1)
+            img_arr = np.asarray(img)[top:top + size, left:left + size]
+            lab = lab[top:top + size, left:left + size]
+        else:
+            img = img.resize((size, size), Image.BILINEAR)
+            lab_img = Image.fromarray(lab.astype(np.int32))  # mode "I"
+            lab = np.asarray(
+                lab_img.resize((size, size), Image.NEAREST)).astype(np.int32)
+            img_arr = np.asarray(img)
+
+        src = _paste_normalized(img_arr, size)
+        target = np.full((size, size), self.ignore_index, np.int32)
+        target[: lab.shape[0], : lab.shape[1]] = lab
+        return {"id": index, "src_images": src, "target": target}
 
 
 def vision_collate(samples: List[Dict]) -> Dict:

@@ -1,1 +1,1 @@
-from .metrics import Accuracy, DetectionAP, Recall  # noqa: F401
+from .metrics import Accuracy, DetectionAP, MIoU, Recall  # noqa: F401

@@ -15,8 +15,10 @@ One card holds the whole evaluation set, so nothing is gathered across
 processes: a sharded evaluation raises in the task's
 ``get_batch_iterator``, and the JAX reducer's ``_sync_across_processes``
 is not copied.
+``MIoU``: the ADE20K mean IoU over a confusion matrix, after the JAX
+package's (held equal by ``tests/test_torch_port_seg_data.py``).
 
-The IoU, mAP and mIoU reducers are not ported yet.
+The IoU and mAP reducers are not ported yet.
 """
 
 from __future__ import annotations
@@ -152,6 +154,49 @@ class Accuracy:
     def merge_results(self) -> Dict:
         ncorrect = float(sum(float(x) for x in fetch_once(self.ncorrect_list)))
         return {"accuracy": 100.0 * ncorrect / max(self.total, 1), "count": self.total}
+
+
+class MIoU:
+    """Semantic-segmentation mean IoU over a fixed class count (the ADE20K
+    metric of the reference's seg app; ignore_index pixels excluded).  The
+    segmentation task sums each batch's confusion matrix on the card and
+    folds it in once (``update_confusion``)."""
+
+    def __init__(self, num_classes: int, ignore_index: int = 255):
+        self.num_classes = num_classes
+        self.ignore_index = ignore_index
+
+    def initialize(self):
+        n = self.num_classes
+        self.intersection = np.zeros(n, np.int64)
+        self.union = np.zeros(n, np.int64)
+
+    def compute(self, pred: np.ndarray, target: np.ndarray):
+        """pred/target: integer label maps of identical shape."""
+        pred = np.asarray(pred).ravel()
+        target = np.asarray(target).ravel()
+        valid = target != self.ignore_index
+        pred, target = pred[valid], target[valid]
+        n = self.num_classes
+        pred = np.clip(pred, 0, n - 1)
+        cm = np.bincount(target.astype(np.int64) * n + pred,
+                         minlength=n * n).reshape(n, n)
+        self.update_confusion(cm)
+
+    def update_confusion(self, cm: np.ndarray):
+        """Fold a (C, C) confusion matrix (rows = target, cols = pred) into
+        the accumulators."""
+        cm = np.asarray(cm, np.int64)
+        inter = np.diag(cm)
+        self.intersection += inter
+        self.union += cm.sum(0) + cm.sum(1) - inter
+
+    def merge_results(self) -> Dict:
+        present = self.union > 0
+        iou = np.zeros(self.num_classes, np.float64)
+        iou[present] = self.intersection[present] / self.union[present]
+        miou = float(iou[present].mean()) if present.any() else 0.0
+        return {"miou": 100.0 * miou, "acc_classes": int(present.sum())}
 
 
 class DetectionAP:

@@ -98,21 +98,29 @@ class ImageAdapter(nn.Module):
             pos = torch.cat([pos[:1], out.reshape(window_size**2, d).to(pos.dtype)])
         return pos[None]
 
-    def rel_pos_bias(self) -> Optional[torch.Tensor]:
+    def rel_pos_bias(self, table: Optional[int] = None) -> Optional[torch.Tensor]:
+        """Every table's bias (tables, H, L, L), or with ``table`` that one
+        table's (H, L, L) alone: at 896 px (L = 3137) the 40 tables of the
+        segmentation trunk would take 37.8 GB gathered at once, one 0.94 GB."""
         if self.rel_pos_table is None:
             return None
+        if table is not None:
+            return gather_rel_bias(self.rel_pos_table[table:table + 1], self.rp_bucket)[0]
         return gather_rel_bias(self.rel_pos_table, self.rp_bucket)
 
     def forward(self, src_images: torch.Tensor, preserve_ids: Optional[torch.Tensor] = None,
                 preserve_embed: Optional[torch.Tensor] = None,
                 mask_token: Optional[torch.Tensor] = None, is_second_image: bool = False,
-                deterministic: bool = True, generator: Optional[torch.Generator] = None):
+                deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                gather_bias: bool = True):
         """src_images: (B, 3, H, W).  Returns (x (B, win**2+1, D), an
         all-False padding mask, rel_bias (tables, H, L, L) or None); a
         student pass (``preserve_ids`` (B, P), -1 padded) gives (B, P, D), the
         -1s as pads, and (tables, B, H, P, P); the decoder pass
         (``preserve_embed`` and ``mask_token`` too) reads only the images'
-        shape.  ``cfg.dropout`` applies to x unless deterministic."""
+        shape.  ``cfg.dropout`` applies to x unless deterministic.  Without
+        ``gather_bias`` the full pass returns None for the bias, and the
+        caller gathers each layer's table with ``rel_pos_bias(i)``."""
         cfg = self.cfg
         bsz = src_images.shape[0]
         window_size = src_images.shape[2] // 16
@@ -132,7 +140,7 @@ class ImageAdapter(nn.Module):
             cls = self.cls_embedding.expand(bsz, 1, self.embed_dim)
             x = torch.cat([cls, patches], dim=1)
             if preserve_ids is None:
-                rel_bias = self.rel_pos_bias()
+                rel_bias = self.rel_pos_bias() if gather_bias else None
             else:
                 padding_mask, pos, idx = student_positions(
                     preserve_ids, None if self.rel_pos_table is None else self.rp_bucket)

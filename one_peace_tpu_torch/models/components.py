@@ -12,7 +12,10 @@ Numerics match the JAX package:
 - ``conv_transpose2d``: ``jax.lax.conv_transpose`` without
   ``transpose_kernel``: the input dilated by the stride, padded, and
   correlated with the kernel as it is (PyTorch's transposed conv flips it).
-- ``group_norm`` and ``max_pool``: NHWC, statistics in fp32.
+- ``group_norm`` and ``max_pool``: NHWC, statistics in fp32; the pool
+  "VALID" or "SAME".
+- ``resize_linear``: ``jax.image.resize(..., "bilinear")``, antialiased
+  when it downsizes, by the weights of ``linear_resize_matrix``.
 - ``conv1d``: NWC, with groups.
 - ``dropout`` / ``drop_path``: the JAX package's masks and scales, drawn
   from an explicit ``torch.Generator`` on the tensor's device (JAX's keys
@@ -148,9 +151,50 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (xf * weight.float() + bias.float()).to(x.dtype)
 
 
-def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
-    """NHWC 'VALID' max pool."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1)
+def linear_resize_matrix(src: int, dst: int) -> np.ndarray:
+    """(dst, src) weights of ``jax.image.resize(method="linear")`` along one
+    axis: half-pixel centres, the triangle kernel widened by src/dst when
+    downsizing (antialiasing), weights renormalised at the edges; in fp32,
+    as JAX computes them."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (dst / src))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(dst, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(src, dtype=f32)[:, None]) / kernel_scale
+    weights = np.maximum(f32(0.0), f32(1.0) - x)
+    total = weights.sum(axis=0, keepdims=True, dtype=f32)
+    weights = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                       weights / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= src - 0.5)
+    return np.where(inside[None, :], weights, f32(0.0)).T.astype(f32)
+
+
+def resize_linear(x: torch.Tensor, sizes: Tuple[int, ...], dims: Tuple[int, ...]) -> torch.Tensor:
+    """``jax.image.resize(x, shape, "bilinear")`` over the axes ``dims`` (to
+    ``sizes``), the others kept: one product with ``linear_resize_matrix``
+    per axis whose size changes (so a downsize antialiases, as JAX's does;
+    ``F.interpolate`` does not by default).  Computed in fp32, returned in
+    x's dtype."""
+    y = x.float()
+    for dim, size in zip(dims, sizes):
+        src = y.shape[dim]
+        if src == size:
+            continue
+        w = torch.from_numpy(linear_resize_matrix(src, size)).to(y.device)
+        y = torch.matmul(y.movedim(dim, -1), w.T).movedim(-1, dim)
+    return y.to(x.dtype)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int, padding: str = "VALID") -> torch.Tensor:
+    """NHWC max pool, "VALID" or "SAME" (XLA's split, -inf pads)."""
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        (top, bottom), (left, right) = (_same_pads(x.shape[1], window, stride),
+                                        _same_pads(x.shape[2], window, stride))
+        xc = F.pad(xc, (left, right, top, bottom), value=float("-inf"))
+    elif padding != "VALID":
+        raise ValueError(f"padding {padding!r}: VALID or SAME")
+    return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -167,7 +211,12 @@ def gather_rel_bias(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """A (tables, R, H) rel-pos table gathered at (L, L) bucket indices, as
     contiguous fp32 (tables, H, L, L), or at a student pass's per-sample
     (B, P, P) indices, as (tables, B, H, P, P): contiguous once here, so the
-    kernel takes each layer's slice without a copy."""
+    kernel takes each layer's slice without a copy.  The (L, L) gather reads
+    the table transposed to (tables, H, R), so that it writes the heads'
+    planes in place: gathering (L, L, H) rows and transposing them cost ~12
+    ms a table at L = 3137 on an H100."""
+    if idx.ndim == 2:
+        return table.float().transpose(1, 2).contiguous()[:, :, idx]
     return table.float()[:, idx].movedim(-1, -3).contiguous()
 
 

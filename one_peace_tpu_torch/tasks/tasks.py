@@ -22,7 +22,9 @@ teacher pass returns (logits, features), of which the flow takes the
 logits.
 
 ``coco_detection`` is registered (``vision_tasks.CocoDetectionTask``: COCO
-JSON, LSJ, box and mask AP).  Every other task of the JAX package raises
+JSON, LSJ, box and mask AP), and ``ade20k_seg`` for evaluation
+(``vision_tasks.Ade20kSegTask``: mIoU by the whole, slide and ms_flip
+protocols).  Every other task of the JAX package raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -40,14 +42,13 @@ from ..data.mixup import Mixup
 from ..metrics import Accuracy, Recall
 from ..models.classify import NET_INPUT_KEYS
 from .base_task import BaseTask
-from .vision_tasks import CocoDetectionTask
+from .vision_tasks import Ade20kSegTask, CocoDetectionTask
 
 UNPORTED = {
     "nlvr2": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "fsd50k": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "aqa": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "refcoco": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
-    "ade20k_seg": "ROADMAP queue 1 item 8 (segmentation and video)",
     "k400_video": "ROADMAP queue 1 item 8 (segmentation and video)",
 }
 
@@ -266,6 +267,7 @@ class VggsoundTask(ClassifyTaskBase):
 
 
 TASKS.register("coco_detection")(CocoDetectionTask)
+TASKS.register("ade20k_seg")(Ade20kSegTask)
 
 
 def build_task(cfg, framework_cfg=None):

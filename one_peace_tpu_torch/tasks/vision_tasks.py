@@ -1,18 +1,28 @@
 """Vision-transfer tasks (counterpart of ``one_peace_tpu/tasks/vision_tasks.py``):
 COCO detection, drivable through ``cli/train.py task._name=coco_detection``
-and ``cli/evaluate.py``.
+and ``cli/evaluate.py``, and ADE20K segmentation, evaluated through
+``cli/evaluate.py task._name=ade20k_seg``.
 
 ``CocoDetectionTask`` builds the detector from the config's encoder dims and
 task fields, reads COCO JSON through ``data/vision_datasets.py``, batches with
 ``vision_collate``, and scores box and mask AP with ``metrics.DetectionAP``.
 Evaluation is eager on the model's device: ``detect()`` runs the trunk,
 pyramid and heads on the card and decodes on the host; mask paste and AP run
-on the host.  Nothing is compiled, so ``eval_compiles`` is 0.  The
-segmentation and video tasks are not ported yet (ROADMAP queue 1 item 8).
+on the host.  Nothing is compiled, so ``eval_compiles`` is 0.
+
+``Ade20kSegTask`` builds either segmenter (``task.seg_head``) with the
+image adapter's grids set to the crop's, reads mmseg-style ADE20K trees, and
+scores mIoU by ``task.seg_eval_protocol``: ``whole`` (one crop; the scores
+resized to the labels, or the argmax repeated, by
+``seg_eval_logits_upsample``), ``slide`` or ``ms_flip``.  Each batch's
+confusion matrix is summed on the card and fetched once, in
+``merge_results``.  Segmentation training (its criterion) and the video task
+are not ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict
 
 import numpy as np
@@ -20,10 +30,11 @@ import torch
 from torch import nn
 
 from ..data.iterators import EpochBatchIterator
-from ..data.vision_datasets import CocoDetectionDataset, vision_collate
-from ..metrics.metrics import DetectionAP
+from ..data.vision_datasets import Ade20kSegDataset, CocoDetectionDataset, vision_collate
+from ..metrics.metrics import DetectionAP, MIoU, fetch_once
+from ..models.components import resize_linear
 from ..vision.mask_paste import paste_masks
-from ..vision.zoo import OnePeaceDetector
+from ..vision.zoo import OnePeaceDetector, OnePeaceMask2FormerSegmenter, OnePeaceSegmenter
 from .base_task import refuse_shards
 
 
@@ -175,3 +186,103 @@ class CocoDetectionTask(VisionTaskBase):
                 kw["mask_area_scale"] = (stride * stride) / (f * f)
             self.metric.compute(det["boxes"], det["scores"], det["labels"],
                                 gt_boxes[b][v], gt_labels[b][v], **kw)
+
+
+class Ade20kSegTask(VisionTaskBase):
+    """ViT-Adapter semantic segmentation with the Mask2Former head
+    (``task.seg_head=mask2former``, the reference's headline recipe) or
+    UperNet, evaluated by mIoU."""
+
+    criterion_name = "segmentation_criterion"
+
+    def __init__(self, cfg, framework_cfg=None):
+        super().__init__(cfg, framework_cfg)
+        if cfg.num_classes == 1000:  # the classify default is meaningless here
+            cfg.num_classes = 150
+        self.metric = MIoU(num_classes=cfg.num_classes, ignore_index=cfg.ignore_index)
+        self._cm = None
+
+    def build_dataset(self, split: str):
+        c = self.cfg
+        spec = c.data if split == "train" else c.valid_data
+        img_dir, _, ann_dir = spec.partition(":")
+        return Ade20kSegDataset(
+            split, img_dir, ann_dir, crop_size=c.image_size, num_classes=c.num_classes,
+            ignore_index=c.ignore_index, reduce_zero_label=c.reduce_zero_label)
+
+    @staticmethod
+    def build_model(cfg, device="cuda", dtype=None) -> OnePeaceSegmenter:
+        """The segmenter of ``cfg.task.seg_head`` over the encoder of
+        ``cfg.model.encoder``, its image grids (absolute and relative) set to
+        the crop's, built on ``device``."""
+        enc, t = copy.deepcopy(cfg.model.encoder), cfg.task
+        grid = t.image_size // 16
+        enc.image_adapter.bucket_size = grid
+        enc.image_adapter.rel_bucket_size = grid
+        if t.seg_head == "mask2former":
+            return OnePeaceMask2FormerSegmenter(
+                enc, num_classes=t.num_classes, feat_channels=t.seg_feat_channels,
+                num_queries=t.num_queries, dec_layers=t.seg_dec_layers,
+                pixel_layers=t.seg_pixel_layers, device=device, dtype=dtype)
+        if t.seg_head != "upernet":
+            raise ValueError(f"task.seg_head {t.seg_head!r}: upernet or mask2former")
+        return OnePeaceSegmenter(enc, num_classes=t.num_classes, device=device, dtype=dtype)
+
+    def begin_valid_epoch(self, model, params):
+        self.metric.initialize()
+        self._cm = None
+
+    def _confusion(self, pred: torch.Tensor, target: torch.Tensor) -> None:
+        """Add the (C, C) confusion matrix of ``pred`` against ``target`` (rows
+        target, columns prediction; (B, H, W) each) to the sum kept on the
+        card."""
+        c, ign = self.metric.num_classes, self.metric.ignore_index
+        valid = target != ign
+        idx = torch.where(valid, target.clamp_min(0) * c + pred.clamp(0, c - 1), c * c)
+        cm = torch.bincount(idx.reshape(-1), minlength=c * c + 1)[:c * c].reshape(c, c)
+        self._cm = cm if self._cm is None else self._cm + cm
+
+    @torch.inference_mode()
+    def valid_step(self, model: OnePeaceSegmenter, params, batch):
+        """One batch's confusion matrix by ``task.seg_eval_protocol``: ``whole``
+        (one crop), ``slide`` (mmseg test_cfg mode='slide', stride
+        ``seg_eval_stride``) or ``ms_flip`` (the reference's --aug-test over
+        ``seg_ms_ratios``), on the model's own weights in eval mode."""
+        if params is not None:
+            raise NotImplementedError("segmentation evaluates the model's own weights; "
+                                      "segmentation training is not ported yet (ROADMAP "
+                                      "queue 1 item 8)")
+        was_training = model.training
+        model.eval()
+        try:
+            device = next(model.parameters()).device
+            images = torch.as_tensor(np.asarray(batch["src_images"], np.float32)).to(device)
+            target = torch.as_tensor(np.asarray(batch["target"])).to(device).long()
+            proto = self.cfg.seg_eval_protocol
+            crop, stride = self.cfg.image_size, self.cfg.seg_eval_stride
+            if proto == "slide":
+                pred = model.slide_scores(images, crop, stride).argmax(-1)
+            elif proto == "ms_flip":
+                pred = model.ms_flip_logits(images, crop, stride,
+                                            ratios=tuple(self.cfg.seg_ms_ratios),
+                                            flip=True).argmax(-1)
+            elif proto == "whole":
+                scores = model.logits(images).float()
+                if self.cfg.seg_eval_logits_upsample:
+                    # mmseg-exact: the class scores resized to the labels, then argmax
+                    pred = resize_linear(scores, target.shape[1:3], (1, 2)).argmax(-1)
+                else:
+                    s = target.shape[-1] // scores.shape[2]
+                    pred = scores.argmax(-1).repeat_interleave(s, 1).repeat_interleave(s, 2)
+                    pred = pred[:, :target.shape[1], :target.shape[2]]
+            else:
+                raise ValueError(f"task.seg_eval_protocol {proto!r}: whole, slide or ms_flip")
+            self._confusion(pred, target)
+        finally:
+            model.train(was_training)
+
+    def merge_results(self) -> Dict:
+        if self._cm is not None:
+            self.metric.update_confusion(fetch_once(self._cm))
+            self._cm = None
+        return self.metric.merge_results()

@@ -17,8 +17,9 @@ Layout rules:
 - an int8 ``w_q`` (in, out) of ``quantize_ffn_params`` becomes ``w_q``
   (out, in), the layout of ``ops.quant.QuantizedLinear``; ``w_scale`` keeps
   its name;
-- the stacked ``fusion/layers`` tree (leading ``layers`` axis) becomes one
-  module per layer, and lists become numbered modules;
+- the stacked ``fusion/layers`` tree (leading ``layers`` axis), and the
+  segmentation backbone's ``encoder/layers``, become one module per layer,
+  and lists become numbered modules;
 - the detection trunk's ``win_layers`` (groups, period-1, ...) and
   ``glob_layers`` (groups, ...) become ``layers.{g * period + s}``, the global
   layer last in each period; a transposed conv's HWIO ``w`` becomes
@@ -41,6 +42,9 @@ import numpy as np
 import torch
 
 _CONV_PERMUTE = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+# the stacked layer trees: the fusion encoder's, and the segmentation
+# backbone's encoder (``backbone/encoder/layers``)
+_STACKED = (("fusion", "layers"), ("encoder", "layers"))
 _CONV_UNPERMUTE = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
@@ -76,7 +80,7 @@ def params_from_jax(tree: Dict[str, Any],
         if isinstance(node, (list, tuple)):
             for i, child in enumerate(node):
                 walk(child, path + (str(i),))
-        elif isinstance(node, dict) and path[-2:] == ("fusion", "layers"):
+        elif isinstance(node, dict) and path[-2:] in _STACKED:
             first = node
             while isinstance(first, dict):
                 first = next(iter(first.values()))
@@ -173,7 +177,7 @@ def params_to_jax(state: Dict[str, torch.Tensor], periods: Optional[Dict[str, in
     def listify(node: Any, path: tuple) -> Any:
         if not isinstance(node, dict):
             return node
-        if path[-2:] == ("fusion", "layers"):
+        if path[-2:] in _STACKED:
             return stack(numbered(node))
         keys = list(node)
         if keys and all(k.isdigit() for k in keys) and \

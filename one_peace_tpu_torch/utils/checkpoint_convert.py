@@ -29,7 +29,8 @@ from .checkpoint import params_from_jax
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["convert_classify_model", "convert_retrieval_model", "load_torch_state_dict"]
+__all__ = ["convert_classify_model", "convert_encoder_wrapper", "convert_retrieval_model",
+           "load_torch_state_dict", "upgrade_state_dict"]
 
 
 # --- the JAX package's conversion rules, copied -----------------------------
@@ -289,7 +290,7 @@ def _pop_prefix(sd: Dict[str, np.ndarray], prefix: str) -> None:
         del sd[key]
 
 
-def _convert_encoder_wrapper(sd_up: Dict[str, np.ndarray], enc) -> Dict[str, torch.Tensor]:
+def convert_encoder_wrapper(sd_up: Dict[str, np.ndarray], enc) -> Dict[str, torch.Tensor]:
     """The ``encoder_wrapper`` entries of an upgraded fairseq state dict
     (adapters, with the image tables brought to the model's resolution;
     fusion layers; the modality norms) as the port's ``state_dict``
@@ -337,7 +338,7 @@ def convert_retrieval_model(sd: Dict[str, np.ndarray], model_cfg) -> Dict[str, t
     num_rel = enc.layers if model_cfg.copy_rel_pos_table else 1
     sd_up = upgrade_state_dict(sd, num_rel)
     sd.clear()
-    out = _convert_encoder_wrapper(sd_up, enc)
+    out = convert_encoder_wrapper(sd_up, enc)
     tree: Dict[str, Any] = {}
     for mod in ("text", "image", "audio"):
         if f"{mod}_proj.weight" in sd_up:
@@ -382,7 +383,7 @@ def convert_classify_model(sd: Dict[str, np.ndarray], model_cfg) -> Dict[str, to
     consumed."""
     sd_up = upgrade_state_dict(sd, model_cfg.encoder.layers)
     sd.clear()
-    out = _convert_encoder_wrapper(sd_up, model_cfg.encoder)
+    out = convert_encoder_wrapper(sd_up, model_cfg.encoder)
     if "classify_head.norm.weight" in sd_up:
         out.update(params_from_jax({"classify_head": convert_classify_head(sd_up)}))
     return out

@@ -16,12 +16,17 @@ except the convs'; ``logit_scale`` ln(1 / 0.07).  Two values differ, as in
 0.1 and the rel-pos tables N(0, 0.05^2) (the detection trunk's decomposed
 ``rel_pos_h`` / ``rel_pos_w`` too), where the JAX init's 1e-6 and zeros would
 leave every layer and the bias invisible in the output.  GroupNorms are one
-and zero, the FCOS box scales one.  ``init_weights_`` puts those two back to
-the config's values (gammas at ``layer_scale_init_value``, rel-pos tables
+and zero, the FCOS box scales one.  The segmenters' level embeddings and
+queries are truncated N(0, 0.02^2), the ViT-Adapter injectors' ``gamma`` 0.1
+(the recipe's 0 would cut the priors out of the trunk), and every
+deformable attention's offset bias the deformable-DETR ring of its init.
+``init_weights_`` puts the LayerScale gammas and the tables back to the
+config's values (gammas at ``layer_scale_init_value``, rel-pos tables
 zero): it is the initial state of a training run that restores no
 checkpoint, and ``fill_random_`` is what the tests and the chip smoke use.
 ``init_detector_`` is the detector's initial state, as
-``OnePeaceDetector.init`` of the JAX package draws it.
+``OnePeaceDetector.init`` of the JAX package draws it, and
+``init_segmenter_`` the segmenters' as ``OnePeaceSegmenter.init`` draws it.
 
 Values are drawn in fp32 in a fixed order, so models of different dtypes
 filled from the same seed hold the same weights up to rounding.
@@ -35,6 +40,7 @@ import torch
 from torch import nn
 
 from ..models.components import Conv, LayerNorm, Linear
+from ..vision.ms_deform_attn import MSDeformAttn, offset_ring
 
 LAYER_SCALE = 0.1
 REL_POS_STD = 0.05
@@ -98,6 +104,11 @@ def fill_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.fill_(1.0)
         elif leaf == "logit_scale":
             p.fill_(math.log(1 / 0.07))
+        elif leaf in ("level_embed", "query_feat", "query_embed"):  # the segmenters'
+            draw(p, "trunc", 0.02)
+        elif leaf == "gamma":  # the ViT-Adapter injectors' LayerScale
+            p.fill_(LAYER_SCALE)
+    _offset_rings_(model)
     for wrapper in ("encoder_wrapper", "decoder_wrapper"):
         text = getattr(getattr(model, wrapper, None), "text_adapter", None)
         if text is not None:
@@ -175,4 +186,81 @@ def init_detector_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     cls_pred = getattr(getattr(model, "proposer", None), "cls_pred", None)
     if cls_pred is not None:  # FCOS: a background-heavy prior of 0.01
         cls_pred.bias.fill_(-math.log((1 - 0.01) / 0.01))
+    return model
+
+
+def _offset_rings_(model: nn.Module) -> None:
+    """Every deformable attention's ``sampling_offsets`` bias at the
+    deformable-DETR ring (``MSDeformAttnModule.init``)."""
+    for m in model.modules():
+        if isinstance(m, MSDeformAttn):
+            m.sampling_offsets.bias.copy_(offset_ring(m.heads, m.levels, m.points))
+
+
+@torch.no_grad()
+def init_segmenter_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The initial state of a segmentation run, with the distributions and
+    constants of the JAX package's ``OnePeaceSegmenter.init`` /
+    ``OnePeaceMask2FormerSegmenter.init`` (``vision/zoo.py``): every conv
+    uniform within sqrt(3 / fan_in), biases within 1 / sqrt(fan_in)
+    (``init_conv2d``); the encoder's dense weights truncated N(0, 0.02^2),
+    every other dense layer Xavier-uniform (``init_linear``), biases zero;
+    each deformable attention's offset and weight projections zero with the
+    offset bias at the deformable-DETR ring; the injectors' ``gamma`` at
+    their ``init_values``; the backbone's and the head's level embeddings and
+    the queries N(0, 0.02^2), the pixel decoder's level embedding N(0, 1);
+    the image adapter's embeddings truncated N(0, 0.02^2), its rel-pos
+    tables zero, the LayerScale gammas at the config's
+    ``layer_scale_init_value``; LayerNorms and GroupNorms one and zero; any
+    other leaf as ``fill_random_`` draws it first.  Values are drawn in fp32
+    in a fixed order; returns ``model``."""
+    fill_random_(model, generator)
+
+    def draw(p, kind: str, scale: float) -> None:
+        x = torch.empty(p.shape, device=p.device, dtype=torch.float32)
+        if kind == "trunc":
+            nn.init.trunc_normal_(x, 0.0, 1.0, -1.0, 1.0, generator=generator)
+        elif kind == "normal":
+            x.normal_(0.0, 1.0, generator=generator)
+        else:
+            x.uniform_(-1.0, 1.0, generator=generator)
+        p.copy_(x * scale)
+
+    for name, m in model.named_modules():
+        if isinstance(m, LayerNorm):  # GroupNorm too
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, Linear):
+            out_f, in_f = m.weight.shape
+            if name.startswith("backbone.encoder."):
+                draw(m.weight, "trunc", 0.02)
+            else:
+                draw(m.weight, "uniform", math.sqrt(6.0 / (in_f + out_f)))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, Conv):
+            fan_in = m.weight[0].numel()
+            draw(m.weight, "uniform", math.sqrt(3.0 / fan_in))
+            if m.bias is not None:
+                draw(m.bias, "uniform", 1.0 / math.sqrt(fan_in))
+    for name, m in model.named_modules():
+        if isinstance(m, MSDeformAttn):
+            m.sampling_offsets.weight.zero_()
+            m.attention_weights.weight.zero_()
+            m.attention_weights.bias.zero_()
+        elif hasattr(m, "init_values"):  # an injector
+            m.gamma.fill_(m.init_values)
+    _offset_rings_(model)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name == "head.pixel_decoder.level_embed":
+            draw(p, "normal", 1.0)
+        elif leaf in ("level_embed", "query_feat", "query_embed"):
+            draw(p, "normal", 0.02)
+        elif leaf in ("cls_embedding", "pos_embed"):
+            draw(p, "trunc", 0.02)
+        elif leaf == "rel_pos_table":
+            p.zero_()
+        elif leaf in ("gamma_1", "gamma_2"):
+            p.fill_(model.backbone.cfg.layer_scale_init_value)
     return model

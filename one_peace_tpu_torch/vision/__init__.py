@@ -1,1 +1,4 @@
-"""The detection transfer app: trunk, pyramid, proposers, RoIAlign, cascade and mask heads, and ``OnePeaceDetector``."""
+"""The vision transfer apps: detection (trunk, pyramid, proposers, RoIAlign,
+cascade and mask heads, ``OnePeaceDetector``) and segmentation (the
+ViT-Adapter backbone, the UperNet and Mask2Former heads, the two
+segmenters)."""

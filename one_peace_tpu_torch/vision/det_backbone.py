@@ -39,7 +39,8 @@ from torch import nn
 
 from ..models.adapters.image import HMLP
 from ..models.components import (Conv, LayerNorm, Linear, checkpoint_module, conv2d,
-                                 conv_transpose2d, drop_path, empty_param, gelu, max_pool)
+                                 conv_transpose2d, drop_path, empty_param, gelu,
+                                 linear_resize_matrix, max_pool)
 from ..models.rel_pos import make_image_bucket_position
 from ..ops.det_attention import det_flash_attention, interpolate_rel_table, toeplitz_tables
 
@@ -73,24 +74,6 @@ def shared_bias_from_table(table: torch.Tensor, src_bucket: int, dst_bucket: int
     return values.permute(2, 0, 1)
 
 
-def _linear_resize_matrix(src: int, dst: int) -> np.ndarray:
-    """(dst, src) weights of ``jax.image.resize(method="linear")`` along one
-    axis: half-pixel centres, the triangle kernel widened by src/dst when
-    downsizing (antialiasing), weights renormalised at the edges; in fp32,
-    as JAX computes them."""
-    f32 = np.float32
-    inv_scale = f32(1.0 / (dst / src))
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample = (np.arange(dst, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
-    x = np.abs(sample[None, :] - np.arange(src, dtype=f32)[:, None]) / kernel_scale
-    weights = np.maximum(f32(0.0), f32(1.0) - x)
-    total = weights.sum(axis=0, keepdims=True, dtype=f32)
-    weights = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
-                       weights / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    inside = (sample >= -0.5) & (sample <= src - 0.5)
-    return np.where(inside[None, :], weights, f32(0.0)).T.astype(f32)
-
-
 def resize_rel_pos(table: torch.Tensor, size: int) -> torch.Tensor:
     """detectron2 ``get_rel_pos`` with the JAX package's resize: a (2S-1, dh)
     table linearly resized to (2*size-1, dh) when the grid differs from the
@@ -100,7 +83,7 @@ def resize_rel_pos(table: torch.Tensor, size: int) -> torch.Tensor:
     dst = 2 * size - 1
     if table.shape[0] == dst:
         return table
-    w = torch.from_numpy(_linear_resize_matrix(table.shape[0], dst)).to(table.device)
+    w = torch.from_numpy(linear_resize_matrix(table.shape[0], dst)).to(table.device)
     return (w @ table.float()).to(table.dtype)
 
 

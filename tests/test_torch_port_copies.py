@@ -6,7 +6,10 @@ among them), the classification data path's verbatim copies (Mixup,
 RandAugment, the VQA, VGGSound and image-classify datasets), whose
 behaviour ``tests/test_torch_port_classify_data.py`` also holds equal, and
 the pretrain data path's (the masking helpers and both pretrain datasets),
-whose behaviour ``tests/test_torch_port_pretrain_data.py`` holds equal."""
+whose behaviour ``tests/test_torch_port_pretrain_data.py`` holds equal, and
+the segmentation path's (the ADE20K dataset, the reference points, the
+adaptive-pool matrix, the sine encoding, the slide window grid), whose
+behaviour ``tests/test_torch_port_seg_*.py`` hold equal."""
 
 import dataclasses
 import inspect
@@ -31,6 +34,11 @@ from one_peace_tpu.data import randaugment as jax_randaugment
 from one_peace_tpu.data import tokenizer as jax_tokenizer
 from one_peace_tpu.utils import checkpoint_convert as jax_convert
 from one_peace_tpu.utils import interpolate as jax_interpolate
+from one_peace_tpu.data import vision_datasets as jax_vision_datasets
+from one_peace_tpu.vision import adapter as jax_adapter
+from one_peace_tpu.vision import mask2former as jax_mask2former
+from one_peace_tpu.vision import upernet as jax_upernet
+from one_peace_tpu.vision import zoo as jax_zoo
 from one_peace_tpu_torch.core import config as port_config
 from one_peace_tpu_torch.data import datasets as port_datasets
 from one_peace_tpu_torch.data import flac as port_flac
@@ -40,6 +48,11 @@ from one_peace_tpu_torch.data import randaugment as port_randaugment
 from one_peace_tpu_torch.data import tokenizer as port_tokenizer
 from one_peace_tpu_torch.utils import checkpoint_convert as port_convert
 from one_peace_tpu_torch.utils import interpolate as port_interpolate
+from one_peace_tpu_torch.data import vision_datasets as port_vision_datasets
+from one_peace_tpu_torch.vision import adapter as port_adapter
+from one_peace_tpu_torch.vision import mask2former as port_mask2former
+from one_peace_tpu_torch.vision import upernet as port_upernet
+from one_peace_tpu_torch.vision import zoo as port_zoo
 
 ROOT = Path(__file__).resolve().parents[1]
 RECIPES = sorted(str(p.relative_to(ROOT)) for p in ROOT.glob("recipes/**/*.yaml"))
@@ -61,7 +74,9 @@ def test_port_imports_nothing_of_the_jax_package():
         "             or m == 'one_peace_tpu' or m.startswith('one_peace_tpu.'))\n"
         "print(len(names), bad, 'one_peace_tpu_torch.models.classify' in names,\n"
         "      'one_peace_tpu_torch.models.pretrain' in names,\n"
-        "      'one_peace_tpu_torch.data.masking' in names)\n"
+        "      'one_peace_tpu_torch.data.masking' in names,\n"
+        "      all(f'one_peace_tpu_torch.vision.{m}' in names for m in\n"
+        "          ('adapter', 'mask2former', 'ms_deform_attn', 'upernet')))\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
@@ -71,9 +86,9 @@ def test_port_imports_nothing_of_the_jax_package():
     # checkpoint and CLI modules of the retrieval fine-tuning slice, the
     # COCO dataset and mask paste of detection from data, the classify
     # model with the Mixup and RandAugment copies, and the pretrain model
-    # with the masking copy
-    assert count >= 70, proc.stdout
-    assert proc.stdout.split()[-3:] == ["True"] * 3, proc.stdout
+    # with the masking copy, and the segmentation modules
+    assert count >= 74, proc.stdout
+    assert proc.stdout.split()[-4:] == ["True"] * 4, proc.stdout
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)
@@ -181,15 +196,25 @@ VERBATIM_COPIES = [
     (port_datasets, jax_datasets, "AudioTextPretrainDataset")] + [
     (port_masking, jax_masking, name) for name in (
         "whole_word_starts", "add_whole_word_mask", "nested_subset_mask", "random_patch_mask",
-        "superset_patch_mask", "compute_block_mask_1d", "to_preserve_ids", "with_cls")]
+        "superset_patch_mask", "compute_block_mask_1d", "to_preserve_ids", "with_cls")] + [
+    (port_vision_datasets, jax_vision_datasets, "Ade20kSegDataset"),
+    (port_adapter, jax_adapter, "get_reference_points"),
+    (port_upernet, jax_upernet, "_adaptive_pool_matrix"),
+    (port_mask2former, jax_mask2former, "sine_positional_encoding")]
 
 
 @pytest.mark.parametrize("port,original,name", VERBATIM_COPIES,
                          ids=[f"{o.__name__.rsplit('.', 1)[-1]}.{n}" for _, o, n in VERBATIM_COPIES])
 def test_verbatim_copies_equal(port, original, name):
-    """The classification and pretrain data paths' copies keep the
+    """The classification, pretrain and segmentation paths' copies keep the
     original's source."""
     assert inspect.getsource(getattr(port, name)) == inspect.getsource(getattr(original, name))
+
+
+def test_slide_origins_copy_equal():
+    """The segmenters' slide window grid keeps the original's source."""
+    assert inspect.getsource(port_zoo.OnePeaceSegmenter._slide_origins) == \
+        inspect.getsource(jax_zoo.OnePeaceSegmenter._slide_origins)
 
 
 @pytest.mark.parametrize("rule", ["text", "image", "audio", "layers", "upgrade", "resolution",

@@ -221,10 +221,13 @@ def test_entry_points_default_to_the_card():
     another device."""
     from one_peace_tpu_torch.cli.train import build_model_for_task
     from one_peace_tpu_torch.models.pretrain import OnePeacePretrainModel
+    from one_peace_tpu_torch.tasks.vision_tasks import Ade20kSegTask
+    from one_peace_tpu_torch.vision.zoo import OnePeaceMask2FormerSegmenter, OnePeaceSegmenter
 
     for fn in (OnePeaceRetrievalModel.__init__, OnePeaceDetector.__init__, hub.from_pretrained,
                CocoDetectionTask.build_model, OnePeacePretrainModel.__init__,
-               build_model_for_task):
+               build_model_for_task, OnePeaceSegmenter.__init__,
+               OnePeaceMask2FormerSegmenter.__init__, Ade20kSegTask.build_model):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
     seen = {}

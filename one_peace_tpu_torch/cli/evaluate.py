@@ -23,7 +23,7 @@ training CLI's ``checkpoint_best.npz``), runs the task's evaluation loop on
   image adapter and encoder layers over ``init_segmenter_``'s priors,
   interactions and head.  It prints mIoU (``metrics.MIoU``) by
   ``task.seg_eval_protocol`` (``whole``, ``slide`` or ``ms_flip``).
-- The video task is not ported yet (ROADMAP queue 1 item 8).
+- The video task is not ported yet (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations

@@ -14,6 +14,12 @@ best export, and preemption-safe resume, on one card.
       task.valid_data=instances_val2017.json task.valid_image_dir=val2017 \\
       [checkpoint.restore_file=one-peace.pt] [--device cuda]
 
+  python -m one_peace_tpu_torch.cli.train \
+      --config recipes/segmentation/mask2former_896.yaml \
+      task.data=ade/images/training:ade/annotations/training \
+      task.valid_data=ade/images/validation:ade/annotations/validation \
+      [checkpoint.restore_file=one-peace.pt] [--device cuda]
+
   python -m one_peace_tpu_torch.cli.train --config recipes/vqa/base.yaml \
       task.data=train.tsv task.valid_data=valid.tsv task.bpe_dir=bpe \
       task.num_classes=3129 [checkpoint.restore_file=one-peace.pt] [--device cuda]
@@ -36,17 +42,19 @@ best export, and preemption-safe resume, on one card.
   ``model.reset_logit_scale`` it is overlaid onto the config's init by
   ``upgrade_stage1_params`` (stage 2 from a stage-1 export: the audio
   branch fresh, ``logit_scale`` reset), as the JAX CLI does.  For a vision
-  task's model (the detector of ``coco_detection``), a ``.pt`` gives the trunk
-  (``load_pretrained``) and ``init_detector_`` the pyramid and heads from
-  ``common.seed``; a ``.npz`` gives every weight (``params_from_jax``,
-  strict); without one, ``init_detector_`` gives them all.  Every model of
+  task's model (the detector of ``coco_detection``, the segmenter of
+  ``ade20k_seg``), a ``.pt`` gives the trunk (``load_pretrained``) and
+  ``init_detector_`` / ``init_segmenter_`` the rest from ``common.seed``; a
+  ``.npz`` gives every weight (``params_from_jax``, strict); without one,
+  the init gives them all.  Every model of
   the JAX package is ported (``one_peace_retrieval``,
   ``one_peace_classify``, ``one_peace_pretrain`` and the tasks' own), and
   models a ``--user-dir`` plugin registers.
 - **Batches.** One card runs the batch it is given: ``dataset.batch_size``
   samples a micro-batch.  A recipe's ``distributed`` section (the detection
-  recipe's ``fsdp: 8``, with its per-host ``batch_size: 8``) is the TPU
-  layout and is not read.  The batch keys that are evaluation bookkeeping
+  and segmentation recipes' ``fsdp: 8``, with their per-host batch sizes) is
+  the TPU layout and is not read: one card runs the reference's per-GPU
+  batch when ``dataset.batch_size`` is set to it (2 for segmentation).  The batch keys that are evaluation bookkeeping
   (``HOST_KEYS``: ids, counts, the detection GT's crowd flags, areas and
   resize factors) stay on the host; the criterion does not read them.
 - **Saves.** ``step_<n>/`` train-state bundles every

@@ -3,8 +3,8 @@
 from .criterions import (AudioTextPretrainCriterion, AudioTextRetrievalCriterion,
                          ClassifyCriterion, ImageTextPretrainCriterion,
                          ImageTextRetrievalCriterion, build_criterion)
-from .vision_criterions import DetectionCriterion
+from .vision_criterions import DetectionCriterion, SegmentationCriterion
 
 __all__ = ["AudioTextPretrainCriterion", "AudioTextRetrievalCriterion", "ClassifyCriterion",
            "DetectionCriterion", "ImageTextPretrainCriterion", "ImageTextRetrievalCriterion",
-           "build_criterion"]
+           "SegmentationCriterion", "build_criterion"]

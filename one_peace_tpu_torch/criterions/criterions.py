@@ -11,7 +11,7 @@ values, and no activations kept).
 ``ClassifyCriterion`` runs the classify model on the batch's net input and
 also takes ``num_updates``, which the trainer passes to a criterion that
 takes it, so that ``freeze_finetune_updates`` thaws.  ``detection_criterion``
-lives in ``vision_criterions.py``.  The grounding and hinge criterions are
+and ``segmentation_criterion`` live in ``vision_criterions.py``.  The grounding and hinge criterions are
 not ported yet.
 """
 
@@ -27,7 +27,7 @@ from ..models.classify import NET_INPUT_KEYS
 from ..models.components import split_generator
 from .losses import (bce_with_logits_loss, cross_entropy_loss, dcl_loss, itc_loss,
                      soft_target_ce_loss)
-from .vision_criterions import DetectionCriterion
+from .vision_criterions import DetectionCriterion, SegmentationCriterion
 
 
 class _RetrievalCriterion:
@@ -220,7 +220,8 @@ CRITERIONS = {"image_text_retrieval_criterion": ImageTextRetrievalCriterion,
               "image_text_pretrain_loss": ImageTextPretrainCriterion,
               "audio_text_pretrain_loss": AudioTextPretrainCriterion,
               "classify_criterion": ClassifyCriterion,
-              "detection_criterion": DetectionCriterion}
+              "detection_criterion": DetectionCriterion,
+              "segmentation_criterion": SegmentationCriterion}
 
 
 ALIASES = {"image_text_pretrain": "image_text_pretrain_loss",

@@ -12,6 +12,12 @@ One card is one shard, so ``num_shards`` is 1 on the port's training
 path; the multi-shard arithmetic is kept for data-parallel runs.  A
 background-thread prefetcher overlaps host-side decode/augment with device
 steps (the reference uses DataLoader workers).
+
+One difference from the JAX package: a dataset that draws its augmentation
+from one ``rng`` (a ``np.random.RandomState``) in fetch order has that
+generator's state saved with the position (the state after the last batch
+served, not after the prefetcher's), so a resumed run draws the crops the
+straight run drew.  The JAX iterator does not save it.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import threading
 from typing import Callable, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 
 def strided_slice(order: List[int], shard: int, num_shards: int) -> List[int]:
@@ -57,6 +64,7 @@ class EpochBatchIterator:
         self.prefetch = prefetch
         self.epoch = 1
         self._consumed = 0
+        self._data_rng = None  # the dataset's rng state after the last batch served
 
     # ------------------------------------------------------------------
 
@@ -102,11 +110,17 @@ class EpochBatchIterator:
     def _iterate(self, batches: List[List[int]], start: int = 0):
         batches = batches[start:]
 
+        rng = getattr(self.dataset, "rng", None)
+
+        def fetch(batch_ids):
+            """The collated batch and the dataset rng's state after it."""
+            samples = [self.dataset[i] for i in batch_ids]
+            return self.collate_fn(samples), None if rng is None else rng.get_state()
+
         def produce(out_q: queue.Queue):
             try:
                 for batch_ids in batches:
-                    samples = [self.dataset[i] for i in batch_ids]
-                    out_q.put(self.collate_fn(samples))
+                    out_q.put(fetch(batch_ids))
                 out_q.put(None)
             except Exception as e:  # surface worker errors
                 out_q.put(e)
@@ -122,12 +136,13 @@ class EpochBatchIterator:
                 if isinstance(item, Exception):
                     raise item
                 self._consumed += 1
-                yield item
+                batch, self._data_rng = item
+                yield batch
         else:
             for batch_ids in batches:
-                samples = [self.dataset[i] for i in batch_ids]
+                batch, self._data_rng = fetch(batch_ids)
                 self._consumed += 1
-                yield self.collate_fn(samples)
+                yield batch
         self.epoch += 1
         self._consumed = 0
 
@@ -139,8 +154,12 @@ class EpochBatchIterator:
     # preemption-safe resume (ref iterators.py:179-216)
 
     def state_dict(self):
-        return {"epoch": self.epoch, "consumed": self._consumed,
-                "seed": self.seed}
+        state = {"epoch": self.epoch, "consumed": self._consumed, "seed": self.seed}
+        if self._data_rng is not None:  # as tensors and plain values, for weights_only loads
+            name, keys, pos, has_gauss, gauss = self._data_rng
+            state["data_rng"] = [name, torch.from_numpy(keys.astype(np.int64)), int(pos),
+                                 int(has_gauss), float(gauss)]
+        return state
 
     def load_state_dict(self, state):
         self.epoch = state["epoch"]
@@ -149,3 +168,7 @@ class EpochBatchIterator:
         # through a DIFFERENT seed's shuffle order silently skips/repeats
         # other samples across the preemption boundary
         self.seed = state.get("seed", self.seed)
+        if "data_rng" in state:
+            name, keys, pos, has_gauss, gauss = state["data_rng"]
+            self._data_rng = (name, np.asarray(keys, np.uint32), pos, has_gauss, gauss)
+            self.dataset.rng.set_state(self._data_rng)

@@ -22,7 +22,7 @@ with.  The dataset draws every random choice from one
 so two runs that fetch the same samples in the same order see the same
 crops; ``data.iterators.EpochBatchIterator`` fetches in order on its one
 prefetch thread.  The video dataset is not ported yet (ROADMAP queue 1
-item 8).
+item 3).
 """
 
 from __future__ import annotations

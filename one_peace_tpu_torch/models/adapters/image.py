@@ -23,9 +23,9 @@ from torch import nn
 from ...core.config import ImageAdapterConfig
 from ...utils.interpolate import bicubic_resize_matrix
 
-from ..components import (Conv, LayerNorm, conv2d, dropout, empty_param, gather_rel_bias,
-                          gather_rows, gelu, generator_on, scatter_preserved, shrink,
-                          student_positions)
+from ..components import (Conv, LayerNorm, bucket_order, conv2d, dropout, empty_param,
+                          gather_rel_bias, gather_rows, gelu, generator_on, scatter_preserved,
+                          shrink, student_positions)
 from ..rel_pos import make_image_bucket_position
 
 
@@ -68,9 +68,18 @@ class ImageAdapter(nn.Module):
             num_rel_dis = (2 * cfg.rel_bucket_size - 1) ** 2 + 3
             self.rel_pos_table = empty_param(num_rel_tables or 1, num_rel_dis,
                                              attention_heads, **kw)
-            self.register_buffer("rp_bucket", torch.from_numpy(
-                make_image_bucket_position(cfg.rel_bucket_size)).to(device),
-                persistent=False)
+            bucket = torch.from_numpy(make_image_bucket_position(cfg.rel_bucket_size))
+            self.register_buffer("rp_bucket", bucket.to(device), persistent=False)
+            # the bucket-sorted positions and counts of the bias gather's
+            # backward, sorted on the host (also for a model built on "meta")
+            order, counts = bucket_order(bucket, num_rel_dis)
+            self.register_buffer("rp_order", order.to(device), persistent=False)
+            self.register_buffer("rp_counts", counts.to(device), persistent=False)
+
+    @property
+    def rp_sums(self):
+        """``gather_rel_bias``'s per-bucket backward for ``rp_bucket``."""
+        return self.rp_order, self.rp_counts
 
     def embed_patches(self, images_nhwc: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, (H/16)*(W/16), D)."""
@@ -105,8 +114,9 @@ class ImageAdapter(nn.Module):
         if self.rel_pos_table is None:
             return None
         if table is not None:
-            return gather_rel_bias(self.rel_pos_table[table:table + 1], self.rp_bucket)[0]
-        return gather_rel_bias(self.rel_pos_table, self.rp_bucket)
+            return gather_rel_bias(self.rel_pos_table[table:table + 1], self.rp_bucket,
+                                   self.rp_sums)[0]
+        return gather_rel_bias(self.rel_pos_table, self.rp_bucket, self.rp_sums)
 
     def forward(self, src_images: torch.Tensor, preserve_ids: Optional[torch.Tensor] = None,
                 preserve_embed: Optional[torch.Tensor] = None,

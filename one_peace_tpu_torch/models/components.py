@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 
@@ -207,15 +208,51 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     return y
 
 
-def gather_rel_bias(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def bucket_order(idx: torch.Tensor, buckets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The positions of the (L, L) bucket indices ``idx`` sorted by bucket
+    (a stable sort) and each bucket's count: what the bias gather's backward
+    sums (``gather_rel_bias(..., sums=)``), computed once per index map."""
+    flat = idx.flatten()
+    return torch.argsort(flat, stable=True), torch.bincount(flat, minlength=buckets)
+
+
+class _BucketGather(torch.autograd.Function):
+    """The (L, L) gather of ``gather_rel_bias`` whose backward sums each
+    bucket's gradient over its positions, in the bucket-sorted order of
+    ``bucket_order``: a gather and a segment sum, deterministic.  PyTorch's
+    index backward sorts the 9.8M indices of L = 3137 and sums each bucket's
+    ~800 equal indices serially: 36.8 ms a layer on an H100, against 4.7."""
+
+    @staticmethod
+    def forward(ctx, table, idx, order, counts):
+        ctx.save_for_backward(order, counts)
+        ctx.table_shape = table.shape
+        return table.transpose(1, 2).contiguous()[:, :, idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        order, counts = ctx.saved_tensors
+        t, r, h = ctx.table_shape
+        with record_function("rel_bias_bucket_sum"):
+            rows = grad.reshape(t * h, -1).t()[order]  # (L * L, tables * H), bucket-sorted
+            sums = torch.segment_reduce(rows, "sum", lengths=counts, axis=0, unsafe=True)
+        return sums.reshape(r, t, h).transpose(0, 1), None, None, None
+
+
+def gather_rel_bias(table: torch.Tensor, idx: torch.Tensor,
+                    sums: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """A (tables, R, H) rel-pos table gathered at (L, L) bucket indices, as
     contiguous fp32 (tables, H, L, L), or at a student pass's per-sample
     (B, P, P) indices, as (tables, B, H, P, P): contiguous once here, so the
     kernel takes each layer's slice without a copy.  The (L, L) gather reads
     the table transposed to (tables, H, R), so that it writes the heads'
     planes in place: gathering (L, L, H) rows and transposing them cost ~12
-    ms a table at L = 3137 on an H100."""
+    ms a table at L = 3137 on an H100.  With ``sums`` (``bucket_order`` of
+    ``idx``) its backward is a sum per bucket instead of the index
+    backward."""
     if idx.ndim == 2:
+        if sums is not None:
+            return _BucketGather.apply(table.float(), idx, *sums)
         return table.float().transpose(1, 2).contiguous()[:, :, idx]
     return table.float()[:, idx].movedim(-1, -3).contiguous()
 

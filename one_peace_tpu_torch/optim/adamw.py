@@ -10,15 +10,22 @@ the decay term included.  The trainer sets each group's lr from the schedule
 before every update (``group["lr_scale"] * schedule(n)``); clipping and
 gradient accumulation live in the trainer.
 
+A parameter whose scale differs along its leading axis (the per-layer
+rel-pos tables under layer decay: table i carries layer i's scale) runs in a
+group at scale 1, and ``AdamW.step`` then moves each slice by its own scale:
+``p = p0 + s * (p1 - p0)``.  AdamW's step is linear in the lr, so this is the
+JAX update ``-lr * s * (adam + wd * p0)`` slice by slice.
+
 Parameter names are the port's (``encoder_wrapper.fusion.layers.3.
-self_attn.q_proj.weight``, ``backbone.layers.3.self_attn.q_proj.weight``);
-the rules are the JAX package's, applied to the unstacked layers.  Adan and
-the segmentation and video trunks' layer ids are not ported yet.
+self_attn.q_proj.weight``, ``backbone.layers.3.self_attn.q_proj.weight``,
+``backbone.encoder.layers.3.self_attn.q_proj.weight``); the rules are the JAX
+package's, applied to the unstacked layers.  Adan and the video trunk's layer
+ids are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
@@ -44,13 +51,19 @@ def layer_id_for_path(name: str, num_layers: int) -> Optional[int]:
     table, whose scale goes per table.  The detector (``OnePeaceDetector``)
     as detectron2's recipe: ``backbone.image_adapter`` 0, trunk layer i
     i + 1, everything else (the pyramid, the proposer, the heads and the
-    trunk's shared rel-pos table) num_layers + 1."""
+    trunk's shared rel-pos table) num_layers + 1.  The segmenters
+    (``OnePeaceSegmenter``) as mmseg's ViT rule: ``backbone.image_adapter``
+    0 but its per-layer rel-pos tables (None), ``backbone.encoder.layers.<i>``
+    i + 1, everything else (the spatial priors, the interactions, the level
+    embeddings, ``up``, ``norm1-4``, the encoder's final norm and the head)
+    num_layers + 1."""
     if name.startswith("backbone."):
         rest = name.removeprefix("backbone.")
         if rest.startswith("image_adapter."):
-            return 0
-        if rest.startswith("layers."):
-            return int(rest.split(".")[1]) + 1
+            return None if "rel_pos_table" in rest else 0
+        for stack in ("layers.", "encoder.layers."):
+            if rest.startswith(stack):
+                return int(rest.removeprefix(stack).split(".")[0]) + 1
         return num_layers + 1
     p = name.removeprefix("encoder_wrapper.")
     if p.startswith(ADAPTERS):
@@ -82,10 +95,30 @@ def layer_decay_scales(named_params: Iterable[Tuple[str, torch.Tensor]], num_lay
     return out
 
 
+class AdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` whose ``slice_scales`` parameters (each beside a
+    scale tensor that broadcasts against it) move by their scale slice by
+    slice: the group's step at scale 1, then ``p = p0 + s * (p1 - p0)``."""
+
+    def __init__(self, params, slice_scales: List[Tuple[torch.Tensor, torch.Tensor]], **kw):
+        super().__init__(params, **kw)
+        self.slice_scales = slice_scales
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        before = [p.clone() for p, _ in self.slice_scales]
+        loss = super().step(closure)
+        for (p, s), p0 in zip(self.slice_scales, before):
+            p.copy_(torch.lerp(p0, p, s))
+        return loss
+
+
 def build_optimizer(cfg: OptimizerConfig, opt_cfg: OptimizationConfig,
                     named_params: Iterable[Tuple[str, torch.Tensor]],
-                    num_layers: int = 40) -> torch.optim.AdamW:
-    """AdamW with one parameter group per (weight decay, layer scale)."""
+                    num_layers: int = 40) -> AdamW:
+    """AdamW with one parameter group per (weight decay, layer scale); a
+    parameter with one scale per leading index (a per-layer rel-pos table)
+    goes to a group at scale 1 and into ``slice_scales``."""
     if getattr(cfg, "use_adan", False) or cfg._name == "adan":
         raise NotImplementedError("Adan is not ported yet: use adamw")
     named_params = list(named_params)
@@ -94,13 +127,13 @@ def build_optimizer(cfg: OptimizerConfig, opt_cfg: OptimizationConfig,
     if opt_cfg.layer_decay and opt_cfg.layer_decay < 1.0:
         scales = layer_decay_scales(named_params, num_layers, opt_cfg.layer_decay)
     groups: Dict[Tuple[float, float], dict] = {}
+    slice_scales = []
     for name, p in named_params:
         scale = scales[name]
         if isinstance(scale, torch.Tensor):
             if scale.numel() > 1:
-                raise NotImplementedError(
-                    f"{name}: one lr per rel-pos table (copy_rel_pos_table with layer decay) "
-                    f"is not ported yet")
+                slice_scales.append((p, scale.to(p.device, p.dtype)))
+                scale = 1.0
             scale = float(scale)
         wd = cfg.weight_decay if mask[name] else 0.0
         group = groups.setdefault((wd, scale), {"params": [], "names": [], "weight_decay": wd,
@@ -108,4 +141,4 @@ def build_optimizer(cfg: OptimizerConfig, opt_cfg: OptimizationConfig,
         group["params"].append(p)
         group["names"].append(name)
     b1, b2 = cfg.adam_betas
-    return torch.optim.AdamW(list(groups.values()), lr=0.0, betas=(b1, b2), eps=cfg.adam_eps)
+    return AdamW(list(groups.values()), slice_scales, lr=0.0, betas=(b1, b2), eps=cfg.adam_eps)

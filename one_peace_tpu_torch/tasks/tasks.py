@@ -49,7 +49,7 @@ UNPORTED = {
     "fsd50k": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "aqa": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "refcoco": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
-    "k400_video": "ROADMAP queue 1 item 8 (segmentation and video)",
+    "k400_video": "ROADMAP queue 1 item 3 (video; the last of the old item 8)",
 }
 
 

@@ -1,7 +1,6 @@
 """Vision-transfer tasks (counterpart of ``one_peace_tpu/tasks/vision_tasks.py``):
-COCO detection, drivable through ``cli/train.py task._name=coco_detection``
-and ``cli/evaluate.py``, and ADE20K segmentation, evaluated through
-``cli/evaluate.py task._name=ade20k_seg``.
+COCO detection and ADE20K segmentation, drivable through ``cli/train.py``
+(``task._name=coco_detection`` / ``ade20k_seg``) and ``cli/evaluate.py``.
 
 ``CocoDetectionTask`` builds the detector from the config's encoder dims and
 task fields, reads COCO JSON through ``data/vision_datasets.py``, batches with
@@ -16,8 +15,9 @@ scores mIoU by ``task.seg_eval_protocol``: ``whole`` (one crop; the scores
 resized to the labels, or the argmax repeated, by
 ``seg_eval_logits_upsample``), ``slide`` or ``ms_flip``.  Each batch's
 confusion matrix is summed on the card and fetched once, in
-``merge_results``.  Segmentation training (its criterion) and the video task
-are not ported yet (ROADMAP queue 1 item 8).
+``merge_results``.  Validation runs the trainer's compute-dtype copies of
+the masters through ``functional_call``, as detection's does.  The video
+task is not ported yet (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -84,17 +84,28 @@ class VisionTaskBase:
         return self.metric.merge_results()
 
 
-class _DetectCall(nn.Module):
-    """``model.detect`` as a module's forward, so that one
+class _MethodCall(nn.Module):
+    """A method of ``model`` as a module's forward, so that one
     ``functional_call`` runs it on given parameters (the trainer's
     compute-dtype copies) without a second copy of the model."""
 
-    def __init__(self, model: OnePeaceDetector):
+    def __init__(self, model: nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, images: torch.Tensor, max_proposals: int):
-        return self.model.detect(images, max_proposals=max_proposals)
+    def forward(self, method: str, *args, **kwargs):
+        return getattr(self.model, method)(*args, **kwargs)
+
+
+def call_on(model: nn.Module, params, method: str, *args, **kwargs):
+    """``model.<method>(*args, **kwargs)`` on ``params`` (a name -> tensor
+    dict such as the trainer's compute-dtype copies) or, with None, on the
+    model's own weights."""
+    if params is None:
+        return getattr(model, method)(*args, **kwargs)
+    return torch.func.functional_call(_MethodCall(model),
+                                      {f"model.{k}": v for k, v in params.items()},
+                                      (method, *args), kwargs)
 
 
 class CocoDetectionTask(VisionTaskBase):
@@ -141,11 +152,8 @@ class CocoDetectionTask(VisionTaskBase):
         model.eval()
         try:
             with torch.inference_mode():
-                if params is None:
-                    return model.detect(images, max_proposals=self.cfg.max_proposals)
-                return torch.func.functional_call(
-                    _DetectCall(model), {f"model.{k}": v for k, v in params.items()},
-                    (images, self.cfg.max_proposals))
+                return call_on(model, params, "detect", images,
+                               max_proposals=self.cfg.max_proposals)
         finally:
             model.train(was_training)
 
@@ -214,16 +222,21 @@ class Ade20kSegTask(VisionTaskBase):
     def build_model(cfg, device="cuda", dtype=None) -> OnePeaceSegmenter:
         """The segmenter of ``cfg.task.seg_head`` over the encoder of
         ``cfg.model.encoder``, its image grids (absolute and relative) set to
-        the crop's, built on ``device``."""
+        the crop's, built on ``device``; Mask2Former's set loss reads its
+        ``max_instances`` and ``num_points`` from ``task.seg_max_instances``
+        and ``task.seg_num_points``."""
         enc, t = copy.deepcopy(cfg.model.encoder), cfg.task
         grid = t.image_size // 16
         enc.image_adapter.bucket_size = grid
         enc.image_adapter.rel_bucket_size = grid
         if t.seg_head == "mask2former":
-            return OnePeaceMask2FormerSegmenter(
+            model = OnePeaceMask2FormerSegmenter(
                 enc, num_classes=t.num_classes, feat_channels=t.seg_feat_channels,
                 num_queries=t.num_queries, dec_layers=t.seg_dec_layers,
                 pixel_layers=t.seg_pixel_layers, device=device, dtype=dtype)
+            model.max_instances = t.seg_max_instances
+            model.num_points = t.seg_num_points
+            return model
         if t.seg_head != "upernet":
             raise ValueError(f"task.seg_head {t.seg_head!r}: upernet or mask2former")
         return OnePeaceSegmenter(enc, num_classes=t.num_classes, device=device, dtype=dtype)
@@ -247,11 +260,9 @@ class Ade20kSegTask(VisionTaskBase):
         """One batch's confusion matrix by ``task.seg_eval_protocol``: ``whole``
         (one crop), ``slide`` (mmseg test_cfg mode='slide', stride
         ``seg_eval_stride``) or ``ms_flip`` (the reference's --aug-test over
-        ``seg_ms_ratios``), on the model's own weights in eval mode."""
-        if params is not None:
-            raise NotImplementedError("segmentation evaluates the model's own weights; "
-                                      "segmentation training is not ported yet (ROADMAP "
-                                      "queue 1 item 8)")
+        ``seg_ms_ratios``), in eval mode, on ``params`` (a name -> tensor dict
+        such as the trainer's compute-dtype copies) or, with None, on the
+        model's own weights."""
         was_training = model.training
         model.eval()
         try:
@@ -261,13 +272,12 @@ class Ade20kSegTask(VisionTaskBase):
             proto = self.cfg.seg_eval_protocol
             crop, stride = self.cfg.image_size, self.cfg.seg_eval_stride
             if proto == "slide":
-                pred = model.slide_scores(images, crop, stride).argmax(-1)
+                pred = call_on(model, params, "slide_scores", images, crop, stride).argmax(-1)
             elif proto == "ms_flip":
-                pred = model.ms_flip_logits(images, crop, stride,
-                                            ratios=tuple(self.cfg.seg_ms_ratios),
-                                            flip=True).argmax(-1)
+                pred = call_on(model, params, "ms_flip_logits", images, crop, stride,
+                               ratios=tuple(self.cfg.seg_ms_ratios), flip=True).argmax(-1)
             elif proto == "whole":
-                scores = model.logits(images).float()
+                scores = call_on(model, params, "logits", images).float()
                 if self.cfg.seg_eval_logits_upsample:
                     # mmseg-exact: the class scores resized to the labels, then argmax
                     pred = resize_linear(scores, target.shape[1:3], (1, 2)).argmax(-1)

@@ -11,10 +11,15 @@ package has them.
 
 The trunk runs the port's ``ImageAdapter`` (one rel-pos table per layer)
 and ``FusionEncoder`` layers with the text and audio experts off, its
-attention through kernel #1 (``ops/flash_attention.py``) on the card.  Each
-layer's (H, L, L) bias is gathered from its own table inside the group
-loop: at 896 px (L = 3137) the 40 tables gathered at once, as the JAX
-package builds them, would take 37.8 GB.
+attention through kernels #1 and #2 (``ops/flash_attention.py``) on the
+card.  Each layer's (H, L, L) bias is gathered from its own table inside the
+group loop: at 896 px (L = 3137) the 40 tables gathered at once, as the JAX
+package builds them, would take 37.8 GB.  With the encoder's
+``checkpoint_activations`` and a gradient wanted, each layer runs under
+``checkpoint_module`` with its bias gathered inside the recomputed region,
+so that no layer's bias outlives its forward.  The trunk runs no drop path
+and no dropout, as the JAX package's (``one_peace_tpu/vision/adapter.py``
+passes rate 0 and ``deterministic=True``).
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.adapters.image import ImageAdapter
-from ..models.components import (Conv, GroupNorm, LayerNorm, Linear, conv2d, conv_transpose2d,
-                                 empty_param, gelu, max_pool, resize_linear)
+from ..models.components import (Conv, GroupNorm, LayerNorm, Linear, checkpoint_module, conv2d,
+                                 conv_transpose2d, empty_param, gather_rel_bias, gelu, max_pool,
+                                 resize_linear)
 from ..models.encoder import FusionEncoder
 from .ms_deform_attn import MSDeformAttn
 
@@ -221,12 +227,25 @@ class OnePeaceAdapterBackbone(nn.Module):
 
     def _run_layers(self, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
         """Encoder layers lo..hi on the image tokens (CLS first), each with
-        its own table's bias; no key is padded, so no key bias."""
-        tables = self.image_adapter.rel_pos_table
+        its own table's bias; no key is padded, so no key bias.  Under remat
+        the bias is gathered again in the recompute: ``kwargs`` reads the
+        table now (the compute copy under ``functional_call``) and gathers
+        inside the checkpointed region."""
+        adapter = self.image_adapter
+        tables = adapter.rel_pos_table
+        remat = self.cfg.checkpoint_activations and torch.is_grad_enabled()
+        split_lens = (0, x.shape[1], 0)
         for i in range(lo, hi + 1):
-            bias = None if tables is None else self.image_adapter.rel_pos_bias(
-                i if tables.shape[0] > 1 else 0)
-            x = self.encoder.layers[i](x, None, bias, "image", (0, x.shape[1], 0))
+            j = i if tables is not None and tables.shape[0] > 1 else 0
+
+            def kwargs(j=j):
+                bias = None if tables is None else gather_rel_bias(
+                    tables[j:j + 1], adapter.rp_bucket, adapter.rp_sums)[0]
+                return dict(rel_bias=bias, encoder_type="image", split_lens=split_lens)
+
+            layer = self.encoder.layers[i]
+            x = checkpoint_module(layer, x, None, make_kwargs=kwargs) if remat else layer(
+                x, None, **kwargs())
         return x
 
     def forward(self, images_nchw: torch.Tensor) -> List[torch.Tensor]:

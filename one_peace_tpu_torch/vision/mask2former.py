@@ -9,9 +9,8 @@ Plain PyTorch, as the JAX package leaves it to XLA: NHWC modules, fp32
 softmax attention.  The masked cross-attention attends only inside the
 previous round's predicted mask (its logits, resized to the attended
 level, below 0 are blocked) and everywhere for a query whose whole mask is
-blocked; it is an additive -1e9 bias.  The set losses (``matching.py``,
-``mask2former_loss.py``) come with segmentation training (ROADMAP queue 1
-item 8).
+blocked; it is an additive -1e9 bias.  Its training losses are
+``mask2former_loss.py``'s.
 """
 
 from __future__ import annotations

@@ -2,9 +2,8 @@
 
 mmseg's UPerHead over the ViT-Adapter pyramid: PSP pyramid pooling on the
 deepest level (exact adaptive average pooling), FPN lateral fusion and a
-1x1 classifier, NHWC, GroupNorm after every conv.  Its training loss
-(``seg_cross_entropy``) comes with segmentation training (ROADMAP queue 1
-item 8).
+1x1 classifier, NHWC, GroupNorm after every conv; ``seg_cross_entropy`` is
+its training objective.
 """
 
 from __future__ import annotations
@@ -77,3 +76,22 @@ class UperNetHead(nn.Module):
         outs = [resize_linear(o, outs[0].shape[1:3], (1, 2)) for o in outs]
         fused = self.fuse(torch.cat(outs, dim=-1))
         return conv2d(fused, self.classifier.weight, self.classifier.bias, 1, "SAME")
+
+
+def seg_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255,
+                      label_smoothing: float = 0.0) -> torch.Tensor:
+    """Pixel-wise CE with the ignore label, the logits (B, h, w, C) resized to
+    the labels' (B, H, W) first (``resize_linear``: JAX's bilinear weights):
+    the UperNet training objective (mmseg's decode-head loss), the mean over
+    the counted pixels.  ``label_smoothing`` mixes in the mean of -log p over
+    the classes, as the segmentation criterion does."""
+    if tuple(logits.shape[1:3]) != tuple(labels.shape[1:3]):
+        logits = resize_linear(logits, labels.shape[1:3], (1, 2))
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -lp.gather(-1, safe[..., None])[..., 0]
+    if label_smoothing > 0:
+        nll = (1 - label_smoothing) * nll + label_smoothing * -lp.mean(-1)
+    vf = valid.float()
+    return (nll * vf).sum() / vf.sum().clamp_min(1.0)

@@ -199,14 +199,26 @@ def test_pretrain_model_raises(corpus, tmp_path):
 
 
 def test_layer_decay_refused_for_per_layer_tables(runs):
-    """The classify model always has one rel-pos table per layer, and one lr
-    per table under layer decay is not ported: the trainer refuses it."""
+    """The classify model always has one rel-pos table per layer.  Under
+    layer decay the trainer no longer refuses it: each adapter's tables move
+    by their own layer's scale (``AdamW.slice_scales``), and one update moves
+    table i by at most the scale of layer i's lr."""
     from one_peace_tpu_torch.criterions import build_criterion
+    from one_peace_tpu_torch.optim.adamw import layer_decay_scales
     from one_peace_tpu_torch.trainer import Trainer
 
     cfg = load_config(str(CLASSIFY_RECIPES["image_classify"]),
                       [*runs["image_classify"]["overrides"], "optimization.layer_decay=0.9",
                        "criterion._name=classify_criterion"])
     model = train.build_model_for_task(cfg, build_task(cfg.task, cfg), "cpu")
-    with pytest.raises(NotImplementedError, match="rel-pos table"):
-        Trainer(cfg, model, build_criterion(cfg.criterion))
+    trainer = Trainer(cfg, model, build_criterion(cfg.criterion))
+    named = dict(model.named_parameters())
+    tables = {n for n in named if "rel_pos_table" in n}
+    assert tables and {id(p) for p, _ in trainer.optimizer.slice_scales} == {
+        id(named[n]) for n in tables}
+    want = layer_decay_scales(named.items(), cfg.model.encoder.layers, 0.9)
+    for p, s in trainer.optimizer.slice_scales:
+        name = next(n for n in tables if named[n] is p)
+        assert s.shape == (p.shape[0], 1, 1) and p.shape[0] == cfg.model.encoder.layers
+        torch.testing.assert_close(s, want[name].float(), rtol=0, atol=0)
+        assert len(set(s.flatten().tolist())) == p.shape[0]  # one lr per table

@@ -8,8 +8,9 @@ iterator, bit for bit; ``MIoU`` against the JAX reducer; ``Ade20kSegTask``'s
 and ms_flip protocols against the JAX task's mIoU on the same weights; the
 port's ``cli.evaluate`` against the JAX ``cli.evaluate`` on one JAX-written
 ``.npz``, and the port's CLI under every protocol for both heads from the
-``.npz`` and from a fairseq ``.pt``; ``cli.train`` refuses segmentation (its
-criterion is not ported)."""
+``.npz`` and from a fairseq ``.pt``; the port's ``cli.train`` on the
+Mask2Former segmenter, its ``checkpoint_best.npz`` read by the JAX
+``cli.evaluate``."""
 
 import json
 
@@ -222,9 +223,25 @@ def test_port_cli_every_protocol(corpus, npz, pretrain_pt, tmp_path, head, sourc
         assert 0.0 <= stats["miou"] <= 100.0 and stats["acc_classes"] > 0, (protocol, stats)
 
 
-def test_cli_train_refuses_segmentation(corpus, tmp_path):
+def test_cli_train_then_jax_evaluate(corpus, tmp_path):
+    """The port's ``cli.train`` fine-tunes the Mask2Former segmenter for 2
+    updates from files (validation after each, ``checkpoint_best.npz`` by
+    mIoU), and the JAX ``cli.evaluate`` reads that export: its mIoU equals
+    the one the port's validation recorded in the export."""
+    from one_peace_tpu.cli import evaluate as jax_evaluate
     from one_peace_tpu_torch.cli import train as port_train
+    from one_peace_tpu_torch.utils import native_checkpoint as port_ckpt
 
-    with pytest.raises(NotImplementedError, match="segmentation_criterion"):
-        port_train.main(["--device", "cpu"] + overrides(
-            corpus, f"checkpoint.save_dir={tmp_path}"))
+    save = tmp_path / "run"
+    extra = [*M2F, "task.seg_num_points=32", "task.seg_max_instances=4"]
+    assert port_train.main(["--device", "cpu"] + overrides(
+        corpus, *extra, f"checkpoint.save_dir={save}", "dataset.batch_size=2",
+        "optimization.max_update=2", "optimization.lr=1e-3", "lr_scheduler.warmup_updates=0",
+        "optimization.layer_decay=0.9", "dataset.validate_interval_updates=1",
+        "checkpoint.best_checkpoint_metric=miou", "checkpoint.save_interval_updates=1")) == 0
+    best = save / "checkpoint_best.npz"
+    meta = port_ckpt.load_metadata(str(best))
+    assert meta["step"] in (1, 2) and sorted(p.name for p in save.glob("step_*")) == [
+        "step_1", "step_2"]
+    got = _cli(jax_evaluate, corpus, best, tmp_path / "jax.json", *extra, device=False)
+    assert got["miou"] == pytest.approx(meta["miou"], abs=1e-6)

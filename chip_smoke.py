@@ -53,7 +53,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. the depth-40 golden (``tests/fixtures/full_geometry_golden.npz``): the
    seeded 4B fairseq state regenerated and converted by the port's ``.pt``
    route in a process of its own, started with the script so that its
-   minutes on the host overlap phases 2-9 (it holds no card), and the fp32
+   minutes on the host overlap phases 2-12 (it holds no card), written as
+   raw files and read memory-mapped onto the card, and the fp32
    model on the kernel path held to the golden embeddings at cosine >=
    1-1e-3;
 11. detection serving: (a) the det attention kernel against its plain
@@ -157,7 +158,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    with its export read back bit-equal, then the AL stage-2 recipe
    restoring it: the shared leaves carried bit-equal, ``logit_scale``
    reset, the frozen parameters bit-unchanged after 3 updates; (d) both
-   recipes at depth 40 (VL B=32, AL B=16), 6 updates each: the median ms
+   recipes at depth 40 (VL B=32, AL B=16), 5 updates each: the median ms
    per update, pairs or clips per second, MFU, peak memory, the launches
    per update, one profiled update each (``pretrain_{vl,al}_profile.txt``:
    the idle share and the per-sample bias gathers' index backward).
@@ -195,6 +196,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    FLOPs, peak memory, launches per update (80 / 40) and one profiled update
    (``seg_train_profile.txt``: the idle share, the bias gathers' index
    backward, #1, #2 and the matching's host time).
+19. video: (a) first, #1 with the backward's statistics and #2 alone at the
+   video trunk's shapes at the recipe's B=8 (the temporal attention, L=32
+   over 2056 sequences, no bias; the spatial one, L=257 over 256 frames,
+   one shared fp32 (H, L, L) bias) against their plain versions, fp32 (two
+   backward calls bit-equal) and bf16, then in turns with SDPA and its
+   backward; then, the launches counted from 0: (b) the video classifier
+   at full width and depth 4, 256 px, 32 frames, B=2, remat, on seeded
+   random weights with non-zero adapters, temporal embedding and rel-pos
+   table: the logits kernel path against plain path (cosine per clip >=
+   1-1e-6 fp32, >= 0.999 bf16), the trainable gradients through ``Trainer``
+   with 7(a)'s bounds, the launches per forward (8) and gradient (16 / 8);
+   (c) a synthetic rawframes tree under ``build/smoke_k400/`` (24 train and
+   8 valid clips of 40-150 frames, landscape and portrait) and the recipe
+   through ``cli.train`` at depth 4, straight to 4 updates and stopped at 2
+   and resumed (update losses to 1e-6), ``checkpoint_best.npz`` read back
+   bit-equal to its step's masters, the trunk unchanged, and
+   ``cli.evaluate`` under 3 clips x ThreeCrop equal to a direct
+   ``valid_step`` loop; (d) the recipe at depth 40 through ``cli.train``,
+   B=8, bf16: ms per update, clips/s, MFU, peak memory, launches per update
+   (160 / 80), one validation over 8 clips (72 views) with its ms per clip
+   and peak, and one profiled update (``video_train_profile.txt``: the idle
+   share, #1 and #2).
+
+Phase 10 runs after phase 12, when the process started with the script
+has written its state under ``build/golden_state/``.
 
 Every timed kernel also prints its bound: the larger of its bytes over the
 HBM rate and its operations over the peak rate (NVIDIA's data sheet).  The
@@ -514,7 +540,9 @@ def sdpa_mask(bias, key_bias, b, heads=None, l=None):
     """The additive bf16 mask SDPA gets: a shared (H, L, L) or per-sample
     (B, H, L, L) bias plus the key bias where there is one, expanded to
     (B, H, L, L); without a bias (give ``heads`` and ``l``) the key bias
-    alone."""
+    alone; None without either."""
+    if bias is None and key_bias is None:
+        return None
     if bias is None:
         mask = key_bias[:, None, None, :].expand(b, heads, l, l)
     else:
@@ -1228,11 +1256,17 @@ def time_int8_paths(card: str, bpe: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _golden_state_child(conn) -> None:
+GOLDEN_STATE_DIR = ROOT / "build" / "golden_state"
+
+
+def _golden_state_child(conn, out_dir: str) -> None:
     """Phase 10's host half, in a process of its own: the seeded 4B fairseq
     state regenerated (numpy's Gaussian draws hold the GIL, so a thread
     would slow the parent's host-bound phases) and converted by the port's
-    ``.pt`` route, then sent through ``conn`` tensor by tensor."""
+    ``.pt`` route, then written tensor by tensor as raw files under
+    ``out_dir``; only their names, dtypes, shapes and paths go through
+    ``conn``.  (Sent through the pipe, the 16 GB took 21-35 s to receive, and
+    ~150 s in some runs.)"""
     try:
         torch.set_num_threads(1)
         cfg = ModelConfig(head_type="val")
@@ -1241,11 +1275,20 @@ def _golden_state_child(conn) -> None:
         t_gen = time.time() - t0
         t0 = time.time()
         state = convert_retrieval_model(sd, cfg)
-        conn.send({"names": list(state), "t_gen": t_gen, "t_conv": time.time() - t0})
-        for name in list(state):
-            t = state.pop(name).contiguous()
-            conn.send((str(t.dtype).removeprefix("torch."), tuple(t.shape)))
-            conn.send_bytes(t.numpy().reshape(-1).view(np.uint8))
+        del sd
+        t_conv = time.time() - t0
+        t0 = time.time()
+        out = Path(out_dir)
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        tensors = []
+        for i, name in enumerate(list(state)):
+            arr = state.pop(name).contiguous().numpy()
+            path = out / f"{i}.bin"
+            arr.tofile(path)
+            tensors.append((name, arr.dtype.str, arr.shape, str(path)))
+        conn.send({"tensors": tensors, "t_gen": t_gen, "t_conv": t_conv,
+                   "t_write": time.time() - t0})
     except BaseException as e:
         conn.send({"error": repr(e)})
         raise
@@ -1255,36 +1298,42 @@ def _golden_state_child(conn) -> None:
 
 class GoldenState:
     """Starts ``_golden_state_child`` (spawned: it never touches the card)
-    and receives its state into a model on the card."""
+    and reads its state, memory-mapped, into a model on the card."""
 
     def __init__(self):
         ctx = multiprocessing.get_context("spawn")
         self.conn, child = ctx.Pipe(duplex=False)
-        self.proc = ctx.Process(target=_golden_state_child, args=(child,), daemon=True)
+        self.proc = ctx.Process(target=_golden_state_child,
+                                args=(child, str(GOLDEN_STATE_DIR)), daemon=True)
         self.proc.start()
         child.close()
 
     def load_into(self, model: torch.nn.Module) -> dict:
         """The child's state into ``model`` (strict: the same names and
-        shapes).  Returns its times and this call's wait."""
+        shapes); its files are removed after.  Returns its times, this
+        call's wait for them and the read's time."""
         t0 = time.time()
         head = self.conn.recv()
         waited = time.time() - t0
         if "error" in head:
             raise RuntimeError(f"10: the golden state's process failed: {head['error']}")
         params = model.state_dict()
-        if sorted(head["names"]) != sorted(params):
+        if sorted(name for name, *_ in head["tensors"]) != sorted(params):
             raise RuntimeError("10: the converted state's names are not the model's")
-        for name in head["names"]:
-            dtype, shape = self.conn.recv()
-            if tuple(params[name].shape) != shape:
+        t0 = time.time()
+        for name, dtype, shape, path in head["tensors"]:
+            if tuple(params[name].shape) != tuple(shape):
                 raise RuntimeError(f"10: {name} is {shape}, the model has "
                                    f"{tuple(params[name].shape)}")
-            buf = torch.empty(shape, dtype=getattr(torch, dtype))
-            self.conn.recv_bytes_into(buf.numpy().reshape(-1).view(np.uint8))
-            params[name].copy_(buf)
+            arr = (np.fromfile(path, dtype=np.dtype(dtype)).reshape(shape) if not shape
+                   else np.memmap(path, dtype=np.dtype(dtype), mode="c", shape=tuple(shape)))
+            params[name].copy_(torch.from_numpy(arr))
+            del arr
+        torch.cuda.synchronize()
+        read = time.time() - t0
         self.stop(wait=60.0)
-        return {**head, "waited": waited}
+        shutil.rmtree(GOLDEN_STATE_DIR, ignore_errors=True)
+        return {**head, "waited": waited, "read": read}
 
     def stop(self, wait: float = 0.0) -> None:
         """Close the pipe; end the child if it is not done within ``wait`` s."""
@@ -1293,6 +1342,8 @@ class GoldenState:
         if self.proc.is_alive():
             self.proc.terminate()
             self.proc.join()
+        if wait == 0.0:
+            shutil.rmtree(GOLDEN_STATE_DIR, ignore_errors=True)
 
 
 def check_golden(source: GoldenState) -> dict:
@@ -1306,8 +1357,10 @@ def check_golden(source: GoldenState) -> dict:
     model = OnePeaceRetrievalModel(cfg, device="cuda", dtype=torch.float32)
     got = source.load_into(model)
     log(f"10: 4B state from the seed in {got['t_gen']:.1f} s, converted by the port in "
-        f"{got['t_conv']:.1f} s, in a process started with the script; this phase waited "
-        f"{got['waited']:.1f} s for it and had it on the card after {time.time() - t0:.1f} s")
+        f"{got['t_conv']:.1f} s and written under build/ in {got['t_write']:.1f} s, in a "
+        f"process started with the script; this phase waited {got['waited']:.1f} s for it, "
+        f"read it memory-mapped onto the card in {got['read']:.1f} s and had it there after "
+        f"{time.time() - t0:.1f} s")
     imgs = torch.from_numpy(np.random.RandomState(golden.IMAGE_SEED).randn(
         *golden.IMAGE_SHAPE).astype(np.float32)).cuda()
     wav = torch.from_numpy(np.random.RandomState(golden.AUDIO_SEED).randn(
@@ -2081,13 +2134,14 @@ def check_cli_resume(data: dict, layers: int = 4) -> dict:
 
     t0 = time.time()
     run_train_cli(argv("straight", "log"))
-    run_train_cli(argv("resumed", "part1", "optimization.max_epoch=1"))
+    quiet = ("dataset.disable_validation=true", "checkpoint.best_checkpoint_metric=")
+    run_train_cli(argv("resumed", "part1", "optimization.max_epoch=1", *quiet))
     mid = ckpt.restore_train_state(str(runs["resumed"] / "step_2"))["trainer"]
     if (mid["step"], mid["mini"]) != (2, 1):
         raise RuntimeError(f"13(b): the epoch-1 save is at step {mid['step']} with "
                            f"{mid['mini']} micro-gradients pending, not 2 and 1")
     del mid
-    run_train_cli(argv("resumed", "part2"))
+    run_train_cli(argv("resumed", "part2", *quiet))
     straight = update_losses(runs["straight"] / "log.jsonl")
     resumed = (update_losses(runs["resumed"] / "part1.jsonl")
                + update_losses(runs["resumed"] / "part2.jsonl"))
@@ -3160,7 +3214,9 @@ def time_attention_cases(tag: str, cases, card: str, seed: int, key_bias_fn) -> 
             "bound_ms": bound[0], "bound_by": bound[1]}
         del mask
         leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
-        mask = sdpa_mask(bias, key_bias, b, heads, l).detach().requires_grad_(bias is not None)
+        mask = sdpa_mask(bias, key_bias, b, heads, l)
+        if mask is not None:
+            mask = mask.detach().requires_grad_(bias is not None)
         res = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask,
                                                                scale=0.125)
         g4 = g.view(b, l, heads, 64).transpose(1, 2)
@@ -3476,11 +3532,11 @@ def index_backward_share(prof: dict) -> str:
 
 def train_pretrain_full_depth(data: dict, stage: str, card: str) -> dict:
     """Phase 16(d): the stage's recipe at depth 40 through ``cli.train``
-    from the config's init (AL with its stage-2 freezing), 6 updates (VL at
-    B=32, AL at B=16 on 14-15 s clips), no validation, no saves.  Update 5
-    runs under torch.profiler from the end of update 4 (the device's idle
-    share, the index backward's share); ``ms`` is the median of the other
-    updates after the first that do not open an epoch.  #1 and #2 launch
+    from the config's init (AL with its stage-2 freezing), ``PRETRAIN_UPDATES``
+    updates (VL at B=32, AL at B=16 on 14-15 s clips), no validation, no
+    saves.  Update 5 runs under torch.profiler from the end of update 4
+    (the device's idle share, the index backward's share); ``ms`` is the
+    median of the other updates after the first that do not open an epoch.  #1 and #2 launch
     per update as ``pretrain_launches`` says (remat); the losses must be
     finite."""
     batch = 32 if stage == "vl" else 16
@@ -3542,7 +3598,7 @@ def train_pretrain_full_depth(data: dict, stage: str, card: str) -> dict:
     return {"ms": ms, "peak_gib": peak, "losses": losses, "mfu": tflops / H100_BF16_PEAK_TFLOPS}
 
 
-PRETRAIN_UPDATES = 6  # 16(d)'s window
+PRETRAIN_UPDATES = 5  # 16(d)'s window
 
 
 PRETRAIN_ATTENTION = [  # (B, L, heads, bias, what): the pretrain slice's new shapes
@@ -4166,13 +4222,14 @@ def check_seg_train_cli(card: str, layers: int = 4) -> dict:
             *common, f"common.log_file={runs[name]}/{log_name}.jsonl", *extra])
 
     run_train_cli(argv("straight", "log"))
-    run_train_cli(argv("resumed", "part1", "optimization.max_epoch=1"))
+    quiet = ("dataset.disable_validation=true", "checkpoint.best_checkpoint_metric=")
+    run_train_cli(argv("resumed", "part1", "optimization.max_epoch=1", *quiet))
     mid = ckpt.restore_train_state(str(runs["resumed"] / "step_2"))
     if (mid["trainer"]["step"], mid["iterator"]["consumed"]) != (2, 2):
         raise RuntimeError(f"18(c): the save is at step {mid['trainer']['step']}, batch "
                            f"{mid['iterator']['consumed']} of its epoch, not 2 and 2")
     del mid
-    run_train_cli(argv("resumed", "part2"))
+    run_train_cli(argv("resumed", "part2", *quiet))
     straight = update_losses(runs["straight"] / "log.jsonl")
     repeat = update_losses(runs["resumed"] / "part1.jsonl")
     resumed = update_losses(runs["resumed"] / "part2.jsonl")
@@ -4315,6 +4372,478 @@ def train_seg_full_depth(card: str) -> dict:
     return {"ms": ms, "peak_gib": peak, "losses": losses, "mfu": tflops / H100_BF16_PEAK_TFLOPS}
 
 
+K400_DIR = ROOT / "build" / "smoke_k400"
+K400_RECIPE = ROOT / "recipes" / "video" / "k400_32frames.yaml"
+K400_SIZES = ((340, 256), (256, 340), (320, 240), (171, 128))  # (width, height)
+
+
+def write_k400_corpus(root: Path, n_train: int, n_valid: int, lengths=(150, 40, 97, 64),
+                      sizes=K400_SIZES, num_classes: int = 400, seed: int = 19,
+                      distinct: int = 16) -> dict:
+    """Phase 19(c): a synthetic Kinetics tree under ``root`` in mmaction2's
+    rawframes layout (``rawframes/<clip>/img_00001.jpg``...,
+    ``{train,valid}_list_rawframes.txt`` lines ``clip frames label``), the
+    clips' lengths and frame sizes from ``lengths`` and ``sizes`` in turn
+    (landscape and portrait; clips shorter than the recipe's 32 x 4 = 128
+    frames are loop-padded), each clip a pattern drifting over its frames in
+    a label-dependent colour.  A clip's first ``distinct`` frames are
+    encoded and its later ones are hard links to them in turn (encoding
+    every frame took 29.5 s for 32 clips).  Returns the annotation files and
+    the frames' root."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    palette = rng.randint(30, 225, (num_classes, 3))
+    frames_root = root / "rawframes"
+    out, count = {"root": str(frames_root)}, 0
+    for split, n in (("train", n_train), ("valid", n_valid)):
+        lines = []
+        for _ in range(n):
+            w, h = sizes[count % len(sizes)]
+            total = lengths[count % len(lengths)]
+            label = int(rng.randint(num_classes))
+            clip = frames_root / f"clip{count:04d}"
+            clip.mkdir(parents=True, exist_ok=True)
+            yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+            for fi in range(total):
+                path = clip / f"img_{fi + 1:05d}.jpg"
+                if fi >= distinct:
+                    if path.exists():
+                        path.unlink()
+                    os.link(clip / f"img_{fi % distinct + 1:05d}.jpg", path)
+                    continue
+                wave = np.sin((xx + 3.0 * fi) / (11.0 + label % 7) + yy / 19.0)
+                img = palette[label] * (0.75 + 0.25 * wave[..., None])
+                img = img + rng.randint(-12, 13, (h, w, 3))
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path, quality=90)
+            lines.append(f"{clip.name} {total} {label}")
+            count += 1
+        ann = root / f"{split}_list_rawframes.txt"
+        ann.write_text("\n".join(lines) + "\n")
+        out[split] = str(ann)
+    return out
+
+
+K400_PX, K400_FRAMES, K400_HEADS = 256, 32, 24
+K400_N = (K400_PX // 16) ** 2 + 1  # 257 tokens a frame
+K400_UPDATES = 6  # 19(d)'s window
+VIDEO_ATTENTION = [  # (B, L, heads, bias, what): the video trunk's two shapes at the recipe's B=8
+    (8 * K400_N, K400_FRAMES, K400_HEADS, None, "temporal, 32 frames"),
+    (8 * K400_FRAMES, K400_N, K400_HEADS, "shared", "spatial, 256 px")]
+
+
+def check_video_attention(card: str) -> tuple:
+    """Phase 19(a): #1 with the backward's statistics and #2 alone at the
+    video trunk's shapes at the recipe's B=8: the temporal attention (L=32
+    over B = 8 x 257 = 2056 sequences, no bias: one key tile whose tail is
+    L, a 64-row q tile half empty, 2056 dk/dv blocks on grid z) and the
+    spatial one (L=257 over B = 8 x 32 = 256 frames, one shared fp32
+    (H, L, L) bias whose d(bias) #2 sums over the 256 rows in chunks).  fp32
+    first: the forward and its statistics within phase 3's bounds, the
+    backward twice bit-equal and within phase 6's; then bf16 against the
+    plain versions and timed in turns with SDPA and its backward through
+    ``time_attention_cases``.  Returns the fp32 forward's max |diff|, the
+    backward's, and the timed rows."""
+    gen = torch.Generator(device="cuda").manual_seed(191)
+    fwd_worst = bwd_worst = 0.0
+    for b, l, heads, bias_kind, what in VIDEO_ATTENTION:
+        q, k, v, g = (torch.randn(b, l, heads * 64, generator=gen, device="cuda")
+                      for _ in range(4))
+        bias = (torch.randn(heads, l, l, generator=gen, device="cuda")
+                if bias_kind == "shared" else None)
+        out, stats = fa.flash_attention_cuda(q, k, v, bias, None, 0.125, heads, with_stats=True)
+        want, want_stats = fa.flash_attention_plain(q, k, v, bias, None, 0.125, heads,
+                                                    with_stats=True)
+        fwd_err = (out - want).abs().max().item()
+        stats_err = max(((stats[0] - want_stats[0]).abs() / want_stats[0].abs().clamp_min(1))
+                        .max().item(),
+                        ((stats[1] - want_stats[1]).abs() / want_stats[1]).max().item())
+        del out, want, want_stats
+        got = fa.flash_attention_bwd_cuda(q, k, v, g, bias, None, 0.125, heads, stats=stats)
+        again = fa.flash_attention_bwd_cuda(q, k, v, g, bias, None, 0.125, heads, stats=stats)
+        torch.cuda.synchronize()
+        same = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        plain = fa.flash_attention_bwd_plain(q, k, v, g, bias, None, 0.125, heads)
+        parts, bad = [], not same
+        for name, x, y in zip(("dq", "dk", "dv", "dbias"), got, plain):
+            if y is None:
+                continue
+            err = (x - y).abs()
+            rel = err.max().item() / y.abs().max().item()
+            bwd_worst = max(bwd_worst, err.max().item())
+            parts.append(f"{name} {rel:.2e}/{err.mean().item() / y.abs().mean().item():.2e}")
+            bad = bad or rel > 1e-4 or not torch.isfinite(x).all()
+        fwd_worst = max(fwd_worst, fwd_err)
+        plan, bplan = fa.tile_plan(l), fa.bwd_plan(b, l, heads, bias is not None)
+        log(f"19(a) fp32 B={b} L={l} H={heads} {bias_kind or 'no'} bias ({what}): forward max|d| "
+            f"{fwd_err:.3e}, statistics {stats_err:.2e} relative; backward from the forward's "
+            f"statistics max/mean |d| relative {', '.join(parts)}; two calls bit-equal {same}; "
+            f"{FWD_BRANCHES[plan.resident]}, last tile {plan.tail} wide; "
+            f"{DQ_BRANCHES[bplan.tiles.resident]}, {DKV_BRANCHES[bplan.dkv_slab]}, "
+            f"{bplan.chunks} chunks of {bplan.b_chunk}")
+        if fwd_err > FP32_MAX_ERR or stats_err > 1e-4 or bad:
+            raise RuntimeError(f"19(a): #1 or #2 disagrees with its plain version in fp32 at "
+                               f"L={l}, B={b}")
+        del q, k, v, g, bias, stats, got, plain
+        torch.cuda.empty_cache()
+    fwd_rows, bwd_rows = time_attention_cases("19(a)", VIDEO_ATTENTION, card, 192,
+                                              lambda *args: None)
+    return fwd_worst, bwd_worst, fwd_rows, bwd_rows
+
+
+def video_trainer(overrides: list, seed: int = 193) -> Trainer:
+    """The recipe's video classifier (``K400VideoTask.build_model``: full
+    width, 256 px, 32 frames, remat) on ``fill_random_``'s seeded weights
+    (the adapters' ``fc2``, the temporal embedding and the rel-pos table
+    non-zero), its criterion and ``Trainer``: the trunk frozen."""
+    from one_peace_tpu_torch.tasks.vision_tasks import K400VideoTask
+
+    cfg = load_config(str(K400_RECIPE), overrides)
+    cfg.criterion._name = cfg.criterion._name or K400VideoTask.criterion_name
+    model = K400VideoTask.build_model(cfg, device="cuda")
+    fill_random_(model, torch.Generator(device="cuda").manual_seed(seed))
+    return Trainer(cfg, model, build_criterion(cfg.criterion))
+
+
+def check_video_train_paths() -> None:
+    """Phase 19(b): the video classifier at full width and depth 4, 256 px,
+    32 frames, B=2, remat, on seeded random weights, kernel path against
+    plain path on the same weights and clips: the logits of a forward in
+    fp32 (cosine per clip >= 1-1e-6) and bf16 (>= 0.999), 8 launches of #1
+    per forward (4 layers x the temporal and the spatial attention); then the
+    trainable parameters' gradients through ``Trainer`` and the criterion
+    with 7(a)'s bounds (fp32: losses within 1e-5, every gradient's cosine
+    >= 1-1e-6; bf16: losses within 2e-3, all gradients together >= 0.999
+    kernel vs plain, and per parameter the kernel path no further from the
+    fp32 gradients than the plain path but 0.01), 16 launches of #1 (the
+    forward and remat's recompute) and 8 of #2 per gradient.  The trunk is
+    frozen: its weights take no gradient, yet every layer's attention runs
+    its backward."""
+    from one_peace_tpu_torch.tasks.vision_tasks import call_on
+
+    gen = torch.Generator(device="cuda").manual_seed(194)
+    clips = torch.randn(2, K400_FRAMES, 3, K400_PX, K400_PX, generator=gen, device="cuda")
+    batch = {"src_videos": clips, "target": torch.tensor([7, 311], device="cuda")}
+    ref32 = logits32 = None
+    for bf16 in (False, True):
+        name = "bf16" if bf16 else "fp32"
+        t0 = time.time()
+        trainer = video_trainer(["model.encoder.layers=4", f"common.bf16={str(bf16).lower()}"])
+        backbone = trainer.model.backbone
+        runs, logits = {}, {}
+        for impl in ("pallas", "xla"):
+            backbone.attn_impl = impl
+            fa.launches = fa.bwd_launches = 0
+            with torch.no_grad():
+                logits[impl] = call_on(trainer.model, trainer._compute_params(prefix=""),
+                                       "forward", clips).float()
+            torch.cuda.synchronize()
+            fwd = fa.launches
+            metrics, grads = trainer.gradients(batch, torch.Generator().manual_seed(5))
+            torch.cuda.synchronize()
+            launched = (fwd, fa.launches - fwd, fa.bwd_launches)
+            want = (8, 16, 8) if impl == "pallas" else (0, 0, 0)
+            if launched != want:
+                raise RuntimeError(f"19(b) {name} {impl}: launches (forward; gradient's #1, "
+                                   f"#2) {launched}, expected {want}")
+            if not all(torch.isfinite(g).all() for g in grads):
+                raise RuntimeError(f"19(b) {name} {impl}: non-finite gradient")
+            runs[impl] = (float(metrics["loss"]), grads)
+        backbone.attn_impl = "pallas"
+        names = trainer._names
+        frozen = sum(not p.requires_grad for p in trainer.model.parameters())
+        del trainer
+        cos = min_cosine(logits["pallas"], logits["xla"])
+        cos32 = (float("nan") if logits32 is None
+                 else min_cosine(logits["pallas"], logits32))
+        log(f"19(b) {name} depth 4, 256 px, 32 frames, B=2 ({time.time() - t0:.1f} s): logits "
+            f"cosine per clip kernel vs plain min {cos:.9f}"
+            + ("" if logits32 is None else f", kernel path vs the fp32 plain path {cos32:.6f}")
+            + f"; launches per forward: #1 8; per gradient: #1 16, #2 8; {len(names)} "
+            f"trainable parameters, {frozen} frozen")
+        if cos < (0.999 if bf16 else 1 - 1e-6):
+            raise RuntimeError(f"19(b) {name}: the kernel path's logits disagree")
+        if logits32 is None:
+            logits32 = logits["xla"]
+        (loss_k, grads_k), (loss_p, grads_p) = runs["pallas"], runs["xla"]
+        gcos = grad_cosines(grads_k, grads_p)
+        worst = min(range(len(gcos)), key=gcos.__getitem__)
+        total = grad_cosines([torch.cat([g.flatten() for g in grads_k])],
+                             [torch.cat([g.flatten() for g in grads_p])])[0]
+        log(f"19(b) {name}: loss kernel {loss_k:.7f} plain {loss_p:.7f}; gradient cosine kernel "
+            f"vs plain over all trainable parameters {total:.9f}, per parameter min "
+            f"{gcos[worst]:.9f} ({names[worst]}), median {sorted(gcos)[len(gcos) // 2]:.9f}")
+        if not bf16:
+            ok = abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and gcos[worst] >= 1 - 1e-6
+            ref32 = grads_p
+        else:
+            cos_k, cos_p = grad_cosines(grads_k, ref32), grad_cosines(grads_p, ref32)
+            gap = max(range(len(gcos)), key=lambda i: cos_p[i] - cos_k[i])
+            log(f"19(b) bf16 vs the fp32 gradients: min cosine kernel path {min(cos_k):.6f}, "
+                f"plain path {min(cos_p):.6f}; largest shortfall of the kernel path "
+                f"{cos_p[gap] - cos_k[gap]:.2e} ({names[gap]})")
+            ok = (abs(loss_k - loss_p) <= 2e-3 * abs(loss_p) and total >= 0.999
+                  and cos_p[gap] - cos_k[gap] <= 0.01)
+        if not ok:
+            raise RuntimeError(f"19(b) {name}: kernel and plain training paths disagree")
+        del runs, grads, grads_k, grads_p
+        torch.cuda.empty_cache()
+
+
+def k400_argv(corpus: dict, train: str, save_dir: Path, layers: int, extra=()) -> list:
+    return ["--config", str(K400_RECIPE), "--device", "cuda", f"task.data={train}",
+            f"task.image_dir={corpus['root']}", f"task.valid_data={corpus['valid']}",
+            "task.num_classes=400", f"model.encoder.layers={layers}",
+            f"checkpoint.save_dir={save_dir}", *extra]
+
+
+@contextlib.contextmanager
+def recorded_hits():
+    """Observe each ``Accuracy.merge_results``: the batches' top-1 hits and
+    the stats."""
+    from one_peace_tpu_torch.metrics.metrics import Accuracy
+
+    seen, real = [], Accuracy.merge_results
+
+    def merge(self):
+        hits = [int(x) for x in self.ncorrect_list]
+        stats = real(self)
+        seen.append((hits, stats))
+        return stats
+
+    Accuracy.merge_results = merge
+    try:
+        yield seen
+    finally:
+        Accuracy.merge_results = real
+
+
+def check_video_cli(corpus: dict, card: str, layers: int = 4) -> dict:
+    """Phase 19(c): the recipe through ``cli.train`` at full width and depth
+    ``layers`` (bf16 over fp32 masters, remat, B=2) on 6 of the synthetic
+    clips (3 batches an epoch), 4 updates at lr 1e-4 from update 0, a save
+    and a validation (4 clips x 3 clips x ThreeCrop = 36 views) every 2
+    updates, ``checkpoint_best.npz`` by accuracy: once straight; once, with
+    no validation, to the end of epoch 1 (3 updates, the last save at update
+    2, mid-epoch) and resumed from that save to 4.  Nothing on the path sums by atomics, so
+    the resumed run's update losses must equal the straight run's to 1e-6
+    relative; the export must read back (``params_from_jax``) bit-equal to
+    the masters of the bundle of its step, and ``cli.evaluate`` on it must
+    equal a direct ``valid_step`` loop on the same weights (the accuracy and
+    every batch's hits)."""
+    from one_peace_tpu_torch.cli import evaluate as evaluate_cli
+    from one_peace_tpu_torch.cli.train import load_weights
+    from one_peace_tpu_torch.tasks import build_task
+    from one_peace_tpu_torch.utils import native_checkpoint as ckpt
+    from one_peace_tpu_torch.utils.checkpoint import load_npz
+
+    t0 = time.time()
+    train6 = K400_DIR / "train6_list_rawframes.txt"
+    train6.write_text("".join(Path(corpus["train"]).read_text().splitlines(True)[:6]))
+    valid4 = K400_DIR / "valid4_list_rawframes.txt"
+    valid4.write_text("".join(Path(corpus["valid"]).read_text().splitlines(True)[:4]))
+    corpus = {**corpus, "valid": str(valid4)}
+    runs = {"straight": K400_DIR / "straight", "resumed": K400_DIR / "resumed"}
+    for d in runs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    common = ["common.log_interval=1", "optimization.lr=1e-4", "lr_scheduler.warmup_updates=0",
+              "lr_scheduler.warmup_ratio=0", "optimization.max_update=4",
+              "checkpoint.save_interval_updates=2", "checkpoint.keep_last_epochs=2",
+              "checkpoint.best_checkpoint_metric=accuracy", "checkpoint.save_interval=1000",
+              "dataset.validate_interval=1000", "dataset.batch_size=2",
+              "dataset.batch_size_valid=2"]
+
+    def argv(name, log_name, *extra):
+        return k400_argv(corpus, str(train6), runs[name], layers, [
+            *common, f"common.log_file={runs[name]}/{log_name}.jsonl", *extra])
+
+    with recorded_hits() as valid_hits:
+        run_train_cli(argv("straight", "log"))
+    quiet = ("dataset.disable_validation=true", "checkpoint.best_checkpoint_metric=")
+    run_train_cli(argv("resumed", "part1", "optimization.max_epoch=1", *quiet))
+    mid = ckpt.restore_train_state(str(runs["resumed"] / "step_2"))
+    if (mid["trainer"]["step"], mid["iterator"]["consumed"]) != (2, 2):
+        raise RuntimeError(f"19(c): the save is at step {mid['trainer']['step']}, batch "
+                           f"{mid['iterator']['consumed']} of its epoch, not 2 and 2")
+    trunk_at_2 = {k: v for k, v in mid["trainer"]["params"].items()
+                  if ".self_attn." in k or ".image_ffn." in k}
+    del mid
+    run_train_cli(argv("resumed", "part2", *quiet))
+    straight = update_losses(runs["straight"] / "log.jsonl")
+    repeat = update_losses(runs["resumed"] / "part1.jsonl")
+    resumed = update_losses(runs["resumed"] / "part2.jsonl")
+    spread = max(abs(x - y) / abs(y) for x, y in zip(repeat, straight))
+    off = max(abs(x - y) / abs(y) for x, y in zip(resumed, straight[2:]))
+    log(f"19(c) the recipe at depth {layers}, bf16, B=2: update losses straight {straight}, "
+        f"repeated to the end of epoch 1 {repeat} (largest relative difference {spread:.2e}), "
+        f"updates 3-4 resumed from the save at update 2 (mid-epoch) {resumed} (largest "
+        f"relative difference {off:.2e}) ({time.time() - t0:.1f} s)")
+    if not (len(straight) == 4 and len(repeat) == 3 and len(resumed) == 2
+            and all(map(math.isfinite, straight)) and max(spread, off) <= 1e-6):
+        raise RuntimeError("19(c): the resumed run does not repeat the straight run")
+    best = runs["straight"] / "checkpoint_best.npz"
+    meta = ckpt.load_metadata(str(best))
+    masters = ckpt.restore_train_state(str(runs["straight"] / f"step_{meta['step']}"))[
+        "trainer"]["params"]
+    exported = load_npz(str(best))
+    same = sorted(exported) == sorted(masters) and all(
+        torch.equal(exported[k], masters[k]) for k in masters)
+    frozen = all(torch.equal(masters[k], v) for k, v in trunk_at_2.items())
+    log(f"19(c) checkpoint_best.npz ({meta}): read back bit-equal to the masters of step "
+        f"{meta['step']}: {same}; the trunk's weights unchanged from update 2: {frozen}; the "
+        f"validations' hits {[h for h, _ in valid_hits]}")
+    if not same or not frozen:
+        raise RuntimeError("19(c): the export or the frozen trunk is not what training left")
+    del masters, exported
+    overrides = k400_argv(corpus, str(train6), runs["straight"], layers)[4:]
+    out = runs["straight"] / "eval.json"
+    with contextlib.redirect_stdout(sys.stderr), recorded_hits() as seen:
+        if evaluate_cli.main(["--config", str(K400_RECIPE), "--path", str(best), "--output",
+                              str(out), "--device", "cuda", *overrides,
+                              "dataset.batch_size_valid=2"]) != 0:
+            raise RuntimeError("19(c): cli.evaluate failed")
+    stats = json.loads(out.read_text())
+    cfg = load_config(str(K400_RECIPE), overrides + ["dataset.batch_size_valid=2"])
+    task = build_task(cfg.task, cfg)
+    model = task.build_model(cfg, device="cuda")
+    load_weights(cfg, model, "cuda", str(best))
+    model.to(torch.bfloat16)
+    task.load_dataset("valid")
+    task.begin_valid_epoch(model, None)
+    for batch in task.get_batch_iterator("valid", 2, ensure_equal_batch=False).next_epoch_itr():
+        task.valid_step(model, None, batch)
+    with recorded_hits() as direct:
+        direct_stats = task.merge_results()
+    del model
+    log(f"19(c) cli.evaluate (3 clips x ThreeCrop, bf16) {stats}; direct valid_step loop "
+        f"{direct_stats}; hits {seen[-1][0]} and {direct[-1][0]}")
+    if (seen[-1][0] != direct[-1][0] or abs(stats["accuracy"] - direct_stats["accuracy"]) > 1e-6
+            or stats["count"] != len(Path(corpus["valid"]).read_text().splitlines())):
+        raise RuntimeError("19(c): cli.evaluate on the export differs from the direct loop")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": straight, "accuracy": stats["accuracy"]}
+
+
+def video_update_flops(b: int, layers: int = 40, d: int = 1536, f: int = 6144) -> float:
+    """Closed-form FLOPs of one frozen-trunk video update at B clips: per
+    token and layer 19 d^2 (the two attention passes' projections and the
+    three adapters) + 6 d f (the GeGLU FFN) + 4 (N + T) d (both attentions)
+    in the forward, as much again for the input gradients, and the
+    adapters' weight gradients (3 d^2); remat's recompute and the stem are
+    not counted."""
+    n, t = K400_N, K400_FRAMES
+    fwd = 19 * d * d + 6 * d * f + 4 * (n + t) * d
+    return float(b * t * n * layers * (2 * fwd + 3 * d * d))
+
+
+def train_video_full_depth(corpus: dict, card: str) -> dict:
+    """Phase 19(d): the recipe at depth 40 through ``cli.train`` from the
+    config's init (1.5B parameters; the trunk frozen, AdamW over the
+    adapters, the temporal embedding, the rel-pos table, the norm and the
+    head), bf16, remat, B=8 clips of 32 frames at 256 px (RandomResizedCrop
+    and colour jitter on the host), ``K400_UPDATES`` updates from 19(c)'s
+    files, one validation after the last (the 8 valid clips x 3 clips x
+    ThreeCrop = 72 views in two batches of 4 clips, so that the second
+    batch's decoding overlaps the first's forwards;
+    ``K400VideoTask.VIEWS_PER_FORWARD`` views a forward), no saves.  Update 3 runs under torch.profiler from the end of update 2;
+    ``ms`` is the median of the other updates after the first that do not
+    open an epoch (3 batches an epoch).  #1 launches 160 times an update
+    (forward and recompute) and #2 80; the losses must be finite."""
+    import one_peace_tpu_torch.cli.train as train_cli
+
+    save_dir = K400_DIR / "depth40"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    argv = k400_argv(corpus, corpus["train"], save_dir, 40, [
+        f"optimization.max_update={K400_UPDATES}", "checkpoint.best_checkpoint_metric=",
+        "checkpoint.save_interval=1000", "checkpoint.save_interval_updates=0",
+        "dataset.validate_interval=1000", f"dataset.validate_interval_updates={K400_UPDATES}",
+        "dataset.batch_size_valid=4"])
+    valid, real_validate = [], train_cli.validate
+
+    def measured_validate(*args):
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        f0, b0, t0 = fa.launches, fa.bwd_launches, time.time()
+        stats = real_validate(*args)
+        torch.cuda.synchronize()
+        valid.append({"ms": 1e3 * (time.time() - t0), "stats": stats, "train_peak": train_peak,
+                      "peak": torch.cuda.max_memory_allocated() / 2**30,
+                      "fwd": fa.launches - f0, "bwd": fa.bwd_launches - b0})
+        return stats
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_cli.validate = measured_validate
+    try:
+        with profiled_update(3) as prof, recorded_steps() as steps:
+            t0 = time.time()
+            run_train_cli(argv)
+            wall = time.time() - t0
+    finally:
+        train_cli.validate = real_validate
+    losses = [s["metrics"]["loss"] for s in steps]
+    update_ms = [1e3 * (b["t1"] - a["t1"]) for a, b in zip(steps, steps[1:])]
+    rolled = 4  # 3 batches an epoch: update 4 opens epoch 2
+    steady = [ms for i, ms in enumerate(update_ms, 2) if i not in (3, rolled)]
+    ms = statistics.median(steady)
+    flops = video_update_flops(8)
+    tflops = flops / ms / 1e9
+    v = valid[0] if valid else {}
+    log(f"19(d) cli.train, the K400 recipe at depth 40, B=8 clips of 32 frames, bf16, "
+        f"{K400_UPDATES} updates from the config's init and one validation in {wall:.1f} s "
+        f"(model build and data included) ({card})")
+    log(f"19(d) losses {[round(x, 5) for x in losses]}; ms inside train_step "
+        f"{[round(1e3 * (s['t1'] - s['t0']), 1) for s in steps]} (update 1 warms up)")
+    log(f"19(d) updates 2-{K400_UPDATES} from data, each from the end of the last (3 "
+        f"profiled, {rolled} opens epoch 2): {[round(x, 1) for x in update_ms]} ms; steady: "
+        f"median {ms:.1f} ms per update of {len(steady)}, {8 / ms * 1e3:.3f} clips/s, "
+        f"{flops / 1e12:.1f} TFLOP an update, {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% MFU of {H100_BF16_PEAK_TFLOPS:.0f}, peak "
+        f"{v.get('train_peak', float('nan')):.1f} GiB ({card})")
+    per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
+    log(f"19(d) launches per update (#1, #2): {per_update} (expected [(160, 80)])")
+    if v:
+        log(f"19(d) validation over 8 clips (72 views, {K400_FRAMES} frames each, 2 batches): "
+            f"{v['ms']:.1f} ms, {v['ms'] / 8:.1f} ms per clip (decoding included), peak "
+            f"{v['peak']:.1f} GiB (the train state included), launches #1 {v['fwd']}, #2 "
+            f"{v['bwd']}; {v['stats']} ({card})")
+    if "wall" in prof:
+        line = write_update_profile(prof, ms, "update 3 of cli.train, the K400 recipe at depth "
+                                    "40, B=8, from the end of update 2",
+                                    "video_train_profile.txt", card)
+        events = update_averages(prof)
+        busy = profile_busy_ms(prof)
+        parts = {name: sum(getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0)
+                           for e in events if key in e.key) / 1e3
+                 for name, key in (("#1", "attn_fwd"), ("#2", "attn_bwd"))}
+        log(f"19(d) {line} (video_train_profile.txt); "
+            + ", ".join(f"{k} {x:.1f} ms ({100 * x / busy:.1f}%)" for k, x in parts.items()))
+        table = events.table(sort_by="self_cuda_time_total", row_limit=12)
+        for row in table.splitlines()[:16]:
+            log(f"  {row}")
+    if not all(map(math.isfinite, losses)) or len(losses) != K400_UPDATES:
+        raise RuntimeError(f"19(d): losses {losses}")
+    if per_update != [(160, 80)]:
+        raise RuntimeError(f"19(d): launches per update {per_update}, expected (160, 80)")
+    from one_peace_tpu_torch.tasks.vision_tasks import K400VideoTask
+
+    want = 2 * math.ceil(4 * 9 / K400VideoTask.VIEWS_PER_FORWARD) * 80
+    if len(valid) != 1 or valid[0]["fwd"] != want or valid[0]["bwd"] != 0:
+        raise RuntimeError(f"19(d): validations {[(x['fwd'], x['bwd']) for x in valid]}, "
+                           f"expected one of {want} / 0 launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gib": v["train_peak"], "losses": losses,
+            "mfu": tflops / H100_BF16_PEAK_TFLOPS}
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -4330,7 +4859,7 @@ def main() -> None:
 
 
 def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
-    """Phases 2-18 and the two last lines."""
+    """Phases 2-19 (10 after 12) and the two last lines."""
 
     def mark(phase: str) -> None:
         """Log the phase's wall time and the script's so far."""
@@ -4408,11 +4937,6 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
         raise RuntimeError(f"the int8 serving path never launched a kernel: {int8_launches}")
     mark("9")
 
-    # 10. the depth-40 golden through the .pt route
-    check_golden(golden_state)
-
-    mark("10")
-
     # 11. detection serving: the det attention kernel vs plain, the 1024 px
     # detector at depth 40 through it (its launches counted from 0 here), and times
     det_worst = check_det_kernel(gen)
@@ -4433,6 +4957,13 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     det_bwd_times = time_det_backward(gen, card)
 
     mark("12")
+
+    # 10. the depth-40 golden through the .pt route, run here, when the
+    # process started with the script has its state written: run after
+    # phase 9 it waited ~45 s for it
+    check_golden(golden_state)
+
+    mark("10")
 
     # 13. retrieval fine-tuning from data: cli.train's resume at depth 4 and
     # cli.evaluate on its export, then the depth-40 recipe through cli.train
@@ -4555,6 +5086,31 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     fwd_times["shapes"].update(seg_fwd_rows)
     bwd_times["shapes"].update(seg_bwd_rows)
 
+    # 19. video: #1 and #2 alone at the temporal (L=32) and spatial (L=257)
+    # shapes against their plain versions and SDPA (19(a)); then, the
+    # launches counted from 0, the classifier's logits and gradients at depth
+    # 4 on both paths (19(b)), the recipe's resume, export and cli.evaluate
+    # from files at depth 4 (19(c)) and the recipe at depth 40 (19(d))
+    t19 = time.time()
+    vid_fwd_err, vid_bwd_err, vid_fwd_rows, vid_bwd_rows = check_video_attention(card)
+    worst, bwd_worst = max(worst, vid_fwd_err), max(bwd_worst, vid_bwd_err)
+    mark("19(a)")
+    fa.launches = fa.bwd_launches = 0
+    check_video_train_paths()
+    mark("19(b)")
+    k400 = write_k400_corpus(K400_DIR, 24, 8)
+    check_video_cli(k400, card)
+    mark("19(c)")
+    train_video_full_depth(k400, card)
+    vid_fwd, vid_bwd = fa.launches, fa.bwd_launches
+    log(f"19 launches over the phase: #1 {vid_fwd}, #2 {vid_bwd}; the phase took "
+        f"{time.time() - t19:.1f} s")
+    mark("19(d)")
+    if vid_fwd == 0 or vid_bwd == 0:
+        raise RuntimeError("the video path never launched an attention kernel")
+    fwd_times["shapes"].update(vid_fwd_rows)
+    bwd_times["shapes"].update(vid_bwd_rows)
+
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
     if imported:
@@ -4579,10 +5135,11 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
                      source="int8_matmul")
     log(json.dumps({"kernels": [
         entry("flash_attention_fwd", "one_peace_tpu/ops/flash_attention.py:239",
-              embed_launches + fwd_train + cli_fwd + cls_fwd + pre_fwd + seg_fwd + seg_train_fwd,
-              worst, fwd_times),
+              embed_launches + fwd_train + cli_fwd + cls_fwd + pre_fwd + seg_fwd + seg_train_fwd
+              + vid_fwd, worst, fwd_times),
         entry("flash_attention_bwd", "one_peace_tpu/ops/flash_attention.py:409",
-              bwd_train + cli_bwd + cls_bwd + pre_bwd + seg_train_bwd, bwd_worst, bwd_times),
+              bwd_train + cli_bwd + cls_bwd + pre_bwd + seg_train_bwd + vid_bwd, bwd_worst,
+              bwd_times),
         entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75",
               int8_launches["gemm"] + cls_int8["gemm"], int8_worst["gemm"], gemm),
         quantize,

@@ -23,7 +23,12 @@ training CLI's ``checkpoint_best.npz``), runs the task's evaluation loop on
   image adapter and encoder layers over ``init_segmenter_``'s priors,
   interactions and head.  It prints mIoU (``metrics.MIoU``) by
   ``task.seg_eval_protocol`` (``whole``, ``slide`` or ``ms_flip``).
-- The video task is not ported yet (ROADMAP queue 1 item 3).
+- ``k400_video`` builds the video classifier the same way: a ``.npz`` gives
+  every weight, a ``.pt`` the trunk over ``init_video_classifier_``'s
+  adapters, norm and head.  It prints top-1 accuracy (``metrics.Accuracy``)
+  over the test views of ``task.video_test_clips`` clips x ThreeCrop
+  (``task.video_test_three_crop``), the views' softmax probabilities
+  averaged per clip.
 """
 
 from __future__ import annotations

@@ -20,6 +20,11 @@ best export, and preemption-safe resume, on one card.
       task.valid_data=ade/images/validation:ade/annotations/validation \
       [checkpoint.restore_file=one-peace.pt] [--device cuda]
 
+  python -m one_peace_tpu_torch.cli.train --config recipes/video/k400_32frames.yaml \
+      task.data=train_list_rawframes.txt task.image_dir=rawframes_train \
+      task.valid_data=val_list_rawframes.txt task.valid_image_dir=rawframes_val \
+      [checkpoint.restore_file=one-peace.pt] [--device cuda]
+
   python -m one_peace_tpu_torch.cli.train --config recipes/vqa/base.yaml \
       task.data=train.tsv task.valid_data=valid.tsv task.bpe_dir=bpe \
       task.num_classes=3129 [checkpoint.restore_file=one-peace.pt] [--device cuda]
@@ -43,10 +48,13 @@ best export, and preemption-safe resume, on one card.
   ``upgrade_stage1_params`` (stage 2 from a stage-1 export: the audio
   branch fresh, ``logit_scale`` reset), as the JAX CLI does.  For a vision
   task's model (the detector of ``coco_detection``, the segmenter of
-  ``ade20k_seg``), a ``.pt`` gives the trunk (``load_pretrained``) and
-  ``init_detector_`` / ``init_segmenter_`` the rest from ``common.seed``; a
-  ``.npz`` gives every weight (``params_from_jax``, strict); without one,
-  the init gives them all.  Every model of
+  ``ade20k_seg``, the video classifier of ``k400_video``), a ``.pt`` gives
+  the trunk (``load_pretrained``) and ``init_detector_`` /
+  ``init_segmenter_`` / ``init_video_classifier_`` the rest from
+  ``common.seed``; a ``.npz`` gives every weight (``params_from_jax``,
+  strict); without one, the init gives them all.  The video classifier
+  trains only what its ``trainable_mask`` marks (the adapters, the temporal
+  embedding, the rel-pos table, the norm and the head): the trunk is frozen.  Every model of
   the JAX package is ported (``one_peace_retrieval``,
   ``one_peace_classify``, ``one_peace_pretrain`` and the tasks' own), and
   models a ``--user-dir`` plugin registers.
@@ -132,19 +140,23 @@ def load_weights(cfg, model, device, path: Optional[str] = None) -> None:
     there is none.  A vision task's model (one with ``load_pretrained``)
     takes a ``.pt`` as its trunk over the rest of its init
     (``init_detector_``'s pyramid and heads, ``init_segmenter_``'s priors,
-    interactions and head); the classify model takes a pretrained ``.pt``
+    interactions and head, ``init_video_classifier_``'s adapters, norm and
+    head); the classify model takes a pretrained ``.pt``
     (one without a ``classify_head``) as its encoder over the config's init
     of the head."""
     from ..utils.checkpoint import params_from_jax
     from ..utils.checkpoint_convert import (convert_classify_model, convert_retrieval_model,
                                             load_torch_state_dict)
     from ..utils.native_checkpoint import load_params
-    from ..utils.random_weights import init_detector_, init_segmenter_, init_weights_
-    from ..vision.zoo import OnePeaceSegmenter
+    from ..utils.random_weights import (init_detector_, init_segmenter_,
+                                        init_video_classifier_, init_weights_)
+    from ..vision.zoo import OnePeaceSegmenter, OnePeaceVideoClassifier
 
     path = path or cfg.checkpoint.restore_file
     vision = hasattr(model, "load_pretrained")
-    init_vision_ = init_segmenter_ if isinstance(model, OnePeaceSegmenter) else init_detector_
+    init_vision_ = (init_segmenter_ if isinstance(model, OnePeaceSegmenter)
+                    else init_video_classifier_ if isinstance(model, OnePeaceVideoClassifier)
+                    else init_detector_)
     generator = torch.Generator(device=device).manual_seed(cfg.common.seed)
     if not (path and os.path.exists(path)):
         if vision:

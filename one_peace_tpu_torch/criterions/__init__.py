@@ -3,8 +3,8 @@
 from .criterions import (AudioTextPretrainCriterion, AudioTextRetrievalCriterion,
                          ClassifyCriterion, ImageTextPretrainCriterion,
                          ImageTextRetrievalCriterion, build_criterion)
-from .vision_criterions import DetectionCriterion, SegmentationCriterion
+from .vision_criterions import DetectionCriterion, SegmentationCriterion, VideoClassifyCriterion
 
 __all__ = ["AudioTextPretrainCriterion", "AudioTextRetrievalCriterion", "ClassifyCriterion",
            "DetectionCriterion", "ImageTextPretrainCriterion", "ImageTextRetrievalCriterion",
-           "SegmentationCriterion", "build_criterion"]
+           "SegmentationCriterion", "VideoClassifyCriterion", "build_criterion"]

@@ -27,7 +27,7 @@ from ..models.classify import NET_INPUT_KEYS
 from ..models.components import split_generator
 from .losses import (bce_with_logits_loss, cross_entropy_loss, dcl_loss, itc_loss,
                      soft_target_ce_loss)
-from .vision_criterions import DetectionCriterion, SegmentationCriterion
+from .vision_criterions import DetectionCriterion, SegmentationCriterion, VideoClassifyCriterion
 
 
 class _RetrievalCriterion:
@@ -221,7 +221,8 @@ CRITERIONS = {"image_text_retrieval_criterion": ImageTextRetrievalCriterion,
               "audio_text_pretrain_loss": AudioTextPretrainCriterion,
               "classify_criterion": ClassifyCriterion,
               "detection_criterion": DetectionCriterion,
-              "segmentation_criterion": SegmentationCriterion}
+              "segmentation_criterion": SegmentationCriterion,
+              "video_classify_criterion": VideoClassifyCriterion}
 
 
 ALIASES = {"image_text_pretrain": "image_text_pretrain_loss",

@@ -1,9 +1,9 @@
-"""The detection and segmentation criterions (counterpart of
+"""The detection, segmentation and video criterions (counterpart of
 ``one_peace_tpu/criterions/vision_criterions.py``), with the criterion
 contract of ``criterions.py``: ``DetectionCriterion``, the cascade mask
-R-CNN objective of ``vision/det_train.py`` over static padded GT, and
-``SegmentationCriterion``, UperNet's pixel CE or Mask2Former's set losses.
-The video criterion is not ported yet (ROADMAP queue 1 item 3)."""
+R-CNN objective of ``vision/det_train.py`` over static padded GT,
+``SegmentationCriterion``, UperNet's pixel CE or Mask2Former's set losses,
+and ``VideoClassifyCriterion``, the clip-level CE with label smoothing."""
 
 from __future__ import annotations
 
@@ -98,3 +98,22 @@ class SegmentationCriterion:
         acc = ((logits.argmax(-1) == tgt) * vf).sum() / vf.sum().clamp_min(1.0)
         return loss, {"loss": loss, "pixel_acc": 100.0 * acc, "valid_frac": vf.mean(),
                       "num_classes": torch.tensor(float(c))}
+
+
+class VideoClassifyCriterion:
+    """Clip-level CE with label smoothing (the mmaction2 recognizer's loss),
+    in fp32 over the clip logits, and the top-1 accuracy of the batch."""
+
+    def __init__(self, cfg: CriterionConfig):
+        self.label_smoothing = cfg.label_smoothing
+
+    def __call__(self, model, batch, generator=None, deterministic=False):
+        logits = model(batch["src_videos"], deterministic=deterministic, generator=generator)
+        target = batch["target"].long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(1, target[:, None])[:, 0]
+        if self.label_smoothing > 0:
+            nll = (1 - self.label_smoothing) * nll + self.label_smoothing * -logp.mean(-1)
+        loss = nll.mean()
+        acc = (logits.argmax(-1) == target).float().mean()
+        return loss, {"loss": loss, "accuracy": 100.0 * acc}

@@ -49,10 +49,10 @@
 //     Longer sequences recompute s and stage the bias again in walk 2.
 //     It stores rowsum(dp * p32) per row for the second kernel;
 //   - attn_bwd_dkv: one block per (64-key tile, head, chunk of batch rows; a
-//     chunk is one row unless the bias is shared).  K and V stay in
-//     registers; the block walks the q tiles (Q, G and the rows' statistics
-//     double-buffered by cp.async) with s^T = k.q^T on wgmma and the bias
-//     read by __ldg while it runs, then dp^T = v.g^T while the exps run, dv
+//     chunk is one row unless the bias is shared or grid z would pass
+//     65535).  K and V stay in registers; the block walks the q tiles (Q, G
+//     and the rows' statistics double-buffered by cp.async) with s^T = k.q^T
+//     on wgmma and the bias read by __ldg while it runs, then dp^T = v.g^T while the exps run, dv
 //     += round(p)^T g and dk += round(dsc)^T q (A from registers).  A shared bias's d(bias)
 //     columns of the block's keys are summed over its chunk in a shared slab
 //     (64 keys x the padded width + 8 floats; each element has one owner
@@ -835,8 +835,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 // tile_plan); dkv_slab, dkv_smem and b_chunk: the dk/dv kernel's
 // (bwd_plan); a launch whose plan differs from the one for seq_len is
 // refused with cudaErrorInvalidValue.  b_chunk: batch rows per dk/dv block
-// with a shared bias (1 otherwise); with more than one chunk, partial is
-// fp32 scratch of ceil(batch / b_chunk) * heads * L * L.
+// (a shared bias's chunk; otherwise 1, or more where ceil(batch / b_chunk)
+// chunks would pass grid z's 65535, which is refused); with a shared bias
+// and more than one chunk, partial is fp32 scratch of ceil(batch / b_chunk)
+// * heads * L * L.
 extern "C" int one_peace_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g, const void* bias,
     int bias_batched, const void* key_bias, void* dq, void* dk, void* dv, void* dbias,
@@ -846,8 +848,9 @@ extern "C" int one_peace_flash_attention_bwd(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool shared_bias = bias != nullptr && !bias_batched;
-  if (!shared_bias) b_chunk = 1;
+  if (b_chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (batch + b_chunk - 1) / b_chunk;
+  if (chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);  // grid z's limit
   // with several chunks, the dk/dv kernel writes partial sums of d(bias)
   float* dbias_out = shared_bias && chunks > 1 ? static_cast<float*>(partial)
                                                : static_cast<float*>(dbias);

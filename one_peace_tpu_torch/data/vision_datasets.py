@@ -1,8 +1,9 @@
-"""The COCO detection and ADE20K segmentation datasets and
-``vision_collate``: the COCO and ADE20K parts of
-``one_peace_tpu/data/vision_datasets.py``, copied (held equal by
-``tests/test_torch_port_coco_data.py``, ``tests/test_torch_port_seg_data.py``
-and ``tests/test_torch_port_copies.py``).
+"""The COCO detection, ADE20K segmentation and K400 rawframe video datasets
+and ``vision_collate``: ``one_peace_tpu/data/vision_datasets.py``, copied
+(held equal by ``tests/test_torch_port_coco_data.py``,
+``tests/test_torch_port_seg_data.py``,
+``tests/test_torch_port_video_data.py`` and
+``tests/test_torch_port_copies.py``).
 
 - :class:`CocoDetectionDataset` -- COCO ``instances_*.json`` annotations,
   detectron2-style large-scale-jitter augmentation (ResizeScale 0.1-2.0 +
@@ -14,6 +15,12 @@ and ``tests/test_torch_port_copies.py``).
   (ref seg/configs/_base_/datasets/ade20k.py): train = ratio resize
   0.5-2.0 + random crop + flip, val = fixed-size resize; ADE20K
   ``reduce_zero_label`` relabeling (0 -> ignore, k -> k-1).
+- :class:`RawframeVideoDataset` -- mmaction2 rawframes layout
+  (``ann.txt`` lines ``rel_dir num_frames label``; frames
+  ``img_00001.jpg``...), dense clip sampling (SampleFrames clip_len=T
+  frame_interval=4, loop-padded) or TSN segments, RandomResizedCrop +
+  ColorJitter or scale-jitter train aug, and test views of several
+  temporal clips x ThreeCrop.
 
 Samples are fixed-shape numpy arrays; ``vision_collate`` just stacks them.
 Images are normalized with the CLIP statistics the trunk was pretrained
@@ -21,8 +28,8 @@ with.  The dataset draws every random choice from one
 ``np.random.RandomState(seed)`` in fetch order, as the JAX package's does,
 so two runs that fetch the same samples in the same order see the same
 crops; ``data.iterators.EpochBatchIterator`` fetches in order on its one
-prefetch thread.  The video dataset is not ported yet (ROADMAP queue 1
-item 3).
+prefetch thread, and saves the generator's state with its position
+(``data_rng``), so a resumed run draws the straight run's crops.
 """
 
 from __future__ import annotations
@@ -346,6 +353,269 @@ class Ade20kSegDataset:
         target = np.full((size, size), self.ignore_index, np.int32)
         target[: lab.shape[0], : lab.shape[1]] = lab
         return {"id": index, "src_images": src, "target": target}
+
+
+# ---------------------------------------------------------------------------
+# K400 rawframe video classification
+# ---------------------------------------------------------------------------
+
+
+def _jitter_brightness_contrast_saturation(arr: np.ndarray, b: float,
+                                           c: float, s: float) -> np.ndarray:
+    """torchvision adjust_brightness/contrast/saturation semantics on a
+    (H, W, 3) uint8 array, applied in that fixed order (mmaction2's
+    ColorJitter order)."""
+    x = arr.astype(np.float32) * b
+    x = np.clip(x, 0, 255)
+    gray = x @ np.asarray([0.299, 0.587, 0.114], np.float32)
+    x = x * c + float(gray.mean()) * (1.0 - c)        # toward mean gray
+    x = np.clip(x, 0, 255)
+    gray = x @ np.asarray([0.299, 0.587, 0.114], np.float32)
+    x = x * s + gray[..., None] * (1.0 - s)           # toward per-px gray
+    return np.clip(x, 0, 255).astype(np.uint8)
+
+
+def _jitter_hue(arr: np.ndarray, h: float) -> np.ndarray:
+    """torchvision adjust_hue (PIL path): RGB -> HSV, shift the uint8 hue
+    channel by h*255 with wraparound, back to RGB."""
+    if h == 0.0:
+        return arr
+    from PIL import Image
+
+    hsv = np.asarray(Image.fromarray(arr).convert("HSV")).copy()
+    hsv[..., 0] = (hsv[..., 0].astype(np.int16)
+                   + int(round(h * 255.0))) % 256
+    return np.asarray(Image.fromarray(hsv, "HSV").convert("RGB"))
+
+
+class RawframeVideoDataset:
+    """mmaction2 rawframes-format video dataset: an annotation file with
+    lines ``rel_dir num_frames label`` and per-clip frame directories
+    (``img_00001.jpg``…).
+
+    Temporal sampling (``sampling``):
+    - ``dense`` (default) — one contiguous window of ``num_frames`` frames
+      ``frame_interval`` apart, random start for train, evenly-spread
+      centered starts for test clips, short videos loop-padded by modular
+      indexing: mmaction2 ``SampleFrames(clip_len=32, frame_interval=4,
+      num_clips=1, out_of_bound_opt='loop')``, the reference's 88.1 recipe
+      (ref video/configs/recognition/onepeace_k400_frame32.py:20-31,56).
+    - ``segment`` (opt-in) — TSN-style: split into ``num_frames`` equal
+      segments, one frame per segment (random / center).
+
+    Train spatial augmentation (``train_aug``):
+    - ``rrc`` (default) — short side to S, RandomResizedCrop (area
+      0.08-1.0, aspect 3/4-4/3), resize to SxS, flip 0.5, per-clip
+      ColorJitter b/c/s 0.5 + hue 0.1 (the recipe's train_pipeline,
+      ref onepeace_k400_frame32.py:20-31).
+    - ``scale_jitter`` (opt-in) — short-side jitter 1.0-1.25 + random crop
+      + flip (the lighter legacy pipeline).
+
+    Each sample:
+      src_videos (T, 3, S, S) float32   CLIP-normalized
+      target     ()           int32
+    """
+
+    def __init__(self, split: str, ann_file: str, data_root: str,
+                 num_frames: int = 16, image_size: int = 256,
+                 frame_tmpl: str = "img_{:05d}.jpg", start_index: int = 1,
+                 test_num_clips: int = 1, test_three_crop: bool = False,
+                 sampling: str = "dense", frame_interval: int = 4,
+                 train_aug: str = "rrc", color_jitter: bool = True,
+                 seed: int = 3407):
+        assert sampling in ("dense", "segment"), sampling
+        assert train_aug in ("rrc", "scale_jitter"), train_aug
+        self.split = split
+        self.data_root = data_root
+        self.num_frames = num_frames
+        self.image_size = image_size
+        self.frame_tmpl = frame_tmpl
+        self.start_index = start_index
+        self.test_num_clips = test_num_clips
+        self.test_three_crop = test_three_crop
+        self.sampling = sampling
+        self.frame_interval = frame_interval
+        self.train_aug = train_aug
+        self.color_jitter = color_jitter
+        self.rng = np.random.RandomState(seed)
+        self.clips: List[Tuple[str, int, int]] = []
+        with open(ann_file) as fh:
+            for line in fh:
+                parts = line.split()
+                if len(parts) >= 3:
+                    self.clips.append((parts[0], int(parts[1]), int(parts[2])))
+
+    def __len__(self) -> int:
+        return len(self.clips)
+
+    def _frame_indices(self, total: int, clip_idx: int = 0,
+                       num_clips: int = 1) -> np.ndarray:
+        t = self.num_frames
+        if self.sampling == "dense":
+            # mmaction2 SampleFrames(clip_len=t, frame_interval=I):
+            # _get_train_clips / _get_test_clips with num_clips starts,
+            # then out_of_bound_opt='loop' modular indexing
+            ori = t * self.frame_interval
+            if self.split == "train":
+                avg = (total - ori + 1) // num_clips
+                if avg > 0:
+                    off = clip_idx * avg + int(self.rng.randint(avg))
+                elif total > max(num_clips, ori):
+                    off = int(np.sort(self.rng.randint(
+                        total - ori + 1, size=num_clips))[clip_idx])
+                elif avg == 0:
+                    off = int(round(clip_idx * (total - ori + 1)
+                                    / num_clips))
+                else:
+                    off = 0
+            else:
+                avg = (total - ori + 1) / float(num_clips)
+                off = (int(clip_idx * avg + avg / 2.0)
+                       if total > ori - 1 else 0)
+            idx = off + np.arange(t, dtype=np.int64) * self.frame_interval
+            return np.mod(idx, total)
+        seg = total / t
+        if self.split == "train":
+            offs = self.rng.uniform(0, seg, t)
+        else:
+            # multi-clip testing: clip i samples offset fraction
+            # (i + 0.5)/num_clips of every segment, spreading the test
+            # clips across the video; num_clips=1 -> the segment centers
+            offs = np.full(t, seg * (clip_idx + 0.5) / num_clips)
+        idx = (np.arange(t) * seg + offs).astype(np.int64)
+        return np.clip(idx, 0, total - 1)
+
+    def _rrc_box(self, h: int, w: int) -> Tuple[int, int, int, int]:
+        """mmaction2 RandomResizedCrop.get_crop_bbox: 10 attempts at a
+        random-area (0.08-1.0), random-log-aspect (3/4-4/3) box, falling
+        back to the largest centered square."""
+        area = h * w
+        for _ in range(10):
+            target = self.rng.uniform(0.08, 1.0) * area
+            ar = float(np.exp(self.rng.uniform(np.log(3.0 / 4.0),
+                                               np.log(4.0 / 3.0))))
+            cw = int(round(np.sqrt(target * ar)))
+            ch = int(round(np.sqrt(target / ar)))
+            if cw <= w and ch <= h:
+                x0 = int(self.rng.randint(0, w - cw + 1))
+                y0 = int(self.rng.randint(0, h - ch + 1))
+                return x0, y0, cw, ch
+        cs = min(h, w)
+        return (w - cs) // 2, (h - cs) // 2, cs, cs
+
+    def _load_short_side(self, rel_dir: str, fi: int):
+        """Decode one frame and resize its short side to image_size."""
+        from PIL import Image
+
+        path = os.path.join(self.data_root, rel_dir,
+                            self.frame_tmpl.format(int(fi) + self.start_index))
+        img = _load_pil(path)
+        w0, h0 = img.size
+        size = self.image_size
+        f = size / min(h0, w0)
+        new_w = max(size, int(round(w0 * f)))
+        new_h = max(size, int(round(h0 * f)))
+        return img.resize((new_w, new_h), Image.BILINEAR)
+
+    def _test_views(self, rel_dir: str, total: int) -> np.ndarray:
+        """(V, T, 3, S, S) test views: test_num_clips temporal clips x
+        ThreeCrop (3 crops along the long axis) or center crop (ref
+        video test_pipeline: SampleFrames num_clips=3 + ThreeCrop 256)."""
+        size = self.image_size
+        views = []
+        n = self.test_num_clips
+        for ci in range(n):
+            frames = [self._load_short_side(rel_dir, fi)
+                      for fi in self._frame_indices(total, ci, n)]
+            w, h = frames[0].size
+            if self.test_three_crop:
+                if w >= h:
+                    offs = [(0, 0), ((w - size) // 2, 0), (w - size, 0)]
+                else:
+                    offs = [(0, 0), (0, (h - size) // 2), (0, h - size)]
+            else:
+                offs = [((w - size) // 2, (h - size) // 2)]
+            for left, top in offs:
+                views.append(np.stack([
+                    normalize_image(np.asarray(
+                        f.crop((left, top, left + size, top + size))))
+                    for f in frames]).astype(np.float32))
+        return np.stack(views)
+
+    def __getitem__(self, index: int):
+        from PIL import Image
+
+        rel_dir, total, label = self.clips[index]
+        if self.split != "train" and (self.test_num_clips > 1
+                                      or self.test_three_crop):
+            return {
+                "id": index,
+                "src_videos": self._test_views(rel_dir, total),
+                "target": np.int32(label),
+            }
+        size = self.image_size
+        rng = self.rng
+
+        if self.split == "train" and self.train_aug == "rrc":
+            # recipe train pipeline (ref onepeace_k400_frame32.py:20-31):
+            # Resize(-1, S) -> RandomResizedCrop -> Resize(SxS) -> Flip
+            # -> ColorJitter, one transform per clip shared by all frames
+            pils = [self._load_short_side(rel_dir, fi)
+                    for fi in self._frame_indices(total)]
+            w, h = pils[0].size
+            x0, y0, cw, ch = self._rrc_box(h, w)
+            flip = rng.rand() < 0.5
+            jit = None
+            if self.color_jitter:
+                # mmaction2 ColorJitter defaults b/c/s=0.5, hue=0.1
+                jit = (rng.uniform(0.5, 1.5), rng.uniform(0.5, 1.5),
+                       rng.uniform(0.5, 1.5), rng.uniform(-0.1, 0.1))
+            frames = []
+            for img in pils:
+                img = img.crop((x0, y0, x0 + cw, y0 + ch)).resize(
+                    (size, size), Image.BILINEAR)
+                if flip:
+                    img = img.transpose(Image.FLIP_LEFT_RIGHT)
+                arr = np.asarray(img)
+                if jit is not None:
+                    arr = _jitter_hue(_jitter_brightness_contrast_saturation(
+                        arr, *jit[:3]), jit[3])
+                frames.append(normalize_image(arr))
+            return {
+                "id": index,
+                "src_videos": np.stack(frames).astype(np.float32),
+                "target": np.int32(label),
+            }
+
+        # eval single-view / legacy scale_jitter train: one spatial
+        # transform per clip, shared by all frames
+        if self.split == "train":
+            scale = rng.uniform(1.0, 1.25)
+            flip = rng.rand() < 0.5
+            crop_frac = (rng.rand(), rng.rand())
+        else:
+            scale, flip, crop_frac = 1.0, False, (0.5, 0.5)
+
+        frames = []
+        for fi in self._frame_indices(total):
+            path = os.path.join(self.data_root, rel_dir,
+                                self.frame_tmpl.format(int(fi) + self.start_index))
+            img = _load_pil(path)
+            w0, h0 = img.size
+            f = scale * size / min(h0, w0)  # short side to scale*size
+            new_w, new_h = max(size, int(round(w0 * f))), max(size, int(round(h0 * f)))
+            img = img.resize((new_w, new_h), Image.BILINEAR)
+            left = int(round(crop_frac[0] * (new_w - size)))
+            top = int(round(crop_frac[1] * (new_h - size)))
+            img = img.crop((left, top, left + size, top + size))
+            if flip:
+                img = img.transpose(Image.FLIP_LEFT_RIGHT)
+            frames.append(normalize_image(np.asarray(img)))
+        return {
+            "id": index,
+            "src_videos": np.stack(frames).astype(np.float32),
+            "target": np.int32(label),
+        }
 
 
 def vision_collate(samples: List[Dict]) -> Dict:

@@ -36,6 +36,7 @@ TILE = 64  # query rows of a q tile, keys of a key tile
 SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
 SMEM_PER_BLOCK = 232448  # the most shared memory a block may use on an H100 (227 KB)
 SMEM_PER_SM = 233472  # an SM's shared memory for blocks, 1 KB of it reserved per block
+GRID_Z_MAX = 65535  # CUDA's limit on a grid's z extent: the dk/dv kernel's batch chunks
 SWIZZLE_ALIGN = 1024  # the bf16 kernels align their tiles to the swizzle's atom
 TILES_BYTES = 4 * TILE * HEAD_DIM * 2  # four 128-byte-swizzled bf16 tiles (K, V or Q, G; x2)
 STAGE_STRIDE = TILE + 8  # floats per row of a two-walk kernel's staged bias tile
@@ -97,8 +98,8 @@ class BwdPlan(NamedTuple):
     #                  shared slab of 64 keys x (padded width + 8) floats, written once per
     #                  chunk; else read, added and written in device memory per batch row
     dkv_smem: int    # dynamic shared memory of the dk/dv kernel
-    b_chunk: int     # batch rows per dk/dv block (1 unless the bias is shared)
-    chunks: int      # dk/dv blocks per (key tile, head): ceil(B / b_chunk)
+    b_chunk: int     # batch rows per dk/dv block (1 unless the bias is shared or B > 65535)
+    chunks: int      # dk/dv blocks per (key tile, head): ceil(B / b_chunk), on grid z
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,14 +109,19 @@ def bwd_plan(b: int, l: int, heads: int, shared_bias: bool) -> BwdPlan:
     memory where the slab fits (L <= 768); the chunks are as many as fill
     the card once (blocks per SM from the shared memory, at most 2, times 132
     SMs, over n_tiles * heads blocks a chunk), and their partial sums are
-    added by a third kernel in chunk order."""
+    added by a third kernel in chunk order.  Without a shared bias each
+    block takes one batch row, unless that puts more than ``GRID_Z_MAX``
+    blocks on grid z (the temporal attention of a video trunk runs B = clips
+    x tokens sequences): then each takes ceil(B / 65535) rows, one after the
+    other, as a shared bias's chunk does."""
     tiles = tile_plan(l)
     width = TILE * (tiles.n_tiles - 1) + tiles.tail
     slab = TILES_BYTES + TILE * (width + 8) * 4 + SWIZZLE_ALIGN
     dkv_slab = shared_bias and slab <= SMEM_PER_BLOCK
     dkv_smem = slab if dkv_slab else TILES_BYTES + SWIZZLE_ALIGN
     if not shared_bias:
-        return BwdPlan(tiles, False, dkv_smem, 1, b)
+        b_chunk = -(-b // GRID_Z_MAX)
+        return BwdPlan(tiles, False, dkv_smem, b_chunk, -(-b // b_chunk))
     per_sm = max(1, min(2, SMEM_PER_SM // (dkv_smem + 1024)))
     want = max(1, min(b, SM_COUNT * per_sm // (tiles.n_tiles * heads)))
     b_chunk = -(-b // want)

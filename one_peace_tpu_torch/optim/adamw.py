@@ -17,10 +17,10 @@ group at scale 1, and ``AdamW.step`` then moves each slice by its own scale:
 JAX update ``-lr * s * (adam + wd * p0)`` slice by slice.
 
 Parameter names are the port's (``encoder_wrapper.fusion.layers.3.
-self_attn.q_proj.weight``, ``backbone.layers.3.self_attn.q_proj.weight``,
-``backbone.encoder.layers.3.self_attn.q_proj.weight``); the rules are the JAX
-package's, applied to the unstacked layers.  Adan and the video trunk's layer
-ids are not ported yet.
+self_attn.q_proj.weight``, ``backbone.layers.3.self_attn.q_proj.weight`` of
+the detection and video trunks, ``backbone.encoder.layers.3.self_attn.
+q_proj.weight``); the rules are the JAX package's, applied to the unstacked
+layers.  Adan is not ported yet.
 """
 
 from __future__ import annotations
@@ -51,7 +51,11 @@ def layer_id_for_path(name: str, num_layers: int) -> Optional[int]:
     table, whose scale goes per table.  The detector (``OnePeaceDetector``)
     as detectron2's recipe: ``backbone.image_adapter`` 0, trunk layer i
     i + 1, everything else (the pyramid, the proposer, the heads and the
-    trunk's shared rel-pos table) num_layers + 1.  The segmenters
+    trunk's shared rel-pos table) num_layers + 1.  The video classifier
+    (``OnePeaceVideoClassifier``) as the JAX rules map its tree: trunk layer
+    i (its adapters too) i + 1, everything else (the stem, CLS, positions,
+    temporal embedding, rel-pos table, norm and head) num_layers + 1.  The
+    segmenters
     (``OnePeaceSegmenter``) as mmseg's ViT rule: ``backbone.image_adapter``
     0 but its per-layer rel-pos tables (None), ``backbone.encoder.layers.<i>``
     i + 1, everything else (the spatial priors, the interactions, the level

@@ -22,9 +22,10 @@ teacher pass returns (logits, features), of which the flow takes the
 logits.
 
 ``coco_detection`` is registered (``vision_tasks.CocoDetectionTask``: COCO
-JSON, LSJ, box and mask AP), and ``ade20k_seg`` for evaluation
-(``vision_tasks.Ade20kSegTask``: mIoU by the whole, slide and ms_flip
-protocols).  Every other task of the JAX package raises
+JSON, LSJ, box and mask AP), ``ade20k_seg`` (``vision_tasks.Ade20kSegTask``:
+mIoU by the whole, slide and ms_flip protocols) and ``k400_video``
+(``vision_tasks.K400VideoTask``: rawframes, top-1 accuracy over multi-view
+tests).  Every other task of the JAX package raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -42,14 +43,13 @@ from ..data.mixup import Mixup
 from ..metrics import Accuracy, Recall
 from ..models.classify import NET_INPUT_KEYS
 from .base_task import BaseTask
-from .vision_tasks import Ade20kSegTask, CocoDetectionTask
+from .vision_tasks import Ade20kSegTask, CocoDetectionTask, K400VideoTask
 
 UNPORTED = {
     "nlvr2": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "fsd50k": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "aqa": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
     "refcoco": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
-    "k400_video": "ROADMAP queue 1 item 3 (video; the last of the old item 8)",
 }
 
 
@@ -268,6 +268,7 @@ class VggsoundTask(ClassifyTaskBase):
 
 TASKS.register("coco_detection")(CocoDetectionTask)
 TASKS.register("ade20k_seg")(Ade20kSegTask)
+TASKS.register("k400_video")(K400VideoTask)
 
 
 def build_task(cfg, framework_cfg=None):

@@ -1,6 +1,7 @@
 """Vision-transfer tasks (counterpart of ``one_peace_tpu/tasks/vision_tasks.py``):
-COCO detection and ADE20K segmentation, drivable through ``cli/train.py``
-(``task._name=coco_detection`` / ``ade20k_seg``) and ``cli/evaluate.py``.
+COCO detection, ADE20K segmentation and K400 video classification, drivable
+through ``cli/train.py`` (``task._name=coco_detection`` / ``ade20k_seg`` /
+``k400_video``) and ``cli/evaluate.py``.
 
 ``CocoDetectionTask`` builds the detector from the config's encoder dims and
 task fields, reads COCO JSON through ``data/vision_datasets.py``, batches with
@@ -16,8 +17,15 @@ resized to the labels, or the argmax repeated, by
 ``seg_eval_logits_upsample``), ``slide`` or ``ms_flip``.  Each batch's
 confusion matrix is summed on the card and fetched once, in
 ``merge_results``.  Validation runs the trainer's compute-dtype copies of
-the masters through ``functional_call``, as detection's does.  The video
-task is not ported yet (ROADMAP queue 1 item 3).
+the masters through ``functional_call``, as detection's does.
+
+``K400VideoTask`` builds the AIM video classifier (the trunk frozen, the
+adapters, temporal embedding, rel-pos table, norm and head trainable), reads
+mmaction2 rawframes, and scores top-1 accuracy.  Under multi-view testing a
+(B, V, T, 3, S, S) batch runs ``VIEWS_PER_FORWARD`` views a forward (the JAX
+task runs all B * V in one; each view is independent, so the result is the
+same), the views' softmax probabilities are averaged per clip, and each
+batch's count of hits stays on the card until ``merge_results``.
 """
 
 from __future__ import annotations
@@ -30,11 +38,13 @@ import torch
 from torch import nn
 
 from ..data.iterators import EpochBatchIterator
-from ..data.vision_datasets import Ade20kSegDataset, CocoDetectionDataset, vision_collate
-from ..metrics.metrics import DetectionAP, MIoU, fetch_once
+from ..data.vision_datasets import (Ade20kSegDataset, CocoDetectionDataset,
+                                    RawframeVideoDataset, vision_collate)
+from ..metrics.metrics import Accuracy, DetectionAP, MIoU, fetch_once
 from ..models.components import resize_linear
 from ..vision.mask_paste import paste_masks
-from ..vision.zoo import OnePeaceDetector, OnePeaceMask2FormerSegmenter, OnePeaceSegmenter
+from ..vision.zoo import (OnePeaceDetector, OnePeaceMask2FormerSegmenter, OnePeaceSegmenter,
+                         OnePeaceVideoClassifier)
 from .base_task import refuse_shards
 
 
@@ -296,3 +306,73 @@ class Ade20kSegTask(VisionTaskBase):
             self.metric.update_confusion(fetch_once(self._cm))
             self._cm = None
         return self.metric.merge_results()
+
+
+class K400VideoTask(VisionTaskBase):
+    """Frozen-trunk AIM video classification (the reference's mmaction2
+    recognizer recipes), evaluated by top-1 accuracy."""
+
+    criterion_name = "video_classify_criterion"
+    # views a forward under multi-view testing: 8 views of 32 frames are the
+    # tokens of a training batch of 8 clips
+    VIEWS_PER_FORWARD = 8
+
+    def __init__(self, cfg, framework_cfg=None):
+        super().__init__(cfg, framework_cfg)
+        if cfg.num_classes == 1000:  # the classify default is meaningless here
+            cfg.num_classes = 400
+        self.metric = Accuracy()
+
+    def build_dataset(self, split: str):
+        c = self.cfg
+        ann = c.data if split == "train" else c.valid_data
+        root = c.image_dir if split == "train" else (c.valid_image_dir or c.image_dir)
+        return RawframeVideoDataset(
+            split, ann, root, num_frames=c.num_frames, image_size=c.image_size,
+            frame_tmpl=c.frame_tmpl, test_num_clips=c.video_test_clips,
+            test_three_crop=c.video_test_three_crop, sampling=c.video_sampling,
+            frame_interval=c.video_frame_interval, train_aug=c.video_train_aug,
+            color_jitter=c.video_color_jitter)
+
+    @staticmethod
+    def build_model(cfg, device="cuda", dtype=None) -> OnePeaceVideoClassifier:
+        """The video classifier of ``cfg.task`` (classes, frames, the bucket
+        grid of ``image_size``) over the trunk of ``cfg.model.encoder``
+        (width, depth, heads, drop path, remat, attention path), built on
+        ``device``."""
+        enc, t = cfg.model.encoder, cfg.task
+        return OnePeaceVideoClassifier(
+            num_classes=t.num_classes, device=device, dtype=dtype, embed_dim=enc.embed_dim,
+            ffn_embed_dim=enc.ffn_embed_dim, heads=enc.attention_heads, layers=enc.layers,
+            bucket_size=t.image_size // 16, num_frames=t.num_frames,
+            drop_path_rate=enc.drop_path_rate, checkpoint_activations=enc.checkpoint_activations,
+            attn_impl=enc.attn_impl)
+
+    @torch.inference_mode()
+    def valid_step(self, model: OnePeaceVideoClassifier, params, batch):
+        """One batch's top-1 hits, in eval mode, on ``params`` (a name ->
+        tensor dict such as the trainer's compute-dtype copies) or, with
+        None, on the model's own weights.  A (B, V, T, 3, S, S) batch of test
+        views goes to the card ``VIEWS_PER_FORWARD`` views at a time; the
+        views' softmax probabilities (fp32) are averaged per clip
+        (mmaction2's ``average_clips='prob'``)."""
+        was_training = model.training
+        model.eval()
+        try:
+            device = next(model.parameters()).device
+            videos = np.asarray(batch["src_videos"], np.float32)
+            target = torch.as_tensor(np.asarray(batch["target"])).to(device).long()
+            if videos.ndim == 6:
+                b, v = videos.shape[:2]
+                flat = videos.reshape((b * v,) + videos.shape[2:])
+                probs = torch.cat([
+                    torch.softmax(call_on(model, params, "forward", torch.from_numpy(
+                        flat[i:i + self.VIEWS_PER_FORWARD]).to(device)).float(), dim=-1)
+                    for i in range(0, b * v, self.VIEWS_PER_FORWARD)])
+                pred = probs.reshape(b, v, -1).mean(1).argmax(-1)
+            else:
+                pred = call_on(model, params, "forward",
+                               torch.from_numpy(videos).to(device)).argmax(-1)
+            self.metric.compute(ncorrect=(pred == target).sum(), count=int(pred.shape[0]))
+        finally:
+            model.train(was_training)

@@ -17,9 +17,10 @@ Layout rules:
 - an int8 ``w_q`` (in, out) of ``quantize_ffn_params`` becomes ``w_q``
   (out, in), the layout of ``ops.quant.QuantizedLinear``; ``w_scale`` keeps
   its name;
-- the stacked ``fusion/layers`` tree (leading ``layers`` axis), and the
-  segmentation backbone's ``encoder/layers``, become one module per layer,
-  and lists become numbered modules;
+- the stacked ``fusion/layers`` tree (leading ``layers`` axis), the
+  segmentation backbone's ``encoder/layers`` and the video trunk's
+  ``backbone/layers`` become one module per layer, and lists become
+  numbered modules;
 - the detection trunk's ``win_layers`` (groups, period-1, ...) and
   ``glob_layers`` (groups, ...) become ``layers.{g * period + s}``, the global
   layer last in each period; a transposed conv's HWIO ``w`` becomes
@@ -42,9 +43,11 @@ import numpy as np
 import torch
 
 _CONV_PERMUTE = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
-# the stacked layer trees: the fusion encoder's, and the segmentation
-# backbone's encoder (``backbone/encoder/layers``)
-_STACKED = (("fusion", "layers"), ("encoder", "layers"))
+# the stacked layer trees: the fusion encoder's, the segmentation backbone's
+# encoder (``backbone/encoder/layers``) and the video trunk's
+# (``backbone/layers``; the detection trunk's are ``win_layers`` and
+# ``glob_layers``)
+_STACKED = (("fusion", "layers"), ("encoder", "layers"), ("backbone", "layers"))
 _CONV_UNPERMUTE = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
@@ -125,8 +128,9 @@ def params_to_jax(state: Dict[str, torch.Tensor], periods: Optional[Dict[str, in
     in the JAX layout (conv and transposed-conv kernels HWIO), a
     one-dimensional ``weight`` (a LayerNorm's or GroupNorm's) becomes
     ``scale`` and its ``bias`` stays ``bias``, any other ``bias`` becomes
-    ``b``, ``w_q`` goes back to (in, out); the fusion layers are stacked on a
-    leading layer axis, and modules numbered 0..n-1 become lists.
+    ``b``, ``w_q`` goes back to (in, out); the fusion, segmentation encoder
+    and video trunk layers are stacked on a leading layer axis, and modules
+    numbered 0..n-1 become lists.
 
     ``periods`` maps a module list of the detection trunk (``"backbone.layers"``)
     to its global period p: its layers ``g * p + s`` are stacked back into

@@ -26,7 +26,12 @@ zero): it is the initial state of a training run that restores no
 checkpoint, and ``fill_random_`` is what the tests and the chip smoke use.
 ``init_detector_`` is the detector's initial state, as
 ``OnePeaceDetector.init`` of the JAX package draws it, and
-``init_segmenter_`` the segmenters' as ``OnePeaceSegmenter.init`` draws it.
+``init_segmenter_`` the segmenters' as ``OnePeaceSegmenter.init`` draws it,
+and ``init_video_classifier_`` the video classifier's as
+``VideoClassifierV2.init`` draws it.  ``fill_random_`` draws the video
+trunk's temporal embedding truncated N(0, 0.02^2) and its adapters' ``fc2``
+like any dense weight, where that init's zeros would leave the temporal
+branch, and so the attention's gradient at L = frames, at zero.
 
 Values are drawn in fp32 in a fixed order, so models of different dtypes
 filled from the same seed hold the same weights up to rounding.
@@ -34,6 +39,7 @@ filled from the same seed hold the same weights up to rounding.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -49,19 +55,25 @@ XAVIER_LINEARS = ("text_proj", "image_proj", "audio_proj", "post_extract_proj") 
     for head in (f"decoder_{mod}_embed", f"{mod}_mask_head"))
 
 
+def _draw(p: torch.Tensor, kind: str, scale: float = 1.0, *,
+          generator: torch.Generator) -> None:
+    """Fill ``p`` with ``scale`` times fp32 draws from ``generator``: N(0, 1)
+    truncated to one sigma ("trunc"), N(0, 1) ("normal") or U(-1, 1)."""
+    x = torch.empty(p.shape, device=p.device, dtype=torch.float32)
+    if kind == "trunc":
+        nn.init.trunc_normal_(x, 0.0, 1.0, -1.0, 1.0, generator=generator)
+    elif kind == "normal":
+        x.normal_(0.0, 1.0, generator=generator)
+    else:
+        x.uniform_(-1.0, 1.0, generator=generator)
+    p.copy_(x * scale)
+
+
 @torch.no_grad()
 def fill_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter of ``model`` in place; returns ``model``."""
 
-    def draw(p, kind: str, scale: float = 1.0) -> None:
-        x = torch.empty(p.shape, device=p.device, dtype=torch.float32)
-        if kind == "trunc":
-            nn.init.trunc_normal_(x, 0.0, 1.0, -1.0, 1.0, generator=generator)
-        elif kind == "normal":
-            x.normal_(0.0, 1.0, generator=generator)
-        else:
-            x.uniform_(-1.0, 1.0, generator=generator)
-        p.copy_(x * scale)
+    draw = functools.partial(_draw, generator=generator)
 
     for name, m in model.named_modules():
         leaf = name.rsplit(".", 1)[-1]
@@ -89,7 +101,7 @@ def fill_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, p in model.named_parameters(recurse=True):
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("embed_tokens", "embed_positions", "cls_embedding", "pos_embed",
-                    "cls_pos_embed", "mask_embedding") or name.endswith(
+                    "cls_pos_embed", "mask_embedding", "temporal_embedding") or name.endswith(
                         ("attn_pooling.q", "_mask_token")):
             draw(p, "trunc", 0.02)
         elif leaf in ("type_embedding", "type_embedding_2"):
@@ -146,15 +158,7 @@ def init_detector_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     -log(99) and its box scales one (``vision/detection.FCOSHead.init``).
     Values are drawn in fp32 in a fixed order; returns ``model``."""
 
-    def draw(p, kind: str, scale: float) -> None:
-        x = torch.empty(p.shape, device=p.device, dtype=torch.float32)
-        if kind == "trunc":
-            nn.init.trunc_normal_(x, 0.0, 1.0, -1.0, 1.0, generator=generator)
-        elif kind == "normal":
-            x.normal_(0.0, 1.0, generator=generator)
-        else:
-            x.uniform_(-1.0, 1.0, generator=generator)
-        p.copy_(x * scale)
+    draw = functools.partial(_draw, generator=generator)
 
     for name, m in model.named_modules():
         if isinstance(m, LayerNorm):  # GroupNorm too
@@ -216,15 +220,7 @@ def init_segmenter_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     in a fixed order; returns ``model``."""
     fill_random_(model, generator)
 
-    def draw(p, kind: str, scale: float) -> None:
-        x = torch.empty(p.shape, device=p.device, dtype=torch.float32)
-        if kind == "trunc":
-            nn.init.trunc_normal_(x, 0.0, 1.0, -1.0, 1.0, generator=generator)
-        elif kind == "normal":
-            x.normal_(0.0, 1.0, generator=generator)
-        else:
-            x.uniform_(-1.0, 1.0, generator=generator)
-        p.copy_(x * scale)
+    draw = functools.partial(_draw, generator=generator)
 
     for name, m in model.named_modules():
         if isinstance(m, LayerNorm):  # GroupNorm too
@@ -263,4 +259,51 @@ def init_segmenter_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.zero_()
         elif leaf in ("gamma_1", "gamma_2"):
             p.fill_(model.backbone.cfg.layer_scale_init_value)
+    return model
+
+
+@torch.no_grad()
+def init_video_classifier_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The initial state of a video fine-tuning run that restores no
+    checkpoint, with the distributions and constants of the JAX package's
+    ``VideoClassifierV2.init`` (``vision/video_backbone.py``): the hMLP
+    stem's convs uniform within sqrt(3 / fan_in), their biases within
+    1 / sqrt(fan_in) (``init_conv2d``); the trunk's dense weights truncated
+    N(0, 0.02^2) within one sigma (``init_det_layer``); the adapters' ``fc1``
+    and the head Xavier-uniform (``init_linear``), the adapters' ``fc2``
+    zero; biases zero; ``cls_embedding`` and ``pos_embed`` N(0, 1 / d); the
+    temporal embedding and the rel-pos table zero; the LayerScale gammas
+    1e-2; LayerNorms one and zero.  Values are drawn in fp32 in a fixed
+    order; returns ``model``."""
+
+    draw = functools.partial(_draw, generator=generator)
+
+    for name, m in model.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, Linear):
+            out_f, in_f = m.weight.shape
+            if "_adapter." in name and leaf == "fc2":
+                m.weight.zero_()
+            elif "_adapter." in name or not name.startswith("backbone."):
+                draw(m.weight, "uniform", math.sqrt(6.0 / (in_f + out_f)))
+            else:
+                draw(m.weight, "trunc", 0.02)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, Conv):
+            fan_in = m.weight[0].numel()
+            draw(m.weight, "uniform", math.sqrt(3.0 / fan_in))
+            if m.bias is not None:
+                draw(m.bias, "uniform", 1.0 / math.sqrt(fan_in))
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("cls_embedding", "pos_embed"):
+            draw(p, "normal", p.shape[-1] ** -0.5)
+        elif leaf in ("temporal_embedding", "rel_pos_table"):
+            p.zero_()
+        elif leaf in ("gamma_1", "gamma_2"):
+            p.fill_(1e-2)
     return model

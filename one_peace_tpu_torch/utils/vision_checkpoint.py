@@ -1,5 +1,6 @@
-"""Pretrain checkpoints into the detection trunk (the port's copy of the
-detection part of ``one_peace_tpu/utils/vision_checkpoint.py``).
+"""Pretrain checkpoints into the detection and video trunks (the port's copy
+of the detection part of ``one_peace_tpu/utils/vision_checkpoint.py``, and
+its video conversion rewritten).
 
 ``to_vision_state_dict`` is the reference's ``convert_to_vision.py`` remap
 (image branch only, ``encoder.layers.N.*``); ``convert_det_backbone`` turns a
@@ -7,8 +8,14 @@ vision (or pretrain) flat state dict into the JAX package's DetBackbone tree
 in numpy: windowed layers stacked (groups, period-1, ...) and global layers
 (groups, ...), the shared rel table kept at pretrain size, the decomposed
 rel-pos tables zeros (the reference's fresh ``nn.Parameter(torch.zeros)``).
-``utils.checkpoint.params_from_jax`` takes that tree to the port's names.
-``tests/test_torch_port_det_model.py`` holds the copy equal to the original.
+``convert_video_backbone`` gives the trunk of the JAX package's VideoBackbone
+tree: the layers stacked on a leading axis, without the adapters, which
+keep the model's own init (the JAX conversion draws them from
+``jax.random``), the temporal embedding zero and the rel-pos table zero
+where its size differs from the checkpoint's.
+``utils.checkpoint.params_from_jax`` takes these trees to the port's names.
+``tests/test_torch_port_det_model.py`` and
+``tests/test_torch_port_video_model.py`` hold them equal to the originals.
 """
 
 from __future__ import annotations
@@ -113,3 +120,25 @@ def convert_det_backbone(sd: Dict[str, np.ndarray], backbone) -> Dict[str, Any]:
         # kept at pretrain size; the trunk interpolates it at run time
         params["rel_pos_table"] = sd["image_adapter.rel_pos_table_list.0.weight"]
     return params
+
+
+def convert_video_backbone(sd: Dict[str, np.ndarray], backbone) -> Dict[str, Any]:
+    """Vision (or pretrain) flat sd -> the trunk of the VideoBackbone tree
+    (numpy, the JAX package's layout) for the port's ``backbone``: the hMLP
+    stem, CLS, the positions resized to the bucket grid, the layers' trunk
+    leaves stacked, the temporal embedding zero and the rel-pos table the
+    checkpoint's, or zero where its size differs (the reference zero-inits
+    it then)."""
+    sd = to_vision_state_dict(sd)
+    num_rel = (2 * backbone.bucket_size - 1) ** 2 + 3
+    table = sd.get("image_adapter.rel_pos_table_list.0.weight")
+    if table is None or table.shape[0] != num_rel:
+        table = np.zeros((num_rel, backbone.heads), np.float32)
+    return {
+        "hmlp": _convert_hmlp(sd),
+        "cls_embedding": sd["image_adapter.cls_embedding"].reshape(1, 1, backbone.d),
+        "pos_embed": _resized_pos_embed(sd, backbone.bucket_size),
+        "temporal_embedding": np.zeros((1, backbone.num_frames, backbone.d), np.float32),
+        "rel_pos_table": table,
+        "layers": _stack([_trunk_layer(sd, i) for i in range(len(backbone.layers))]),
+    }

@@ -12,6 +12,9 @@
   (``slide_scores``) and over scales and flips (``ms_flip_logits``), all on
   the device.  The JAX package's ``ONE_PEACE_SLIDE_IMPL`` knob and its host
   window loop work around TPU compiles and have no counterpart here.
+- ``OnePeaceVideoClassifier``: the K400 recognizer (``vision/video_backbone``)
+  with ``load_pretrained``: the trunk from a pretrain checkpoint, the
+  adapters, norm and head as the model holds them (its init).
 
 The models are built on ``cuda`` unless the caller passes a device."""
 
@@ -27,7 +30,7 @@ from ..models.components import resize_linear
 from ..utils.checkpoint import params_from_jax
 from ..utils.checkpoint_convert import (convert_encoder_wrapper, load_torch_state_dict,
                                         upgrade_state_dict)
-from ..utils.vision_checkpoint import convert_det_backbone
+from ..utils.vision_checkpoint import convert_det_backbone, convert_video_backbone
 from .adapter import OnePeaceAdapterBackbone
 from .cascade_rcnn import CascadeBoxHead, MaskHead
 from .det_backbone import DetBackbone, SimpleFeaturePyramid
@@ -35,6 +38,7 @@ from .detection import FCOSHead, empty_result
 from .mask2former import Mask2FormerHead, semantic_inference
 from .rpn import RPNHead
 from .upernet import UperNetHead
+from .video_backbone import VideoClassifierV2
 
 
 class OnePeaceDetector(nn.Module):
@@ -295,3 +299,42 @@ class OnePeaceMask2FormerSegmenter(OnePeaceSegmenter):
         return semantic_inference(all_cls[-1], all_masks[-1])
 
     forward = logits
+
+
+class OnePeaceVideoClassifier(VideoClassifierV2):
+    """The K400 recognizer with pretrain loading.  ``backbone_kw`` go to
+    ``VideoBackbone``: its geometry, frames, drop path, remat and
+    ``attn_impl``.  Built on ``cuda`` unless the caller passes a device."""
+
+    def __init__(self, num_classes: int = 400, device="cuda", dtype=None, **backbone_kw):
+        super().__init__(num_classes, device=device, dtype=dtype, **backbone_kw)
+
+    @torch.no_grad()
+    def load_pretrained(self, sd: Union[str, Dict[str, np.ndarray]]) -> "OnePeaceVideoClassifier":
+        """The trunk from a pretrain checkpoint (a fairseq ``.pt`` path or its
+        {name: np.ndarray} state dict, pretrain or vision naming), the
+        temporal embedding zero and the rel-pos table the checkpoint's (zero
+        where its size differs); the adapters, the norm and the head keep
+        their values (``utils.random_weights.init_video_classifier_`` draws
+        them, the adapters' ``fc2`` zero), as the JAX package's load draws
+        them fresh."""
+        if isinstance(sd, str):
+            sd = load_torch_state_dict(sd)
+        state = params_from_jax({"backbone": convert_video_backbone(sd, self.backbone)})
+        own = self.state_dict()
+        for name, value in state.items():
+            if tuple(value.shape) != tuple(own[name].shape):
+                raise ValueError(f"{name}: checkpoint {tuple(value.shape)}, "
+                                 f"model {tuple(own[name].shape)}")
+        self.load_state_dict(state, strict=False)
+        frozen = {k for k, train in self.trainable_mask().items()
+                  if k.startswith("backbone.") and not train}
+        missing = frozen - set(state)
+        if missing:
+            raise KeyError(f"the checkpoint left trunk weights unset: {sorted(missing)[:5]}")
+        return self
+
+    def jax_layout(self) -> Dict[str, Dict]:
+        """Nothing beyond ``params_to_jax``'s rules: the layers stack back into
+        ``backbone/layers`` as the JAX tree holds them."""
+        return {}

@@ -9,7 +9,9 @@ the pretrain data path's (the masking helpers and both pretrain datasets),
 whose behaviour ``tests/test_torch_port_pretrain_data.py`` holds equal, and
 the segmentation path's (the ADE20K dataset, the reference points, the
 adaptive-pool matrix, the sine encoding, the slide window grid), whose
-behaviour ``tests/test_torch_port_seg_*.py`` hold equal."""
+behaviour ``tests/test_torch_port_seg_*.py`` hold equal, and the video
+path's (the rawframe dataset with its colour jitter, the sub-grid token
+indices), whose behaviour ``tests/test_torch_port_video_*.py`` hold equal."""
 
 import dataclasses
 import inspect
@@ -38,6 +40,7 @@ from one_peace_tpu.data import vision_datasets as jax_vision_datasets
 from one_peace_tpu.vision import adapter as jax_adapter
 from one_peace_tpu.vision import mask2former as jax_mask2former
 from one_peace_tpu.vision import upernet as jax_upernet
+from one_peace_tpu.vision import video_backbone as jax_video_backbone
 from one_peace_tpu.vision import zoo as jax_zoo
 from one_peace_tpu_torch.core import config as port_config
 from one_peace_tpu_torch.data import datasets as port_datasets
@@ -52,6 +55,7 @@ from one_peace_tpu_torch.data import vision_datasets as port_vision_datasets
 from one_peace_tpu_torch.vision import adapter as port_adapter
 from one_peace_tpu_torch.vision import mask2former as port_mask2former
 from one_peace_tpu_torch.vision import upernet as port_upernet
+from one_peace_tpu_torch.vision import video_backbone as port_video_backbone
 from one_peace_tpu_torch.vision import zoo as port_zoo
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -76,7 +80,7 @@ def test_port_imports_nothing_of_the_jax_package():
         "      'one_peace_tpu_torch.models.pretrain' in names,\n"
         "      'one_peace_tpu_torch.data.masking' in names,\n"
         "      all(f'one_peace_tpu_torch.vision.{m}' in names for m in\n"
-        "          ('adapter', 'mask2former', 'ms_deform_attn', 'upernet')))\n"
+        "          ('adapter', 'mask2former', 'ms_deform_attn', 'upernet', 'video_backbone')))\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
@@ -86,8 +90,8 @@ def test_port_imports_nothing_of_the_jax_package():
     # checkpoint and CLI modules of the retrieval fine-tuning slice, the
     # COCO dataset and mask paste of detection from data, the classify
     # model with the Mixup and RandAugment copies, and the pretrain model
-    # with the masking copy, and the segmentation modules
-    assert count >= 74, proc.stdout
+    # with the masking copy, the segmentation modules and the video trunk
+    assert count >= 75, proc.stdout
     assert proc.stdout.split()[-4:] == ["True"] * 4, proc.stdout
 
 
@@ -200,14 +204,17 @@ VERBATIM_COPIES = [
     (port_vision_datasets, jax_vision_datasets, "Ade20kSegDataset"),
     (port_adapter, jax_adapter, "get_reference_points"),
     (port_upernet, jax_upernet, "_adaptive_pool_matrix"),
-    (port_mask2former, jax_mask2former, "sine_positional_encoding")]
+    (port_mask2former, jax_mask2former, "sine_positional_encoding")] + [
+    (port_vision_datasets, jax_vision_datasets, name) for name in (
+        "RawframeVideoDataset", "_jitter_brightness_contrast_saturation", "_jitter_hue")] + [
+    (port_video_backbone, jax_video_backbone, "subgrid_token_indices")]
 
 
 @pytest.mark.parametrize("port,original,name", VERBATIM_COPIES,
                          ids=[f"{o.__name__.rsplit('.', 1)[-1]}.{n}" for _, o, n in VERBATIM_COPIES])
 def test_verbatim_copies_equal(port, original, name):
-    """The classification, pretrain and segmentation paths' copies keep the
-    original's source."""
+    """The classification, pretrain, segmentation and video paths' copies
+    keep the original's source."""
     assert inspect.getsource(getattr(port, name)) == inspect.getsource(getattr(original, name))
 
 

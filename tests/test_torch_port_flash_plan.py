@@ -205,6 +205,26 @@ def test_dbias_slab_sum_in_kernel_order(b, l, heads):
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("b,bias", [(2056, None), (65535, None), (65536, None),
+                                    (65536, "batched"), (200000, None), (65536, "shared")])
+def test_dkv_grid_z_stays_within_cuda_limit(b, bias):
+    """The dk/dv kernel's chunks sit on grid z, which CUDA caps at 65535:
+    without a shared bias one batch row a block up to B = 65535 (2056 is the
+    video trunk's temporal attention at B=8: 8 clips x 257 tokens), then
+    ceil(B / 65535) rows a block; the chunks cover the batch once, in
+    order."""
+    plan = tfa.bwd_plan(b, 32, 24, bias == "shared")
+    assert plan.chunks <= tfa.GRID_Z_MAX == 65535
+    assert plan.chunks * plan.b_chunk >= b > (plan.chunks - 1) * plan.b_chunk
+    if bias != "shared":
+        assert plan.b_chunk == (1 if b <= 65535 else -(-b // 65535))
+        assert not plan.dkv_slab
+    covered = torch.zeros(b, dtype=torch.int64)
+    for z in range(plan.chunks):
+        covered[z * plan.b_chunk:min(b, (z + 1) * plan.b_chunk)] += 1
+    assert bool((covered == 1).all())
+
+
 def _leaves(l=10, b=2, h=4, d=16):
     q, k, v, _, rel, _ = _inputs(l, "shared", False, b=b, h=h, d=d)
     leaves = [torch.tensor(x.reshape(b, l, h, d), requires_grad=True) for x in (q, k, v)]

@@ -465,7 +465,7 @@ def test_task_evaluation_matches_jax(corpus, side):
 
 
 @pytest.mark.parametrize("name,queue", [("fsd50k", "item 4b"), ("nlvr2", "item 4b"),
-                                        ("refcoco", "item 4"), ("k400_video", "item 8")])
+                                        ("refcoco", "item 4"), ("aqa", "item 4b")])
 def test_unported_tasks_raise(corpus, name, queue):
     cfg = _framework_cfg(corpus, "image")
     cfg.task._name = name

@@ -92,7 +92,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. retrieval fine-tuning from data through the CLIs: (a) 160 image-caption
    pairs as JPEG files under ``build/smoke_retrieval/``, TSVs, a valid JSON
    of 5 captions for each of 64 valid ids, and a byte-level BPE set; (b)
-   ``cli.train`` at full width and depth 4 (bf16, remat, drop path 0.5,
+   ``cli.train`` at full width and depth 2 (bf16, remat, drop path 0.5,
    B=8, update_freq=2) straight to 4 updates, and again stopped at the end
    of epoch 1 (a save at update 2 with a micro-batch pending) and resumed
    to 4: the updates' losses within 1e-6 relative and the final masters'
@@ -107,7 +107,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    640, 1024 x 768 and 333 x 500, COCO's 80 non-contiguous category ids,
    objects as polygons, compressed and uncompressed RLE, a crowd region and
    a sub-pixel box in each image; (b) ``cli.train`` on the detection recipe
-   at full width and depth 4 (1024 px, B=2, bf16 over fp32 masters, remat,
+   at full width and depth 2 (one windowed and one global layer; 1024 px,
+   B=2, bf16 over fp32 masters, remat,
    drop path 0.6): 4 updates, one validation and ``checkpoint_best.npz``,
    whose ``params_from_jax`` read-back must equal the masters bit for bit;
    then ``cli.evaluate`` on it must detect what the validation detected and
@@ -137,7 +138,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    VGGSound B=8, clips of 5-15 s), kernel path against plain path with
    7(a)'s bounds, then 3 AdamW steps on each; (c) synthetic JPEGs, a VQA
    TSV, WAV clips and a BPE set under ``build/smoke_classify/``, and each
-   recipe through ``cli.train`` at depth 4 (4 updates, one validation,
+   recipe through ``cli.train`` at depth 2 (4 updates, one validation,
    ``checkpoint_best.npz`` read back bit-equal to the masters) and
    ``cli.evaluate`` on the export (the validation's accuracy to 1e-6);
    (d) the image_classify recipe at depth 40, 384 px, B=32 through
@@ -154,7 +155,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    criterions at 4 layers, full width, with the decoder, B=8 from the
    corpus, kernel path against plain path with 7(a)'s bounds; (c)
    synthetic JPEGs, 14-15 s WAV clips and captions under
-   ``build/smoke_pretrain/``, the VL recipe through ``cli.train`` at depth 4
+   ``build/smoke_pretrain/``, the VL recipe through ``cli.train`` at depth 2
    with its export read back bit-equal, then the AL stage-2 recipe
    restoring it: the shared leaves carried bit-equal, ``logit_scale``
    reset, the frozen parameters bit-unchanged after 3 updates; (d) both
@@ -209,7 +210,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    with 7(a)'s bounds, the launches per forward (8) and gradient (16 / 8);
    (c) a synthetic rawframes tree under ``build/smoke_k400/`` (24 train and
    8 valid clips of 40-150 frames, landscape and portrait) and the recipe
-   through ``cli.train`` at depth 4, straight to 4 updates and stopped at 2
+   through ``cli.train`` at depth 2, straight to 4 updates and stopped at 2
    and resumed (update losses to 1e-6), ``checkpoint_best.npz`` read back
    bit-equal to its step's masters, the trunk unchanged, and
    ``cli.evaluate`` under 3 clips x ThreeCrop equal to a direct
@@ -219,8 +220,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    and peak, and one profiled update (``video_train_profile.txt``: the idle
    share, #1 and #2).
 
-Phase 10 runs after phase 12, when the process started with the script
-has written its state under ``build/golden_state/``.
+20. the rest of classification: (a) first, #1 with the backward's
+   statistics and #2 alone at the new shapes (NLVR2's vl sequences, L=647
+   = 70 text + 577 image tokens at 384 px, B=32 with text pads; AQA's al
+   sequences, L=820 = 70 text + 750 audio tokens at 15 s, B=32 = 8
+   questions x 4 choices with text and audio pads; one shared fp32 (H, L,
+   L) bias) against their plain versions, fp32 (two backward calls
+   bit-equal) and bf16, then in turns with SDPA and its backward; then, the
+   launches counted from 0: (b) the four criterions (NLVR2's two images
+   through the classify criterion, RefCOCO's grounding loss, AQA's hinge
+   over 4 choices, FSD50K's BCE over 200 classes) at full width and depth
+   4 through ``Trainer`` on 8 batches of 8 examples each, each batch from
+   its own seed, kernel path against plain path: fp32 with 7(a)'s bounds;
+   bf16 no further from fp32 than the plain path, in the gradients and in
+   the loss: the kernel path's mean excess over the 8 batches at most three
+   standard errors of the paired differences; (c) synthetic JPEGs and WAV clips with the four TSVs under
+   ``build/smoke_classify_rest/`` and each recipe through ``cli.train`` at
+   depth 2 (2 updates, one validation, ``checkpoint_best.npz`` read back
+   bit-equal to the masters) and ``cli.evaluate`` on the export (its
+   accuracy, acc@0.5 or map to 1e-6); (d) the NLVR2 recipe at depth 40,
+   384 px, B=16 pairs through ``cli.train``: ms per update (median of 3),
+   pairs/s, MFU, peak memory, the launches per update (160 / 80) and one
+   profiled update (``nlvr2_train_profile.txt``: the idle share, #1, #2).
+
+The CLI checks 13(b), 14(b), 15(c), 16(c) and 19(c) run at depth 2
+(resume, export and ``cli.evaluate`` do not depend on depth); 17(d) and
+18(c) run at depth 4, since the ViT-Adapter splits the trunk into four
+interaction groups.  Phase 10 runs after phase 12, when the
+process started with the script has written its state under
+``build/golden_state/``.
 
 Every timed kernel also prints its bound: the larger of its bytes over the
 HBM rate and its operations over the peak rate (NVIDIA's data sheet).  The
@@ -237,13 +265,13 @@ import gc
 import json
 import math
 import multiprocessing
-import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -807,26 +835,24 @@ def train_full_depth(gen, card: str) -> dict:
 
 
 def profile_call(fn, wall_ms: float, label: str, file_name: str) -> None:
-    """One kernel-path call under torch.profiler: device time by op, and
-    the device's busy time against the unprofiled call's ``wall_ms`` (one
-    stream, so kernels do not overlap)."""
+    """One kernel-path call under torch.profiler: device time by event name
+    (``device_times``), and the device's busy time against the unprofiled
+    call's ``wall_ms`` (one stream, so kernels do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
+    rows, busy = device_times(prof)
+    table = device_table(rows, busy, 25)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / file_name).write_text(table)
-    log(f"{label} profiled kernel-path call, top ops by device self time:")
+    log(f"{label} profiled kernel-path call, top event names by device time:")
     for line in table.splitlines()[:16]:
         log(f"  {line}")
-    total = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
-    if total:
-        busy = float(total.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[total.group(2)]
-        log(f"{label} device busy {busy:.1f} ms of the unprofiled {wall_ms:.1f} ms: "
-            f"idle {100 * (1 - busy / wall_ms):.0f}%")
+    log(f"{label} device busy {busy:.1f} ms of the unprofiled {wall_ms:.1f} ms: "
+        f"idle {100 * (1 - busy / wall_ms):.0f}%")
 
 
 def make_inputs(cfg, gen, n_img, n_aud, n_txt):
@@ -2105,7 +2131,7 @@ def update_losses(log_file: Path) -> list:
             if json.loads(line)["tag"] == "train_inner"]
 
 
-def check_cli_resume(data: dict, layers: int = 4) -> dict:
+def check_cli_resume(data: dict, layers: int = 2) -> dict:
     """Phase 13(b): the recipe at full width, depth ``layers``, B=8,
     update_freq=2, LayerScale 0.1, on the 40-row TSV (5 micro-batches an
     epoch), three times:
@@ -2212,28 +2238,71 @@ def profiled_update(update: int):
         Trainer.train_step = real_step
 
 
+class DeviceTimes(NamedTuple):
+    """One event name's totals over a profiled window, in microseconds."""
+    key: str
+    self_device_time_total: float  # its events' spans on the card
+    cpu_time_total: float  # its events' spans on the host
+    count: int
+
+
+def device_times(p) -> tuple:
+    """(rows by name, most device time first; the card's busy ms) of a
+    stopped ``torch.profiler.profile``, read from its raw trace events.
+    The busy time is what the profiler's table calls "Self CUDA time
+    total": the spans of the device events but the user ranges'; a user
+    range's span on the card (a ``record_function``) stays in its row.
+    The profiler's own per-op events (``events()``, ``key_averages()``)
+    took 48 s to build for one depth-40 VL pretrain update's 387k events on
+    the card's host; this reads the same trace in about 2 s."""
+    from torch.autograd import DeviceType
+
+    rows, busy = {}, 0.0
+    for e in p.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)() or e.is_async():
+            continue
+        us = e.duration_ns() / 1e3
+        row = rows.setdefault(e.name(), [0.0, 0.0, 0])
+        if e.device_type() == DeviceType.CUDA:
+            row[0] += us
+            busy += 0.0 if e.is_user_annotation() else us
+        else:
+            row[1] += us
+        row[2] += 1
+    return (sorted((DeviceTimes(k, *v) for k, v in rows.items()),
+                   key=lambda r: -r.self_device_time_total), busy / 1e3)
+
+
+def device_table(rows, busy_ms: float, limit: int) -> str:
+    """The first ``limit`` rows of ``device_times``: device ms, share of the
+    busy time, host ms, events, name; then the busy total."""
+    lines = [f"{'device ms':>11} {'% busy':>7} {'host ms':>10} {'events':>7}  name"]
+    for r in rows[:limit]:
+        lines.append(f"{r.self_device_time_total / 1e3:11.3f} "
+                     f"{100 * r.self_device_time_total / 1e3 / busy_ms:7.2f} "
+                     f"{r.cpu_time_total / 1e3:10.3f} {r.count:7d}  {r.key[:100]}")
+    return "\n".join(lines + [f"Self CUDA time total: {busy_ms:.3f}ms"])
+
+
 def update_averages(prof: dict):
-    """The profiled update's ``key_averages()``, computed once: over a
-    depth-40 update's trace it takes seconds."""
+    """The profiled update's ``device_times`` rows, computed once."""
     if "averages" not in prof:
-        prof["averages"] = prof["p"].key_averages()
+        prof["averages"], prof["busy"] = device_times(prof["p"])
     return prof["averages"]
 
 
 def profile_busy_ms(prof: dict) -> float:
-    """The profiled update's device busy time: the table's "Self CUDA time
-    total"."""
-    table = update_averages(prof).table(sort_by="self_cuda_time_total", row_limit=1)
-    total = re.search(r"Self CUDA time total: ([0-9.]+)(us|ms|s)", table)
-    return (float(total.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[total.group(2)]
-            if total else float("nan"))
+    """The profiled update's device busy time ("Self CUDA time total")."""
+    update_averages(prof)
+    return prof["busy"]
 
 
 def write_update_profile(prof: dict, ms: float, what: str, file_name: str, card: str) -> str:
     """The device's busy time and idle share of the profiled update, against
     the unprofiled steady ``ms`` and the profiled update's own wall time;
-    the top ops go to ``chiprun_out/<file_name>``.  Returns the line."""
-    table = update_averages(prof).table(sort_by="self_cuda_time_total", row_limit=25)
+    the top event names by device time go to ``chiprun_out/<file_name>``.
+    Returns the line."""
+    table = device_table(update_averages(prof), profile_busy_ms(prof), 25)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     busy = profile_busy_ms(prof)
@@ -2403,12 +2472,15 @@ def det_cli_argv(paths: dict, save_dir: Path, layers: int, extra=()) -> list:
     px, RPN, cascade and masks, 80 classes; d 1536, FFN 6144, 24 heads; bf16
     over fp32 masters, remat, drop path 0.6, AdamW with layer decay) on the
     synthetic COCO tree, ``layers`` deep, B=2, the recipe's valid batch of 8,
-    the warm-up cut to 0 (as in 12(c)), no epoch saves; then ``extra``."""
+    the warm-up cut to 0 (as in 12(c)), no epoch saves; then ``extra``.
+    Below 4 layers every ``layers``-th layer is global (at 2: one windowed,
+    one global), so that both kinds run."""
     return ["--config", str(DET_RECIPE), "--device", "cuda",
             f"task.data={paths['train']['ann']}", f"task.image_dir={paths['train']['images']}",
             f"task.valid_data={paths['valid']['ann']}",
             f"task.valid_image_dir={paths['valid']['images']}",
-            f"model.encoder.layers={layers}", "dataset.batch_size=2",
+            f"model.encoder.layers={layers}", f"task.global_period={min(layers, 4)}",
+            "dataset.batch_size=2",
             "lr_scheduler.warmup_updates=0", "common.log_interval=1", "common.seed=3407",
             f"checkpoint.save_dir={save_dir}", "checkpoint.save_interval=1000",
             f"common.log_file={save_dir}/log.jsonl", *extra]
@@ -2472,7 +2544,7 @@ def validation_line(run: dict) -> str:
             f"{rest:.1f} ms; {run['dets']} detections")
 
 
-def check_det_cli(paths: dict, card: str, layers: int = 4) -> dict:
+def check_det_cli(paths: dict, card: str, layers: int = 2) -> dict:
     """Phase 14(b): the recipe at full width, depth ``layers``, through
     ``cli.train``: 4 updates at B=2 from the config's init, one validation
     over the 8 valid images and ``checkpoint_best.npz``.  The export, read
@@ -2993,7 +3065,7 @@ def classify_argv(data: dict, task: str, save_dir: Path, layers: int, batch: int
             "checkpoint.save_interval=1000", f"common.log_file={save_dir}/log.jsonl", *extra]
 
 
-def check_classify_cli(data: dict, card: str, layers: int = 4) -> dict:
+def check_classify_cli(data: dict, card: str, layers: int = 2) -> dict:
     """Phase 15(c): each task's recipe at full width, depth ``layers``,
     through ``cli.train`` from the config's init: 4 updates, one validation
     over the 64 valid rows and ``checkpoint_best.npz``, whose
@@ -3390,7 +3462,7 @@ def check_pretrain_train_paths(data: dict) -> None:
         del ref32
 
 
-def check_pretrain_cli(data: dict, card: str, layers: int = 4) -> dict:
+def check_pretrain_cli(data: dict, card: str, layers: int = 2) -> dict:
     """Phase 16(c): at full width, depth ``layers``, through ``cli.train``:
     the VL recipe from the config's init, B=8, 4 updates, one validation and
     ``checkpoint_best.npz`` (read back bit-equal to the masters at the
@@ -4360,7 +4432,7 @@ def train_seg_full_depth(card: str) -> dict:
                                     "at depth 40, B=2, from the end of update 2",
                                     "seg_train_profile.txt", card)
         log(f"18(d) {line} (seg_train_profile.txt); {gather_backward_share(prof)}")
-        table = update_averages(prof).table(sort_by="self_cuda_time_total", row_limit=12)
+        table = device_table(update_averages(prof), profile_busy_ms(prof), 12)
         for row in table.splitlines()[:16]:
             log(f"  {row}")
     if not all(map(math.isfinite, losses)) or len(losses) != SEG_TRAIN_UPDATES:
@@ -4434,39 +4506,36 @@ VIDEO_ATTENTION = [  # (B, L, heads, bias, what): the video trunk's two shapes a
     (8 * K400_FRAMES, K400_N, K400_HEADS, "shared", "spatial, 256 px")]
 
 
-def check_video_attention(card: str) -> tuple:
-    """Phase 19(a): #1 with the backward's statistics and #2 alone at the
-    video trunk's shapes at the recipe's B=8: the temporal attention (L=32
-    over B = 8 x 257 = 2056 sequences, no bias: one key tile whose tail is
-    L, a 64-row q tile half empty, 2056 dk/dv blocks on grid z) and the
-    spatial one (L=257 over B = 8 x 32 = 256 frames, one shared fp32
-    (H, L, L) bias whose d(bias) #2 sums over the 256 rows in chunks).  fp32
-    first: the forward and its statistics within phase 3's bounds, the
-    backward twice bit-equal and within phase 6's; then bf16 against the
-    plain versions and timed in turns with SDPA and its backward through
-    ``time_attention_cases``.  Returns the fp32 forward's max |diff|, the
-    backward's, and the timed rows."""
-    gen = torch.Generator(device="cuda").manual_seed(191)
+def check_attention_fp32(tag: str, cases, seed: int, key_bias_fn) -> tuple:
+    """#1 with the backward's statistics and #2 alone in fp32 at ``cases``
+    of (B, L, heads, bias, what) (the bias "shared" (H, L, L) or None, the
+    key bias from ``key_bias_fn(b, l, what, rng)``): the forward and its
+    statistics within phase 3's bounds, the backward from the forward's
+    statistics twice bit-equal and within phase 6's.  Returns the forward's
+    and the backward's largest max |diff|."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.RandomState(seed)
     fwd_worst = bwd_worst = 0.0
-    for b, l, heads, bias_kind, what in VIDEO_ATTENTION:
+    for b, l, heads, bias_kind, what in cases:
         q, k, v, g = (torch.randn(b, l, heads * 64, generator=gen, device="cuda")
                       for _ in range(4))
         bias = (torch.randn(heads, l, l, generator=gen, device="cuda")
                 if bias_kind == "shared" else None)
-        out, stats = fa.flash_attention_cuda(q, k, v, bias, None, 0.125, heads, with_stats=True)
-        want, want_stats = fa.flash_attention_plain(q, k, v, bias, None, 0.125, heads,
-                                                    with_stats=True)
+        key_bias = key_bias_fn(b, l, what, rng)
+        args = (bias, key_bias, 0.125, heads)
+        out, stats = fa.flash_attention_cuda(q, k, v, *args, with_stats=True)
+        want, want_stats = fa.flash_attention_plain(q, k, v, *args, with_stats=True)
         fwd_err = (out - want).abs().max().item()
         stats_err = max(((stats[0] - want_stats[0]).abs() / want_stats[0].abs().clamp_min(1))
                         .max().item(),
                         ((stats[1] - want_stats[1]).abs() / want_stats[1]).max().item())
         del out, want, want_stats
-        got = fa.flash_attention_bwd_cuda(q, k, v, g, bias, None, 0.125, heads, stats=stats)
-        again = fa.flash_attention_bwd_cuda(q, k, v, g, bias, None, 0.125, heads, stats=stats)
+        got = fa.flash_attention_bwd_cuda(q, k, v, g, *args, stats=stats)
+        again = fa.flash_attention_bwd_cuda(q, k, v, g, *args, stats=stats)
         torch.cuda.synchronize()
         same = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
         del again
-        plain = fa.flash_attention_bwd_plain(q, k, v, g, bias, None, 0.125, heads)
+        plain = fa.flash_attention_bwd_plain(q, k, v, g, *args)
         parts, bad = [], not same
         for name, x, y in zip(("dq", "dk", "dv", "dbias"), got, plain):
             if y is None:
@@ -4478,17 +4547,33 @@ def check_video_attention(card: str) -> tuple:
             bad = bad or rel > 1e-4 or not torch.isfinite(x).all()
         fwd_worst = max(fwd_worst, fwd_err)
         plan, bplan = fa.tile_plan(l), fa.bwd_plan(b, l, heads, bias is not None)
-        log(f"19(a) fp32 B={b} L={l} H={heads} {bias_kind or 'no'} bias ({what}): forward max|d| "
+        log(f"{tag} fp32 B={b} L={l} H={heads} {bias_kind or 'no'} bias ({what}): forward max|d| "
             f"{fwd_err:.3e}, statistics {stats_err:.2e} relative; backward from the forward's "
             f"statistics max/mean |d| relative {', '.join(parts)}; two calls bit-equal {same}; "
             f"{FWD_BRANCHES[plan.resident]}, last tile {plan.tail} wide; "
             f"{DQ_BRANCHES[bplan.tiles.resident]}, {DKV_BRANCHES[bplan.dkv_slab]}, "
             f"{bplan.chunks} chunks of {bplan.b_chunk}")
         if fwd_err > FP32_MAX_ERR or stats_err > 1e-4 or bad:
-            raise RuntimeError(f"19(a): #1 or #2 disagrees with its plain version in fp32 at "
+            raise RuntimeError(f"{tag}: #1 or #2 disagrees with its plain version in fp32 at "
                                f"L={l}, B={b}")
-        del q, k, v, g, bias, stats, got, plain
+        del q, k, v, g, bias, key_bias, stats, got, plain
         torch.cuda.empty_cache()
+    return fwd_worst, bwd_worst
+
+
+def check_video_attention(card: str) -> tuple:
+    """Phase 19(a): #1 with the backward's statistics and #2 alone at the
+    video trunk's shapes at the recipe's B=8: the temporal attention (L=32
+    over B = 8 x 257 = 2056 sequences, no bias: one key tile whose tail is
+    L, a 64-row q tile half empty, 2056 dk/dv blocks on grid z) and the
+    spatial one (L=257 over B = 8 x 32 = 256 frames, one shared fp32
+    (H, L, L) bias whose d(bias) #2 sums over the 256 rows in chunks).  fp32
+    first through ``check_attention_fp32``; then bf16 against the plain
+    versions and timed in turns with SDPA and its backward through
+    ``time_attention_cases``.  Returns the fp32 forward's max |diff|, the
+    backward's, and the timed rows."""
+    fwd_worst, bwd_worst = check_attention_fp32("19(a)", VIDEO_ATTENTION, 191,
+                                                lambda *args: None)
     fwd_rows, bwd_rows = time_attention_cases("19(a)", VIDEO_ATTENTION, card, 192,
                                               lambda *args: None)
     return fwd_worst, bwd_worst, fwd_rows, bwd_rows
@@ -4621,7 +4706,7 @@ def recorded_hits():
         Accuracy.merge_results = real
 
 
-def check_video_cli(corpus: dict, card: str, layers: int = 4) -> dict:
+def check_video_cli(corpus: dict, card: str, layers: int = 2) -> dict:
     """Phase 19(c): the recipe through ``cli.train`` at full width and depth
     ``layers`` (bf16 over fp32 masters, remat, B=2) on 6 of the synthetic
     clips (3 batches an epoch), 4 updates at lr 1e-4 from update 0, a save
@@ -4825,7 +4910,7 @@ def train_video_full_depth(corpus: dict, card: str) -> dict:
                  for name, key in (("#1", "attn_fwd"), ("#2", "attn_bwd"))}
         log(f"19(d) {line} (video_train_profile.txt); "
             + ", ".join(f"{k} {x:.1f} ms ({100 * x / busy:.1f}%)" for k, x in parts.items()))
-        table = events.table(sort_by="self_cuda_time_total", row_limit=12)
+        table = device_table(events, busy, 12)
         for row in table.splitlines()[:16]:
             log(f"  {row}")
     if not all(map(math.isfinite, losses)) or len(losses) != K400_UPDATES:
@@ -4844,6 +4929,418 @@ def train_video_full_depth(corpus: dict, card: str) -> dict:
             "mfu": tflops / H100_BF16_PEAK_TFLOPS}
 
 
+CLASSIFY_REST_DIR = ROOT / "build" / "smoke_classify_rest"
+CLASSIFY_REST_RECIPES = {"nlvr2": ROOT / "recipes" / "nlvr2" / "base.yaml",
+                         "refcoco": ROOT / "recipes" / "visual_grounding" / "base.yaml",
+                         "aqa": ROOT / "recipes" / "aqa" / "base.yaml",
+                         "fsd50k": ROOT / "recipes" / "fsd50k" / "base.yaml"}
+FSD50K_CLASSES = 200  # Fsd50kDataset's num_classes
+AQA_ANSWERS = ("a dog barking", "a car passing", "rain on a roof", "a man speaking",
+               "birds singing", "a door closing", "music playing", "water running")
+
+
+def write_classify_rest_corpus(root: Path, n_train: int = 48, n_valid: int = 16,
+                               clip_seconds=(5.0, 15.0), image_px=(256, 399)) -> dict:
+    """Phase 20(c): ``n_train + n_valid`` JPEGs of ``image_px`` with an NLVR2
+    TSV (``id, text, image1, image2, label``, the label "True" or "False")
+    and a RefCOCO TSV (``image, text, region_coord``, a box inside the image
+    as ``x0,y0,x1,y1``); WAV clips of ``clip_seconds`` with an FSD50K TSV
+    (``id, audio, labels, duration``: 1-3 of its 200 classes joined by
+    commas) and an AQA TSV (``id, audio, text, duration``, the text
+    ``question&&&a1&&&a2&&&a3&&&a4&&&choice``); each split into train and
+    valid, and the byte-level BPE set.  Returns the paths."""
+    from PIL import Image
+
+    rng = np.random.RandomState(20)
+    root.mkdir(parents=True, exist_ok=True)
+    n = n_train + n_valid
+    tables = {"nlvr2": ["id\ttext\timage1\timage2\tlabel"],
+              "refcoco": ["image\ttext\tregion_coord"],
+              "fsd50k": ["id\taudio\tlabels\tduration"],
+              "aqa": ["id\taudio\ttext\tduration"]}
+    lo, hi = image_px
+    for i in range(n):
+        h, w = lo + (37 * i) % (hi - lo + 1), lo + (53 * i) % (hi - lo + 1)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        chans = [np.sin(xx / (0.07 * w + 5 * c + rng.rand() * 9) + yy / (0.09 * h + 3 * c))
+                 for c in range(3)]
+        Image.fromarray(((np.stack(chans, -1) * 0.45 + 0.5) * 255).astype(np.uint8)).save(
+            root / f"img{i}.jpg", quality=92)
+        words = " ".join(WORDS[j] for j in rng.randint(0, len(WORDS), 4 + i % 9))
+        tables["nlvr2"].append(f"{i}\tthe left image shows {words}\timg{i}.jpg\t"
+                               f"img{(i + 1) % n}.jpg\t{('True', 'False')[rng.randint(2)]}")
+        x0, y0 = rng.uniform(0, 0.6 * w), rng.uniform(0, 0.6 * h)
+        x1, y1 = rng.uniform(x0 + 8, w), rng.uniform(y0 + 8, h)
+        tables["refcoco"].append(f"img{i}.jpg\tthe {words}\t{x0:.2f},{y0:.2f},{x1:.2f},{y1:.2f}")
+        samples = int(16000 * rng.uniform(*clip_seconds))
+        t = np.arange(samples)
+        wav = np.sin(t * (0.008 + 0.003 * (i % 7))) * 5000 + rng.randn(samples) * 800
+        write_wav(root / f"clip{i}.wav", wav)
+        labels = ",".join(str(c) for c in sorted(rng.choice(FSD50K_CLASSES, 1 + i % 3,
+                                                            replace=False)))
+        tables["fsd50k"].append(f"{i}\tclip{i}.wav\t{labels}\t{samples / 16000:.3f}")
+        answers = [AQA_ANSWERS[j] for j in rng.choice(len(AQA_ANSWERS), 4, replace=False)]
+        question = f"what is heard {words}"
+        tables["aqa"].append(f"{i}\tclip{i}.wav\t{'&&&'.join([question, *answers])}&&&"
+                             f"{rng.randint(4)}\t{samples / 16000:.3f}")
+    out = {"root": root, "bpe": write_bpe_dir(root / "bpe")}
+    for task, rows in tables.items():
+        for split, part in (("train", rows[1:n_train + 1]), ("valid", rows[n_train + 1:])):
+            (root / f"{task}_{split}.tsv").write_text("\n".join([rows[0], *part]) + "\n")
+        out[task] = {split: str(root / f"{task}_{split}.tsv") for split in ("train", "valid")}
+    return out
+
+
+CLASSIFY_REST_ATTENTION = [  # (B, L, heads, bias, what): the rest of classify's two new shapes
+    (32, 647, 24, "shared", "NLVR2 16 pairs, 70 text + 577 image tokens at 384 px, text pads"),
+    (32, 820, 24, "shared", "AQA 8 questions x 4 choices, 70 text + 750 audio tokens at 15 s, "
+                            "text and audio pads"),
+    (16, 760, 24, "shared", "AQA 4 questions x 4 choices, a ragged batch: L in 753-768, whose "
+                            "padded width 768 leaves no room for the d(bias) slab")]
+
+
+def classify_rest_key_bias(b: int, l: int, what: str, rng):
+    """The text (its first 70 positions) padded after 12-61 tokens in each
+    row; AQA's rows also pad the audio after clips of 5-15 s, the 4 choices
+    of a question sharing one clip."""
+    mask = torch.zeros(b, l, dtype=torch.bool)
+    for row in range(b):
+        mask[row, 12 + (7 * row) % 50:70] = True
+    if what.startswith("AQA"):
+        spec = ModelConfig().encoder.audio_adapter.feature_encoder_spec
+        for question, seconds in enumerate(rng.uniform(5, 15, b // 4)):
+            frames = conv_output_length(int(16000 * seconds), spec)
+            mask[4 * question:4 * question + 4, 70 + 1 + frames:] = True
+    return torch.zeros(b, l).masked_fill(mask, fa.NEG_INF).cuda()
+
+
+def check_classify_rest_attention(card: str) -> tuple:
+    """Phase 20(a): #1 and #2 alone at the rest of classify's shapes
+    (``CLASSIFY_REST_ATTENTION``: NLVR2's vl sequences at L=647, B=32 with
+    text pads; AQA's al sequences at L=820, B=32 with text and audio pads,
+    and at L=760, B=16, where ``bwd_plan`` keeps d(bias) in device memory,
+    the slab not fitting beside the kernel's static shared memory; 24
+    heads, one shared fp32 (H, L, L) bias): fp32 through
+    ``check_attention_fp32``, then bf16 against the plain versions and in
+    turns with SDPA and its backward through ``time_attention_cases``.
+    Returns the fp32 max |diff|s and the timed rows."""
+    fwd_err, bwd_err = check_attention_fp32("20(a)", CLASSIFY_REST_ATTENTION, 201,
+                                            classify_rest_key_bias)
+    fwd_rows, bwd_rows = time_attention_cases("20(a)", CLASSIFY_REST_ATTENTION, card, 202,
+                                              classify_rest_key_bias)
+    return fwd_err, bwd_err, fwd_rows, bwd_rows
+
+
+CLASSIFY_REST_HEADS = {  # task: (head type, px, criterion, the task's head)
+    "nlvr2": ("vl", 384, "classify_criterion", {"num_classes": 2, "use_two_images": True}),
+    "refcoco": ("vl", 384, "refcoco_criterion", {"num_classes": 4}),
+    "aqa": ("al", 256, "hinge_criterion", {"num_classes": 1}),
+    "fsd50k": ("audio", 256, "classify_criterion", {"num_classes": FSD50K_CLASSES}),
+}
+
+
+def classify_rest_trainer(task: str, layers: int, bf16: bool, seed: int = 0) -> Trainer:
+    """The task's model at the 4B width, ``layers`` deep, with its head, on
+    random weights drawn from ``seed``, and ``Trainer`` with the task's
+    criterion (BCE for FSD50K, 4 choices for AQA)."""
+    head, px, criterion, head_kw = CLASSIFY_REST_HEADS[task]
+    cfg = train_config(layers, bf16, False, 0.0)
+    cfg.model = ModelConfig(_name="one_peace_classify", head_type=head)
+    cfg.model.encoder.layers = layers
+    cfg.model.encoder.image_adapter.rel_bucket_size = px // 16
+    cfg.criterion._name = criterion
+    cfg.criterion.use_multi_label = task == "fsd50k"
+    cfg.criterion.num_choices = 4
+    model = OnePeaceClassifyModel(cfg.model, **head_kw, device="cuda")
+    fill_random_(model, torch.Generator(device="cuda").manual_seed(seed))
+    return Trainer(cfg, model, build_criterion(cfg.criterion))
+
+
+def classify_rest_batch(task: str, rng, b: int = 8) -> dict:
+    """20(b)'s batch of ``b`` examples: NLVR2 pairs at 384 px (two images
+    each) and RefCOCO images at 384 px, each with a 70-token statement with
+    pads; AQA questions x 4 choices of 70 tokens with pads over clips of
+    5-15 s; FSD50K clips of 5-15 s with 1-3 of 200 classes each."""
+    def tokens(n):
+        out = torch.from_numpy(rng.randint(4, 260, (n, 70))).cuda()
+        out[text_pad_mask(n, 71)[:, 1:]] = ModelConfig().encoder.text_adapter.padding_idx
+        return out
+
+    def images(n):
+        return torch.from_numpy(rng.randn(n, 3, 384, 384).astype(np.float32)).cuda()
+
+    if task == "nlvr2":
+        return {"src_tokens": tokens(b), "src_images": images(b), "src_images_2": images(b),
+                "target": torch.from_numpy(rng.randint(0, 2, b)).cuda()}
+    if task == "refcoco":
+        lo = rng.uniform(0, 0.5, (b, 2))
+        boxes = np.concatenate([lo, lo + rng.uniform(0.1, 0.5, (b, 2))], 1).astype(np.float32)
+        return {"src_tokens": tokens(b), "src_images": images(b),
+                "target": torch.from_numpy(boxes).cuda()}
+    wav, pad = audio_clips([int(16000 * s) for s in rng.uniform(5, 15, b)], rng)
+    if task == "aqa":
+        return {"src_tokens": tokens(4 * b), "src_audios": wav, "audio_padding_masks": pad,
+                "target": torch.from_numpy(rng.randint(0, 4, b)).cuda()}
+    target = np.zeros((b, FSD50K_CLASSES), np.float32)
+    for row in target:
+        row[rng.choice(FSD50K_CLASSES, rng.randint(1, 4), replace=False)] = 1.0
+    return {"src_audios": wav, "audio_padding_masks": pad,
+            "target": torch.from_numpy(target).cuda()}
+
+
+def no_further_than_plain(kernel: list, plain: list) -> tuple:
+    """(the kernel path's mean excess over the plain path, three standard
+    errors of that mean): the per-batch paired differences' sample standard
+    deviation over sqrt(n), measured between the batches' seeds."""
+    diff = [k - p for k, p in zip(kernel, plain)]
+    return statistics.mean(diff), 3 * statistics.stdev(diff) / math.sqrt(len(diff))
+
+
+def check_classify_rest_train_paths() -> None:
+    """Phase 20(b): each task's criterion at 4 layers, full width, through
+    ``Trainer``, kernel path against plain path on the same weights and
+    batch, for 8 seeds: each draws the weights and a batch of 8 examples
+    (NLVR2 pairs, RefCOCO images, AQA questions of 4 choices, FSD50K
+    clips).  fp32, every seed: the losses within 1e-5 and every gradient's
+    cosine >= 1-1e-6 (7(a)'s bounds).  bf16: the kernel path no further from
+    fp32 than the plain path (7(a)), in the gradients (1 - cosine to the
+    fp32 plain path's, all parameters together) and in the loss (relative
+    error to the fp32 plain path's): over the 8 seeds, the kernel path's
+    mean excess over the plain path at most three standard errors of that
+    mean, the spread of the paired differences between the seeds.  One
+    weight draw for all batches would not do: the paths' loss difference
+    follows the weights' bf16 rounding as much as the batch, so batches on
+    one draw are not independent samples (``PERF.md`` section 6).  Each
+    seed's 7(a) per-batch bf16 rules are logged beside it: the hinge over
+    bf16 scores (AQA) and cross entropy over a few samples move by bf16
+    rounding alone, on either path, further than those rules allow
+    (``PERF.md`` section 6).  #1 and #2 launch once per layer and image
+    (NLVR2: twice) on the kernel path, never on the plain path."""
+    seeds = range(2030, 2038)
+    for task in CLASSIFY_REST_HEADS:
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        passes = 2 if task == "nlvr2" else 1
+        dist, err = {"pallas": [], "xla": []}, {"pallas": [], "xla": []}
+        for seed in seeds:
+            batch = classify_rest_batch(task, np.random.RandomState(seed))
+            runs = {}
+            for bf16 in (False, True):  # one trainer at a time: AQA's fp32 path peaks near 70 GiB
+                trainer = classify_rest_trainer(task, 4, bf16, seed)
+                names = trainer._names
+                for impl in ("pallas", "xla"):
+                    trainer.model.cfg.encoder.attn_impl = impl
+                    before = (fa.launches, fa.bwd_launches)
+                    metrics, grads = trainer.gradients(batch)
+                    torch.cuda.synchronize()
+                    launched = (fa.launches - before[0], fa.bwd_launches - before[1])
+                    want = (4 * passes, 4 * passes) if impl == "pallas" else (0, 0)
+                    name = "bf16" if bf16 else "fp32"
+                    if launched != want:
+                        raise RuntimeError(f"20(b) {task} {name} {impl}: launches {launched}, "
+                                           f"expected {want}")
+                    if not all(torch.isfinite(g).all() for g in grads):
+                        raise RuntimeError(f"20(b) {task} {name} {impl}: non-finite gradient")
+                    runs[name, impl] = (float(metrics["loss"]), grads)
+                    del metrics, grads
+                del trainer
+            (loss_k, grads_k), (loss_p, grads_p) = runs["fp32", "pallas"], runs["fp32", "xla"]
+            cos = grad_cosines(grads_k, grads_p)
+            worst = min(range(len(cos)), key=cos.__getitem__)
+            log(f"20(b) {task} fp32 4 layers seed {seed} "
+                f"{ {k: tuple(v.shape) for k, v in batch.items()} }: loss kernel "
+                f"{loss_k:.7f} plain {loss_p:.7f}; gradient cosine kernel vs plain per "
+                f"parameter min {cos[worst]:.9f} ({names[worst]}), {len(cos)} parameters")
+            if not (abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and cos[worst] >= 1 - 1e-6):
+                raise RuntimeError(f"20(b) {task} fp32: kernel and plain paths disagree")
+            loss32, ref = loss_p, grads_p
+            del runs["fp32", "pallas"], grads_k
+            (loss_k, grads_k), (loss_p, grads_p) = runs["bf16", "pallas"], runs["bf16", "xla"]
+            flat_ref = torch.cat([g.flatten() for g in ref])
+            for impl, (loss, grads) in (("pallas", (loss_k, grads_k)), ("xla", (loss_p, grads_p))):
+                dist[impl].append(1 - grad_cosines([torch.cat([g.flatten() for g in grads])],
+                                                   [flat_ref])[0])
+                err[impl].append(abs(loss - loss32) / abs(loss32))
+            cos_k, cos_p = grad_cosines(grads_k, ref), grad_cosines(grads_p, ref)
+            gap = max(range(len(cos_k)), key=lambda j: cos_p[j] - cos_k[j])
+            total = grad_cosines([torch.cat([g.flatten() for g in grads_k])],
+                                 [torch.cat([g.flatten() for g in grads_p])])[0]
+            log(f"20(b) {task} bf16 seed {seed}: loss kernel {loss_k:.7f} plain {loss_p:.7f} fp32 "
+                f"{loss32:.7f}; relative loss error to fp32 kernel {err['pallas'][-1]:.3e} plain "
+                f"{err['xla'][-1]:.3e}; 1 - cosine to the fp32 gradients, all parameters "
+                f"together: kernel {dist['pallas'][-1]:.3e}, plain {dist['xla'][-1]:.3e}; 7(a)'s "
+                f"per-batch rules (logged): kernel vs plain {total:.6f} (>= 0.999), losses "
+                f"{abs(loss_k - loss_p) / abs(loss_p):.2e} apart (<= 2e-3), largest "
+                f"per-parameter shortfall {cos_p[gap] - cos_k[gap]:.2e} ({names[gap]}; <= 0.01)")
+            del runs, ref, flat_ref, grads_k, grads_p, batch
+            torch.cuda.empty_cache()
+        failed = []
+        for what, values in (("gradients' 1 - cosine", dist), ("loss's relative error", err)):
+            excess, bound = no_further_than_plain(values["pallas"], values["xla"])
+            mk, mp = statistics.mean(values["pallas"]), statistics.mean(values["xla"])
+            log(f"20(b) {task} bf16 over {len(seeds)} seeds, the {what} to fp32: mean kernel "
+                f"{mk:.3e} plain {mp:.3e} ({mk / mp:.3f}x); the kernel path's excess "
+                f"{excess:.3e}, bound {bound:.3e} (three standard errors)")
+            if excess > bound:
+                failed.append(what)
+        log(f"20(b) {task}: peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+            f"{time.time() - t0:.1f} s")
+        if failed:
+            raise RuntimeError(f"20(b) {task} bf16: the kernel path is further from fp32 than "
+                               f"the plain path in the {' and the '.join(failed)}")
+
+
+CLASSIFY_REST_METRIC = {"nlvr2": "accuracy", "refcoco": "acc@0.5", "aqa": "accuracy",
+                        "fsd50k": "map"}
+CLASSIFY_REST_TASK_ARGS = {"nlvr2": [], "refcoco": [], "aqa": [],  # the recipes as users run them
+                           "fsd50k": [f"task.num_classes={FSD50K_CLASSES}"]}
+CLASSIFY_REST_BATCH = {"nlvr2": 4, "refcoco": 4, "aqa": 4, "fsd50k": 8}
+
+
+def classify_rest_argv(data: dict, task: str, save_dir: Path, layers: int, batch: int,
+                       extra=()) -> list:
+    """``cli.train`` / ``cli.evaluate`` arguments: the task's recipe with the
+    data overrides (FSD50K's ``task.num_classes=200``) at the 4B width,
+    ``layers`` deep, bf16 over fp32 masters, remat, drop path 0.5, the
+    fine-tuning base's AdamW, no epoch saves; then ``extra``."""
+    return ["--config", str(CLASSIFY_REST_RECIPES[task]), "--device", "cuda",
+            f"task.data={data[task]['train']}", f"task.valid_data={data[task]['valid']}",
+            f"task.bpe_dir={data['bpe']}", *CLASSIFY_REST_TASK_ARGS[task],
+            f"model.encoder.layers={layers}", "model.encoder.drop_path_rate=0.5",
+            "model.encoder.checkpoint_activations=true", "common.bf16=true",
+            "common.log_interval=1", "common.seed=3407", "optimizer.adam_betas=(0.9,0.999)",
+            "optimizer.weight_decay=0.05", "lr_scheduler.warmup_ratio=0.1",
+            "lr_scheduler.min_lr=1e-6", "optimization.lr=1e-4", "optimization.clip_norm=0.0",
+            f"dataset.batch_size={batch}", "dataset.batch_size_valid=8",
+            f"checkpoint.save_dir={save_dir}", "checkpoint.save_interval=1000",
+            f"common.log_file={save_dir}/log.jsonl", *extra]
+
+
+def check_classify_rest_cli(data: dict, layers: int = 2) -> dict:
+    """Phase 20(c): each of the four recipes at full width, depth
+    ``layers``, from 20's synthetic files through ``cli.train`` from the
+    config's init: 2 updates, one validation over the valid rows and
+    ``checkpoint_best.npz`` by the recipe's metric (accuracy, acc@0.5 or
+    map), whose ``params_from_jax`` read-back must equal the masters at the
+    validation bit for bit; then ``cli.evaluate`` on the export must print
+    the validation's metric within 1e-6 and its count."""
+    from one_peace_tpu_torch.cli import evaluate as evaluate_cli
+    from one_peace_tpu_torch.utils.checkpoint import params_from_jax
+    from one_peace_tpu_torch.utils.native_checkpoint import load_params
+
+    out = {}
+    for task, metric in CLASSIFY_REST_METRIC.items():
+        save_dir = CLASSIFY_REST_DIR / f"{task}_depth{layers}"
+        shutil.rmtree(save_dir, ignore_errors=True)
+        argv = classify_rest_argv(data, task, save_dir, layers, CLASSIFY_REST_BATCH[task],
+                                  ["optimization.max_update=2",
+                                   "dataset.validate_interval_updates=2"])
+        t0 = time.time()
+        with recorded_validation(keep_masters=True) as runs, recorded_steps() as steps:
+            run_train_cli(argv)
+        losses = update_losses(save_dir / "log.jsonl")
+        log(f"20(c) {task} cli.train, depth {layers}, B={CLASSIFY_REST_BATCH[task]}: update "
+            f"losses {losses}, launches per update (#1, #2) "
+            f"{sorted({(s['fwd'], s['bwd']) for s in steps})} ({time.time() - t0:.1f} s with the "
+            f"model's build)")
+        if len(runs) != 1 or len(losses) != 2 or not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"20(c) {task}: {len(runs)} validations, losses {losses}")
+        stats = runs[0]["stats"]
+        best = save_dir / "checkpoint_best.npz"
+        export = params_from_jax(load_params(str(best)))
+        masters = runs[0]["masters"]
+        equal = export.keys() == masters.keys() and all(
+            export[k].dtype == masters[k].dtype and torch.equal(export[k], masters[k])
+            for k in masters)
+        log(f"20(c) {task} validation {stats}; checkpoint_best.npz through params_from_jax: "
+            f"{len(export)} tensors, bit-equal to the masters at the validation: {equal}")
+        if not equal:
+            raise RuntimeError(f"20(c) {task}: the best export does not read back as the masters")
+        result = save_dir / "eval.json"
+        evaluate_cli.main(["--path", str(best), "--output", str(result), *argv])
+        evaluated = json.loads(result.read_text())
+        diff = abs(evaluated[metric] - stats[metric])
+        log(f"20(c) {task} cli.evaluate on checkpoint_best.npz: {evaluated}; {metric} differs "
+            f"from the validation's by {diff:.3e}")
+        if diff > 1e-6 or evaluated["count"] != stats["count"]:
+            raise RuntimeError(f"20(c) {task}: cli.evaluate disagrees with the validation")
+        out[task] = {"losses": losses, metric: stats[metric]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+NLVR2_UPDATES = 5  # 20(d)'s window: update 1 warms up, 2-4 steady, 5 profiled
+
+
+def train_nlvr2_full_depth(data: dict, card: str) -> dict:
+    """Phase 20(d): the NLVR2 recipe at depth 40, 384 px, through
+    ``cli.train`` from the config's init: B=16 pairs (32 sequences of
+    L=647), bf16 over fp32 masters, remat, the train split's distortion,
+    blur, flip and RandAugment on the host, ``NLVR2_UPDATES`` updates within
+    one epoch, no validation, no saves.  Update 5 runs under torch.profiler
+    from the end of update 4; ``ms`` is the median of updates 2-4.  #1 must
+    launch 160 times and #2 80 times an update (two images a pair, remat);
+    the losses must be finite."""
+    save_dir = CLASSIFY_REST_DIR / "nlvr2_depth40"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    argv = classify_rest_argv(data, "nlvr2", save_dir, 40, 16, [
+        f"optimization.max_update={NLVR2_UPDATES}", "dataset.disable_validation=true",
+        "checkpoint.best_checkpoint_metric="])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with profiled_update(NLVR2_UPDATES) as prof, recorded_steps() as steps:
+        t0 = time.time()
+        run_train_cli(argv)
+        wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [s["metrics"]["loss"] for s in steps]
+    update_ms = [1e3 * (b["t1"] - a["t1"]) for a, b in zip(steps, steps[1:])]
+    steady = update_ms[:NLVR2_UPDATES - 2]  # updates 2-4; 5 is profiled
+    ms = statistics.median(steady)
+    cfg = load_config(str(CLASSIFY_REST_RECIPES["nlvr2"]), argv[4:])
+    forward = analytic_flops(cfg.model, 647, 32, "image", image_size=384)
+    flops = 3 * forward  # forward and backward; remat's recompute not counted
+    tflops = flops / ms / 1e9
+    log(f"20(d) cli.train, the NLVR2 recipe at depth 40, 384 px, B=16 pairs (32 sequences of "
+        f"L=647), bf16, remat, {NLVR2_UPDATES} updates from the config's init in {wall:.1f} s "
+        f"(model build and data included) ({card})")
+    log(f"20(d) losses {[round(x, 5) for x in losses]}; ms inside train_step "
+        f"{[round(1e3 * (s['t1'] - s['t0']), 1) for s in steps]} (update 1 warms up)")
+    log(f"20(d) updates 2-{NLVR2_UPDATES} from data, each from the end of the last "
+        f"({NLVR2_UPDATES} profiled): {[round(x, 1) for x in update_ms]} ms; steady: median "
+        f"{ms:.1f} ms per update of {len(steady)}, {16 / ms * 1e3:.3f} pairs/s, "
+        f"{flops / 1e12:.1f} TFLOP an update (forward {forward / 1e12:.1f}), {tflops:.1f} "
+        f"TFLOP/s = {100 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% MFU of "
+        f"{H100_BF16_PEAK_TFLOPS:.0f} ({100 * 4 / 3 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% with "
+        f"the recompute counted, as 15(d) counts it), peak {peak:.1f} GiB ({card})")
+    per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
+    log(f"20(d) launches per update (#1, #2): {per_update} (expected [(160, 80)])")
+    if "wall" in prof:
+        line = write_update_profile(prof, ms, f"update {NLVR2_UPDATES} of cli.train, the NLVR2 "
+                                    f"recipe at depth 40, 384 px, B=16 pairs, from the end of "
+                                    f"update {NLVR2_UPDATES - 1}", "nlvr2_train_profile.txt", card)
+        events = update_averages(prof)
+        busy = profile_busy_ms(prof)
+        parts = {name: sum(getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0)
+                           for e in events if key in e.key) / 1e3
+                 for name, key in (("#1", "attn_fwd"), ("#2", "attn_bwd"))}
+        log(f"20(d) {line} (nlvr2_train_profile.txt); "
+            + ", ".join(f"{k} {x:.1f} ms ({100 * x / busy:.1f}%)" for k, x in parts.items()))
+        table = device_table(events, busy, 12)
+        for row in table.splitlines()[:16]:
+            log(f"  {row}")
+    if not all(map(math.isfinite, losses)) or len(losses) != NLVR2_UPDATES:
+        raise RuntimeError(f"20(d): losses {losses}")
+    if per_update != [(160, 80)]:
+        raise RuntimeError(f"20(d): launches per update {per_update}, expected [(160, 80)]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gib": peak, "losses": losses, "mfu": tflops / H100_BF16_PEAK_TFLOPS}
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -4859,7 +5356,7 @@ def main() -> None:
 
 
 def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
-    """Phases 2-19 (10 after 12) and the two last lines."""
+    """Phases 2-20 (10 after 12) and the two last lines."""
 
     def mark(phase: str) -> None:
         """Log the phase's wall time and the script's so far."""
@@ -4965,7 +5462,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
 
     mark("10")
 
-    # 13. retrieval fine-tuning from data: cli.train's resume at depth 4 and
+    # 13. retrieval fine-tuning from data: cli.train's resume at depth 2 and
     # cli.evaluate on its export, then the depth-40 recipe through cli.train
     # (the attention kernels' launches counted from 0 here)
     fa.launches = fa.bwd_launches = 0
@@ -4979,7 +5476,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
 
     mark("13")
 
-    # 14. detection from data: the synthetic COCO tree, cli.train at depth 4
+    # 14. detection from data: the synthetic COCO tree, cli.train at depth 2
     # with its export read back and cli.evaluate, then the depth-40 recipe
     # (the det attention kernels' launches counted from 0 here)
     da.launches = da.bwd_launches = 0
@@ -4997,7 +5494,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     # their plain versions and SDPA (15(e)); then, the launches counted from
     # 0, classify serving through the hub (15(a)), the three tasks'
     # gradients at 4 layers (15(b)), their recipes from files through the
-    # CLIs at depth 4 (15(c)) and image_classify at depth 40 (15(d))
+    # CLIs at depth 2 (15(c)) and image_classify at depth 40 (15(d))
     t15 = time.time()
     cls_fwd_rows, cls_bwd_rows = time_classify_attention(card)
     fa.launches = fa.bwd_launches = im.launches = im.quantize_launches = 0
@@ -5018,7 +5515,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     # 16. pretraining: #1 and #2 alone at the slice's shapes against their
     # plain versions and SDPA (16(a)); then, the launches counted from 0,
     # both criterions' gradients at 4 layers (16(b)), the VL recipe and the
-    # AL stage-2 recipe from its export through cli.train at depth 4 (16(c)),
+    # AL stage-2 recipe from its export through cli.train at depth 2 (16(c)),
     # and both recipes at depth 40 (16(d))
     t16 = time.time()
     pre_fwd_rows, pre_bwd_rows = time_pretrain_attention(card)
@@ -5111,6 +5608,31 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     fwd_times["shapes"].update(vid_fwd_rows)
     bwd_times["shapes"].update(vid_bwd_rows)
 
+    # 20. the rest of classification: #1 and #2 alone at NLVR2's L=647 and
+    # AQA's L=820 against their plain versions and SDPA (20(a)); then, the
+    # launches counted from 0, the four criterions' gradients at depth 4
+    # (20(b)), the four recipes from files through both CLIs at depth 2
+    # (20(c)) and the NLVR2 recipe at depth 40 (20(d))
+    t20 = time.time()
+    rest_fwd_err, rest_bwd_err, rest_fwd_rows, rest_bwd_rows = check_classify_rest_attention(card)
+    worst, bwd_worst = max(worst, rest_fwd_err), max(bwd_worst, rest_bwd_err)
+    mark("20(a)")
+    fa.launches = fa.bwd_launches = 0
+    check_classify_rest_train_paths()
+    mark("20(b)")
+    rest_data = write_classify_rest_corpus(CLASSIFY_REST_DIR, 96, 8)
+    check_classify_rest_cli(rest_data)
+    mark("20(c)")
+    train_nlvr2_full_depth(rest_data, card)
+    rest_fwd, rest_bwd = fa.launches, fa.bwd_launches
+    log(f"20 launches over the phase: #1 {rest_fwd}, #2 {rest_bwd}; the phase took "
+        f"{time.time() - t20:.1f} s")
+    mark("20(d)")
+    if rest_fwd == 0 or rest_bwd == 0:
+        raise RuntimeError("the rest of classification never launched an attention kernel")
+    fwd_times["shapes"].update(rest_fwd_rows)
+    bwd_times["shapes"].update(rest_bwd_rows)
+
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
     if imported:
@@ -5136,10 +5658,10 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     log(json.dumps({"kernels": [
         entry("flash_attention_fwd", "one_peace_tpu/ops/flash_attention.py:239",
               embed_launches + fwd_train + cli_fwd + cls_fwd + pre_fwd + seg_fwd + seg_train_fwd
-              + vid_fwd, worst, fwd_times),
+              + vid_fwd + rest_fwd, worst, fwd_times),
         entry("flash_attention_bwd", "one_peace_tpu/ops/flash_attention.py:409",
-              bwd_train + cli_bwd + cls_bwd + pre_bwd + seg_train_bwd + vid_bwd, bwd_worst,
-              bwd_times),
+              bwd_train + cli_bwd + cls_bwd + pre_bwd + seg_train_bwd + vid_bwd + rest_bwd,
+              bwd_worst, bwd_times),
         entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75",
               int8_launches["gemm"] + cls_int8["gemm"], int8_worst["gemm"], gemm),
         quantize,

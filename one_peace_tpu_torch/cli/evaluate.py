@@ -9,9 +9,12 @@ training CLI's ``checkpoint_best.npz``), runs the task's evaluation loop on
       [task.<k>=v ...]
 
 - The retrieval and classification tasks load through
-  ``hub.from_pretrained``; a classify model gets ``task.num_classes``
-  classes.  ``image_classify`` and ``vggsound`` print top-1 accuracy, ``vqa``
-  the soft score of the argmax answer (``metrics.Accuracy``).
+  ``hub.from_pretrained``; a classify model gets the task's head
+  (``task.head_kwargs()``, as ``cli/train.py`` builds it).
+  ``image_classify``, ``vggsound``, ``nlvr2`` and ``aqa`` print top-1
+  accuracy, ``vqa`` the soft score of the argmax answer
+  (``metrics.Accuracy``), ``refcoco`` ``acc@0.5`` (``metrics.IouAcc``) and
+  ``fsd50k`` ``map`` (``metrics.MAP``), each with ``count``.
 - ``coco_detection`` builds the detector with ``task.build_model`` on
   ``--device``; a ``.npz`` gives every weight (``params_from_jax``), a
   ``.pt`` the trunk (``load_pretrained``) over the pyramid and heads of
@@ -76,11 +79,13 @@ def main(argv: Optional[list] = None) -> int:
         cfg.model.encoder.text_adapter.vocab_size = len(task.dictionary)
         cfg.model.head_type = cfg.task.head_type
         cfg.model.encoder.image_adapter.rel_bucket_size = cfg.task.patch_image_size // 16
+        head = task.head_kwargs()
         model = from_pretrained(
             args.path, model_type=cfg.model._name,
             dtype="bf16" if cfg.common.bf16 else "float32",
             bpe_dir=cfg.task.bpe_dir or None, model_cfg=cfg.model, task_cfg=cfg.task,
-            num_classes=cfg.task.num_classes, device=args.device).model
+            num_classes=head.pop("num_classes"), classify_kwargs=head,
+            device=args.device).model
 
     task.load_dataset("valid")
     t0 = time.time()

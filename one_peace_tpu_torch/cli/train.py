@@ -29,6 +29,13 @@ best export, and preemption-safe resume, on one card.
       task.data=train.tsv task.valid_data=valid.tsv task.bpe_dir=bpe \
       task.num_classes=3129 [checkpoint.restore_file=one-peace.pt] [--device cuda]
 
+  python -m one_peace_tpu_torch.cli.train --config recipes/fsd50k/base.yaml \
+      task.data=train.tsv task.valid_data=valid.tsv task.bpe_dir=bpe \
+      task.num_classes=200 [checkpoint.restore_file=one-peace.pt] [--device cuda]
+
+  (``recipes/nlvr2/base.yaml``, ``recipes/visual_grounding/base.yaml`` and
+  ``recipes/aqa/base.yaml`` take the data overrides alone.)
+
   python -m one_peace_tpu_torch.cli.train --config recipes/pretrain/pretrain_al_4b.yaml \
       task.data=train.tsv task.valid_data=valid.tsv task.valid_file=valid.json \
       task.bpe_dir=bpe checkpoint.restore_file=stage1/checkpoint_best.npz [--device cuda]
@@ -38,13 +45,17 @@ best export, and preemption-safe resume, on one card.
   ``utils/checkpoint_convert``: ``convert_retrieval_model`` or
   ``convert_classify_model``) or a flat ``.npz`` (``load_params`` ->
   ``params_from_jax``); without one, ``init_weights_`` draws them from
-  ``common.seed``.  The classify model is built with
-  ``task.num_classes`` classes and the head's defaults (CLS pooling, no
-  pooler), as the JAX CLI builds it; a ``.pt`` without a ``classify_head``
-  (a pretrained checkpoint) raises, since the strict load needs the
-  head.  The pretrain model (``one_peace_pretrain``) restores a ``.npz``
-  export only; with ``model.stage2_pretrain`` or
-  ``model.reset_logit_scale`` it is overlaid onto the config's init by
+  ``common.seed``.  The classify model is built with the task's head
+  (``task.head_kwargs()``: ``task.num_classes`` outputs, NLVR2's
+  two-image head with 2 classes, RefCOCO's 4 box coordinates, AQA's one
+  score per choice) and otherwise the head's defaults (CLS pooling, no
+  pooler), as the JAX CLI builds it from ``task.num_classes``; a
+  checkpoint whose ``classify_head`` differs from that head raises,
+  naming the entry (``models.classify.check_head``); a ``.pt`` without one
+  (a pretrained checkpoint) gives the encoder over a fresh head.  The
+  pretrain model (``one_peace_pretrain``) restores a ``.npz`` export only;
+  with ``model.stage2_pretrain`` or ``model.reset_logit_scale`` it is
+  overlaid onto the config's init by
   ``upgrade_stage1_params`` (stage 2 from a stage-1 export: the audio
   branch fresh, ``logit_scale`` reset), as the JAX CLI does.  For a vision
   task's model (the detector of ``coco_detection``, the segmenter of
@@ -121,8 +132,8 @@ def build_model_for_task(cfg, task, device="cuda"):
     cfg.model.encoder.text_adapter.vocab_size = len(task.dictionary)
     cfg.model.head_type = cfg.task.head_type
     if name == "one_peace_classify":
-        return OnePeaceClassifyModel(cfg.model, num_classes=cfg.task.num_classes,
-                                     device=device, dtype=torch.float32)
+        return OnePeaceClassifyModel(cfg.model, **task.head_kwargs(), device=device,
+                                     dtype=torch.float32)
     if name == "one_peace_pretrain":
         # the decoder's text embedding keeps the config's vocabulary, as in
         # the JAX CLI, so that the two packages' trees exchange weights
@@ -144,6 +155,7 @@ def load_weights(cfg, model, device, path: Optional[str] = None) -> None:
     head); the classify model takes a pretrained ``.pt``
     (one without a ``classify_head``) as its encoder over the config's init
     of the head."""
+    from ..models.classify import OnePeaceClassifyModel, check_head
     from ..utils.checkpoint import params_from_jax
     from ..utils.checkpoint_convert import (convert_classify_model, convert_retrieval_model,
                                             load_torch_state_dict)
@@ -186,6 +198,8 @@ def load_weights(cfg, model, device, path: Optional[str] = None) -> None:
         state = convert(load_torch_state_dict(path), cfg.model)
     else:
         state = params_from_jax(load_params(path))
+    if isinstance(model, OnePeaceClassifyModel):
+        check_head(state, model)
     if not vision:
         wanted = model.state_dict().keys()
         state = {k: v for k, v in state.items() if k in wanted}

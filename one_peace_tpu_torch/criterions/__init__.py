@@ -1,10 +1,11 @@
 """Training criterions (counterpart of ``one_peace_tpu/criterions``)."""
 
 from .criterions import (AudioTextPretrainCriterion, AudioTextRetrievalCriterion,
-                         ClassifyCriterion, ImageTextPretrainCriterion,
-                         ImageTextRetrievalCriterion, build_criterion)
+                         ClassifyCriterion, HingeCriterion, ImageTextPretrainCriterion,
+                         ImageTextRetrievalCriterion, RefCOCOCriterion, build_criterion)
 from .vision_criterions import DetectionCriterion, SegmentationCriterion, VideoClassifyCriterion
 
 __all__ = ["AudioTextPretrainCriterion", "AudioTextRetrievalCriterion", "ClassifyCriterion",
-           "DetectionCriterion", "ImageTextPretrainCriterion", "ImageTextRetrievalCriterion",
-           "SegmentationCriterion", "VideoClassifyCriterion", "build_criterion"]
+           "DetectionCriterion", "HingeCriterion", "ImageTextPretrainCriterion",
+           "ImageTextRetrievalCriterion", "RefCOCOCriterion", "SegmentationCriterion",
+           "VideoClassifyCriterion", "build_criterion"]

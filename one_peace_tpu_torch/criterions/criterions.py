@@ -10,9 +10,13 @@ package wraps in ``stop_gradient`` runs under ``torch.no_grad()`` (the same
 values, and no activations kept).
 ``ClassifyCriterion`` runs the classify model on the batch's net input and
 also takes ``num_updates``, which the trainer passes to a criterion that
-takes it, so that ``freeze_finetune_updates`` thaws.  ``detection_criterion``
-and ``segmentation_criterion`` live in ``vision_criterions.py``.  The grounding and hinge criterions are
-not ported yet.
+takes it, so that ``freeze_finetune_updates`` thaws.  ``RefCOCOCriterion``
+(visual grounding: the 4 outputs through a sigmoid in fp32, then L1 and
+GIoU) and ``HingeCriterion`` (AQA: each question's audio repeated once per
+answer choice on the card, one score per choice, the multiple-choice
+hinge) read the flat batch too.  ``detection_criterion``,
+``segmentation_criterion`` and ``video_classify_criterion`` live in
+``vision_criterions.py``.
 """
 
 from __future__ import annotations
@@ -23,10 +27,10 @@ import torch
 
 from ..core.config import CriterionConfig
 
-from ..models.classify import NET_INPUT_KEYS
+from ..models.classify import NET_INPUT_KEYS, choice_net_input
 from ..models.components import split_generator
-from .losses import (bce_with_logits_loss, cross_entropy_loss, dcl_loss, itc_loss,
-                     soft_target_ce_loss)
+from .losses import (bce_with_logits_loss, cross_entropy_loss, dcl_loss, hinge_loss,
+                     itc_loss, refcoco_loss, soft_target_ce_loss)
 from .vision_criterions import DetectionCriterion, SegmentationCriterion, VideoClassifyCriterion
 
 
@@ -215,11 +219,49 @@ class ClassifyCriterion:
         return loss, {"loss": loss, "accuracy": 100.0 * ncorrect / bsz}
 
 
+class RefCOCOCriterion:
+    """Grounding box regression (ref refcoco_loss.py:20-54): the model's 4
+    outputs through a sigmoid in fp32 are the box as fractions of the
+    image, held to the target box by ``refcoco_loss``."""
+
+    def __init__(self, cfg: CriterionConfig):
+        pass
+
+    def __call__(self, model, batch, generator=None, deterministic=False):
+        coords = model(**{k: batch[k] for k in NET_INPUT_KEYS if k in batch},
+                       deterministic=deterministic, generator=generator)
+        coords = torch.sigmoid(coords.float())
+        loss = refcoco_loss(coords, batch["target"].float(), coords.shape[0])
+        return loss, {"loss": loss}
+
+
+class HingeCriterion:
+    """AQA multiple choice (ref hinge_loss.py:25-60), margin 1, over
+    ``criterion.num_choices`` answers: the model gives one score per
+    choice row of ``choice_net_input``, and the hinge runs over each
+    question's scores.  The loss is divided by the number of questions, as
+    fairseq divides by the sample size."""
+
+    def __init__(self, cfg: CriterionConfig):
+        self.num_choices = cfg.num_choices
+
+    def __call__(self, model, batch, generator=None, deterministic=False):
+        n = self.num_choices
+        logits = model(**choice_net_input(batch, n), deterministic=deterministic,
+                       generator=generator).reshape(-1, n)
+        loss, ncorrect = hinge_loss(logits, batch["target"])
+        bsz = logits.shape[0]
+        loss = loss / bsz
+        return loss, {"loss": loss, "accuracy": 100.0 * ncorrect / bsz}
+
+
 CRITERIONS = {"image_text_retrieval_criterion": ImageTextRetrievalCriterion,
               "audio_text_retrieval_criterion": AudioTextRetrievalCriterion,
               "image_text_pretrain_loss": ImageTextPretrainCriterion,
               "audio_text_pretrain_loss": AudioTextPretrainCriterion,
               "classify_criterion": ClassifyCriterion,
+              "refcoco_criterion": RefCOCOCriterion,
+              "hinge_criterion": HingeCriterion,
               "detection_criterion": DetectionCriterion,
               "segmentation_criterion": SegmentationCriterion,
               "video_classify_criterion": VideoClassifyCriterion}

@@ -7,8 +7,8 @@ loss (DCL) of pretraining scores each masked student token against the
 teacher's tokens of its gallery (the batch, or ``gallery_chunks`` equal
 parts of it).  The classification losses (cross entropy with label
 smoothing, BCE over multi-hot targets, soft-target cross entropy) compute
-in fp32 and sum over the batch, as the JAX package's do.  The grounding and
-hinge losses are not ported yet.
+in fp32 and sum over the batch, as the JAX package's do; so do RefCOCO's
+box loss (L1 and 1 - GIoU) and AQA's multiple-choice hinge.
 """
 
 from __future__ import annotations
@@ -115,3 +115,44 @@ def bce_with_logits_loss(logits: torch.Tensor, targets: torch.Tensor,
 def soft_target_ce_loss(logits: torch.Tensor, soft_targets: torch.Tensor) -> torch.Tensor:
     """Cross entropy against (B, C) soft targets (mixup), summed."""
     return -(soft_targets * torch.log_softmax(logits.float(), dim=-1)).sum()
+
+
+def box_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Generalized IoU of each row's (x0, y0, x1, y1) box pair, (N,)."""
+    area1 = (boxes1[:, 2] - boxes1[:, 0]) * (boxes1[:, 3] - boxes1[:, 1])
+    area2 = (boxes2[:, 2] - boxes2[:, 0]) * (boxes2[:, 3] - boxes2[:, 1])
+    lt = torch.maximum(boxes1[:, :2], boxes2[:, :2])
+    rb = torch.minimum(boxes1[:, 2:], boxes2[:, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[:, 0] * wh[:, 1]
+    union = area1 + area2 - inter
+    iou = inter / union.clamp(min=1e-6)
+    lt_e = torch.minimum(boxes1[:, :2], boxes2[:, :2])
+    rb_e = torch.maximum(boxes1[:, 2:], boxes2[:, 2:])
+    wh_e = (rb_e - lt_e).clamp(min=0)
+    enclose = wh_e[:, 0] * wh_e[:, 1]
+    return iou - (enclose - union) / enclose.clamp(min=1e-6)
+
+
+def refcoco_loss(pred_coords_sigmoid: torch.Tensor, targets: torch.Tensor,
+                 nsentences: int) -> torch.Tensor:
+    """L1 summed over the batch over ``nsentences``, plus the mean 1 - GIoU
+    over the predictions whose boxes are valid (x0 < x1 and y0 < y1); the
+    invalid ones are masked out with a fixed-shape ``where``."""
+    l1 = (pred_coords_sigmoid - targets).abs().sum() / nsentences
+    valid = (pred_coords_sigmoid[:, :2] < pred_coords_sigmoid[:, 2:]).all(dim=1)
+    ious = box_giou(pred_coords_sigmoid, targets)
+    vf = valid.float()
+    loss_iou = ((1 - ious) * vf).sum() / vf.sum().clamp(min=1.0)
+    return l1 + loss_iou
+
+
+def hinge_loss(logits: torch.Tensor, targets: torch.Tensor,
+               margin: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """AQA's multiple-choice hinge over (B, C) logits: the sum of
+    max(0, margin + logit - the answer's logit), the answer's own term
+    included (it contributes ``margin``); and the argmax hits."""
+    pos = logits.gather(1, targets[:, None].long())
+    loss = (margin + logits - pos).clamp(min=0.0).sum()
+    ncorrect = (logits.argmax(1) == targets).sum()
+    return loss, ncorrect

@@ -58,8 +58,9 @@
 //     (64 keys x the padded width + 8 floats; each element has one owner
 //     thread for the whole chunk) and written once per chunk; the chunks'
 //     partial sums are added by attn_bwd_sum_chunks in chunk order.  Where
-//     the slab does not fit (L > 768) the block reads, adds and writes
-//     d(bias) in device memory per batch row, as the first port did.  A
+//     the slab does not fit beside the tiles and the block's static
+//     statistics (st, 1,536 bytes; L > 752) the block reads, adds and
+//     writes d(bias) in device memory per batch row, as the first port did.  A
 //     batched bias gets its ds stored once.  No atomics: bit-reproducible;
 //   - ragged tails at their own width: the last key tile (dq kernel) and
 //     the last q tile (dk/dv kernel) are as wide as their rows rounded up to
@@ -305,7 +306,10 @@ attn_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   unsigned char* qs = smem;                   // [2] swizzled Q tiles (K first)
   unsigned char* gs = smem + 2 * kTileBytes;  // [2] swizzled G tiles (V first)
   float* slab = reinterpret_cast<float*>(smem + 4 * kTileBytes);  // kDbias 1: [64][slab_stride]
-  __shared__ float st[2][3][kTile];  // m, 1/l, rowsum(dp * p32) of the q tile's rows
+  // m, 1/l, rowsum(dp * p32) of the q tile's rows.  bwd_plan counts these
+  // bytes as DKV_STATIC_SMEM (ops/flash_attention.py), which the wrapper
+  // holds equal to one_peace_bwd_dkv_static_smem() when it loads the library.
+  __shared__ float st[2][3][kTile];
 
   const int k0 = blockIdx.x * kTile, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
@@ -921,6 +925,16 @@ extern "C" int one_peace_flash_attention_bwd(
     attn_bwd_sum_chunks<<<blocks, 256, 0, s>>>(dbias_out, static_cast<float*>(dbias), n, chunks);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dk/dv kernel's static shared memory in bytes, the larger of its two
+// instantiations', or -1 if the attributes cannot be read.
+extern "C" int one_peace_bwd_dkv_static_smem() {
+  cudaFuncAttributes with_slab, without;
+  if (cudaFuncGetAttributes(&with_slab, attn_bwd_dkv_bf16<1>) != cudaSuccess ||
+      cudaFuncGetAttributes(&without, attn_bwd_dkv_bf16<0>) != cudaSuccess)
+    return -1;
+  return static_cast<int>(std::max(with_slab.sharedSizeBytes, without.sharedSizeBytes));
 }
 
 extern "C" const char* one_peace_bwd_error_string(int err) {

@@ -1,7 +1,8 @@
 """Task datasets: the pretrain, retrieval and classification parts of
 ``one_peace_tpu/data/datasets.py``, copied (held equal by
 ``tests/test_torch_port_copies.py``, ``tests/test_torch_port_retrieval_data.py``,
-``tests/test_torch_port_classify_data.py`` and
+``tests/test_torch_port_classify_data.py``,
+``tests/test_torch_port_classify_rest_data.py`` and
 ``tests/test_torch_port_pretrain_data.py``).  Each sample is built on the
 host in numpy; batching happens in ``data/collate.py``, the masks come
 from ``data/masking.py``.
@@ -11,16 +12,22 @@ from ``data/masking.py``.
 - ImageTextRetrievalDataset   ref vl_data/image_text_retrieval_dataset.py
 - AudioTextRetrievalDataset   ref audio_data/audio_text_retrieval_dataset.py
 - VqaDataset                  ref vl_data/vqa_dataset.py
+- Nlvr2Dataset                ref vl_data/nlvr2_dataset.py
+- RefCOCODataset              ref vl_data/refcoco_dataset.py
 - VggsoundDataset             ref audio_data/vggsound_dataset.py
+- Fsd50kDataset               ref audio_data/fsd50k.py (multi-label)
+- AqaDataset                  ref audio_data/aqa_dataset.py
 - ImageClassifyDataset        ref vision_data/image_classify_dataset.py
 
-``ImageClassifyDataset`` draws its flips from one ``RandomState(seed)`` and
-its distortion, blur and RandAugment from generators seeded seed+1..+3, in
+``ImageClassifyDataset`` and ``Nlvr2Dataset`` draw their flips from one
+``RandomState(seed)`` and their distortion, blur and RandAugment from
+generators seeded seed+1..+3 (``RefCOCODataset`` its blur from seed+2), in
 fetch order; the iterator's prefetch thread fetches in order, so a run
-draws what the JAX package's draws.  The pretrain datasets draw
-every mask (and the VL crop) from one ``RandomState(seed)`` in fetch order,
-as the JAX package's do; a resumed run does not rewind it.  The NLVR2,
-RefCOCO, FSD50K and AQA datasets are not ported yet.
+draws what the JAX package's draws, and the iterator saves every one of
+these generators with its position, so a resumed run draws what the
+straight run drew.  The pretrain datasets draw every mask (and the VL
+crop) from one ``RandomState(seed)`` in fetch order, as the JAX package's
+do.
 """
 
 from __future__ import annotations
@@ -240,6 +247,96 @@ class VqaDataset(BaseDataset):
         }
 
 
+class Nlvr2Dataset(BaseDataset):
+    def __init__(self, split, table, tokenizer, dataset_dir="",
+                 max_src_length=70, patch_image_size=384, seed=3407):
+        super().__init__(split, table, tokenizer, dataset_dir)
+        self.max_src_length = max_src_length
+        self.patch_image_size = patch_image_size
+        self.rng = np.random.RandomState(seed)
+        if split == "train":
+            # ref nlvr2_dataset.py:33-42: distortion + blur + flip + randaug
+            from .randaugment import GaussianBlur, RandomAugment, RandomDistortion
+
+            # distinct per-transform seeds: sharing one seed gives four
+            # IDENTICAL random streams, correlating blur/distort/augment
+            # decisions sample-by-sample
+            self.distort = RandomDistortion(0.4, 0.4, 0.4, 0, 0.5,
+                                            seed=seed + 1)
+            self.blur = GaussianBlur(0.5, seed=seed + 2)
+            self.randaug = RandomAugment(
+                2, 7, augs=["Identity", "Equalize", "Brightness", "Sharpness",
+                            "ShearX", "ShearY", "TranslateX", "TranslateY",
+                            "Rotate"], seed=seed + 3)
+
+    def _transform(self, img):
+        img = resize_image(img, self.patch_image_size)
+        if self.split == "train":
+            img = self.distort(img)
+            img = self.blur(img)
+            img = horizontal_flip(self.rng, img)
+            img = self.randaug(img)
+        return normalize_image(np.asarray(img))
+
+    def __getitem__(self, index):
+        uniq_id, text, image1, image2, label = self.table[index]
+        target = {"True": 0, "False": 1}[label]
+        text = clean_text(text)
+        return {
+            "id": coerce_id(uniq_id, index),
+            "source_text": self.encode_text(f" {text}", self.max_src_length),
+            "source_image": self._transform(self.read_image(image1)),
+            "source_image_2": self._transform(self.read_image(image2)),
+            "target": np.int64(target),
+        }
+
+
+class RefCOCODataset(BaseDataset):
+    """Grounding pairs (ref vl_data/refcoco_dataset.py:31-42).
+
+    Geometry note: the reference's RandomResize([S], max_size=S) clamps
+    BOTH output dims to S for every aspect ratio (utils/transforms.py:
+    17-39), i.e. a square S x S stretch; its Normalize then divides the
+    ratio-scaled boxes by max_image_size=S — so the target works out to
+    exactly (x/w, y/h), which is what this port computes directly."""
+
+    def __init__(self, split, table, tokenizer, dataset_dir="",
+                 max_src_length=70, patch_image_size=384, seed=3407):
+        super().__init__(split, table, tokenizer, dataset_dir)
+        self.max_src_length = max_src_length
+        self.patch_image_size = patch_image_size
+        self.blur = None
+        if split == "train":
+            # ref refcoco_dataset.py:33: train adds GaussianBlur(0.5)
+            from .randaugment import GaussianBlur
+
+            self.blur = GaussianBlur(0.5, seed=seed + 2)
+
+    def __getitem__(self, index):
+        image, text, region_coord = self.table[index]
+        img = self.read_image(image)
+        w, h = img.size
+        x0, y0, x1, y1 = (float(v) for v in region_coord.strip().split(","))
+        s = self.patch_image_size
+        img_r = resize_image(img, s)
+        if self.blur is not None:
+            img_r = self.blur(img_r)
+        # targets normalized to [0,1] of the resized square (boxes scale
+        # with the resize ratios; ref utils/transforms Normalize — see
+        # the class docstring for the equivalence)
+        target = np.asarray([x0 / w, y0 / h, x1 / w, y1 / h], np.float32)
+        text = clean_text(text, self.max_src_length)
+        return {
+            "id": index,
+            "source_text": self.encode_text(f" {text}"),
+            "source_image": normalize_image(np.asarray(img_r)),
+            "target": target,
+            "region_coords": np.asarray([x0, y0, x1, y1], np.float32),
+            "image_widths": np.float32(w),
+            "image_heights": np.float32(h),
+        }
+
+
 class VggsoundDataset(BaseDataset):
     def __init__(self, split, table, tokenizer, dataset_dir="",
                  max_duration=15, feature_encoder_spec=DEFAULT_SPEC,
@@ -259,6 +356,62 @@ class VggsoundDataset(BaseDataset):
             "source_audio": feats,
             "audio_padding_mask": np.zeros(t + 1, bool),
             "target": np.int64(int(text.strip())),
+        }
+
+
+class Fsd50kDataset(BaseDataset):
+    """Multi-label: target is a binary vector (ref audio_data/fsd50k.py)."""
+
+    def __init__(self, split, table, tokenizer, dataset_dir="",
+                 max_duration=15, feature_encoder_spec=DEFAULT_SPEC,
+                 num_classes=200):
+        super().__init__(split, table, tokenizer, dataset_dir)
+        self.max_duration = max_duration
+        self.spec = feature_encoder_spec
+        self.num_classes = num_classes
+
+    def __getitem__(self, index):
+        uniq_id, audio, labels, duration = self.table[index]
+        wav, sr = self.read_audio(audio)
+        feats = audio_postprocess(wav, sr, self.max_duration)
+        t = self.conv_length(len(feats), self.spec)
+        target = np.zeros(self.num_classes, np.float32)
+        for lab in str(labels).strip().split(","):
+            if lab != "":
+                target[int(lab)] = 1.0
+        return {
+            "id": coerce_id(uniq_id, index),
+            "source_audio": feats,
+            "audio_padding_mask": np.zeros(t + 1, bool),
+            "target": target,
+        }
+
+
+class AqaDataset(BaseDataset):
+    """4-choice audio QA (ref audio_data/aqa_dataset.py:25-55)."""
+
+    def __init__(self, split, table, tokenizer, dataset_dir="",
+                 max_src_length=70, max_duration=15,
+                 feature_encoder_spec=DEFAULT_SPEC):
+        super().__init__(split, table, tokenizer, dataset_dir)
+        self.max_src_length = max_src_length
+        self.max_duration = max_duration
+        self.spec = feature_encoder_spec
+
+    def __getitem__(self, index):
+        uniq_id, audio, text, duration = self.table[index]
+        question, a1, a2, a3, a4, choice = text.strip().split("&&&")
+        wav, sr = self.read_audio(audio)
+        feats = audio_postprocess(wav, sr, self.max_duration)
+        t = self.conv_length(len(feats), self.spec)
+        choices = [self.encode_text(f" {question} answer: {a}")
+                   for a in (a1, a2, a3, a4)]
+        return {
+            "id": coerce_id(uniq_id, index),
+            "source_text": choices,  # list -> flattened by collate
+            "source_audio": feats,
+            "audio_padding_mask": np.zeros(t + 1, bool),
+            "target": np.int64(int(choice)),
         }
 
 

@@ -13,18 +13,23 @@ path; the multi-shard arithmetic is kept for data-parallel runs.  A
 background-thread prefetcher overlaps host-side decode/augment with device
 steps (the reference uses DataLoader workers).
 
-One difference from the JAX package: a dataset that draws its augmentation
-from one ``rng`` (a ``np.random.RandomState``) in fetch order has that
-generator's state saved with the position (the state after the last batch
-served, not after the prefetcher's), so a resumed run draws the crops the
-straight run drew.  The JAX iterator does not save it.
+One difference from the JAX package: every generator a batch draws from
+in fetch order is saved with the position, in the state it had after the
+last batch served (not after the prefetcher's), and restored on load, so a
+resumed run draws the augmentations the straight run drew.  These are the
+dataset's ``rng`` (a ``np.random.RandomState``: crops, flips, masks),
+each of its augmenters' ``random.Random`` (an attribute holding one as
+``rng``: distortion, blur, RandAugment), and whatever the task adds to
+``generators`` (image_classify's Mixup).  The JAX iterator saves none of
+them.
 """
 
 from __future__ import annotations
 
 import queue
+import random
 import threading
-from typing import Callable, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -36,6 +41,41 @@ def strided_slice(order: List[int], shard: int, num_shards: int) -> List[int]:
     counts = [len(range(i, len(order), num_shards)) for i in range(num_shards)]
     start = sum(counts[:shard])
     return order[start:start + counts[shard]]
+
+
+def dataset_generators(dataset) -> Dict:
+    """The generators ``dataset`` draws its samples from, by name: its
+    ``rng`` and each attribute whose ``rng`` is a ``random.Random``."""
+    found = {}
+    if isinstance(getattr(dataset, "rng", None), np.random.RandomState):
+        found["rng"] = dataset.rng
+    for name, value in sorted(getattr(dataset, "__dict__", {}).items()):
+        if isinstance(getattr(value, "rng", None), random.Random):
+            found[name] = value.rng
+    return found
+
+
+def _get_state(gen):
+    return gen.get_state() if isinstance(gen, np.random.RandomState) else gen.getstate()
+
+
+def _encode(state) -> list:
+    """A generator's state as tensors and plain values, for weights_only loads."""
+    if len(state) == 5:  # np.random.RandomState: (name, keys, pos, has_gauss, gauss)
+        name, keys, pos, has_gauss, gauss = state
+        return [name, torch.from_numpy(keys.astype(np.int64)), int(pos), int(has_gauss),
+                float(gauss)]
+    version, internal, gauss = state  # random.Random
+    return [version, torch.tensor(internal, dtype=torch.int64), gauss]
+
+
+def _restore(gen, state) -> None:
+    if isinstance(gen, np.random.RandomState):
+        name, keys, pos, has_gauss, gauss = state
+        gen.set_state((name, np.asarray(keys, np.uint32), pos, has_gauss, gauss))
+    else:
+        version, internal, gauss = state
+        gen.setstate((version, tuple(int(x) for x in internal), gauss))
 
 
 class EpochBatchIterator:
@@ -64,7 +104,9 @@ class EpochBatchIterator:
         self.prefetch = prefetch
         self.epoch = 1
         self._consumed = 0
-        self._data_rng = None  # the dataset's rng state after the last batch served
+        # name -> generator the batches draw from; a task may add its own
+        self.generators = dataset_generators(dataset)
+        self._drawn = {}  # their states after the last batch served
 
     # ------------------------------------------------------------------
 
@@ -110,12 +152,13 @@ class EpochBatchIterator:
     def _iterate(self, batches: List[List[int]], start: int = 0):
         batches = batches[start:]
 
-        rng = getattr(self.dataset, "rng", None)
+        gens = dict(self.generators)
 
         def fetch(batch_ids):
-            """The collated batch and the dataset rng's state after it."""
+            """The collated batch and the generators' states after it."""
             samples = [self.dataset[i] for i in batch_ids]
-            return self.collate_fn(samples), None if rng is None else rng.get_state()
+            batch = self.collate_fn(samples)
+            return batch, {name: _get_state(g) for name, g in gens.items()}
 
         def produce(out_q: queue.Queue):
             try:
@@ -136,11 +179,11 @@ class EpochBatchIterator:
                 if isinstance(item, Exception):
                     raise item
                 self._consumed += 1
-                batch, self._data_rng = item
+                batch, self._drawn = item
                 yield batch
         else:
             for batch_ids in batches:
-                batch, self._data_rng = fetch(batch_ids)
+                batch, self._drawn = fetch(batch_ids)
                 self._consumed += 1
                 yield batch
         self.epoch += 1
@@ -154,21 +197,30 @@ class EpochBatchIterator:
     # preemption-safe resume (ref iterators.py:179-216)
 
     def state_dict(self):
+        """The position, and each generator's state after the last batch
+        served: the dataset's ``rng`` as ``data_rng``, the others under
+        ``generators``."""
         state = {"epoch": self.epoch, "consumed": self._consumed, "seed": self.seed}
-        if self._data_rng is not None:  # as tensors and plain values, for weights_only loads
-            name, keys, pos, has_gauss, gauss = self._data_rng
-            state["data_rng"] = [name, torch.from_numpy(keys.astype(np.int64)), int(pos),
-                                 int(has_gauss), float(gauss)]
+        drawn = {name: _encode(s) for name, s in self._drawn.items()}
+        if "rng" in drawn:
+            state["data_rng"] = drawn.pop("rng")
+        if drawn:
+            state["generators"] = drawn
         return state
 
     def load_state_dict(self, state):
+        """Restore a ``state_dict``; a state with only ``data_rng`` (as
+        iterators saved before the augmenters' generators were) restores
+        the dataset's ``rng`` alone."""
         self.epoch = state["epoch"]
         self._consumed = state.get("consumed", 0)
         # restore the shuffle seed too: fast-forwarding `consumed` batches
         # through a DIFFERENT seed's shuffle order silently skips/repeats
         # other samples across the preemption boundary
         self.seed = state.get("seed", self.seed)
+        saved = dict(state.get("generators", {}))
         if "data_rng" in state:
-            name, keys, pos, has_gauss, gauss = state["data_rng"]
-            self._data_rng = (name, np.asarray(keys, np.uint32), pos, has_gauss, gauss)
-            self.dataset.rng.set_state(self._data_rng)
+            saved["rng"] = state["data_rng"]
+        for name, encoded in saved.items():
+            _restore(self.generators[name], encoded)
+        self._drawn = {name: _get_state(self.generators[name]) for name in saved}

@@ -40,7 +40,7 @@ from .core.config import ModelConfig, TaskConfig
 from .data.tokenizer import TextTokenizer, find_bpe_dir
 
 from .models.adapters.audio import conv_output_length
-from .models.classify import OnePeaceClassifyModel
+from .models.classify import OnePeaceClassifyModel, check_head
 from .models.one_peace import OnePeaceRetrievalModel
 from .ops.preprocess import LogMelFbank, resize_normalize
 from .ops.quant import quantize_ffn_
@@ -122,7 +122,9 @@ def from_pretrained(
     ``model_path`` is a fairseq ``.pt`` or the JAX package's ``.npz``.
     ``dtype`` is "float32" or "bf16".  The classify head has
     ``num_classes`` classes (2 when not given, as in the JAX hub) and takes
-    ``classify_kwargs`` (``attn_pooling``, ``use_pooler``, ...).
+    ``classify_kwargs`` (``attn_pooling``, ``use_pooler``,
+    ``use_two_images``, ...); a checkpoint whose ``classify_head`` differs
+    from that head raises, naming the entry.
     ``quantize``: "ffn" serves the per-modality FFN projections in int8,
     "ffn_attn" also the self-attention q/k/v/out projections, "none"
     (default) keeps the exact path; the classify head stays as it is."""
@@ -158,6 +160,8 @@ def from_pretrained(
                                       dtype=DTYPES[dtype])
     else:
         model = OnePeaceRetrievalModel(model_cfg, device=device, dtype=DTYPES[dtype])
+    if classify:
+        check_head(state, model)
     # branches the head does not use are pruned (ref one_peace_retrieval.py:143-150)
     wanted = model.state_dict().keys()
     model.load_state_dict({k: v for k, v in state.items() if k in wanted}, strict=True)

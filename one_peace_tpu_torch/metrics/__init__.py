@@ -1,1 +1,1 @@
-from .metrics import Accuracy, DetectionAP, MIoU, Recall  # noqa: F401
+from .metrics import MAP, Accuracy, DetectionAP, IouAcc, MIoU, Recall  # noqa: F401

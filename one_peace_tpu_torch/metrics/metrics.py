@@ -17,8 +17,15 @@ processes: a sharded evaluation raises in the task's
 is not copied.
 ``MIoU``: the ADE20K mean IoU over a confusion matrix, after the JAX
 package's (held equal by ``tests/test_torch_port_seg_data.py``).
-
-The IoU and mAP reducers are not ported yet.
+``IouAcc``: RefCOCO's Acc@0.5 on boxes in the original image's
+coordinates, a copy of the JAX package's ``box_iou`` and counts.
+``MAP``: FSD50K's mean average precision over classes, the logits kept on
+the card until one fetch at merge; each class's average precision is
+sklearn's ``average_precision_score(average=None)`` rewritten in numpy
+(held equal through the JAX ``MAP`` by
+``tests/test_torch_port_classify_rest_data.py``): step-wise precision at
+each distinct score, tied scores taken together, and 0.0 for a class with
+no positive, as sklearn 1.9 gives.
 """
 
 from __future__ import annotations
@@ -154,6 +161,74 @@ class Accuracy:
     def merge_results(self) -> Dict:
         ncorrect = float(sum(float(x) for x in fetch_once(self.ncorrect_list)))
         return {"accuracy": 100.0 * ncorrect / max(self.total, 1), "count": self.total}
+
+
+class IouAcc:
+    """Grounding Acc@0.5: predicted boxes rescaled back to original image
+    coordinates by the resize ratios (ref tasks/vl_tasks/refcoco.py:24-48)."""
+
+    def initialize(self):
+        self.ncorrect = 0.0
+        self.total = 0
+
+    @staticmethod
+    def box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+        area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+        lt = np.maximum(a[:, :2], b[:, :2])
+        rb = np.minimum(a[:, 2:], b[:, 2:])
+        wh = np.clip(rb - lt, 0, None)
+        inter = wh[:, 0] * wh[:, 1]
+        return inter / np.maximum(area_a + area_b - inter, 1e-6)
+
+    def compute(self, pred_boxes, target_boxes, threshold: float = 0.5):
+        ious = self.box_iou(np.asarray(pred_boxes), np.asarray(target_boxes))
+        self.ncorrect += float((ious >= threshold).sum())
+        self.total += len(ious)
+
+    def merge_results(self) -> Dict:
+        return {"acc@0.5": 100.0 * self.ncorrect / max(self.total, 1), "count": self.total}
+
+
+def average_precision(target: np.ndarray, score: np.ndarray) -> float:
+    """One class's average precision over (N,) binary targets and scores:
+    the sum over the distinct scores, from the highest down, of the
+    precision at that score times the recall it adds; tied scores form one
+    step.  0.0 where no target is positive."""
+    order = np.argsort(score, kind="mergesort")[::-1]
+    score, target = score[order], np.asarray(target, np.float64)[order]
+    last = np.r_[np.flatnonzero(np.diff(score)), score.size - 1]  # each distinct score's last row
+    tps = np.cumsum(target)[last]
+    if tps[-1] == 0:
+        return 0.0
+    precision = tps / (last + 1)
+    recall = tps / tps[-1]
+    return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
+
+
+class MAP:
+    """Multi-label mean average precision (ref metrics/map.py:11-35): the
+    sigmoid of the logits, each class's average precision, their mean."""
+
+    def initialize(self):
+        self.logits: List = []
+        self.targets: List = []
+
+    def compute(self, ids, logits, targets):
+        """``logits`` (B, C) stay where they were computed; ``targets`` (B,
+        C) multi-hot."""
+        self.logits.append(logits)
+        self.targets.append(targets)
+
+    def merge_results(self) -> Dict:
+        if not self.logits:  # no valid batches accumulated
+            return {"map": 0.0, "count": 0}
+        got = fetch_once({"l": self.logits, "t": self.targets})
+        logits = np.concatenate([np.asarray(x, np.float32) for x in got["l"]])
+        targets = np.concatenate([np.asarray(x, np.float32) for x in got["t"]])
+        preds = 1.0 / (1.0 + np.exp(-logits))
+        ap = [average_precision(targets[:, c], preds[:, c]) for c in range(targets.shape[1])]
+        return {"map": 100.0 * float(np.mean(ap)), "count": len(targets)}
 
 
 class MIoU:

@@ -21,7 +21,7 @@ head of ``models/one_peace.py``.
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -34,6 +34,17 @@ from .one_peace import ClassifyHead, ModelWrapper
 # the batch keys ``forward`` reads
 NET_INPUT_KEYS = ("src_tokens", "src_images", "src_images_2", "src_audios",
                   "audio_padding_masks")
+
+
+def choice_net_input(batch: Dict, num_choices: int, device=None) -> Dict:
+    """AQA's net input: the batch holds one token row per answer choice,
+    (B * num_choices, Lt), and one clip per question; each clip and its
+    padding mask are repeated num_choices times (``repeat_interleave``) on
+    ``device``, the clip's own device when None."""
+    out = {"src_tokens": batch["src_tokens"]}
+    for key in ("src_audios", "audio_padding_masks"):
+        out[key] = torch.as_tensor(batch[key], device=device).repeat_interleave(num_choices, dim=0)
+    return out
 
 
 @MODELS.register("one_peace_classify")
@@ -117,3 +128,21 @@ class OnePeaceClassifyModel(nn.Module):
         f2 = feats_2[slot] if feats_2 else None
         return self.classify_head(feats, f2, pad, deterministic=deterministic,
                                   generator=gens[2])
+
+
+def check_head(state: Dict[str, torch.Tensor], model: OnePeaceClassifyModel) -> None:
+    """Raise ``ValueError`` naming the first ``classify_head`` entry of
+    ``state`` that ``model``'s head lacks or holds in another shape: a
+    checkpoint whose head was trained with another class count, a second
+    image, attention pooling or a pooler does not fit the task's head."""
+    wanted = model.state_dict()
+    for key, value in state.items():
+        if not key.startswith("classify_head."):
+            continue
+        if key not in wanted:
+            raise ValueError(f"the checkpoint's {key} has no counterpart in the model's head; "
+                             f"the checkpoint's head differs from the one the task builds")
+        if tuple(value.shape) != tuple(wanted[key].shape):
+            raise ValueError(f"the checkpoint's {key} is {tuple(value.shape)}, the model's head "
+                             f"holds {tuple(wanted[key].shape)}; the checkpoint's head differs "
+                             f"from the one the task builds")

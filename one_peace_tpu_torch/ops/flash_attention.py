@@ -40,6 +40,7 @@ GRID_Z_MAX = 65535  # CUDA's limit on a grid's z extent: the dk/dv kernel's batc
 SWIZZLE_ALIGN = 1024  # the bf16 kernels align their tiles to the swizzle's atom
 TILES_BYTES = 4 * TILE * HEAD_DIM * 2  # four 128-byte-swizzled bf16 tiles (K, V or Q, G; x2)
 STAGE_STRIDE = TILE + 8  # floats per row of a two-walk kernel's staged bias tile
+DKV_STATIC_SMEM = 2 * 3 * TILE * 4  # the dk/dv kernel's static shared rows' statistics (st)
 
 _SOURCES = {"fwd": "flash_attention_fwd", "bwd": "flash_attention_bwd"}
 
@@ -106,7 +107,10 @@ class BwdPlan(NamedTuple):
 def bwd_plan(b: int, l: int, heads: int, shared_bias: bool) -> BwdPlan:
     """Plan the bf16 backward.  With a shared (H, L, L) bias each dk/dv block
     walks a chunk of the batch and sums its keys' d(bias) columns in shared
-    memory where the slab fits (L <= 768); the chunks are as many as fill
+    memory where the slab fits beside the kernel's static shared memory
+    (L <= 752: from L = 753 to 768 the padded width of 768 leaves the block
+    1,536 bytes over its 227 KB, and the launch is refused); the chunks are
+    as many as fill
     the card once (blocks per SM from the shared memory, at most 2, times 132
     SMs, over n_tiles * heads blocks a chunk), and their partial sums are
     added by a third kernel in chunk order.  Without a shared bias each
@@ -117,12 +121,12 @@ def bwd_plan(b: int, l: int, heads: int, shared_bias: bool) -> BwdPlan:
     tiles = tile_plan(l)
     width = TILE * (tiles.n_tiles - 1) + tiles.tail
     slab = TILES_BYTES + TILE * (width + 8) * 4 + SWIZZLE_ALIGN
-    dkv_slab = shared_bias and slab <= SMEM_PER_BLOCK
+    dkv_slab = shared_bias and slab + DKV_STATIC_SMEM <= SMEM_PER_BLOCK
     dkv_smem = slab if dkv_slab else TILES_BYTES + SWIZZLE_ALIGN
     if not shared_bias:
         b_chunk = -(-b // GRID_Z_MAX)
         return BwdPlan(tiles, False, dkv_smem, b_chunk, -(-b // b_chunk))
-    per_sm = max(1, min(2, SMEM_PER_SM // (dkv_smem + 1024)))
+    per_sm = max(1, min(2, SMEM_PER_SM // (dkv_smem + DKV_STATIC_SMEM + 1024)))
     want = max(1, min(b, SM_COUNT * per_sm // (tiles.n_tiles * heads)))
     b_chunk = -(-b // want)
     return BwdPlan(tiles, dkv_slab, dkv_smem, b_chunk, -(-b // b_chunk))
@@ -211,6 +215,11 @@ def _library(which: str = "fwd") -> ctypes.CDLL:
         lib.one_peace_flash_attention_bwd.restype = i
         lib.one_peace_bwd_error_string.argtypes = [i]
         lib.one_peace_bwd_error_string.restype = ctypes.c_char_p
+        lib.one_peace_bwd_dkv_static_smem.restype = i
+        static = lib.one_peace_bwd_dkv_static_smem()
+        if static != DKV_STATIC_SMEM:  # bwd_plan would plan a slab that does not fit
+            raise RuntimeError(f"the dk/dv kernel has {static} bytes of static shared memory; "
+                               f"bwd_plan counts DKV_STATIC_SMEM = {DKV_STATIC_SMEM}")
     return lib
 
 

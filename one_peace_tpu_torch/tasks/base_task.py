@@ -60,6 +60,12 @@ class BaseTask:
             "patch_image_size": self.cfg.patch_image_size,
         }
 
+    def head_kwargs(self) -> Dict:
+        """The classify head this task trains and evaluates:
+        ``OnePeaceClassifyModel``'s ``num_classes`` and any head argument
+        that differs from its default."""
+        return {"num_classes": self.cfg.num_classes}
+
     def audio_conv_spec(self):
         """The model's audio-frontend frame arithmetic, for the data layer's
         padding masks (ref base_task.py:65).  The fbank frontend's frame

@@ -7,13 +7,24 @@ zero-shot ESC-50, ref tasks/audio_tasks/audio_text_retrieval.py:86), then
 the image or audio side per batch into a ``Recall`` reducer, which fetches
 everything to the host once in ``merge_results``.
 
-The classification tasks (``image_classify``, ``vqa``, ``vggsound``) run the
-classify model on each validation batch into an ``Accuracy`` reducer: top-1
-hits, or for VQA the soft score of the argmax answer, each batch's count
-kept on the card until ``merge_results``.  ``image_classify`` mixes its
-training batches (Mixup / CutMix, soft targets) in the iterator's collate
-when ``task.mixup`` or ``task.cutmix`` is set; its ``Mixup`` starts from
-seed 0 at every ``get_batch_iterator``, as the JAX task's does.
+The classification tasks run the classify model on each validation batch
+into a reducer that keeps its results on the card until ``merge_results``:
+``image_classify``, ``vggsound``, ``nlvr2`` and ``aqa`` count top-1 hits
+(``Accuracy``), ``vqa`` the soft score of the argmax answer, ``fsd50k``
+the mean average precision over its classes (``MAP``) and ``refcoco`` the
+share of predicted boxes at IoU >= 0.5 with the target once rescaled to
+the original image (``IouAcc``).  ``image_classify`` mixes its training
+batches (Mixup / CutMix, soft targets) in the iterator's collate when
+``task.mixup`` or ``task.cutmix`` is set; its ``Mixup`` starts from seed 0
+at every ``get_batch_iterator``, as the JAX task's does, and the iterator
+saves its generator with the others.
+
+Each task names the head it trains (``head_kwargs``), which both CLIs
+build: ``task.num_classes`` outputs for most, NLVR2's two-image head with
+2 classes, RefCOCO's 4 box coordinates, AQA's one score per answer choice;
+the rest of the head keeps the JAX CLI's defaults (CLS pooling, no
+pooler, ``head_scale_ratio`` 1).  The JAX CLI builds every classify head
+from ``task.num_classes`` alone, which reaches none of the three.
 
 The pretrain tasks (``image_text_pretrain``, ``audio_text_pretrain``) train
 on the masked pretrain datasets and validate as the retrieval tasks do, on
@@ -25,8 +36,7 @@ logits.
 JSON, LSJ, box and mask AP), ``ade20k_seg`` (``vision_tasks.Ade20kSegTask``:
 mIoU by the whole, slide and ms_flip protocols) and ``k400_video``
 (``vision_tasks.K400VideoTask``: rawframes, top-1 accuracy over multi-view
-tests).  Every other task of the JAX package raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+tests).  Every task of the JAX package is ported.
 """
 
 from __future__ import annotations
@@ -37,21 +47,15 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core.config import TaskConfig
 from ..core.registry import TASKS
 from ..data import datasets as D
 from ..data.mixup import Mixup
-from ..metrics import Accuracy, Recall
-from ..models.classify import NET_INPUT_KEYS
+from ..metrics import MAP, Accuracy, IouAcc, Recall
+from ..metrics.metrics import fetch_once
+from ..models.classify import NET_INPUT_KEYS, choice_net_input
 from .base_task import BaseTask
 from .vision_tasks import Ade20kSegTask, CocoDetectionTask, K400VideoTask
-
-UNPORTED = {
-    "nlvr2": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
-    "fsd50k": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
-    "aqa": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
-    "refcoco": "ROADMAP queue 1 item 4b (classify: NLVR2, FSD50K, AQA, RefCOCO)",
-}
-
 
 def _chunk(seq, n):
     for i in range(0, len(seq), n):
@@ -254,6 +258,7 @@ class ImageClassifyTask(ClassifyTaskBase):
                 return batch
 
             itr.collate_fn = collate_with_mixup
+            itr.generators["mixup"] = mixer.rng
         return itr
 
 
@@ -266,13 +271,118 @@ class VggsoundTask(ClassifyTaskBase):
                 "feature_encoder_spec": self.audio_conv_spec()}
 
 
+@TASKS.register("nlvr2")
+class Nlvr2Task(ClassifyTaskBase):
+    """NLVR2: one statement, two images, true or false (ref
+    tasks/vl_tasks/nlvr2.py); the head concatenates both images' pooled
+    features."""
+
+    dataset_cls = D.Nlvr2Dataset
+
+    def head_kwargs(self) -> Dict:
+        return {"num_classes": 2, "use_two_images": True}
+
+
+@TASKS.register("fsd50k")
+class Fsd50kTask(ClassifyTaskBase):
+    """Multi-label audio tagging scored with mAP (ref tasks/audio_tasks).
+    The dataset's multi-hot targets have ``task.num_classes`` classes, as
+    the head has; the JAX task leaves them at the dataset's 200.  The
+    recipe leaves ``task.num_classes`` at ``TaskConfig``'s default, which
+    is refused: a head wider than the label space would average classes
+    that never occur into the mAP as zeros."""
+
+    dataset_cls = D.Fsd50kDataset
+
+    def __init__(self, cfg, framework_cfg=None):
+        if cfg.num_classes == TaskConfig.num_classes:
+            raise ValueError(f"fsd50k: task.num_classes is left at TaskConfig's default of "
+                             f"{cfg.num_classes}; FSD50K has 200 classes: pass "
+                             f"task.num_classes=200")
+        super().__init__(cfg, framework_cfg)
+        self.metric = MAP()
+
+    def dataset_kwargs(self):
+        return {"max_duration": self.cfg.max_duration,
+                "feature_encoder_spec": self.audio_conv_spec(),
+                "num_classes": self.cfg.num_classes}
+
+    def valid_step(self, model, params, batch):
+        logits = self.eval_model(model, params, self._net_input(batch))
+        self.metric.compute(batch["id"], logits, np.asarray(batch["target"]))
+
+
+@TASKS.register("aqa")
+class AqaTask(ClassifyTaskBase):
+    """Audio question answering over ``criterion.num_choices`` answers (ref
+    tasks/audio_tasks/aqa.py): one token row per choice, each clip repeated
+    once per choice on the card by ``choice_net_input``, as the criterion
+    does; the argmax of each question's scores against its answer."""
+
+    dataset_cls = D.AqaDataset
+    criterion_name = "hinge_criterion"
+
+    def dataset_kwargs(self):
+        return {"max_src_length": self.cfg.max_src_length,
+                "max_duration": self.cfg.max_duration,
+                "feature_encoder_spec": self.audio_conv_spec()}
+
+    def head_kwargs(self) -> Dict:
+        return {"num_classes": 1}
+
+    def valid_step(self, model, params, batch):
+        if self.framework_cfg is None:
+            raise ValueError("aqa validates with the framework config: its "
+                             "criterion.num_choices groups the rows into questions")
+        n = self.framework_cfg.criterion.num_choices
+        net = choice_net_input(batch, n, next(model.parameters()).device)
+        logits = self.eval_model(model, params, net)
+        self.metric.compute(logits.reshape(-1, n), np.asarray(batch["target"]))
+
+
+@TASKS.register("refcoco")
+class RefCOCOTask(ClassifyTaskBase):
+    """Visual grounding scored by Acc@0.5 (ref tasks/vl_tasks/refcoco.py:
+    24-48): the predicted box, the sigmoid of the model's 4 outputs,
+    rescaled by the image's width and height to its original coordinates.
+    The outputs stay on the card; ``merge_results`` fetches them once."""
+
+    dataset_cls = D.RefCOCODataset
+    criterion_name = "refcoco_criterion"
+
+    def __init__(self, cfg, framework_cfg=None):
+        super().__init__(cfg, framework_cfg)
+        self.metric = IouAcc()
+        self._pending = []
+
+    def head_kwargs(self) -> Dict:
+        return {"num_classes": 4}
+
+    def begin_valid_epoch(self, model, params):
+        self.metric.initialize()
+        self._pending = []
+
+    def valid_step(self, model, params, batch):
+        coords = self.eval_model(model, params, self._net_input(batch))
+        w = np.asarray(batch["image_widths"])[:, None]
+        h = np.asarray(batch["image_heights"])[:, None]
+        self._pending.append({"coords": coords.float(),
+                              "scale": np.concatenate([w, h, w, h], axis=1),
+                              "target": np.asarray(batch["region_coords"])})
+
+    def merge_results(self) -> Dict:
+        fetched = fetch_once([p["coords"] for p in self._pending])
+        for p, coords in zip(self._pending, fetched):
+            pred = 1.0 / (1.0 + np.exp(-np.asarray(coords, np.float32)))
+            self.metric.compute(pred * p["scale"], p["target"])
+        self._pending = []
+        return self.metric.merge_results()
+
+
 TASKS.register("coco_detection")(CocoDetectionTask)
 TASKS.register("ade20k_seg")(Ade20kSegTask)
 TASKS.register("k400_video")(K400VideoTask)
 
 
 def build_task(cfg, framework_cfg=None):
-    if cfg._name in UNPORTED and cfg._name not in TASKS:
-        raise NotImplementedError(f"task {cfg._name!r} is not ported to PyTorch yet: "
-                                  f"{UNPORTED[cfg._name]}")
     return TASKS.get(cfg._name)(cfg, framework_cfg)

@@ -196,6 +196,8 @@ VERBATIM_COPIES = [
     (port_randaugment, jax_randaugment, "GaussianBlur"),
     (port_datasets, jax_datasets, "VqaDataset"), (port_datasets, jax_datasets, "VggsoundDataset"),
     (port_datasets, jax_datasets, "ImageClassifyDataset"),
+    (port_datasets, jax_datasets, "Nlvr2Dataset"), (port_datasets, jax_datasets, "RefCOCODataset"),
+    (port_datasets, jax_datasets, "Fsd50kDataset"), (port_datasets, jax_datasets, "AqaDataset"),
     (port_datasets, jax_datasets, "ImageTextPretrainDataset"),
     (port_datasets, jax_datasets, "AudioTextPretrainDataset")] + [
     (port_masking, jax_masking, name) for name in (

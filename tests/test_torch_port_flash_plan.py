@@ -70,7 +70,8 @@ def test_tile_plan_by_brute_force(bias):
     """Every L in 1..900: tiles cover [0, L) once, the last is L's tail
     rounded up to 16, shared memory fits 227 KB, the row block stays
     resident (one walk) exactly when two blocks fit on an SM (L <= 304), a
-    shared bias gets the d(bias) slab exactly when it fits (L <= 768), and
+    shared bias gets the d(bias) slab exactly when it fits beside the dk/dv
+    kernel's static shared memory (L <= 752), and
     the batch chunks cover B once."""
     for l in range(1, 901):
         plan = tfa.tile_plan(l)
@@ -95,8 +96,9 @@ def test_tile_plan_by_brute_force(bias):
             assert tfa.tile_plan(l, not plan.resident).resident != plan.resident
         for b in (1, 3, 32, 256):
             bp = tfa.bwd_plan(b, l, 24, bias == "shared")
-            assert bp.tiles == plan and bp.dkv_smem <= tfa.SMEM_PER_BLOCK
-            assert bp.dkv_slab == (bias == "shared" and l <= 768), (b, l)
+            assert bp.tiles == plan
+            assert bp.dkv_smem + tfa.DKV_STATIC_SMEM <= tfa.SMEM_PER_BLOCK
+            assert bp.dkv_slab == (bias == "shared" and l <= 752), (b, l)
             assert bp.dkv_smem == tfa.TILES_BYTES + tfa.SWIZZLE_ALIGN + (
                 T * (width + 8) * 4 if bp.dkv_slab else 0)
             if bias != "shared":

@@ -464,13 +464,27 @@ def test_task_evaluation_matches_jax(corpus, side):
     assert further.any() and err[~further].max() <= EMB_TOL, err.tolist()
 
 
-@pytest.mark.parametrize("name,queue", [("fsd50k", "item 4b"), ("nlvr2", "item 4b"),
-                                        ("refcoco", "item 4"), ("aqa", "item 4b")])
-def test_unported_tasks_raise(corpus, name, queue):
+@pytest.mark.parametrize("name,criterion", [("fsd50k", "classify_criterion"),
+                                            ("nlvr2", "classify_criterion"),
+                                            ("refcoco", "refcoco_criterion"),
+                                            ("aqa", "hinge_criterion")])
+def test_rest_of_classify_tasks_build(corpus, name, criterion):
+    """Every task of the JAX package builds, naming the JAX task's dataset
+    and criterion; the criterion builds too."""
+    from one_peace_tpu.tasks import tasks as jax_tasks
+    from one_peace_tpu_torch.criterions import build_criterion
+
     cfg = _framework_cfg(corpus, "image")
     cfg.task._name = name
-    with pytest.raises(NotImplementedError, match=queue):
-        build_task(cfg.task, cfg)
+    if name == "fsd50k":  # FSD50K refuses TaskConfig's default
+        cfg.task.num_classes = 200
+    task = build_task(cfg.task, cfg)
+    want = jax_tasks.TASKS.get(name)
+    assert type(task).dataset_cls.__name__ == want.dataset_cls.__name__
+    assert type(task).criterion_name == want.criterion_name == criterion
+    cfg.criterion._name = criterion
+    assert type(build_criterion(cfg.criterion)).__name__ in ("ClassifyCriterion",
+                                                             "RefCOCOCriterion", "HingeCriterion")
 
 
 @pytest.mark.parametrize("name", ["one_peace_no_such_model"])

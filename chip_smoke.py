@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: a CUDA card, its name and power limit (nvidia-smi);
 2. build: every kernel source under ``one_peace_tpu_torch/csrc``, one nvcc
-   each, started together;
+   each, started together (beside it and the phases after it, two spawned
+   set-up processes write the seeded fairseq ``.pt`` files and the data
+   trees that phases 9-20 read, ``Prep``; each phase logs its wait);
 3. the attention kernel against its plain PyTorch version, bf16 and fp32,
    at the main path's shapes (L = 257 image at B=2 and 256, 500 audio, 71
    text with pads, 850 VL concat), with the rows' softmax statistics that a
@@ -46,14 +48,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    2-layer full-width fairseq ``.pt`` written under ``build/``, quantize
    "ffn" and "ffn_attn", fp32 and bf16, text / image / audio embeddings on
    the kernel path against the plain int8 path, the launch counts per
-   forward, ``process_image(on_device=True)``; then at depth 40 in bf16 the
+   forward, ``process_image(on_device=True)``; then at depth 20 in bf16 the
    GEMM and quantize launches of one "ffn" and one "ffn_attn" image forward
-   (120 / 80 and 280 / 160), and images/s and clips/s for the bf16, "ffn"
+   (60 / 40 and 140 / 80), and images/s and clips/s for the bf16, "ffn"
    and "ffn_attn" paths;
 10. the depth-40 golden (``tests/fixtures/full_geometry_golden.npz``): the
    seeded 4B fairseq state regenerated and converted by the port's ``.pt``
    route in a process of its own, started with the script so that its
-   minutes on the host overlap phases 2-12 (it holds no card), written as
+   minutes on the host overlap phases 2-14 (it holds no card), written as
    raw files and read memory-mapped onto the card, and the fp32
    model on the kernel path held to the golden embeddings at cosine >=
    1-1e-3;
@@ -98,7 +100,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    to 4: the updates' losses within 1e-6 relative and the final masters'
    cosine >= 1-1e-6, then ``cli.evaluate`` on the run's
    ``checkpoint_best.npz`` (64 images, 320 texts); (c) the recipe at depth
-   40 through ``cli.train`` from the config's init, B=32, 6 updates and one
+   20 (``CUT_DEPTH``: 9's times and the recipes' runs through ``cli.train``
+   in 13(c)-20(d) are cut from 40 to 20 layers to keep the script inside
+   its time limit) through ``cli.train`` from the config's init, B=32, 6 updates and one
    validation, no saves: ms per update from data beside phase 7(b)'s, pairs
    per second, peak memory, the attention kernels' launches per update and
    in validation, and one profiled update (``train_cli_profile.txt``);
@@ -112,11 +116,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    drop path 0.6): 4 updates, one validation and ``checkpoint_best.npz``,
    whose ``params_from_jax`` read-back must equal the masters bit for bit;
    then ``cli.evaluate`` on it must detect what the validation detected and
-   print its AP dict (to 1e-6); (c) the recipe at depth 40 through
+   print its AP dict (to 1e-6); (c) the recipe at depth 20 through
    ``cli.train`` from the config's init, B=2, 6 updates and one validation
    over the 8 valid images, no saves: ms per update from data beside
    12(c)'s ms per step, images per second, peak memory, the det attention's
-   launches per update (80 forward, 40 backward) and in validation (40),
+   launches per update (40 forward, 20 backward) and in validation (20),
    validation's wall time split between ``detect()``, the host's mask paste
    and AP records and the AP sweep, the host's share at 100 detections per
    image, and one profiled update (``det_cli_profile.txt``);
@@ -141,10 +145,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    recipe through ``cli.train`` at depth 2 (4 updates, one validation,
    ``checkpoint_best.npz`` read back bit-equal to the masters) and
    ``cli.evaluate`` on the export (the validation's accuracy to 1e-6);
-   (d) the image_classify recipe at depth 40, 384 px, B=32 through
+   (d) the image_classify recipe at depth 20, 384 px, B=32 through
    ``cli.train`` from the config's init: 6 updates and one validation over
    64 images, no saves: ms per update, images/s, MFU, peak memory, the
-   launches per update (80 / 40) and in validation (40 / 0), a falling loss
+   launches per update (40 / 20) and in validation (20 / 0), a falling loss
    and one profiled update (``classify_cli_profile.txt``).
 16. pretraining: (a) first, #1 and #2 alone at the slice's new shapes (the
    students' per-sample (B, H, L, L) biases at L=65 and 124, B=32, and at
@@ -159,7 +163,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    with its export read back bit-equal, then the AL stage-2 recipe
    restoring it: the shared leaves carried bit-equal, ``logit_scale``
    reset, the frozen parameters bit-unchanged after 3 updates; (d) both
-   recipes at depth 40 (VL B=32, AL B=16), 5 updates each: the median ms
+   recipes at depth 20 (VL B=32, AL B=16), 5 updates each: the median ms
    per update, pairs or clips per second, MFU, peak memory, the launches
    per update, one profiled update each (``pretrain_{vl,al}_profile.txt``:
    the idle share and the per-sample bias gathers' index backward).
@@ -192,9 +196,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    Mask2Former recipe through ``cli.train`` at depth 4 in fp32, straight to
    4 updates and stopped at 2 and resumed (losses to 1e-6, masters to
    cosine 1-1e-6), ``checkpoint_best.npz`` by mIoU and ``cli.evaluate`` on it
-   equal to a direct ``valid_step`` loop; (d) the recipe at depth 40 through
+   equal to a direct ``valid_step`` loop; (d) the recipe at depth 20 through
    ``cli.train``, B=2, bf16: ms per update, images/s, MFU of the trunk's
-   FLOPs, peak memory, launches per update (80 / 40) and one profiled update
+   FLOPs, peak memory, launches per update (40 / 20) and one profiled update
    (``seg_train_profile.txt``: the idle share, the bias gathers' index
    backward, #1, #2 and the matching's host time).
 19. video: (a) first, #1 with the backward's statistics and #2 alone at the
@@ -214,9 +218,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and resumed (update losses to 1e-6), ``checkpoint_best.npz`` read back
    bit-equal to its step's masters, the trunk unchanged, and
    ``cli.evaluate`` under 3 clips x ThreeCrop equal to a direct
-   ``valid_step`` loop; (d) the recipe at depth 40 through ``cli.train``,
+   ``valid_step`` loop; (d) the recipe at depth 20 through ``cli.train``,
    B=8, bf16: ms per update, clips/s, MFU, peak memory, launches per update
-   (160 / 80), one validation over 8 clips (72 views) with its ms per clip
+   (80 / 40), one validation over 8 clips (72 views) with its ms per clip
    and peak, and one profiled update (``video_train_profile.txt``: the idle
    share, #1 and #2).
 
@@ -230,7 +234,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches counted from 0: (b) the four criterions (NLVR2's two images
    through the classify criterion, RefCOCO's grounding loss, AQA's hinge
    over 4 choices, FSD50K's BCE over 200 classes) at full width and depth
-   4 through ``Trainer`` on 8 batches of 8 examples each, each batch from
+   2 through ``Trainer`` on 8 batches of 8 examples each, each batch from
    its own seed, kernel path against plain path: fp32 with 7(a)'s bounds;
    bf16 no further from fp32 than the plain path, in the gradients and in
    the loss: the kernel path's mean excess over the 8 batches at most three
@@ -238,15 +242,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``build/smoke_classify_rest/`` and each recipe through ``cli.train`` at
    depth 2 (2 updates, one validation, ``checkpoint_best.npz`` read back
    bit-equal to the masters) and ``cli.evaluate`` on the export (its
-   accuracy, acc@0.5 or map to 1e-6); (d) the NLVR2 recipe at depth 40,
+   accuracy, acc@0.5 or map to 1e-6); (d) the NLVR2 recipe at depth 20,
    384 px, B=16 pairs through ``cli.train``: ms per update (median of 3),
-   pairs/s, MFU, peak memory, the launches per update (160 / 80) and one
+   pairs/s, MFU, peak memory, the launches per update (80 / 40) and one
    profiled update (``nlvr2_train_profile.txt``: the idle share, #1, #2).
+21. fp16, the EMA, Adan and the remat policies: (a) first, the fp16 arms
+   of #1/#2 (every branch of ``tile_plan`` and ``bwd_plan``, tails 16-64
+   wide, text and key pads, shared and per-sample bias) and of #3/3b
+   (bit-equal) alone against their plain versions, at a fifth of bf16's
+   bounds, then in turns with SDPA / ``torch.matmul`` in fp16 and the bf16
+   kernel; then each fp16 run with its launches set to 0 before it and
+   held to its expected counts after it (the depth-40 golden in fp16
+   runs inside phase 10, on its state: images and audio >= 0.999, each
+   modality's kernel path no further from it than the plain path and
+   above bf16's, beside fp32 compute on the weights rounded to fp16): (b)
+   4B embeddings/s in fp16 and int8 "ffn" fp16 at depth 40; (c) 7(a)'s
+   check in fp16, then the depth-40 vl step in fp16 with loss scaling and
+   the EMA (ms, MFU, peak, the scale after each step, skips, 160 / 80
+   launches a step; the EMA update and the unscale alone, one step
+   profiled); (d)
+   ``full`` / ``qkv`` / ``offload_qkv`` on that model: gradients bit-equal,
+   GEMMs in the backward, the median ms of three in turns, peak, one
+   call each profiled; (e) Adan card vs CPU on the
+   same clipped gradients at depth 2, and its step at depth 40 against its
+   bound; (f) ``cli.train`` at depth 2 with fp16, the EMA and Adan,
+   stopped and resumed bit-equal, ``checkpoint_best.npz`` the shadow.
 
 The CLI checks 13(b), 14(b), 15(c), 16(c) and 19(c) run at depth 2
 (resume, export and ``cli.evaluate`` do not depend on depth); 17(d) and
 18(c) run at depth 4, since the ViT-Adapter splits the trunk into four
-interaction groups.  Phase 10 runs after phase 12, when the
+interaction groups.  Phase 10 runs after phase 14, when the
 process started with the script has written its state under
 ``build/golden_state/``.
 
@@ -259,6 +284,7 @@ package beside it, the script fails before printing either.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import gc
@@ -271,10 +297,12 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.nn.utils import get_total_norm
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from one_peace_tpu_torch import hub as port_hub
 from one_peace_tpu_torch.core.config import FrameworkConfig, TaskConfig, load_config
@@ -282,6 +310,7 @@ from one_peace_tpu_torch.data.tokenizer import bytes_to_unicode
 from one_peace_tpu_torch.criterions import build_criterion
 from one_peace_tpu_torch.data.mixup import Mixup
 from one_peace_tpu_torch.models.adapters.audio import conv_output_length
+from one_peace_tpu_torch.models import components
 from one_peace_tpu_torch.models.classify import OnePeaceClassifyModel
 from one_peace_tpu_torch.models.one_peace import ModelConfig, OnePeaceRetrievalModel
 from one_peace_tpu_torch.ops import build
@@ -291,6 +320,7 @@ from one_peace_tpu_torch.ops import int8_matmul as im
 from one_peace_tpu_torch.ops.attention import attention_plain
 from one_peace_tpu_torch.ops.preprocess import resize_normalize
 from one_peace_tpu_torch.ops.quant import quantize_ffn_
+from one_peace_tpu_torch.optim import build_optimizer
 from one_peace_tpu_torch.tasks.vision_tasks import CocoDetectionTask
 from one_peace_tpu_torch.trainer import Trainer
 from one_peace_tpu_torch.utils.checkpoint_convert import convert_retrieval_model
@@ -308,6 +338,10 @@ H100_FP32_PEAK_TFLOPS = 67.0  # outside the tensor cores, the same sheet
 H100_HBM_BYTES_PER_S = 3.35e12  # the same sheet
 IMG_BATCH, AUD_BATCH, AUDIO_SECONDS = 256, 32, 10  # bench.py's workload
 BF16_MAX_ERR, BF16_MEAN_ERR, FP32_MAX_ERR = 2e-2, 2e-3, 1e-4
+# the depth of phase 9's times through the hub and of the recipes' runs
+# through cli.train in 13(c)-20(d): the 4B model's 40 layers halved, so that
+# the script stays inside its time limit
+CUT_DEPTH = 20
 
 
 def log(msg: str) -> None:
@@ -564,11 +598,11 @@ def in_turns(fns: dict, iters: int) -> dict:
     return {name: float(np.mean(turns[name])) for name in names}
 
 
-def sdpa_mask(bias, key_bias, b, heads=None, l=None):
-    """The additive bf16 mask SDPA gets: a shared (H, L, L) or per-sample
-    (B, H, L, L) bias plus the key bias where there is one, expanded to
-    (B, H, L, L); without a bias (give ``heads`` and ``l``) the key bias
-    alone; None without either."""
+def sdpa_mask(bias, key_bias, b, heads=None, l=None, dtype=torch.bfloat16):
+    """The additive mask SDPA gets, in ``dtype`` (bf16 unless given): a
+    shared (H, L, L) or per-sample (B, H, L, L) bias plus the key bias where
+    there is one, expanded to (B, H, L, L); without a bias (give ``heads``
+    and ``l``) the key bias alone; None without either."""
     if bias is None and key_bias is None:
         return None
     if bias is None:
@@ -577,7 +611,7 @@ def sdpa_mask(bias, key_bias, b, heads=None, l=None):
         mask = bias if bias.ndim == 4 else bias[None]
         if key_bias is not None:
             mask = mask + key_bias[:, None, None, :]
-    return mask.to(torch.bfloat16).expand(b, -1, -1, -1)
+    return mask.to(dtype).expand(b, -1, -1, -1)
 
 
 def time_backward(gen, card: str) -> dict:
@@ -834,10 +868,11 @@ def train_full_depth(gen, card: str) -> dict:
     return result
 
 
-def profile_call(fn, wall_ms: float, label: str, file_name: str) -> None:
+def profile_call(fn, wall_ms: float, label: str, file_name: str) -> tuple:
     """One kernel-path call under torch.profiler: device time by event name
     (``device_times``), and the device's busy time against the unprofiled
-    call's ``wall_ms`` (one stream, so kernels do not overlap)."""
+    call's ``wall_ms`` (one stream, so kernels do not overlap).  Returns
+    ``device_times``' rows and busy ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -853,6 +888,7 @@ def profile_call(fn, wall_ms: float, label: str, file_name: str) -> None:
         log(f"  {line}")
     log(f"{label} device busy {busy:.1f} ms of the unprofiled {wall_ms:.1f} ms: "
         f"idle {100 * (1 - busy / wall_ms):.0f}%")
+    return rows, busy
 
 
 def make_inputs(cfg, gen, n_img, n_aud, n_txt):
@@ -924,7 +960,9 @@ def check_slice(cfg, inputs, dtype, min_cos: float, reference=None) -> dict:
 
 
 def time_paths(cfg, card: str):
-    """Phase 5: e2e and attention-only times, kernel path and plain path."""
+    """Phase 5: e2e and attention-only times, kernel path and plain path.
+    Returns ``time_attention``'s rows with the kernel path's images/s and
+    clips/s under "bf16_rates"."""
     model = OnePeaceRetrievalModel(cfg, device="cuda", dtype=torch.bfloat16)
     fill_random_(model, torch.Generator(device="cuda").manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -935,6 +973,7 @@ def time_paths(cfg, card: str):
     work = {"image": (IMG_BATCH, 257, analytic_flops(cfg, 257, IMG_BATCH, "image")),
             "audio": (AUD_BATCH, frames, analytic_flops(
                 cfg, frames, AUD_BATCH, "audio", 16000 * AUDIO_SECONDS))}
+    rates = {}
     with torch.inference_mode():
         for encoder_type in ("image", "audio"):
             b, _, flops = work[encoder_type]
@@ -942,6 +981,8 @@ def time_paths(cfg, card: str):
                 model.cfg.encoder.attn_impl = impl
                 ms = cuda_time_ms(lambda: model(encoder_type=encoder_type,
                                                 **inputs[encoder_type]), iters=3, warmup=1)
+                if impl == "pallas":
+                    rates[encoder_type] = b / ms * 1e3
                 tflops = flops / ms / 1e9
                 log(f"e2e {encoder_type} B={b} bf16 {impl}: {ms:.1f} ms per batch, "
                     f"{b / ms * 1e3:.1f} {encoder_type}s/s, {tflops:.1f} TFLOP/s = "
@@ -950,7 +991,8 @@ def time_paths(cfg, card: str):
     model.cfg.encoder.attn_impl = "pallas"
     del model, inputs
     torch.cuda.empty_cache()
-    return time_attention(gen, cfg.encoder.attention_heads, frames, card)
+    return {**time_attention(gen, cfg.encoder.attention_heads, frames, card),
+            "bf16_rates": rates}
 
 
 def time_attention(gen, heads: int, frames: int, card: str) -> dict:
@@ -1146,21 +1188,25 @@ def smooth_images(n: int, rng) -> list:
     return out
 
 
-def serve_int8(card: str) -> dict:
-    """Phase 9: int8 serving at full width through the hub.  Returns the
-    int8 kernels' launch counts over the kernel-path forwards."""
-    work = ROOT / "build" / "smoke_hub"
+def write_hub_pt(work: Path) -> tuple:
+    """Phase 9's set-up: a BPE set and a 2-layer full-width fairseq ``.pt``
+    from ``make_random_state_dict`` (seed 0) under ``work``."""
     work.mkdir(parents=True, exist_ok=True)
     bpe = write_bpe_dir(work / "bpe")
     cfg = ModelConfig(head_type="val")
     cfg.encoder.layers = 2
-    t0 = time.time()
     sd = make_random_state_dict(cfg, seed=0)
     pt = work / "model.pt"
     torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, pt)
-    log(f"9: wrote a 2-layer full-width fairseq .pt ({pt.stat().st_size / 2**30:.2f} GiB) "
-        f"in {time.time() - t0:.1f} s")
-    del sd
+    return bpe, pt
+
+
+def serve_int8(card: str, prep: "Prep") -> dict:
+    """Phase 9: int8 serving at full width through the hub.  Returns the
+    int8 kernels' launch counts over the kernel-path forwards."""
+    cfg = ModelConfig(head_type="val")
+    cfg.encoder.layers = 2
+    bpe, pt = prep.take("9", "a 2-layer full-width fairseq .pt")
 
     rng = np.random.RandomState(0)
     texts = ["a dog barking in the rain", "two cats", "an orchestra tuning up before the show",
@@ -1243,10 +1289,11 @@ def check_on_device_images(hub, images) -> None:
 
 
 def time_int8_paths(card: str, bpe: str) -> None:
-    """Phase 9 times: the depth-40 model in bf16 through the hub at
-    bench.py's batches, bf16 / "ffn" / "ffn_attn" (the int8 models are
+    """Phase 9 times: the model at depth ``CUT_DEPTH`` in bf16 through the
+    hub at bench.py's batches, bf16 / "ffn" / "ffn_attn" (the int8 models are
     quantized copies of the same bf16 weights)."""
     cfg = ModelConfig(head_type="val")
+    cfg.encoder.layers = CUT_DEPTH
     model = OnePeaceRetrievalModel(cfg, device="cuda", dtype=torch.bfloat16)
     fill_random_(model, torch.Generator(device="cuda").manual_seed(0))
     hubs = {"bf16": port_hub.OnePeaceHubInterface(cfg, TaskConfig(), model,
@@ -1266,17 +1313,17 @@ def time_int8_paths(card: str, bpe: str) -> None:
         hubs[mode].extract_image_features(images)
         counts = (im.launches, im.quantize_launches)
         want = (gemms * cfg.encoder.layers, quantizes * cfg.encoder.layers)
-        log(f"9: depth 40 image B={IMG_BATCH} {mode}: {counts[0]} GEMM and {counts[1]} "
+        log(f"9: depth {CUT_DEPTH} image B={IMG_BATCH} {mode}: {counts[0]} GEMM and {counts[1]} "
             f"quantize launches per forward (expected {want[0]} and {want[1]})")
         if counts != want:
-            raise RuntimeError(f"9: depth-40 {mode} launched {counts}, expected {want}")
+            raise RuntimeError(f"9: depth-{CUT_DEPTH} {mode} launched {counts}, expected {want}")
     for modality, b in (("image", IMG_BATCH), ("audio", AUD_BATCH)):
         for mode in ("bf16", "ffn", "ffn_attn", "ffn_attn", "ffn", "bf16"):
             hub = hubs[mode]
             fn = ((lambda: hub.extract_image_features(images)) if modality == "image"
                   else (lambda: hub.extract_audio_features(*audio)))
             ms = cuda_time_ms(fn, iters=2, warmup=1)
-            log(f"9: depth 40 {modality} B={b} {mode}: {ms:.1f} ms per batch, "
+            log(f"9: depth {CUT_DEPTH} {modality} B={b} {mode}: {ms:.1f} ms per batch, "
                 f"{b / ms * 1e3:.1f} {modality}s/s ({card})")
     del hubs, model, inputs
     torch.cuda.empty_cache()
@@ -1372,9 +1419,64 @@ class GoldenState:
             shutil.rmtree(GOLDEN_STATE_DIR, ignore_errors=True)
 
 
-def check_golden(source: GoldenState) -> dict:
+def _timed(fn, *args):
+    """``fn(*args)`` and its wall time, in a ``Prep`` worker."""
+    t0 = time.time()
+    return fn(*args), time.time() - t0
+
+
+class Prep:
+    """Host-only set-up -- the seeded fairseq ``.pt`` files and the data
+    trees under ``build/`` -- written by two spawned processes (numpy holds
+    the GIL while it draws, and none of this touches the card) while the
+    card runs the phases before the one that reads each.  ``jobs`` maps a
+    phase to ``(fn, *args)`` of a module-level function; the files are the
+    same ones the phase would write itself."""
+
+    def __init__(self, jobs: Optional[dict] = None):
+        self.pool, self.futures = None, {}
+        if jobs:
+            self.start(jobs)
+
+    def start(self, jobs: dict) -> None:
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+        self.futures = {phase: self.pool.submit(_timed, *job) for phase, job in jobs.items()}
+
+    def take(self, phase: str, what: str):
+        """The job's result, once it is done; logs its time and this wait."""
+        t0 = time.time()
+        out, took = self.futures.pop(phase).result()
+        log(f"{phase}: {what} written in {took:.1f} s in a set-up process; this phase waited "
+            f"{time.time() - t0:.1f} s for it")
+        return out
+
+    def stop(self) -> None:
+        if self.pool is not None:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def prep_jobs() -> dict:
+    """Every phase's host-only set-up, in the order the phases read it."""
+    return {"9": (write_hub_pt, ROOT / "build" / "smoke_hub"),
+            "13": (write_retrieval_corpus, RETRIEVAL_DIR),
+            "14": (write_coco_corpus, COCO_DIR, 16, 8),
+            "15(a)": (write_classify_hub_pts, ROOT / "build" / "smoke_classify_hub"),
+            "15(c)": (write_classify_corpus, CLASSIFY_DIR, 96, 64),
+            # 11 VL batches of 32: no epoch ends inside 16(d)'s window
+            "16": (write_pretrain_corpus, PRETRAIN_DIR, 352, 32, (14.0, 15.0)),
+            "17(d)": (write_seg_eval_setup, SEG_EVAL_LAYERS),
+            "18(c)": (write_ade_corpus, SEG_TRAIN_DIR, 6, 2),
+            "19": (write_k400_corpus, K400_DIR, 24, 8),
+            "20": (write_classify_rest_corpus, CLASSIFY_REST_DIR, 96, 8)}
+
+
+def check_golden(source: GoldenState, fp16_runs: dict) -> tuple:
     """Phase 10: the depth-40 golden through the port's .pt route, fp32,
-    kernel path, the state from ``source``.  Returns the cosines."""
+    kernel path, the state from ``source``; then 21(b)'s fp16 run of the
+    same inputs on the same state, cast (``check_golden_fp16``; its
+    launches kept in ``fp16_runs``).  Returns the fp32 and the fp16
+    cosines."""
     cfg = ModelConfig(head_type="val")  # the defaults are the golden's 4B geometry
     enc = cfg.encoder
     if (enc.embed_dim, enc.ffn_embed_dim, enc.layers, enc.attention_heads) != (1536, 6144, 40, 24):
@@ -1417,9 +1519,12 @@ def check_golden(source: GoldenState) -> dict:
         + ", ".join(f"{k} {v:.9f}" for k, v in report.items()) + " (bound 1-1e-3)")
     if min(report.values()) < 1 - 1e-3:
         raise RuntimeError(f"10: the port misses the depth-40 golden: {report}")
+    out.pop("vl")
+    report16 = check_golden_fp16(model, {"text": {"src_tokens": tokens}, "image": imgs,
+                                         "audio": (wav, apad)}, out, fp16_runs)
     del model, out
     torch.cuda.empty_cache()
-    return report
+    return report, report16
 
 
 DET_HEADS = 24
@@ -1585,13 +1690,13 @@ def check_detector(gen, card: str) -> int:
         # two settings: the recipe's (score_thresh 0.05, 512 proposals; on random
         # weights no class scores above 0.05, so the mask head does not run) and
         # 11(b)'s (score_thresh 0, 64 proposals: 100 detections with masks per
-        # image, so every head runs); the median and spread of 6 calls each
+        # image, so every head runs); the median and spread of 3 calls each
         x = images.bfloat16()
         settings = {"recipe": {}, "masks": {"score_thresh": 0.0, "max_proposals": 64}}
         wall = {}
         for label, kwargs in settings.items():
             times, counts = {"pallas": [], "xla": []}, {}
-            for impl in ("pallas", "xla", "pallas", "xla"):
+            for impl in ("pallas", "xla"):
                 det.backbone.attn_impl = impl
                 det.detect(x, **kwargs)
                 for _ in range(3):
@@ -2314,16 +2419,17 @@ def write_update_profile(prof: dict, ms: float, what: str, file_name: str, card:
 
 
 def train_cli_full_depth(data: dict, card: str, ms_7b: float) -> dict:
-    """Phase 13(c): the recipe at the 4B geometry (depth 40) through
+    """Phase 13(c): the recipe at the 4B width, depth ``CUT_DEPTH``, through
     ``cli.train`` from no checkpoint (the config's init), B=32, 6 updates
     and one validation over the 64 valid rows; no step saves, no best
     export.  Update 4 runs under torch.profiler, from the end of update 3
     (so the batch's fetch and copy are inside)."""
     import one_peace_tpu_torch.cli.train as train_cli
 
-    save_dir = data["root"] / "depth40"
+    layers = CUT_DEPTH
+    save_dir = data["root"] / f"depth{layers}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    argv = retrieval_argv(data, save_dir, 40, 32, [
+    argv = retrieval_argv(data, save_dir, layers, 32, [
         "optimization.max_update=6", "dataset.validate_interval=2",
         "checkpoint.save_interval=1000", "checkpoint.best_checkpoint_metric=",
         f"common.log_file={save_dir}/log.jsonl"])
@@ -2351,22 +2457,22 @@ def train_cli_full_depth(data: dict, card: str, ms_7b: float) -> dict:
     update_ms = [1e3 * (b["t1"] - a["t1"]) for a, b in zip(steps, steps[1:])]
     steady = [ms for i, ms in enumerate(update_ms, 2) if i not in (4, 6)]  # not profiled or rolled over
     ms = sum(steady) / len(steady)
-    log(f"13(c) cli.train at depth 40, B=32, 6 updates from the config's init in {wall:.1f} s "
+    log(f"13(c) cli.train at depth {layers}, B=32, 6 updates from the config's init in {wall:.1f} s "
         f"(model build, data and validation included) ({card})")
     log(f"13(c) losses {[round(x, 5) for x in losses]}; ms inside train_step "
         f"{[round(x, 1) for x in step_ms]} (update 1 warms up)")
     log(f"13(c) updates 2-6 from data, each from the end of the last (the batch's fetch and "
         f"copy included; 4 profiled, 6 after the epoch's end): "
         f"{[round(x, 1) for x in update_ms]} ms, beside phase 7(b)'s {ms_7b:.1f} ms per step "
-        f"on hand-built batches in this run; steady {ms:.1f} ms per update, "
+        f"at depth 40 on hand-built batches in this run; steady {ms:.1f} ms per update, "
         f"{32 / ms * 1e3:.1f} pairs/s, peak {peak:.1f} GiB ({card})")
     per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
     log(f"13(c) launches per update (#1, #2): {per_update}; validation: "
         f"{[(f, b) for f, b, _ in valid_launches]} over 64 images and 320 texts; "
         f"its stats {[s for _, _, s in valid_launches]}")
     if "wall" in prof:
-        line = write_update_profile(prof, ms, "update 4 of cli.train at depth 40, B=32, from "
-                                    "the end of update 3", "train_cli_profile.txt", card)
+        line = write_update_profile(prof, ms, f"update 4 of cli.train at depth {layers}, B=32, "
+                                    "from the end of update 3", "train_cli_profile.txt", card)
         log(f"13(c) {line} (chiprun_out/train_cli_profile.txt)")
     if not all(map(math.isfinite, losses)) or len(losses) != 6:
         raise RuntimeError(f"13(c): losses {losses}")
@@ -2638,16 +2744,17 @@ def time_host_eval(paths: dict, card: str) -> str:
 
 
 def train_det_cli_full_depth(paths: dict, card: str, ms_12c: float) -> dict:
-    """Phase 14(c): the recipe at depth 40 through ``cli.train`` from the
+    """Phase 14(c): the recipe at depth ``CUT_DEPTH`` through ``cli.train`` from the
     config's init (``init_detector_``), B=2, 6 updates and one validation
     over the 8 valid images; no saves, no best export.  Update 4 runs under
     torch.profiler from the end of update 3.  The det attention must launch
-    80 forward (40 layers and their recompute) and 40 backward per update, as
-    in 12(c), and 40 forward per ``detect()`` in validation (11(b)), no
-    backward."""
-    save_dir = COCO_DIR / "depth40"
+    twice a layer forward (the layers and their recompute) and once backward
+    per update, as in 12(c), and once a layer per ``detect()`` in validation
+    (11(b)), no backward."""
+    layers = CUT_DEPTH
+    save_dir = COCO_DIR / f"depth{layers}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    argv = det_cli_argv(paths, save_dir, 40, ["optimization.max_update=6",
+    argv = det_cli_argv(paths, save_dir, layers, ["optimization.max_update=6",
                                               "dataset.validate_interval_updates=6",
                                               "checkpoint.best_checkpoint_metric="])
     torch.cuda.reset_peak_memory_stats()
@@ -2661,34 +2768,35 @@ def train_det_cli_full_depth(paths: dict, card: str, ms_12c: float) -> dict:
     update_ms = [1e3 * (b["t1"] - a["t1"]) for a, b in zip(steps, steps[1:])]
     steady = [ms for i, ms in enumerate(update_ms, 2) if i != 4]  # 4 is profiled
     ms = sum(steady) / len(steady)
-    log(f"14(c) cli.train at depth 40, B=2, 6 updates from the config's init in {wall:.1f} s "
+    log(f"14(c) cli.train at depth {layers}, B=2, 6 updates from the config's init in {wall:.1f} s "
         f"(model build, data and validation included) ({card})")
     log(f"14(c) losses {[round(x, 5) for x in losses]}; ms inside train_step "
         f"{[round(1e3 * (s['t1'] - s['t0']), 1) for s in steps]} (update 1 warms up)")
     log(f"14(c) updates 2-6 from data, each from the end of the last (the batch's fetch and "
         f"copy included; 4 profiled): {[round(x, 1) for x in update_ms]} ms, beside phase "
-        f"12(c)'s {ms_12c:.1f} ms per step on a hand-built batch in this run; steady "
+        f"12(c)'s {ms_12c:.1f} ms per step at depth 40 on a hand-built batch in this run; steady "
         f"{ms:.1f} ms per update, {2 / ms * 1e3:.2f} images/s, peak {peak:.1f} GiB ({card})")
     per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
     if "wall" in prof:
         line = write_update_profile(prof, ms, "update 4 of cli.train, detection recipe at "
-                                    "depth 40, B=2, from the end of update 3",
+                                    f"depth {layers}, B=2, from the end of update 3",
                                     "det_cli_profile.txt", card)
         log(f"14(c) {line} (chiprun_out/det_cli_profile.txt)")
     calls = -(-8 // 8)  # detect() calls over 8 valid images at the recipe's valid batch
-    log(f"14(c) launches per update (#4, #5/#6): {per_update} (expected [(80, 40)]); "
-        f"validation: {[(r['fwd'], r['bwd']) for r in runs]} (expected {[(40 * calls, 0)]})")
+    want = (2 * layers, layers)
+    log(f"14(c) launches per update (#4, #5/#6): {per_update} (expected [{want}]); "
+        f"validation: {[(r['fwd'], r['bwd']) for r in runs]} (expected {[(layers * calls, 0)]})")
     for r in runs:
         log(f"14(c) validation over 8 images: {validation_line(r)} ({card})")
         log(f"14(c) validation stats {r['stats']}")
     log(f"14(c) host evaluation at 100 detections per image: {time_host_eval(paths, card)}")
     if not all(map(math.isfinite, losses)) or len(losses) != 6:
         raise RuntimeError(f"14(c): losses {losses}")
-    if per_update != [(80, 40)]:
+    if per_update != [want]:
         raise RuntimeError(f"14(c): det attention launches per update {per_update}, "
-                           f"expected [(80, 40)]")
-    if [(r["fwd"], r["bwd"]) for r in runs] != [(40 * calls, 0)]:
-        raise RuntimeError("14(c): validation launches differ from 40 per detect() call")
+                           f"expected [{want}]")
+    if [(r["fwd"], r["bwd"]) for r in runs] != [(layers * calls, 0)]:
+        raise RuntimeError(f"14(c): validation launches differ from {layers} per detect() call")
     return {"ms": ms, "peak_gib": peak, "launches": per_update, "losses": losses,
             "valid": {k: v for k, v in runs[0].items() if k != "masters"}}
 
@@ -2807,7 +2915,31 @@ def classify_logits(hub, head: str, inputs: dict) -> torch.Tensor:
         return hub.model(**inputs)
 
 
-def serve_classify(card: str) -> dict:
+def write_classify_hub_pts(work: Path) -> tuple:
+    """15(a)'s set-up: a BPE set and, per head, a 2-layer full-width fairseq
+    ``.pt`` under ``work``: the trunk from ``make_random_state_dict`` (seed
+    15) without the branches the head does not use, and a seeded head."""
+    work.mkdir(parents=True, exist_ok=True)
+    bpe = write_bpe_dir(work / "bpe")
+    base = ModelConfig(head_type="val")
+    base.encoder.layers = 2
+    enc = base.encoder
+    trunk = make_random_state_dict(base, seed=15)
+    pts = {}
+    for task, (head, px, classes, kw) in CLASSIFY_HEADS.items():
+        drop = [m for m in ("text", "image", "audio") if m not in HEAD_MODALITIES[head]]
+        sd = {k: v for k, v in trunk.items()
+              if not any(f".{m}_{part}" in k for m in drop
+                         for part in ("adapter.", "ffn.", "layer_norm."))}
+        sd.update(classify_head_state(enc.embed_dim, enc.attention_heads, classes,
+                                      kw.get("attn_pooling", False), seed=len(task)))
+        pts[task] = work / f"{task}.pt"
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, pts[task])
+        del sd
+    return bpe, pts
+
+
+def serve_classify(card: str, prep: "Prep") -> dict:
     """Phase 15(a): classify serving at full width through the hub.  A
     2-layer full-width fairseq ``.pt`` per head (the trunk's branches the
     head uses, 16 x 16 pretrained image tables, a seeded head), loaded by
@@ -2817,28 +2949,15 @@ def serve_classify(card: str) -> dict:
     >= 1-1e-6 / 0.999), 2 launches of #1 per forward; then quantize="ffn",
     the int8 kernels against the plain int8 path, with their launches.
     Returns the int8 kernels' launches over the kernel-path forwards."""
-    work = ROOT / "build" / "smoke_classify_hub"
-    work.mkdir(parents=True, exist_ok=True)
-    bpe = write_bpe_dir(work / "bpe")
     base = ModelConfig(head_type="val")
     base.encoder.layers = 2
     enc = base.encoder
-    t0 = time.time()
-    trunk = make_random_state_dict(base, seed=15)
-    log(f"15(a) seeded a 2-layer full-width fairseq trunk in {time.time() - t0:.1f} s")
+    bpe, pts = prep.take("15(a)", "the heads' 2-layer full-width fairseq .pt files")
     rng = np.random.RandomState(151)
     launched = {"gemm": 0, "quantize": 0}
     bounds = {"float32": 1 - 1e-6, "bf16": 0.999}
     for task, (head, px, classes, kw) in CLASSIFY_HEADS.items():
-        drop = [m for m in ("text", "image", "audio") if m not in HEAD_MODALITIES[head]]
-        sd = {k: v for k, v in trunk.items()
-              if not any(f".{m}_{part}" in k for m in drop
-                         for part in ("adapter.", "ffn.", "layer_norm."))}
-        sd.update(classify_head_state(enc.embed_dim, enc.attention_heads, classes,
-                                      kw.get("attn_pooling", False), seed=len(task)))
-        pt = work / f"{task}.pt"
-        torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, pt)
-        del sd
+        pt = pts[task]
         cfg = copy.deepcopy(base)
         cfg._name, cfg.head_type = "one_peace_classify", head
         cfg.encoder.image_adapter.rel_bucket_size = px // 16
@@ -3117,18 +3236,19 @@ def check_classify_cli(data: dict, card: str, layers: int = 2) -> dict:
 
 
 def train_classify_full_depth(data: dict, card: str) -> dict:
-    """Phase 15(d): the image_classify recipe at depth 40, 384 px, through
+    """Phase 15(d): the image_classify recipe at depth ``CUT_DEPTH``, 384 px, through
     ``cli.train`` from the config's init: B=32 (Mixup + CutMix, label
     smoothing 0.1), 6 updates over 96 train images (3 an epoch) and one
     validation over the 64 valid images at the end of epoch 2, no saves.
     Update 5 runs under torch.profiler from the end of update 4.  #1 must
-    launch 80 times and #2 40 times per update (remat), #1 40 times per
-    valid forward and #2 never in validation; the loss must fall."""
+    launch twice a layer and #2 once a layer per update (remat), #1 once a
+    layer per valid forward and #2 never in validation; the loss must fall."""
     import one_peace_tpu_torch.cli.train as train_cli
 
-    save_dir = CLASSIFY_DIR / "image_classify_depth40"
+    layers = CUT_DEPTH
+    save_dir = CLASSIFY_DIR / f"image_classify_depth{layers}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    argv = classify_argv(data, "image_classify", save_dir, 40, 32, [
+    argv = classify_argv(data, "image_classify", save_dir, layers, 32, [
         "optimization.max_update=6", "dataset.validate_interval=2",
         "checkpoint.best_checkpoint_metric="])
     valid = []
@@ -3159,7 +3279,7 @@ def train_classify_full_depth(data: dict, card: str) -> dict:
     cfg = load_config(str(CLASSIFY_RECIPES["image_classify"]), argv[4:])
     flops = 4 * analytic_flops(cfg.model, 577, 32, "image", image_size=384)
     tflops = flops / ms / 1e9
-    log(f"15(d) cli.train, image_classify at depth 40, 384 px, B=32, 6 updates from the "
+    log(f"15(d) cli.train, image_classify at depth {layers}, 384 px, B=32, 6 updates from the "
         f"config's init in {wall:.1f} s (model build, data and validation included) ({card})")
     log(f"15(d) losses {[round(x, 5) for x in losses]}; ms inside train_step "
         f"{[round(1e3 * (s['t1'] - s['t0']), 1) for s in steps]} (update 1 warms up)")
@@ -3169,21 +3289,22 @@ def train_classify_full_depth(data: dict, card: str) -> dict:
         f"{100 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% MFU of {H100_BF16_PEAK_TFLOPS:.0f}, peak "
         f"{peak:.1f} GiB ({card})")
     per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
-    log(f"15(d) launches per update (#1, #2): {per_update} (expected [(80, 40)]); validation: "
-        f"{[(f, b) for f, b, _, _ in valid]} over 64 images (expected [(40, 0)]) in "
+    want = (2 * layers, layers)
+    log(f"15(d) launches per update (#1, #2): {per_update} (expected [{want}]); validation: "
+        f"{[(f, b) for f, b, _, _ in valid]} over 64 images (expected [({layers}, 0)]) in "
         f"{[round(w, 1) for _, _, w, _ in valid]} ms; its stats {[v[3] for v in valid]}")
     if "wall" in prof:
         line = write_update_profile(prof, ms, "update 5 of cli.train, image_classify at depth "
-                                    "40, 384 px, B=32, from the end of update 4",
+                                    f"{layers}, 384 px, B=32, from the end of update 4",
                                     "classify_cli_profile.txt", card)
         log(f"15(d) {line} (chiprun_out/classify_cli_profile.txt)")
     if not all(map(math.isfinite, losses)) or len(losses) != 6:
         raise RuntimeError(f"15(d): losses {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"15(d): the loss did not fall: {losses}")
-    if per_update != [(80, 40)]:
-        raise RuntimeError(f"15(d): launches per update {per_update}, expected [(80, 40)]")
-    if [(f, b) for f, b, _, _ in valid] != [(40, 0)]:
+    if per_update != [want]:
+        raise RuntimeError(f"15(d): launches per update {per_update}, expected [{want}]")
+    if [(f, b) for f, b, _, _ in valid] != [(layers, 0)]:
         raise RuntimeError(f"15(d): validation launches {[(f, b) for f, b, _, _ in valid]}")
     return {"ms": ms, "peak_gib": peak, "losses": losses, "mfu": tflops / H100_BF16_PEAK_TFLOPS}
 
@@ -3603,7 +3724,7 @@ def index_backward_share(prof: dict) -> str:
 
 
 def train_pretrain_full_depth(data: dict, stage: str, card: str) -> dict:
-    """Phase 16(d): the stage's recipe at depth 40 through ``cli.train``
+    """Phase 16(d): the stage's recipe at depth ``CUT_DEPTH`` through ``cli.train``
     from the config's init (AL with its stage-2 freezing), ``PRETRAIN_UPDATES``
     updates (VL at B=32, AL at B=16 on 14-15 s clips), no validation, no
     saves.  Update 5 runs under torch.profiler from the end of update 4
@@ -3612,9 +3733,10 @@ def train_pretrain_full_depth(data: dict, stage: str, card: str) -> dict:
     per update as ``pretrain_launches`` says (remat); the losses must be
     finite."""
     batch = 32 if stage == "vl" else 16
-    save_dir = PRETRAIN_DIR / f"{stage}_depth40"
+    layers = CUT_DEPTH
+    save_dir = PRETRAIN_DIR / f"{stage}_depth{layers}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    argv = pretrain_argv(data, stage, save_dir, 40, batch, [
+    argv = pretrain_argv(data, stage, save_dir, layers, batch, [
         f"optimization.max_update={PRETRAIN_UPDATES}", "dataset.disable_validation=true",
         "checkpoint.best_checkpoint_metric="])
     gc.collect()
@@ -3639,7 +3761,7 @@ def train_pretrain_full_depth(data: dict, stage: str, card: str) -> dict:
     flops = pretrain_update_flops(cfg, shapes, stage)
     tflops = flops / ms / 1e9
     what = "pairs" if stage == "vl" else "clips"
-    log(f"16(d) cli.train, {stage.upper()} pretrain at depth 40, B={batch}, {PRETRAIN_UPDATES} "
+    log(f"16(d) cli.train, {stage.upper()} pretrain at depth {layers}, B={batch}, {PRETRAIN_UPDATES} "
         f"updates from the "
         f"config's init in {wall:.1f} s (model build and data included) ({card})")
     log(f"16(d) {stage} losses {[round(x, 5) for x in losses]}; ms inside train_step "
@@ -3653,11 +3775,11 @@ def train_pretrain_full_depth(data: dict, stage: str, card: str) -> dict:
         f"{tflops:.1f} TFLOP/s = {100 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% MFU of "
         f"{H100_BF16_PEAK_TFLOPS:.0f}, peak {peak:.1f} GiB ({card})")
     per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
-    want = pretrain_launches(stage, 40, 2, True)
+    want = pretrain_launches(stage, layers, 2, True)
     log(f"16(d) {stage} launches per update (#1, #2): {per_update} (expected [{want}])")
     if "wall" in prof:
         line = write_update_profile(prof, ms, f"update 5 of cli.train, {stage.upper()} pretrain "
-                                    f"at depth 40, B={batch}, from the end of update 4",
+                                    f"at depth {layers}, B={batch}, from the end of update 4",
                                     f"pretrain_{stage}_profile.txt", card)
         log(f"16(d) {stage} {line} (pretrain_{stage}_profile.txt); "
             f"{index_backward_share(prof)}")
@@ -4005,18 +4127,13 @@ def recorded_miou():
         MIoU.merge_results = merge
 
 
-def check_seg_cli(card: str, layers: int = 4) -> None:
-    """Phase 17(d): a synthetic ADE20K tree under ``build/smoke_ade/``, a
-    fairseq ``.pt`` of the 4B encoder at ``layers`` from
-    ``make_random_state_dict`` (16 x 16 pretrain tables), and ``cli.evaluate``
-    on the Mask2Former recipe at ``layers`` from it under the whole, slide and
-    ms_flip protocols; the whole protocol's mIoU must equal a direct
-    ``valid_step`` loop on the same weights to 1e-6, and its per-class
-    intersection and union counts must be the same (random weights may give
-    an mIoU of 0)."""
-    from one_peace_tpu_torch.cli import evaluate as port_evaluate
+SEG_EVAL_LAYERS = 4  # 17(d)'s depth: the adapter's four interactions
 
-    t0 = time.time()
+
+def write_seg_eval_setup(layers: int) -> tuple:
+    """17(d)'s set-up: a synthetic ADE20K tree under ``build/smoke_ade/`` and
+    a fairseq ``.pt`` of the 4B encoder at ``layers`` from
+    ``make_random_state_dict`` (seed 17, 16 x 16 pretrain tables)."""
     specs = write_ade_corpus(ADE_DIR, 2, 2)
     mcfg = ModelConfig(head_type="val")
     mcfg.encoder.layers = layers
@@ -4032,8 +4149,21 @@ def check_seg_cli(card: str, layers: int = 4) -> None:
     torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()
                           if not k.startswith(unread)
                           and ".text_ffn." not in k and ".audio_ffn." not in k}}, pt)
-    del sd
-    log(f"17(d) corpus and a {layers}-layer fairseq .pt written in {time.time() - t0:.1f} s")
+    return specs, pt
+
+
+def check_seg_cli(card: str, prep: "Prep", layers: int = SEG_EVAL_LAYERS) -> None:
+    """Phase 17(d): a synthetic ADE20K tree under ``build/smoke_ade/``, a
+    fairseq ``.pt`` of the 4B encoder at ``layers`` from
+    ``make_random_state_dict`` (16 x 16 pretrain tables), and ``cli.evaluate``
+    on the Mask2Former recipe at ``layers`` from it under the whole, slide and
+    ms_flip protocols; the whole protocol's mIoU must equal a direct
+    ``valid_step`` loop on the same weights to 1e-6, and its per-class
+    intersection and union counts must be the same (random weights may give
+    an mIoU of 0)."""
+    from one_peace_tpu_torch.cli import evaluate as port_evaluate
+
+    specs, pt = prep.take("17(d)", f"the corpus and a {layers}-layer fairseq .pt")
     overrides = [f"task.data={specs['train']}", f"task.valid_data={specs['valid']}",
                  f"model.encoder.layers={layers}", "dataset.batch_size_valid=2"]
     results, counts = {}, {}
@@ -4259,7 +4389,7 @@ def direct_miou(overrides: list, path: Path, dtype=None) -> tuple:
     return stats, seen[-1]
 
 
-def check_seg_train_cli(card: str, layers: int = 4) -> dict:
+def check_seg_train_cli(card: str, prep: "Prep", layers: int = 4) -> dict:
     """Phase 18(c): a synthetic ADE20K tree under ``build/smoke_ade_train/``
     (6 train images, 3 batches of 2 an epoch; 2 valid), and the Mask2Former
     recipe through ``cli.train`` at full width and depth ``layers`` in fp32,
@@ -4279,8 +4409,8 @@ def check_seg_train_cli(card: str, layers: int = 4) -> dict:
     from one_peace_tpu_torch.cli import evaluate as evaluate_cli
     from one_peace_tpu_torch.utils import native_checkpoint as ckpt
 
+    specs = prep.take("18(c)", "the corpus")
     t0 = time.time()
-    specs = write_ade_corpus(SEG_TRAIN_DIR, 6, 2)
     runs = {"straight": SEG_TRAIN_DIR / "straight", "resumed": SEG_TRAIN_DIR / "resumed"}
     for d in runs.values():
         shutil.rmtree(d, ignore_errors=True)
@@ -4310,7 +4440,7 @@ def check_seg_train_cli(card: str, layers: int = 4) -> dict:
     log(f"18(c) Mask2Former depth {layers} fp32, B=2: update losses straight {straight}, "
         f"repeated to the end of epoch 1 {repeat} (largest relative difference {spread:.2e}), "
         f"updates 3-4 resumed from the save at update 2 (mid-epoch) {resumed} (largest "
-        f"relative difference {off:.2e}) ({time.time() - t0:.1f} s with the corpus)")
+        f"relative difference {off:.2e}) ({time.time() - t0:.1f} s for the three runs)")
     a = ckpt.restore_train_state(str(runs["straight"] / "step_4"))["trainer"]["params"]
     b = ckpt.restore_train_state(str(runs["resumed"] / "step_4"))["trainer"]["params"]
     dot = na = nb = diff = 0.0
@@ -4382,20 +4512,21 @@ def gather_backward_share(prof: dict) -> str:
 
 
 def train_seg_full_depth(card: str) -> dict:
-    """Phase 18(d): the Mask2Former recipe at depth 40 through ``load_config``
-    and ``cli.train`` from the config's init (1.9B parameters: fp32 masters,
+    """Phase 18(d): the Mask2Former recipe at depth ``CUT_DEPTH`` through
+    ``load_config`` and ``cli.train`` from the config's init (fp32 masters,
     AdamW, layer decay 0.95 with one lr per rel-pos table), bf16, remat, B=2,
     ``SEG_TRAIN_UPDATES`` updates from 18(c)'s files, no validation, no saves.
     Update 3 runs under torch.profiler from the end of update 2 (the idle
     share, the top device ops, the bias gathers' backward, #1, #2 and the
     matching's host time); ``ms`` is the median of the other updates after
-    the first that do not open an epoch.  #1 launches 80 times an update
-    (forward and recompute) and #2 40; the losses must be finite."""
+    the first that do not open an epoch.  #1 launches twice a layer an
+    update (forward and recompute) and #2 once; the losses must be finite."""
     specs = {"train": f"{SEG_TRAIN_DIR}/images/training:{SEG_TRAIN_DIR}/annotations/training",
              "valid": ""}
-    save_dir = SEG_TRAIN_DIR / "depth40"
+    layers = CUT_DEPTH
+    save_dir = SEG_TRAIN_DIR / f"depth{layers}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    argv = seg_train_argv(specs, save_dir, 40, [
+    argv = seg_train_argv(specs, save_dir, layers, [
         f"optimization.max_update={SEG_TRAIN_UPDATES}", "checkpoint.best_checkpoint_metric=",
         "checkpoint.save_interval=1000", "checkpoint.save_interval_updates=0"])
     gc.collect()
@@ -4414,7 +4545,7 @@ def train_seg_full_depth(card: str) -> dict:
     cfg = load_config(argv[1], argv[4:])
     flops = seg_update_flops(cfg, 2)
     tflops = flops / ms / 1e9
-    log(f"18(d) cli.train, the Mask2Former recipe at depth 40, B=2, bf16, {SEG_TRAIN_UPDATES} "
+    log(f"18(d) cli.train, the Mask2Former recipe at depth {layers}, B=2, bf16, {SEG_TRAIN_UPDATES} "
         f"updates from the config's init in {wall:.1f} s (model build and data included) "
         f"({card})")
     log(f"18(d) losses {[round(x, 5) for x in losses]}; ms inside train_step "
@@ -4426,10 +4557,11 @@ def train_seg_full_depth(card: str) -> dict:
         f"{100 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% MFU of {H100_BF16_PEAK_TFLOPS:.0f}, peak "
         f"{peak:.1f} GiB ({card})")
     per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
-    log(f"18(d) launches per update (#1, #2): {per_update} (expected [(80, 40)])")
+    want = (2 * layers, layers)
+    log(f"18(d) launches per update (#1, #2): {per_update} (expected [{want}])")
     if "wall" in prof:
         line = write_update_profile(prof, ms, "update 3 of cli.train, the Mask2Former recipe "
-                                    "at depth 40, B=2, from the end of update 2",
+                                    f"at depth {layers}, B=2, from the end of update 2",
                                     "seg_train_profile.txt", card)
         log(f"18(d) {line} (seg_train_profile.txt); {gather_backward_share(prof)}")
         table = device_table(update_averages(prof), profile_busy_ms(prof), 12)
@@ -4437,8 +4569,8 @@ def train_seg_full_depth(card: str) -> dict:
             log(f"  {row}")
     if not all(map(math.isfinite, losses)) or len(losses) != SEG_TRAIN_UPDATES:
         raise RuntimeError(f"18(d): losses {losses}")
-    if per_update != [(80, 40)]:
-        raise RuntimeError(f"18(d): launches per update {per_update}, expected (80, 40)")
+    if per_update != [want]:
+        raise RuntimeError(f"18(d): launches per update {per_update}, expected {want}")
     gc.collect()
     torch.cuda.empty_cache()
     return {"ms": ms, "peak_gib": peak, "losses": losses, "mfu": tflops / H100_BF16_PEAK_TFLOPS}
@@ -4826,8 +4958,8 @@ def video_update_flops(b: int, layers: int = 40, d: int = 1536, f: int = 6144) -
 
 
 def train_video_full_depth(corpus: dict, card: str) -> dict:
-    """Phase 19(d): the recipe at depth 40 through ``cli.train`` from the
-    config's init (1.5B parameters; the trunk frozen, AdamW over the
+    """Phase 19(d): the recipe at depth ``CUT_DEPTH`` through ``cli.train``
+    from the config's init (the trunk frozen, AdamW over the
     adapters, the temporal embedding, the rel-pos table, the norm and the
     head), bf16, remat, B=8 clips of 32 frames at 256 px (RandomResizedCrop
     and colour jitter on the host), ``K400_UPDATES`` updates from 19(c)'s
@@ -4836,13 +4968,15 @@ def train_video_full_depth(corpus: dict, card: str) -> dict:
     batch's decoding overlaps the first's forwards;
     ``K400VideoTask.VIEWS_PER_FORWARD`` views a forward), no saves.  Update 3 runs under torch.profiler from the end of update 2;
     ``ms`` is the median of the other updates after the first that do not
-    open an epoch (3 batches an epoch).  #1 launches 160 times an update
-    (forward and recompute) and #2 80; the losses must be finite."""
+    open an epoch (3 batches an epoch).  #1 launches 4 times a layer an
+    update (temporal and spatial, forward and recompute) and #2 twice; the
+    losses must be finite."""
     import one_peace_tpu_torch.cli.train as train_cli
 
-    save_dir = K400_DIR / "depth40"
+    layers = CUT_DEPTH
+    save_dir = K400_DIR / f"depth{layers}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    argv = k400_argv(corpus, corpus["train"], save_dir, 40, [
+    argv = k400_argv(corpus, corpus["train"], save_dir, layers, [
         f"optimization.max_update={K400_UPDATES}", "checkpoint.best_checkpoint_metric=",
         "checkpoint.save_interval=1000", "checkpoint.save_interval_updates=0",
         "dataset.validate_interval=1000", f"dataset.validate_interval_updates={K400_UPDATES}",
@@ -4877,10 +5011,10 @@ def train_video_full_depth(corpus: dict, card: str) -> dict:
     rolled = 4  # 3 batches an epoch: update 4 opens epoch 2
     steady = [ms for i, ms in enumerate(update_ms, 2) if i not in (3, rolled)]
     ms = statistics.median(steady)
-    flops = video_update_flops(8)
+    flops = video_update_flops(8, layers)
     tflops = flops / ms / 1e9
     v = valid[0] if valid else {}
-    log(f"19(d) cli.train, the K400 recipe at depth 40, B=8 clips of 32 frames, bf16, "
+    log(f"19(d) cli.train, the K400 recipe at depth {layers}, B=8 clips of 32 frames, bf16, "
         f"{K400_UPDATES} updates from the config's init and one validation in {wall:.1f} s "
         f"(model build and data included) ({card})")
     log(f"19(d) losses {[round(x, 5) for x in losses]}; ms inside train_step "
@@ -4892,7 +5026,8 @@ def train_video_full_depth(corpus: dict, card: str) -> dict:
         f"{100 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% MFU of {H100_BF16_PEAK_TFLOPS:.0f}, peak "
         f"{v.get('train_peak', float('nan')):.1f} GiB ({card})")
     per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
-    log(f"19(d) launches per update (#1, #2): {per_update} (expected [(160, 80)])")
+    want = (4 * layers, 2 * layers)
+    log(f"19(d) launches per update (#1, #2): {per_update} (expected [{want}])")
     if v:
         log(f"19(d) validation over 8 clips (72 views, {K400_FRAMES} frames each, 2 batches): "
             f"{v['ms']:.1f} ms, {v['ms'] / 8:.1f} ms per clip (decoding included), peak "
@@ -4900,7 +5035,7 @@ def train_video_full_depth(corpus: dict, card: str) -> dict:
             f"{v['bwd']}; {v['stats']} ({card})")
     if "wall" in prof:
         line = write_update_profile(prof, ms, "update 3 of cli.train, the K400 recipe at depth "
-                                    "40, B=8, from the end of update 2",
+                                    f"{layers}, B=8, from the end of update 2",
                                     "video_train_profile.txt", card)
         events = update_averages(prof)
         busy = profile_busy_ms(prof)
@@ -4915,11 +5050,11 @@ def train_video_full_depth(corpus: dict, card: str) -> dict:
             log(f"  {row}")
     if not all(map(math.isfinite, losses)) or len(losses) != K400_UPDATES:
         raise RuntimeError(f"19(d): losses {losses}")
-    if per_update != [(160, 80)]:
-        raise RuntimeError(f"19(d): launches per update {per_update}, expected (160, 80)")
+    if per_update != [want]:
+        raise RuntimeError(f"19(d): launches per update {per_update}, expected {want}")
     from one_peace_tpu_torch.tasks.vision_tasks import K400VideoTask
 
-    want = 2 * math.ceil(4 * 9 / K400VideoTask.VIEWS_PER_FORWARD) * 80
+    want = 2 * math.ceil(4 * 9 / K400VideoTask.VIEWS_PER_FORWARD) * 2 * layers
     if len(valid) != 1 or valid[0]["fwd"] != want or valid[0]["bwd"] != 0:
         raise RuntimeError(f"19(d): validations {[(x['fwd'], x['bwd']) for x in valid]}, "
                            f"expected one of {want} / 0 launches")
@@ -5097,7 +5232,7 @@ def no_further_than_plain(kernel: list, plain: list) -> tuple:
 
 
 def check_classify_rest_train_paths() -> None:
-    """Phase 20(b): each task's criterion at 4 layers, full width, through
+    """Phase 20(b): each task's criterion at 2 layers, full width, through
     ``Trainer``, kernel path against plain path on the same weights and
     batch, for 8 seeds: each draws the weights and a batch of 8 examples
     (NLVR2 pairs, RefCOCO images, AQA questions of 4 choices, FSD50K
@@ -5116,7 +5251,7 @@ def check_classify_rest_train_paths() -> None:
     rounding alone, on either path, further than those rules allow
     (``PERF.md`` section 6).  #1 and #2 launch once per layer and image
     (NLVR2: twice) on the kernel path, never on the plain path."""
-    seeds = range(2030, 2038)
+    seeds, layers = range(2030, 2038), 2
     for task in CLASSIFY_REST_HEADS:
         t0 = time.time()
         torch.cuda.reset_peak_memory_stats()
@@ -5126,7 +5261,7 @@ def check_classify_rest_train_paths() -> None:
             batch = classify_rest_batch(task, np.random.RandomState(seed))
             runs = {}
             for bf16 in (False, True):  # one trainer at a time: AQA's fp32 path peaks near 70 GiB
-                trainer = classify_rest_trainer(task, 4, bf16, seed)
+                trainer = classify_rest_trainer(task, layers, bf16, seed)
                 names = trainer._names
                 for impl in ("pallas", "xla"):
                     trainer.model.cfg.encoder.attn_impl = impl
@@ -5134,7 +5269,7 @@ def check_classify_rest_train_paths() -> None:
                     metrics, grads = trainer.gradients(batch)
                     torch.cuda.synchronize()
                     launched = (fa.launches - before[0], fa.bwd_launches - before[1])
-                    want = (4 * passes, 4 * passes) if impl == "pallas" else (0, 0)
+                    want = (layers * passes,) * 2 if impl == "pallas" else (0, 0)
                     name = "bf16" if bf16 else "fp32"
                     if launched != want:
                         raise RuntimeError(f"20(b) {task} {name} {impl}: launches {launched}, "
@@ -5147,7 +5282,7 @@ def check_classify_rest_train_paths() -> None:
             (loss_k, grads_k), (loss_p, grads_p) = runs["fp32", "pallas"], runs["fp32", "xla"]
             cos = grad_cosines(grads_k, grads_p)
             worst = min(range(len(cos)), key=cos.__getitem__)
-            log(f"20(b) {task} fp32 4 layers seed {seed} "
+            log(f"20(b) {task} fp32 {layers} layers seed {seed} "
                 f"{ {k: tuple(v.shape) for k, v in batch.items()} }: loss kernel "
                 f"{loss_k:.7f} plain {loss_p:.7f}; gradient cosine kernel vs plain per "
                 f"parameter min {cos[worst]:.9f} ({names[worst]}), {len(cos)} parameters")
@@ -5274,17 +5409,18 @@ NLVR2_UPDATES = 5  # 20(d)'s window: update 1 warms up, 2-4 steady, 5 profiled
 
 
 def train_nlvr2_full_depth(data: dict, card: str) -> dict:
-    """Phase 20(d): the NLVR2 recipe at depth 40, 384 px, through
+    """Phase 20(d): the NLVR2 recipe at depth ``CUT_DEPTH``, 384 px, through
     ``cli.train`` from the config's init: B=16 pairs (32 sequences of
     L=647), bf16 over fp32 masters, remat, the train split's distortion,
     blur, flip and RandAugment on the host, ``NLVR2_UPDATES`` updates within
     one epoch, no validation, no saves.  Update 5 runs under torch.profiler
     from the end of update 4; ``ms`` is the median of updates 2-4.  #1 must
-    launch 160 times and #2 80 times an update (two images a pair, remat);
-    the losses must be finite."""
-    save_dir = CLASSIFY_REST_DIR / "nlvr2_depth40"
+    launch 4 times a layer and #2 twice a layer an update (two images a pair,
+    remat); the losses must be finite."""
+    layers = CUT_DEPTH
+    save_dir = CLASSIFY_REST_DIR / f"nlvr2_depth{layers}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    argv = classify_rest_argv(data, "nlvr2", save_dir, 40, 16, [
+    argv = classify_rest_argv(data, "nlvr2", save_dir, layers, 16, [
         f"optimization.max_update={NLVR2_UPDATES}", "dataset.disable_validation=true",
         "checkpoint.best_checkpoint_metric="])
     gc.collect()
@@ -5303,7 +5439,7 @@ def train_nlvr2_full_depth(data: dict, card: str) -> dict:
     forward = analytic_flops(cfg.model, 647, 32, "image", image_size=384)
     flops = 3 * forward  # forward and backward; remat's recompute not counted
     tflops = flops / ms / 1e9
-    log(f"20(d) cli.train, the NLVR2 recipe at depth 40, 384 px, B=16 pairs (32 sequences of "
+    log(f"20(d) cli.train, the NLVR2 recipe at depth {layers}, 384 px, B=16 pairs (32 sequences of "
         f"L=647), bf16, remat, {NLVR2_UPDATES} updates from the config's init in {wall:.1f} s "
         f"(model build and data included) ({card})")
     log(f"20(d) losses {[round(x, 5) for x in losses]}; ms inside train_step "
@@ -5316,10 +5452,11 @@ def train_nlvr2_full_depth(data: dict, card: str) -> dict:
         f"{H100_BF16_PEAK_TFLOPS:.0f} ({100 * 4 / 3 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% with "
         f"the recompute counted, as 15(d) counts it), peak {peak:.1f} GiB ({card})")
     per_update = sorted({(s["fwd"], s["bwd"]) for s in steps})
-    log(f"20(d) launches per update (#1, #2): {per_update} (expected [(160, 80)])")
+    want = (4 * layers, 2 * layers)
+    log(f"20(d) launches per update (#1, #2): {per_update} (expected [{want}])")
     if "wall" in prof:
         line = write_update_profile(prof, ms, f"update {NLVR2_UPDATES} of cli.train, the NLVR2 "
-                                    f"recipe at depth 40, 384 px, B=16 pairs, from the end of "
+                                    f"recipe at depth {layers}, 384 px, B=16 pairs, from the end of "
                                     f"update {NLVR2_UPDATES - 1}", "nlvr2_train_profile.txt", card)
         events = update_averages(prof)
         busy = profile_busy_ms(prof)
@@ -5334,11 +5471,814 @@ def train_nlvr2_full_depth(data: dict, card: str) -> dict:
             log(f"  {row}")
     if not all(map(math.isfinite, losses)) or len(losses) != NLVR2_UPDATES:
         raise RuntimeError(f"20(d): losses {losses}")
-    if per_update != [(160, 80)]:
-        raise RuntimeError(f"20(d): launches per update {per_update}, expected [(160, 80)]")
+    if per_update != [want]:
+        raise RuntimeError(f"20(d): launches per update {per_update}, expected [{want}]")
     gc.collect()
     torch.cuda.empty_cache()
     return {"ms": ms, "peak_gib": peak, "losses": losses, "mfu": tflops / H100_BF16_PEAK_TFLOPS}
+
+
+# ---------------------------------------------------------------------------
+# 21. fp16: the fp16 arms of #1/#2 and #3/3b, 4B embeddings, the retrieval
+# step with loss scaling and the EMA, the remat policies, Adan, the CLI
+# ---------------------------------------------------------------------------
+
+# fp16 keeps 10 mantissa bits to bf16's 7: its bounds are bf16's over 5
+FP16_MAX_ERR, FP16_MEAN_ERR = BF16_MAX_ERR / 5, BF16_MEAN_ERR / 5
+FP16_BWD_MAX, FP16_BWD_MEAN = 2e-2 / 5, 5e-3 / 5  # phase 6's bf16 relative bounds over 5
+FP16_ATTENTION = [  # (B, L, bias form, pads, what, backward too): every branch of both plans
+    (256, 257, "shared", None, "image", False), (32, 500, "shared", None, "audio", False),
+    (32, 257, "shared", None, "image training", True),
+    (32, 71, "shared", "text", "text", True), (4, 971, "shared", None, "VQA's vl", True),
+    (4, 500, "shared", [0, 137, 0, 60], "audio pads", True),
+    (2, 90, "batched", [3, 0], "per-sample bias", True),
+    (2, 100, "shared", [0, 9], "key pads", True)]
+
+
+def fp16_operands(b: int, l: int, form: str, pads, gen, heads: int = 24) -> tuple:
+    """fp32 q, k, v, g (B, L, H*64), the fp32 bias (shared or per-sample) and
+    the key bias (text pads, the given pad counts per row, or None)."""
+    q, k, v, g = (torch.randn(b, l, heads * 64, generator=gen, device="cuda")
+                  for _ in range(4))
+    shape = (heads, l, l) if form == "shared" else (b, heads, l, l)
+    bias = torch.randn(shape, generator=gen, device="cuda")
+    if pads is None:
+        return q, k, v, g, bias, None
+    if pads == "text":
+        mask = text_pad_mask(b, l)
+    else:
+        mask = torch.zeros(b, l, dtype=torch.bool, device="cuda")
+        for row, n in enumerate(pads):
+            if n:
+                mask[row, l - n:] = True
+    return q, k, v, g, bias, torch.zeros(b, l, device="cuda").masked_fill(mask, fa.NEG_INF)
+
+
+def attention_errors(q, k, v, g, bias, key_bias, dtype, heads: int = 24) -> tuple:
+    """The kernels in ``dtype`` on the inputs rounded to it, against the
+    plain versions in fp32 on the same rounded inputs: the forward's max and
+    mean |diff|, and each gradient's max and mean |diff| relative to the
+    plain one's and the max |diff| (None without g).  The backward runs twice from the
+    forward's statistics and must be bit-equal; the output written with the
+    statistics must equal the one without."""
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    out, stats = fa.flash_attention_cuda(q, k, v, bias, key_bias, 0.125, heads,
+                                         with_stats=True)
+    alone = fa.flash_attention_cuda(q, k, v, bias, key_bias, 0.125, heads)
+    want = fa.flash_attention_plain(*(x.float() for x in (q, k, v)), bias, key_bias, 0.125,
+                                    heads)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all() or not torch.equal(out, alone):
+        raise RuntimeError(f"{dtype} forward: not finite, or the output written with the "
+                           f"statistics differs")
+    err = (out.float() - want).abs()
+    fwd = (err.max().item(), err.mean().item())
+    if g is None:
+        return fwd, None
+    g = g.to(dtype)
+    got = fa.flash_attention_bwd_cuda(q, k, v, g, bias, key_bias, 0.125, heads, stats=stats)
+    again = fa.flash_attention_bwd_cuda(q, k, v, g, bias, key_bias, 0.125, heads, stats=stats)
+    plain = fa.flash_attention_bwd_plain(*(x.float() for x in (q, k, v, g)), bias, key_bias,
+                                         0.125, heads)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again) if x is not None):
+        raise RuntimeError(f"{dtype} backward: two calls differ")
+    rel = []
+    for x, y in zip(got, plain):
+        if y is None:
+            continue
+        if not torch.isfinite(x).all():
+            raise RuntimeError(f"{dtype} backward: not finite")
+        d = (x.float() - y).abs()
+        rel.append((d.max().item() / y.abs().max().item(),
+                    d.mean().item() / y.abs().mean().item(), d.max().item()))
+    return fwd, rel
+
+
+def check_fp16_attention() -> tuple:
+    """21(a): #1 and #2 in fp16 against their plain versions at the main
+    path's shapes (``FP16_ATTENTION``: every branch of ``tile_plan`` and
+    ``bwd_plan``, last key tiles 16, 32, 48 and 64 wide, text and key pads,
+    the shared and the per-sample bias, d(bias) in the slab and in device
+    memory), with bounds a fifth of bf16's; beside each, the bf16 kernels'
+    errors on the same fp32 inputs.  Returns the fp16 forward's and
+    backward's largest max |diff|."""
+    gen = torch.Generator(device="cuda").manual_seed(211)
+    branches, fwd_worst, bwd_worst = set(), 0.0, 0.0
+    for b, l, form, pads, what, with_bwd in FP16_ATTENTION:
+        q, k, v, g, bias, key_bias = fp16_operands(b, l, form, pads, gen)
+        g = g if with_bwd else None
+        f16, b16 = (attention_errors(q, k, v, g, bias, key_bias, dt)
+                    for dt in (torch.float16, torch.bfloat16))
+        plan, bplan = fa.tile_plan(l), fa.bwd_plan(b, l, 24, form == "shared")
+        branches.add(("fwd", plan.resident))
+        line = (f"21(a) fp16 B={b} L={l} {form} bias, pads "
+                f"{'text' if pads == 'text' else pads} ({what}): forward max/mean |d| "
+                f"{f16[0][0]:.3e}/{f16[0][1]:.3e} (bf16 {b16[0][0]:.3e}/{b16[0][1]:.3e}); "
+                f"plan {FWD_BRANCHES[plan.resident]}, last tile {plan.tail} wide")
+        fwd_worst = max(fwd_worst, f16[0][0])
+        if f16[0][0] > FP16_MAX_ERR or f16[0][1] > FP16_MEAN_ERR:
+            raise RuntimeError(f"21(a) the fp16 forward disagrees at B={b} L={l} {what}: "
+                               f"{f16[0]}")
+        if with_bwd:
+            branches.add(("dq", bplan.tiles.resident))
+            if form == "shared":
+                branches.add(("dkv", bplan.dkv_slab))
+            line += (f"; backward dq/dk/dv/d(bias) max/mean relative "
+                     f"{', '.join(f'{a:.2e}/{m:.2e}' for a, m, _ in f16[1])} (bf16 "
+                     f"{', '.join(f'{a:.2e}/{m:.2e}' for a, m, _ in b16[1])}), two calls "
+                     f"bit-equal; plan {DQ_BRANCHES[bplan.tiles.resident]}"
+                     + (f", {DKV_BRANCHES[bplan.dkv_slab]}" if form == "shared" else ""))
+            bwd_worst = max(bwd_worst, *(x for _, _, x in f16[1]))
+            if any(a > FP16_BWD_MAX or m > FP16_BWD_MEAN for a, m, _ in f16[1]):
+                raise RuntimeError(f"21(a) the fp16 backward disagrees at B={b} L={l} "
+                                   f"{what}: {f16[1]}")
+        log(line)
+        del q, k, v, g, bias, key_bias
+        torch.cuda.empty_cache()
+    want = {(kernel, x) for kernel in ("fwd", "dq", "dkv") for x in (True, False)}
+    if branches != want:
+        raise RuntimeError(f"21(a) ran the plans' branches {sorted(branches)}, not all")
+    return fwd_worst, bwd_worst
+
+
+FP16_TIMED = [  # (B, L, pads, what, forward or backward)
+    (256, 257, None, "image", "fwd"), (32, 500, None, "audio", "fwd"),
+    (32, 71, "text", "text", "fwd"), (32, 257, None, "image training", "bwd"),
+    (32, 71, "text", "text", "bwd"), (4, 971, None, "VQA's vl, d(bias) in device memory", "bwd")]
+
+
+def time_fp16_attention(card: str) -> tuple:
+    """21(a) times: #1 and #2 in fp16 in turns with SDPA in fp16 (the
+    additive mask in fp16; its backward with the mask taking a gradient) and
+    with the bf16 kernel on the same inputs, beside the bound (the fp16 dense
+    peak is bf16's, 989 TFLOP/s, and the bytes are the same) and the plain
+    version.  Returns the forward's and the backward's rows by shape."""
+    gen = torch.Generator(device="cuda").manual_seed(212)
+    heads, fwd_rows, bwd_rows = 24, {}, {}
+    for b, l, pads, what, kind in FP16_TIMED:
+        q32, k32, v32, g32, bias, key_bias = fp16_operands(b, l, "shared", pads, gen)
+        hb = [x.to(torch.bfloat16) for x in (q32, k32, v32, g32)]
+        q, k, v, g = (x.to(torch.float16) for x in (q32, k32, v32, g32))
+        del q32, k32, v32, g32
+        q4, k4, v4 = (x.view(b, l, heads, 64).transpose(1, 2) for x in (q, k, v))
+        mask = sdpa_mask(bias, key_bias, b, dtype=torch.float16)
+        kb_bytes = 0 if key_bias is None else key_bias.numel() * 4
+        name = f"L={l} B={b} {what}"
+        if kind == "fwd":
+            t = in_turns({
+                "kernel": lambda: fa.flash_attention_cuda(q, k, v, bias, key_bias, 0.125, heads),
+                "bf16": lambda: fa.flash_attention_cuda(*hb[:3], bias, key_bias, 0.125, heads),
+                "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, scale=0.125)}, iters=10)
+            plain_ms = cuda_time_ms(
+                lambda: fa.flash_attention_plain(q, k, v, bias, key_bias, 0.125, heads), iters=3)
+            bound = bound_ms(4 * q.numel() * 2 + bias.numel() * 4 + kb_bytes,
+                             4 * b * heads * l * l * 64, H100_BF16_PEAK_TFLOPS * 1e12)
+            rows = fwd_rows
+        else:
+            _, stats = fa.flash_attention_cuda(q, k, v, bias, key_bias, 0.125, heads,
+                                               with_stats=True)
+            _, stats_b = fa.flash_attention_cuda(*hb[:3], bias, key_bias, 0.125, heads,
+                                                 with_stats=True)
+            leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+            leaf_mask = mask.detach().requires_grad_()
+            res = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=leaf_mask,
+                                                                   scale=0.125)
+            g4 = g.view(b, l, heads, 64).transpose(1, 2)
+            t = in_turns({
+                "kernel": lambda: fa.flash_attention_bwd_cuda(q, k, v, g, bias, key_bias, 0.125,
+                                                              heads, stats=stats),
+                "bf16": lambda: fa.flash_attention_bwd_cuda(*hb, bias, key_bias, 0.125, heads,
+                                                            stats=stats_b),
+                "sdpa": lambda: torch.autograd.grad(res, [*leaves, leaf_mask], g4,
+                                                    retain_graph=True)}, iters=5)
+            plain_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, g, bias, key_bias, 0.125, heads), iters=2)
+            bound = bound_ms(7 * q.numel() * 2 + 2 * bias.numel() * 4 + kb_bytes
+                             + stats.numel() * 4, 10 * b * heads * l * l * 64,
+                             H100_BF16_PEAK_TFLOPS * 1e12)
+            rows = bwd_rows
+            del stats, stats_b, leaves, leaf_mask, res, g4
+        log(f"21(a) attention {'forward' if kind == 'fwd' else 'backward'} per layer {name} "
+            f"fp16: kernel {t['kernel']:.4f} ms, {t['kernel'] / t['sdpa']:.3f}x SDPA in fp16 "
+            f"{t['sdpa']:.4f} ms, the bf16 kernel {t['bf16']:.4f} ms (in turns); plain "
+            f"{plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({card})")
+        rows[name] = {"ms": t["kernel"], "plain_ms": plain_ms, "library_ms": t["sdpa"],
+                      "bound_ms": bound[0], "bound_by": bound[1], "bf16_ms": t["bf16"]}
+        del q, k, v, g, hb, q4, k4, v4, mask, bias, key_bias
+        torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def check_int8_fp16() -> dict:
+    """21(a): the row quantize on fp16 x and the GEMM writing fp16, bit-equal
+    to their plain versions at the serving shapes, the ragged ones and the
+    plan's edges (phase 8's), with and without the bias.  Returns the largest
+    differences (0)."""
+    gen = torch.Generator(device="cuda").manual_seed(213)
+    for m, k in ((65792, 1536), (65792, 6144), (16032, 6144), (13, 100)):
+        x = (torch.randn(m, k, generator=gen, device="cuda") * 2).half()
+        got, want = im.int8_quantize_rows_cuda(x), im.int8_quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise RuntimeError(f"21(a) the fp16 int8 quantize disagrees at ({m}, {k})")
+        log(f"21(a) int8 quantize vs plain fp16 ({m} x {k}): bit-equal")
+        del x, got, want
+    for m, k, n in FFN_SHAPES + RAGGED_SHAPES + EDGE_SHAPES:
+        x_q = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        sx = torch.rand(m, generator=gen, device="cuda") * 0.01 + 1e-4
+        sw = torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-4
+        bias = torch.randn(n, generator=gen, device="cuda")
+        for b in (None, bias):
+            got = im.int8_matmul_cuda(x_q, w_q, sx, sw, b, torch.float16)
+            torch.cuda.synchronize()
+            want = im.int8_matmul_plain(x_q, w_q, sx, sw, b, torch.float16)
+            if not torch.equal(got, want):
+                err = (got.float() - want.float()).abs().max().item()
+                raise RuntimeError(f"21(a) the fp16 int8 GEMM disagrees at ({m}, {k}, {n}) "
+                                   f"bias={b is not None}: max {err}")
+            del got, want
+        log(f"21(a) int8 GEMM vs plain ({m}, {k}, {n}) -> fp16: bit-equal, with and without "
+            f"bias")
+        del x_q, w_q, sx, sw, bias
+    torch.cuda.empty_cache()
+    return {"quantize": 0.0, "gemm": 0.0}
+
+
+def time_int8_fp16(card: str) -> dict:
+    """21(a) times: the row quantize on fp16 x at both FFN inputs, and the
+    GEMM writing fp16 at the three FFN shapes in turns with fp16
+    ``torch.matmul`` on the same product, beside their bounds (y written in
+    fp16, 2 bytes as bf16) and plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(214)
+    times = {}
+    for m, k in ((65792, 1536), (65792, 6144)):
+        x = torch.randn(m, k, generator=gen, device="cuda", dtype=torch.float16)
+        kernel_ms = cuda_time_ms(lambda: im.int8_quantize_rows_cuda(x), iters=20)
+        plain_ms = cuda_time_ms(lambda: im.int8_quantize_rows_plain(x), iters=5)
+        bound = bound_ms(x.numel() * 3 + m * 4, 3 * x.numel(), H100_FP32_PEAK_TFLOPS * 1e12)
+        log(f"21(a) int8 quantize ({m} x {k}) fp16: kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({card})")
+        times[(m, k)] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                         "bound_by": bound[1], "library_ms": None}
+        del x
+    for m, k, n in FFN_SHAPES:
+        x_q = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        sx, sw = torch.rand(m, device="cuda") * 1e-3, torch.rand(n, device="cuda") * 1e-3
+        xh = torch.randn(m, k, generator=gen, device="cuda", dtype=torch.float16)
+        wh = torch.randn(n, k, generator=gen, device="cuda", dtype=torch.float16)
+        turns = in_turns({
+            "kernel": lambda: im.int8_matmul_cuda(x_q, w_q, sx, sw, None, torch.float16),
+            "fp16": lambda: xh @ wh.T}, iters=10)
+        plain_ms = cuda_time_ms(lambda: im.int8_matmul_plain(x_q, w_q, sx, sw, None,
+                                                             torch.float16), iters=3, warmup=1)
+        bound = gemm_bound(m, k, n)
+        log(f"21(a) int8 GEMM ({m}, {k}, {n}) -> fp16: kernel {turns['kernel']:.4f} ms "
+            f"({2 * m * k * n / turns['kernel'] / 1e9:.1f} TOPS), fp16 torch.matmul "
+            f"{turns['fp16']:.4f} ms; plain {plain_ms:.3f} ms; bound {bound[0]:.4f} ms by "
+            f"{bound[1]} ({card})")
+        times[(m, k, n)] = {"ms": turns["kernel"], "plain_ms": plain_ms,
+                            "library_ms": turns["fp16"], "bound_ms": bound[0],
+                            "bound_by": bound[1]}
+        del x_q, w_q, xh, wh
+    torch.cuda.empty_cache()
+    return times
+
+
+FP16_KERNELS = ("fwd", "bwd", "gemm", "quantize")  # #1, #2, #3, 3b
+
+
+@contextlib.contextmanager
+def fp16_run(runs: dict, name: str, want: tuple):
+    """One fp16 run of phase 21: the launch counts of #1, #2, #3 and 3b set
+    to 0 just before it and read just after, kept in ``runs[name]`` and held
+    to ``want`` (a count per kernel; None: the count is not fixed, and the
+    kernel must have launched)."""
+    fa.launches = fa.bwd_launches = im.launches = im.quantize_launches = 0
+    yield
+    torch.cuda.synchronize()
+    got = dict(zip(FP16_KERNELS, (fa.launches, fa.bwd_launches, im.launches,
+                                  im.quantize_launches)))
+    runs[name] = got
+    log(f"21 {name}: launches #1 {got['fwd']}, #2 {got['bwd']}, int8 GEMM {got['gemm']}, "
+        f"quantize {got['quantize']} (expected "
+        + ", ".join("> 0" if w is None else str(w) for w in want) + ")")
+    if any(got[k] != w if w is not None else got[k] == 0 for k, w in zip(FP16_KERNELS, want)):
+        raise RuntimeError(f"21 {name}: launches {got}, expected {want}")
+
+
+def check_golden_fp16(model, inputs: dict, fp32_out: dict, runs: dict) -> dict:
+    """21(b), on phase 10's model: the depth-40 golden's inputs in fp16
+    (the fp32 state cast, as ``from_pretrained(dtype="fp16")`` casts it),
+    kernel path (its launches kept in ``runs``) and plain path, against the
+    golden embeddings and the fp32 kernel path's.  Images and audio must
+    reach cosine >= 0.999 against both; every modality's kernel path must
+    be no further from the golden than the plain fp16 path (within 1e-3).
+    Two witnesses on the same state: fp32 compute on the weights rounded
+    to fp16 (what any fp16 model of this state holds, the JAX hub's
+    ``dtype="fp16"`` included), which tells the rounding of the weights
+    from that of the compute, and the kernel path in bf16, which the fp16
+    kernel path must beat in every modality.  The texts' hidden states are
+    compared layer by layer with fp32's.  (That the JAX package's fp16
+    compute drifts as far over 40 layers: ``tests/test_torch_port_fp16_depth.py``.)
+    Returns the kernel path's cosines against the golden."""
+    ref = np.load(golden.GOLDEN)
+
+    def cosine(a, b):
+        a, b = a.double().cpu().flatten(), b.double().cpu().flatten()
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    def to_golden(out: dict) -> dict:
+        """Cosine to the golden per modality, and per text row."""
+        got = {k: cosine(v, torch.from_numpy(ref[f"emb_{k}"])) for k, v in out.items()}
+        for row in range(out["text"].shape[0]):
+            got[f"text row {row}"] = cosine(out["text"][row], torch.from_numpy(
+                ref["emb_text"][row]))
+        return got
+
+    hidden, record = {}, [None]
+
+    def keep(i, out):
+        if record[0] is not None:
+            hidden.setdefault(record[0], {})[i] = out.detach().float()
+
+    layers = model.encoder_wrapper.fusion.layers
+    hooks = [layer.register_forward_hook(lambda mod, args, out, i=i: keep(i, out))
+             for i, layer in enumerate(layers)]
+
+    def forward(dtype) -> dict:
+        record[0] = dtype
+        out = {"text": model(**inputs["text"], encoder_type="text")}
+        record[0] = None
+        out["image"] = model(src_images=inputs["image"].to(dtype), encoder_type="image")
+        out["audio"] = model(src_audios=inputs["audio"][0].to(dtype),
+                             audio_padding_masks=inputs["audio"][1], encoder_type="audio")
+        return {k: v.float() for k, v in out.items()}
+
+    floats = lambda: [t for t in model.state_dict().values() if t.is_floating_point()]
+    try:
+        with torch.inference_mode():
+            record[0] = "fp32"
+            model(**inputs["text"], encoder_type="text")  # fp32, for the hidden states
+            bf16_state = [t.to(torch.bfloat16) for t in floats()]
+            for t in floats():
+                t.copy_(t.half())  # exact in fp16 from here on
+            weights16 = to_golden(forward(torch.float32))
+            model.to(torch.float16)
+            outs = {}
+            for impl in ("pallas", "xla"):
+                model.cfg.encoder.attn_impl = impl
+                with (fp16_run(runs, "golden (phase 10's state)", (120, 0, 0, 0))
+                      if impl == "pallas" else contextlib.nullcontext()):
+                    outs[impl] = forward(torch.float16)
+            model.cfg.encoder.attn_impl = "pallas"
+            model.to(torch.bfloat16)
+            for t, b in zip(floats(), bf16_state):
+                t.copy_(b)
+            del bf16_state
+            bf16 = to_golden(forward(torch.bfloat16))
+    finally:
+        model.cfg.encoder.attn_impl = "pallas"
+        for hook in hooks:
+            hook.remove()
+    report = {impl: to_golden(o) for impl, o in outs.items()}
+    vs32 = {k: cosine(v, fp32_out[k]) for k, v in outs["pallas"].items()}
+
+    def drift(dtype):
+        rel = [((hidden[dtype][i] - h).norm() / h.norm()).item()
+               for i, h in sorted(hidden["fp32"].items())]
+        first = next((i for i, r in enumerate(rel) if r > 1e-2), None)
+        mid = len(rel) // 2 - 1
+        return (f"{str(dtype)[6:]} {rel[0]:.2e} after layer 0, {rel[mid]:.2e} after {mid}, "
+                f"{rel[-1]:.2e} after {len(rel) - 1}, first above 1e-2 after layer {first}")
+
+    fmt = lambda d: ", ".join(f"{k} {v:.6f}" for k, v in d.items())
+    log(f"21(b) depth-40 golden in fp16: cosine to the golden, kernel path {fmt(report['pallas'])}"
+        f"; plain path {fmt(report['xla'])}; kernel path to the fp32 kernel path {fmt(vs32)}, "
+        f"to the plain fp16 path texts {cosine(outs['pallas']['text'], outs['xla']['text']):.6f} "
+        f"(images and audio bound 0.999)")
+    log(f"21(b) witnesses on the same state, cosine to the golden: fp32 compute on the weights "
+        f"rounded to fp16 {fmt(weights16)}; the kernel path in bf16 {fmt(bf16)}; the texts' "
+        f"hidden states against fp32, relative error: {drift(torch.float32)} (the rounded "
+        f"weights), {drift(torch.float16)}, {drift(torch.bfloat16)}")
+    if (min(report["pallas"]["image"], report["pallas"]["audio"], vs32["image"], vs32["audio"])
+            < 0.999 or any(report["pallas"][k] < report["xla"][k] - 1e-3 for k in report["xla"])
+            or any(report["pallas"][k] < bf16[k] for k in ("text", "image", "audio"))):
+        raise RuntimeError(f"21(b): fp16 misses the depth-40 golden: {report}, {vs32}, "
+                           f"{weights16}, {bf16}")
+    return {k: report["pallas"][k] for k in ("text", "image", "audio")}
+
+
+def serve_fp16(card: str, runs: dict, bf16_rates: dict) -> dict:
+    """21(b): the 4B model at depth 40 in fp16 on seeded random weights:
+    images/s at B=256 and clips/s at B=32 (10 s), beside phase 5's bf16
+    ones (``bf16_rates``, this run's); then int8 "ffn" in fp16: its kernel
+    path against the plain int8 path on 4 images, 2 clips and 4 texts
+    (cosine >= 0.999) and its rates.  (fp16 against fp32 and the golden:
+    ``check_golden_fp16``, on phase 10's state.)  The checked fp16 forwards
+    keep their launches in ``runs``, 40 of #1 per modality, and 3 int8
+    GEMMs and 2 quantizations per layer and modality under "ffn"."""
+    cfg = ModelConfig(head_type="val")
+    gen = torch.Generator(device="cuda").manual_seed(215)
+    model = OnePeaceRetrievalModel(cfg, device="cuda", dtype=torch.float16)
+    fill_random_(model, torch.Generator(device="cuda").manual_seed(0))
+
+    def cast(inputs):
+        return {k: v.half() if v.is_floating_point() else v for k, v in inputs.items()}
+
+    small = {k: cast(v) for k, v in make_inputs(cfg, gen, 4, 2, 4).items()}
+    big = {k: cast(v) for k, v in make_inputs(cfg, gen, IMG_BATCH, AUD_BATCH, 1).items()}
+    big["audio"]["audio_padding_masks"].zero_()  # bench.py: unpadded clips
+    rates = {kind: ({"bf16 (phase 5)": bf16_rates[kind]} if kind in bf16_rates else {})
+             for kind in ("image", "audio")}
+    with torch.inference_mode():
+        with fp16_run(runs, "21(b) embeddings", (3 * 40, 0, 0, 0)):
+            for k, v in small.items():
+                out = model(encoder_type=k, **v)
+                if not torch.isfinite(out).all():
+                    raise RuntimeError(f"21(b): fp16 {k} embeddings are not finite")
+        for quantized in (False, True):
+            if quantized:
+                quantize_ffn_(model)
+                with fp16_run(runs, "21(b) int8 ffn embeddings",
+                              (3 * 40, 0, 3 * 40 * 3, 3 * 40 * 2)):
+                    kern = {k: model(encoder_type=k, **v).float() for k, v in small.items()}
+                with plain_int8():
+                    plain = {k: model(encoder_type=k, **v).float() for k, v in small.items()}
+                int8_cos = {k: min_cosine(kern[k], plain[k]) for k in kern}
+            for kind, b in (("image", IMG_BATCH), ("audio", AUD_BATCH)):
+                ms = cuda_time_ms(lambda: model(encoder_type=kind, **big[kind]), iters=2,
+                                  warmup=1)
+                rates[kind]["int8 ffn fp16" if quantized else "fp16"] = b / ms * 1e3
+    log("21(b) int8 ffn in fp16, kernel path vs plain int8 path, min cosine: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in int8_cos.items()) + " (bound 0.999)")
+    for kind in rates:
+        log(f"21(b) depth 40 {kind}s/s at B={IMG_BATCH if kind == 'image' else AUD_BATCH}: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in rates[kind].items()) + f" ({card})")
+    if min(int8_cos.values()) < 0.999:
+        raise RuntimeError(f"21(b): the fp16 int8 kernel path disagrees: {int8_cos}")
+    del model, big, small
+    torch.cuda.empty_cache()
+    return {"rates": rates, "int8_cosine": int8_cos}
+
+
+def fp16_train_config(layers: int, remat: bool, drop_path: float, ema: bool) -> FrameworkConfig:
+    """7(b)'s retrieval fine-tune in fp16 over the fp32 masters (the recipe
+    keeps ``common.bf16``; ``common.fp16`` wins), with the EMA."""
+    cfg = train_config(layers, True, remat, drop_path)
+    cfg.common.fp16 = True
+    cfg.ema.store_ema = ema
+    cfg.ema.ema_decay = 0.999
+    return cfg
+
+
+def check_fp16_train_paths(gen) -> None:
+    """21(c), 7(a)'s check in fp16: 4 layers at full width, B=8, kernel path
+    against plain path on the same weights and batch, the loss scaled by
+    2^10 (the first of the scaler's scales under which this loss stays
+    finite in fp16) and the gradients unscaled: each no further from the
+    fp32 plain path's gradients than the plain path is (per parameter, the
+    cosine to fp32 at least the plain path's minus 0.01; over all
+    parameters together, kernel vs plain >= 0.999), losses within 2e-3.
+    The kernel path launches #1 and #2 twice per layer (7(a)'s counts), the
+    plain path neither."""
+    batch = train_batch(train_config(4, False, False, 0.0), gen, 8)
+    trainer = make_trainer(train_config(4, False, False, 0.0))
+    trainer.model.cfg.encoder.attn_impl = "xla"
+    _, ref32 = trainer.gradients(batch)
+    del trainer
+    trainer = make_trainer(fp16_train_config(4, False, 0.0, ema=False))
+    trainer.scaler.scale = np.float32(2.0**10)
+    runs, launches = {}, {}
+    for impl in ("pallas", "xla"):
+        trainer.model.cfg.encoder.attn_impl = impl
+        want = (2 * 4, 2 * 4, 0, 0) if impl == "pallas" else (0, 0, 0, 0)
+        with fp16_run(launches, f"21(c) 4-layer {impl} gradients", want):
+            metrics, grads = trainer.gradients(batch)
+        if not all(torch.isfinite(g).all() for g in grads):
+            raise RuntimeError(f"21(c) fp16 {impl}: non-finite gradient at scale 2^10")
+        runs[impl] = (float(metrics["loss"]), grads)
+    trainer.model.cfg.encoder.attn_impl = "pallas"
+    (loss_k, grads_k), (loss_p, grads_p) = runs["pallas"], runs["xla"]
+    cos_k, cos_p = grad_cosines(grads_k, ref32), grad_cosines(grads_p, ref32)
+    gap = max(range(len(cos_k)), key=lambda i: cos_p[i] - cos_k[i])
+    total = grad_cosines([torch.cat([g.flatten() for g in grads_k])],
+                         [torch.cat([g.flatten() for g in grads_p])])[0]
+    log(f"21(c) fp16 4-layer vl B=8: loss kernel {loss_k:.6f} plain {loss_p:.6f}; vs the fp32 "
+        f"gradients min cosine kernel path {min(cos_k):.6f}, plain path {min(cos_p):.6f}; "
+        f"largest shortfall of the kernel path {cos_p[gap] - cos_k[gap]:.2e} "
+        f"({trainer._names[gap]}); all parameters together kernel vs plain {total:.9f}")
+    if not (abs(loss_k - loss_p) <= 2e-3 * abs(loss_p) and total >= 0.999
+            and cos_p[gap] - cos_k[gap] <= 0.01):
+        raise RuntimeError("21(c) fp16: kernel and plain training paths disagree")
+    del trainer, runs, grads_k, grads_p, ref32
+    torch.cuda.empty_cache()
+
+
+EMA_BYTES_PER_ELEMENT = 36  # utils/ema.py's update: s * decay (4 + 4), p in fp64
+# (4 + 8), s + p * (1 - decay) stored into s (4 + 8 + 4)
+
+
+def train_fp16_full_depth(gen, card: str, runs: dict) -> tuple:
+    """21(c): 7(b)'s step in fp16 with dynamic loss scaling and the EMA
+    (its fp32 shadow of every parameter on the card): the depth-40 vl model,
+    remat, drop path 0.5, B=32, the same batch and masks every step.  ms per
+    step, pairs/s, MFU, peak memory, the scale after each step and the
+    skipped steps; the loss must fall over the finite steps, and each step
+    launches #1 160 times and #2 80 times (7(b)'s counts; kept in ``runs``).
+    Then what fp16 adds to bf16's step, each alone by CUDA events: the EMA
+    update (beside its bytes' time) and the unscale of the gradients; and
+    one step profiled (``fp16_train_profile.txt``, beside 7(b)'s
+    ``train_profile.txt``).  Returns the row and the model (for 21(d))."""
+    cfg = fp16_train_config(40, True, 0.5, ema=True)
+    trainer = make_trainer(cfg)
+    batch = train_batch(cfg, gen, 32)
+    rng_state = trainer.generator.get_state()
+    flops = 4 * (analytic_flops(cfg.model, 257, 32, "image")
+                 + analytic_flops(cfg.model, 71, 32, "text"))
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with fp16_run(runs, "21(c) depth-40 steps", (5 * 160, 5 * 80, 0, 0)):
+        for _ in range(5):
+            trainer.generator.set_state(rng_state)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            steps.append((time.time() - t0, metrics))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = 1e3 * statistics.mean(t for t, _ in steps[1:])
+    losses = [m["loss"] for _, m in steps]
+    scales = [m["loss_scale"] for _, m in steps]
+    skipped = int(sum(m["skipped"] for _, m in steps))
+    tflops = flops / ms / 1e9
+    shadow_gib = sum(s.numel() * s.element_size() for s in trainer.ema.shadow.values()) / 2**30
+    log(f"21(c) fp16 depth 40 B=32 with loss scaling and the EMA: {ms:.1f} ms per step (steps "
+        f"2-5), {32 / ms * 1e3:.1f} pairs/s, {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops / H100_BF16_PEAK_TFLOPS:.1f}% MFU, peak {peak:.1f} GiB (the shadow "
+        f"{shadow_gib:.1f} GiB), losses {[round(x, 5) for x in losses]}, loss scale after each "
+        f"step {scales}, {skipped} of 5 steps skipped ({card})")
+    finite = [m["loss"] for _, m in steps if m["skipped"] == 0.0]
+    if not all(map(math.isfinite, losses)) or len(finite) < 3 or not finite[-1] < finite[0]:
+        raise RuntimeError(f"21(c): the fp16 loss did not fall over finite steps: {losses}")
+    elements = sum(s.numel() for s in trainer.ema.shadow.values())
+    ema_ms = cuda_time_ms(lambda: trainer.ema.step(trainer.model.named_parameters(),
+                                                   trainer.step), iters=3, warmup=1)
+    grads = [torch.ones_like(p) for p in trainer._params]
+    unscale_ms = cuda_time_ms(lambda: trainer.scaler.unscale_(grads), iters=3, warmup=1)
+    grad_elements = sum(g.numel() for g in grads)
+    del grads
+    log(f"21(c) alone: the EMA update {ema_ms:.1f} ms over {elements / 1e9:.3f}B elements, "
+        f"bound {elements * EMA_BYTES_PER_ELEMENT / H100_HBM_BYTES_PER_S * 1e3:.1f} ms by bytes "
+        f"({EMA_BYTES_PER_ELEMENT} B each); the unscale {unscale_ms:.1f} ms over "
+        f"{grad_elements / 1e9:.3f}B gradients, bound "
+        f"{grad_elements * 8 / H100_HBM_BYTES_PER_S * 1e3:.1f} ms by bytes ({card})")
+    trainer.generator.set_state(rng_state)
+    profile_call(lambda: trainer.train_step(batch), ms, "21(c)", "fp16_train_profile.txt")
+    model = trainer.model
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gib": peak, "mfu": tflops / H100_BF16_PEAK_TFLOPS,
+            "scales": scales, "skipped": skipped, "losses": losses, "ema_ms": ema_ms,
+            "unscale_ms": unscale_ms}, model
+
+
+class CountGemms(TorchDispatchMode):
+    """Counts the aten GEMMs dispatched inside (each a cuBLAS launch)."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.count += func in components._GEMM_OPS
+        return func(*args, **(kwargs or {}))
+
+
+def check_remat_policies(model, gen, card: str) -> dict:
+    """21(d): ``full``, ``qkv`` and ``offload_qkv`` on one depth-40 vl model
+    (21(c)'s, bf16 compute over its fp32 masters, remat, drop path 0.5),
+    B=32, ``remat_policy`` flipped between runs: the gradients of each
+    policy bit-equal to ``full``'s under the same masks, the GEMMs the
+    backward dispatches (3 x 40 x 2 fewer under the qkv policies: the text
+    and the image pass of each layer) and the peak memory of that run, then
+    ms per forward and backward (the median of 3, the policies timed in
+    turns), and one call of each profiled: the card's busy time and its
+    time in GEMM kernels (``remat_<policy>_profile.txt``)."""
+    cfg = train_config(40, True, True, 0.5)
+    trainer = Trainer(cfg, model, build_criterion(cfg.criterion))
+    enc = model.cfg.encoder
+    batch = train_batch(cfg, gen, 32)
+    batch_t = trainer._to_device(batch)
+
+    def gradients(count: bool):
+        loss, _ = torch.func.functional_call(
+            trainer._call, trainer._compute_params(),
+            (batch_t, torch.Generator().manual_seed(21), 0))
+        with CountGemms() if count else contextlib.nullcontext() as counter:
+            grads = torch.autograd.grad(loss, trainer._params, allow_unused=True)
+        return grads, counter.count if count else None
+
+    policies = ("full", "qkv", "offload_qkv")
+    rows, full = {}, None
+    for policy in policies:
+        enc.remat_policy = policy
+        torch.cuda.reset_peak_memory_stats()
+        grads, gemms = gradients(count=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        equal = full is None or all(
+            (a is None and b is None) or torch.equal(a, b) for a, b in zip(grads, full))
+        if full is None:
+            full = grads
+        del grads
+        torch.cuda.empty_cache()
+        rows[policy] = {"peak_gib": peak, "backward_gemms": gemms, "equal_to_full": equal,
+                        "times": []}
+    for policy in policies + policies[::-1] + policies:  # in turns
+        enc.remat_policy = policy
+        torch.cuda.synchronize()
+        t0 = time.time()
+        gradients(count=False)
+        torch.cuda.synchronize()
+        rows[policy]["times"].append(1e3 * (time.time() - t0))
+    for policy, row in rows.items():
+        enc.remat_policy = policy
+        row["ms"] = statistics.median(row["times"])
+        times, busy = profile_call(lambda: gradients(count=False), row["ms"], f"21(d) {policy}",
+                                   f"remat_{policy}_profile.txt")
+        gemm_ms = sum(r.self_device_time_total for r in times
+                      if any(k in r.key.lower() for k in ("gemm", "nvjet", "xmma"))) / 1e3
+        row.update(busy_ms=busy, gemm_ms=gemm_ms)
+        log(f"21(d) remat_policy={policy} depth 40 B=32 bf16: forward + backward median "
+            f"{row['ms']:.1f} ms of {len(row['times'])} in turns "
+            f"({min(row['times']):.1f}-{max(row['times']):.1f}); profiled, the card busy "
+            f"{busy:.1f} ms, {gemm_ms:.1f} ms of it in GEMM kernels; peak "
+            f"{row['peak_gib']:.1f} GiB (with full's gradients kept), {row['backward_gemms']} "
+            f"GEMMs in the backward, gradients bit-equal to full: {row['equal_to_full']} "
+            f"({card})")
+    enc.remat_policy = "full"
+    # the step runs the encoder twice, on the texts and on the images: 3 GEMMs
+    # fewer per layer and pass
+    fewer = {p: rows["full"]["backward_gemms"] - rows[p]["backward_gemms"]
+             for p in ("qkv", "offload_qkv")}
+    if not all(r["equal_to_full"] for r in rows.values()) or set(fewer.values()) != {3 * 40 * 2}:
+        raise RuntimeError(f"21(d): the qkv policies' gradients or GEMM counts are off: "
+                           f"{rows}")
+    del trainer, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def adan_config(layers: int) -> FrameworkConfig:
+    """Adan with clip 1.0, layer decay 0.9, weight decay 0.05, lr 1e-4 and
+    no warm-up, fp32 compute (the card and the CPU compared)."""
+    cfg = train_config(layers, False, False, 0.0)
+    cfg.optimizer._name = "adan"
+    cfg.optimization.clip_norm = 1.0
+    cfg.optimization.layer_decay = 0.9
+    cfg.optimization.lr = 1e-4
+    cfg.lr_scheduler.min_lr = 1e-4
+    return cfg
+
+
+def check_adan(model, card: str) -> dict:
+    """21(e): Adan over 3 updates of the vl model at full width, depth 2,
+    fp32, on the card and on the CPU from the same weights: the card
+    computes each update's gradients (B=2, a batch of its own each) and
+    clips them, and both optimizers step on those same gradients.  Each
+    parameter's update (its change over the 3 updates) must agree within
+    1e-4 relative between the devices; a dropped proximal decay moves the
+    updates by ~1e-3 of themselves, a wrong bias correction by their whole
+    size.  Then one Adan step on ``model``, the depth-40 vl model that
+    21(c) trained: it holds 6 fp32 copies of the 2.74B parameters (masters,
+    gradients and Adan's 4 states), 61 GiB beside its chunk temporaries (the
+    val model's 4B would need 96 GB, over the card's 80), against its bound
+    (every read and write once)."""
+    cfg = adan_config(2)
+    cpu = OnePeaceRetrievalModel(cfg.model, device="cpu", dtype=torch.float32)
+    fill_random_(cpu, torch.Generator().manual_seed(5))
+    card_model = OnePeaceRetrievalModel(cfg.model, device="cuda", dtype=torch.float32)
+    card_model.load_state_dict(cpu.state_dict())
+    start = {n: p.detach().double().clone() for n, p in cpu.named_parameters()}
+    trainers = {where: Trainer(cfg, model, build_criterion(cfg.criterion))
+                for where, model in (("card", card_model), ("cpu", cpu))}
+    rs = np.random.RandomState(5)
+    for update in range(3):
+        batch = {"src_tokens": rs.randint(4, cfg.model.encoder.text_adapter.vocab_size, (2, 70)),
+                 "src_images": rs.randn(2, 3, 256, 256).astype(np.float32)}
+        _, grads = trainers["card"].gradients(batch)
+        factor = (cfg.optimization.clip_norm / get_total_norm(grads)).clamp(max=1.0)
+        lr = trainers["card"].lr_schedule(update)
+        for where, t in trainers.items():
+            for p, g in zip(t._params, grads):
+                p.grad = (g * factor).to(p.device)
+            for group in t.optimizer.param_groups:
+                group["lr"], group["schedule_lr"] = lr * group["lr_scale"], lr
+            t.optimizer.step()
+            t.optimizer.zero_grad(set_to_none=True)
+        del grads
+    rows = []
+    for (name, a), b in zip(card_model.named_parameters(), cpu.parameters()):
+        ua, ub = a.detach().cpu().double() - start[name], b.detach().double() - start[name]
+        rows.append(((ua - ub).norm().item() / max(ub.norm().item(), 1e-30), name,
+                     (ua - ub).abs().max().item()))
+    worst = max(rows)
+    log(f"21(e) Adan depth 2 fp32, 3 updates on the same clipped gradients, card vs CPU: the "
+        f"updates' largest relative difference {worst[0]:.3e} ({worst[1]}, max |diff| "
+        f"{worst[2]:.3e}; bound 1e-4)")
+    if worst[0] > 1e-4:
+        raise RuntimeError("21(e): Adan on the card and on the CPU disagree")
+    del trainers, cpu, card_model, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    named = list(model.named_parameters())
+    n_params = sum(p.numel() for _, p in named)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for _, p in named:
+        p.requires_grad_(True)
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+    ocfg = adan_config(40)
+    opt = build_optimizer(ocfg.optimizer, ocfg.optimization, named, num_layers=40)
+    for group in opt.param_groups:
+        group["lr"], group["schedule_lr"] = 1e-4 * group["lr_scale"], 1e-4
+    opt.step()  # the states are made here
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(opt.step, iters=2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the masters and the 4 states read and written, the gradients read, and
+    # the copy of them Adan keeps written
+    bound = bound_ms(4 * n_params * (2 * 5 + 2), 0, 1.0)
+    log(f"21(e) Adan step at depth 40, {n_params / 1e9:.2f}B fp32 parameters: {ms:.1f} ms, peak "
+        f"{peak:.1f} GiB; bound {bound[0]:.1f} ms by bytes ({card})")
+    del opt, named
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_rel_diff": worst[0], "ms": ms, "bound_ms": bound[0], "peak_gib": peak}
+
+
+def check_fp16_cli(data: dict, layers: int = 2) -> dict:
+    """21(f): the retrieval recipe from files through ``cli.train`` at full
+    width, depth 2, B=8, update_freq=2, with ``common.fp16=true
+    ema.store_ema=true optimizer._name=adan``: straight to 4 updates, and
+    stopped at the end of epoch 1 (a micro-batch pending) and resumed to 4.
+    The two step-4 bundles must be bit-equal (masters, Adan's state, the
+    EMA shadow, the loss scale); validation runs at update 4 only, on the
+    shadow, so ``checkpoint_best.npz`` must equal the bundle's shadow, and
+    not its masters."""
+    from one_peace_tpu_torch.utils import native_checkpoint as ckpt
+    from one_peace_tpu_torch.utils.checkpoint import load_npz
+
+    root = data["root"]
+    runs = {"straight": root / "fp16_straight", "resumed": root / "fp16_resumed"}
+    for d in runs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    common = [f"task.data={root}/train40.tsv", "optimization.update_freq=2",
+              "optimization.max_update=4", "model.encoder.layer_scale_init_value=0.1",
+              "common.fp16=true", "ema.store_ema=true", "ema.ema_decay=0.9",
+              "optimizer._name=adan", "dataset.validate_interval=100",
+              "dataset.validate_interval_updates=4", "checkpoint.best_checkpoint_metric=txt_r1"]
+
+    def argv(name, *extra):
+        return retrieval_argv(data, runs[name], layers, 8,
+                              [*common, f"common.log_file={runs[name]}/log.jsonl", *extra])
+
+    t0 = time.time()
+    run_train_cli(argv("straight"))
+    quiet = "dataset.disable_validation=true"  # the export is the straight run's
+    run_train_cli(argv("resumed", "optimization.max_epoch=1", quiet))
+    run_train_cli(argv("resumed", quiet))
+    a = ckpt.restore_train_state(str(runs["straight"] / "step_4"))["trainer"]
+    b = ckpt.restore_train_state(str(runs["resumed"] / "step_4"))["trainer"]
+    same = {key: all(torch.equal(a[key][n], b[key][n]) for n in a[key])
+            for key in ("params", "ema_shadow")}
+    same["loss_scale"] = a["loss_scale"] == b["loss_scale"]
+    same["adan"] = all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                       for i in a["opt_state"]["state"]
+                       for x, y in zip(a["opt_state"]["state"][i].values(),
+                                       b["opt_state"]["state"][i].values()))
+    best = load_npz(str(runs["straight"] / "checkpoint_best.npz"))
+    shadow_exported = all(torch.equal(best[n], s) for n, s in a["ema_shadow"].items())
+    masters_differ = any(not torch.equal(a["params"][n], s) for n, s in a["ema_shadow"].items())
+    skipped = [json.loads(line).get("skipped") for line in
+               (runs["straight"] / "log.jsonl").read_text().splitlines()
+               if json.loads(line)["tag"] == "train_inner"]
+    log(f"21(f) cli.train depth {layers} fp16 + EMA + Adan: straight vs stopped at epoch 1 and "
+        f"resumed, bit-equal at update 4: {same}; loss scale {a['loss_scale']}; skipped per "
+        f"update {skipped}; checkpoint_best.npz is the EMA shadow: {shadow_exported} (the "
+        f"masters differ from it: {masters_differ}); {time.time() - t0:.1f} s for the three runs")
+    if not (all(same.values()) and shadow_exported and masters_differ):
+        raise RuntimeError("21(f): the fp16 + EMA + Adan resume or the EMA export is off")
+    del a, b, best
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bit_equal": same}
 
 
 def main() -> None:
@@ -5348,15 +6288,17 @@ def main() -> None:
     card = card_line()
     log(card)
     clock = [time.time(), time.time()]
-    golden_state = GoldenState()  # phase 10's host work, beside phases 2-9
+    golden_state = GoldenState()  # phase 10's host work, beside phases 2-14
+    prep = Prep()  # started after the build, which it would slow
     try:
-        run_phases(card, clock, golden_state)
+        run_phases(card, clock, golden_state, prep)
     finally:
+        prep.stop()
         golden_state.stop()
 
 
-def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
-    """Phases 2-20 (10 after 12) and the two last lines."""
+def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) -> None:
+    """Phases 2-21 (10 after 14) and the two last lines."""
 
     def mark(phase: str) -> None:
         """Log the phase's wall time and the script's so far."""
@@ -5375,6 +6317,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "C75" in line:  # C7508, C7517
                 log(f"  ptxas: {line.strip()}")
+    prep.start(prep_jobs())
 
     mark("2")
 
@@ -5429,7 +6372,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     mark("8")
 
     # 9. int8 serving through the hub (the counts are read over its kernel-path forwards)
-    int8_launches = serve_int8(card)
+    int8_launches = serve_int8(card, prep)
     if min(int8_launches.values()) == 0:
         raise RuntimeError(f"the int8 serving path never launched a kernel: {int8_launches}")
     mark("9")
@@ -5455,18 +6398,11 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
 
     mark("12")
 
-    # 10. the depth-40 golden through the .pt route, run here, when the
-    # process started with the script has its state written: run after
-    # phase 9 it waited ~45 s for it
-    check_golden(golden_state)
-
-    mark("10")
-
     # 13. retrieval fine-tuning from data: cli.train's resume at depth 2 and
     # cli.evaluate on its export, then the depth-40 recipe through cli.train
     # (the attention kernels' launches counted from 0 here)
     fa.launches = fa.bwd_launches = 0
-    data = write_retrieval_corpus(RETRIEVAL_DIR)
+    data = prep.take("13", "the corpus")
     check_cli_resume(data)
     train_cli_full_depth(data, card, train["pallas"]["ms"])
     cli_fwd, cli_bwd = fa.launches, fa.bwd_launches
@@ -5480,7 +6416,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     # with its export read back and cli.evaluate, then the depth-40 recipe
     # (the det attention kernels' launches counted from 0 here)
     da.launches = da.bwd_launches = 0
-    coco = write_coco_corpus(COCO_DIR, 16, 8)
+    coco = prep.take("14", "the corpus")
     check_det_cli(coco, card)
     train_det_cli_full_depth(coco, card, det_train["pallas"]["ms"])
     coco_fwd, coco_bwd = da.launches, da.bwd_launches
@@ -5490,6 +6426,14 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
 
     mark("14")
 
+    # 10. the depth-40 golden through the .pt route, run here, when the
+    # process started with the script has its state written (~215 s of host
+    # work): run after phase 12 it waited 42 s for it
+    fp16_runs = {}  # phase 21's fp16 launches by run (its golden check runs here, on this state)
+    golden16 = check_golden(golden_state, fp16_runs)[1]
+
+    mark("10")
+
     # 15. classification: #1 and #2 alone at the slice's shapes against
     # their plain versions and SDPA (15(e)); then, the launches counted from
     # 0, classify serving through the hub (15(a)), the three tasks'
@@ -5498,9 +6442,9 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     t15 = time.time()
     cls_fwd_rows, cls_bwd_rows = time_classify_attention(card)
     fa.launches = fa.bwd_launches = im.launches = im.quantize_launches = 0
-    cls_int8 = serve_classify(card)
+    cls_int8 = serve_classify(card, prep)
     check_classify_train_paths()
-    cls_data = write_classify_corpus(CLASSIFY_DIR, 96, 64)
+    cls_data = prep.take("15(c)", "the corpus")
     check_classify_cli(cls_data, card)
     train_classify_full_depth(cls_data, card)
     cls_fwd, cls_bwd = fa.launches, fa.bwd_launches
@@ -5521,9 +6465,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     pre_fwd_rows, pre_bwd_rows = time_pretrain_attention(card)
     mark("16(a)")
     fa.launches = fa.bwd_launches = 0
-    # 11 VL batches of 32: no epoch ends inside 16(d)'s window
-    pre_data = write_pretrain_corpus(PRETRAIN_DIR, 352, 32, (14.0, 15.0))
-    mark("16's corpus")
+    pre_data = prep.take("16", "the corpus")
     check_pretrain_train_paths(pre_data)
     mark("16(b)")
     check_pretrain_cli(pre_data, card)
@@ -5552,7 +6494,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     mark("17(b)")
     serve_seg_full_depth(card)
     mark("17(c)")
-    check_seg_cli(card)
+    check_seg_cli(card, prep)
     seg_fwd = fa.launches
     log(f"17 launches over the phase: #1 {seg_fwd}; the phase took {time.time() - t17:.1f} s")
     mark("17(d)")
@@ -5571,7 +6513,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     fa.launches = fa.bwd_launches = 0
     check_seg_train_paths()
     mark("18(b)")
-    check_seg_train_cli(card)
+    check_seg_train_cli(card, prep)
     mark("18(c)")
     train_seg_full_depth(card)
     seg_train_fwd, seg_train_bwd = fa.launches, fa.bwd_launches
@@ -5595,7 +6537,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     fa.launches = fa.bwd_launches = 0
     check_video_train_paths()
     mark("19(b)")
-    k400 = write_k400_corpus(K400_DIR, 24, 8)
+    k400 = prep.take("19", "the corpus")
     check_video_cli(k400, card)
     mark("19(c)")
     train_video_full_depth(k400, card)
@@ -5610,7 +6552,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
 
     # 20. the rest of classification: #1 and #2 alone at NLVR2's L=647 and
     # AQA's L=820 against their plain versions and SDPA (20(a)); then, the
-    # launches counted from 0, the four criterions' gradients at depth 4
+    # launches counted from 0, the four criterions' gradients at depth 2
     # (20(b)), the four recipes from files through both CLIs at depth 2
     # (20(c)) and the NLVR2 recipe at depth 40 (20(d))
     t20 = time.time()
@@ -5620,7 +6562,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
     fa.launches = fa.bwd_launches = 0
     check_classify_rest_train_paths()
     mark("20(b)")
-    rest_data = write_classify_rest_corpus(CLASSIFY_REST_DIR, 96, 8)
+    rest_data = prep.take("20", "the corpus")
     check_classify_rest_cli(rest_data)
     mark("20(c)")
     train_nlvr2_full_depth(rest_data, card)
@@ -5632,6 +6574,43 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
         raise RuntimeError("the rest of classification never launched an attention kernel")
     fwd_times["shapes"].update(rest_fwd_rows)
     bwd_times["shapes"].update(rest_bwd_rows)
+
+    # 21. fp16: #1/#2 and #3/3b in fp16 alone against their plain versions
+    # and in turns with SDPA / torch.matmul in fp16 and the bf16 kernels
+    # (21(a)); then, the fp16 launches counted (21(b)'s golden ran in phase
+    # 10, on its state): 4B embeddings in fp16 and int8 "ffn" in fp16
+    # (21(b)), the retrieval step in fp16 with loss scaling and the EMA
+    # (21(c)), the remat policies on that model (21(d), bf16), Adan (21(e),
+    # fp32) and the retrieval recipe through cli.train with fp16, the EMA and
+    # Adan (21(f))
+    t21 = time.time()
+    fp16_fwd_err, fp16_bwd_err = check_fp16_attention()
+    fp16_int8_worst = check_int8_fp16()
+    fp16_fwd_rows, fp16_bwd_rows = time_fp16_attention(card)
+    fp16_int8_times = time_int8_fp16(card)
+    mark("21(a)")
+    serve_fp16(card, fp16_runs, fwd_times["bf16_rates"])
+    mark("21(b)")
+    gen21 = torch.Generator(device="cuda").manual_seed(216)
+    check_fp16_train_paths(gen21)
+    _, model21 = train_fp16_full_depth(gen21, card, fp16_runs)
+    mark("21(c)")
+    check_remat_policies(model21, gen21, card)
+    mark("21(d)")
+    check_adan(model21, card)
+    del model21
+    mark("21(e)")
+    # 16 micro-steps of depth 2 over the three runs, #2 twice per layer in
+    # each; validation's forwards are not counted in advance
+    with fp16_run(fp16_runs, "21(f) cli.train", (None, 16 * 2 * 2, 0, 0)):
+        check_fp16_cli(data)
+    fp16_counts = {k: sum(run[k] for run in fp16_runs.values()) for k in FP16_KERNELS}
+    log(f"21 fp16 launches over its main-path runs ({', '.join(fp16_runs)}): #1 "
+        f"{fp16_counts['fwd']}, #2 {fp16_counts['bwd']}, int8 GEMM {fp16_counts['gemm']}, "
+        f"quantize {fp16_counts['quantize']} (golden cosine "
+        + ", ".join(f"{k} {v:.6f}" for k, v in golden16.items())
+        + f"); the phase took {time.time() - t21:.1f} s")
+    mark("21(f)")
 
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
@@ -5665,6 +6644,21 @@ def run_phases(card: str, clock: list, golden_state: GoldenState) -> None:
         entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75",
               int8_launches["gemm"] + cls_int8["gemm"], int8_worst["gemm"], gemm),
         quantize,
+        entry("flash_attention_fwd (fp16)", "one_peace_tpu/ops/flash_attention.py:239",
+              fp16_counts["fwd"], fp16_fwd_err, with_shapes(fp16_fwd_rows),
+              source="flash_attention_fwd"),
+        entry("flash_attention_bwd (fp16)", "one_peace_tpu/ops/flash_attention.py:409",
+              fp16_counts["bwd"], fp16_bwd_err, with_shapes(fp16_bwd_rows),
+              source="flash_attention_bwd"),
+        entry("int8_matmul (fp16)", "one_peace_tpu/ops/quant_pallas.py:75", fp16_counts["gemm"],
+              fp16_int8_worst["gemm"], with_shapes({f"(M, K, N) = {shape}": fp16_int8_times[shape]
+                                                    for shape in FFN_SHAPES}),
+              source="int8_matmul"),
+        entry("int8_quantize_rows (fp16)", "one_peace_tpu/ops/quant.py:46",
+              fp16_counts["quantize"], fp16_int8_worst["quantize"],
+              with_shapes({f"(M, K) = {shape}": fp16_int8_times[shape]
+                           for shape in ((65792, 1536), (65792, 6144))}),
+              source="int8_matmul"),
         entry("det_attention_fwd", "one_peace_tpu/ops/det_attention.py:277",
               det_launches + det_fwd_train + coco_fwd, det_worst, det_times["global"]),
         entry("det_attention_bwd_dq", "one_peace_tpu/ops/det_attention.py:618",

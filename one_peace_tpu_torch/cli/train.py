@@ -82,15 +82,18 @@ best export, and preemption-safe resume, on one card.
   kept; ``checkpoint_best.npz`` (the JAX package's ``.npz`` layout) when
   ``best_checkpoint_metric`` improves, and the k best exports.
 - **Resume.** Unless ``checkpoint.reset_optimizer``, the newest bundle in
-  ``save_dir`` restores the trainer (masters, AdamW state, an accumulation in
-  progress, counters, generator), the iterator's epoch and offset, the best
+  ``save_dir`` restores the trainer (masters, optimizer state, an
+  accumulation in progress, counters, generator, the fp16 loss scale and
+  the EMA shadow), the iterator's epoch and offset, the best
   metric and the update's logging window.  A dataset that draws its
   augmentation from one generator in fetch order (COCO's LSJ) is not
   rewound: a resumed run draws other crops than the straight run did, as in
   the JAX CLI.
 - **Validation** runs on the trainer's compute-dtype copies of the masters
-  (``Trainer._compute_params``) through ``functional_call``: no second model.
-  The best export is in the JAX package's tree layout
+  (``Trainer._compute_params``) through ``functional_call``: no second model;
+  with ``ema.store_ema``, on copies of the EMA shadow instead, unless the
+  task's ``uses_ema`` (default ``ema.ema_eval``) says otherwise.  The best
+  export is the tree that validation scored, in the JAX package's layout
   (``utils.checkpoint.model_to_jax``), so the JAX CLIs read it.
 - **Logging** follows the JAX CLI's tags: ``train_inner`` per update,
   ``train`` per epoch, ``valid`` per validation.  Under ``update_freq > 1``
@@ -357,7 +360,7 @@ def main(argv: Optional[list] = None) -> int:
         nonlocal last_val_step
         with record_function("validate"):
             stats = validate(cfg, task, model, trainer, valid_progress)
-        _maybe_save_best(cfg, trainer, stats, best)
+        _maybe_save_best(cfg, task, trainer, stats, best)
         last_val_step = trainer.step
 
     while trainer.step < max_update and itr.epoch <= max_epoch:
@@ -420,10 +423,21 @@ def _should_validate(cfg, task, step: int, epoch: int, end_of_epoch: bool) -> bo
                 and step % ds.validate_interval_updates == 0)
 
 
-def _maybe_save_best(cfg, trainer, stats, best) -> None:
-    """Track ``best_checkpoint_metric``; export the masters as
-    ``checkpoint_best.npz`` when it improves, and keep the k best exports
-    (ref checkpoint_utils.py save policy)."""
+def _eval_params_source(cfg, task, trainer):
+    """What validation scores and the best export writes: the EMA shadow
+    when one is kept and the task consumes it (the JAX CLI's rule: the
+    task's ``uses_ema``, by default ``ema.ema_eval``), else None for the
+    masters."""
+    if trainer.ema is not None and getattr(task, "uses_ema", cfg.ema.ema_eval):
+        return trainer.ema.shadow
+    return None
+
+
+def _maybe_save_best(cfg, task, trainer, stats, best) -> None:
+    """Track ``best_checkpoint_metric``; export the tree that validation
+    scored (the masters or the EMA shadow) as ``checkpoint_best.npz`` when
+    it improves, and keep the k best exports (ref checkpoint_utils.py save
+    policy)."""
     from ..utils import native_checkpoint as ckpt
     from ..utils.checkpoint import model_to_jax
 
@@ -435,15 +449,16 @@ def _maybe_save_best(cfg, trainer, stats, best) -> None:
               (value > best["value"] if cfg.checkpoint.maximize_best_checkpoint_metric
                else value < best["value"]))
     export = None
+    source = _eval_params_source(cfg, task, trainer)
     if better:
         best["value"] = value
-        export = model_to_jax(trainer.model)
+        export = model_to_jax(trainer.model, source)
         path = os.path.join(cfg.checkpoint.save_dir, "checkpoint_best.npz")
         ckpt.save_params(path, export, metadata={key: float(value), "step": trainer.step})
         logger.info("new best %s=%.4f -> %s", key, value, path)
     if cfg.checkpoint.keep_best_checkpoints > 0:
         if export is None:
-            export = model_to_jax(trainer.model)
+            export = model_to_jax(trainer.model, source)
         kpath = ckpt.save_best_k(
             cfg.checkpoint.save_dir, key, float(value),
             cfg.checkpoint.maximize_best_checkpoint_metric,
@@ -454,11 +469,13 @@ def _maybe_save_best(cfg, trainer, stats, best) -> None:
 
 def validate(cfg, task, model, trainer, progress) -> Dict[str, float]:
     """One pass over the valid split on the trainer's compute-dtype copies
-    of the masters; prints and returns the task's numeric stats."""
+    of the masters, or of the EMA shadow (``_eval_params_source``); prints
+    and returns the task's numeric stats."""
     from ..metrics.metrics import fetch_once
 
     with torch.no_grad():
-        params = trainer._compute_params(prefix="")
+        params = trainer._compute_params(prefix="",
+                                         source=_eval_params_source(cfg, task, trainer))
     fetches_before = fetch_once.calls
     task.begin_valid_epoch(model, params)
     itr = task.get_batch_iterator("valid", cfg.dataset.batch_size_valid,

@@ -11,8 +11,8 @@
 //   dsc = ds * scaling rounded to q's dtype
 //   dq  = dsc k;  dk = dsc^T q;  d(rel_bias) = ds     (d(rel_bias) in fp32)
 //
-// on the (B, L, H*64) layout, with d(rel_bias) summed over B when the bias is
-// shared, (H, L, L).  The rounding points of p and dsc are the TPU kernel's
+// on the (B, L, H*64) layout in bf16, fp16 or fp32, with d(rel_bias) summed
+// over B when the bias is shared, (H, L, L).  The rounding points of p and dsc are the TPU kernel's
 // (:311, :323) and those of flash_attention_bwd_plain.
 //
 // What bounds it on an H100 (4B geometry, H=24, Dh=64, per layer, B=32):
@@ -66,6 +66,9 @@
 //     the last q tile (dk/dv kernel) are as wide as their rows rounded up to
 //     16 (wgmma m64nNk16 and products 16 * ceil(rows / 16) deep), and warps
 //     whose 16 rows all lie past L take part only in the warpgroup's wgmma;
+//   - fp16 (the fp16 training path) runs the bf16 kernels unchanged,
+//     templated on the element type: wgmma's .f16 form, p and dsc rounded
+//     to fp16 where the plain version rounds them;
 //   - fp32 (the test path) uses CUDA-core FMA on shared-memory tiles and
 //     finds the statistics itself, as before.
 // Not done yet: TMA; the dk/dv block's bias kept resident across its batch
@@ -73,6 +76,7 @@
 // blocks per SM); p32 and dp shared between the two kernels.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -86,17 +90,17 @@ namespace {
 constexpr int kF32Stride = kHeadDim + 1; // fp32 smem row stride: no bank conflicts
 
 // ---------------------------------------------------------------------------
-// bf16 dq kernel: rows [16w, 16w + 16) of the block's q tile in warp w.
+// bf16 / fp16 (T) dq kernel: rows [16w, 16w + 16) of the block's q tile in
+// warp w.
 // ---------------------------------------------------------------------------
 
-template <bool kResident>
+template <typename T, bool kResident>
 __global__ void __launch_bounds__(128, 2)
-attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
-                 const float* __restrict__ bias, int bias_batched,
-                 const float* __restrict__ key_bias, const float* __restrict__ stats,
-                 __nv_bfloat16* __restrict__ dq, float* __restrict__ dsum, int L, int H,
-                 float scaling, TilePlan plan) {
+attn_bwd_dq_wgmma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ g, const float* __restrict__ bias, int bias_batched,
+                  const float* __restrict__ key_bias, const float* __restrict__ stats,
+                  T* __restrict__ dq, float* __restrict__ dsum, int L, int H, float scaling,
+                  TilePlan plan) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   unsigned char* smem = aligned_smem(dyn_smem);
   unsigned char* ks = smem;                   // [2] swizzled K tiles (Q, G first)
@@ -157,8 +161,8 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   auto p32_dp = [&](auto n8c, float s[8][4], float dp[8][4], int it) {
     constexpr int kN8 = decltype(n8c)::value;
     const int k0 = it * kTile, buf = it & 1;
-    issue_nt<kN8>(s, qa, ks + buf * kTileBytes);
-    issue_nt<kN8>(dp, ga, vs + buf * kTileBytes);
+    issue_nt<kN8, T>(s, qa, ks + buf * kTileBytes);
+    issue_nt<kN8, T>(dp, ga, vs + buf * kTileBytes);
     float bv[kN8][4];
 #pragma unroll
     for (int j = 0; j < kN8; ++j) {
@@ -251,7 +255,7 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       const int buf = it & 1;
       float s[8][4], dp[8][4];
       if constexpr (kResident) {
-        issue_nt<kN8>(dp, ga, vs + buf * kTileBytes);
+        issue_nt<kN8, T>(dp, ga, vs + buf * kTileBytes);
         const float* rt = region + it * kTile + 2 * t;
 #pragma unroll
         for (int j = 0; j < kN8; ++j)
@@ -272,35 +276,34 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         for (int j = 0; j < kN8; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c) s[j][c] = s[j][c] * (dp[j][c] - dsr[c >> 1]) * scaling;
-        pack_a<kN8 / 2>(dsa, s);
+        pack_a<kN8 / 2, T>(dsa, s);
       } else {
         zero_a(dsa);
       }
-      issue_nn<kN8 / 2>(o, dsa, ks + buf * kTileBytes);
+      issue_nn<kN8 / 2, T>(o, dsa, ks + buf * kTileBytes);
       wgmma_wait_all();
       fence_acc(o);
     });
     __syncthreads();  // tile it is consumed before its buffers are refilled
   }
-  store_rows_bf16(dq + base, o, rows, L, row_stride);
+  store_rows<T>(dq + base, o, rows, L, row_stride);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dk/dv kernel: keys [16w, 16w + 16) of the block's key tile in warp w;
+// bf16 / fp16 (T) dk/dv kernel: keys [16w, 16w + 16) of the block's key tile in warp w;
 // scores are transposed (rows keys, columns queries).
 // kDbias: 0 no bias or a batched one (ds stored once), 1 a shared bias summed
 // in the shared slab, 2 a shared bias summed in device memory per row.
 // ---------------------------------------------------------------------------
 
-template <int kDbias>
+template <typename T, int kDbias>
 __global__ void __launch_bounds__(128, 2)
-attn_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
-                  const float* __restrict__ bias, int bias_batched,
-                  const float* __restrict__ key_bias, const float* __restrict__ stats,
-                  const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, float* __restrict__ dbias, int B, int L, int H,
-                  float scaling, int b_chunk, int n_tiles, int tail, int slab_stride) {
+attn_bwd_dkv_wgmma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ g, const float* __restrict__ bias, int bias_batched,
+                   const float* __restrict__ key_bias, const float* __restrict__ stats,
+                   const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv,
+                   float* __restrict__ dbias, int B, int L, int H, float scaling, int b_chunk,
+                   int n_tiles, int tail, int slab_stride) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   unsigned char* smem = aligned_smem(dyn_smem);
   unsigned char* qs = smem;                   // [2] swizzled Q tiles (K first)
@@ -381,7 +384,7 @@ attn_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       with_width(width(it), [&](auto n8c) {
         constexpr int kN8 = decltype(n8c)::value;
         float s[8][4], dp[8][4];
-        issue_nt<kN8>(s, ka, qc);  // s^T = k q^T, while the bias is read
+        issue_nt<kN8, T>(s, ka, qc);  // s^T = k q^T, while the bias is read
         // no branch between a product's issue and its wait (ptxas serialised
         // the wgmmas behind one); one accumulator pair at a time in flight
         // beside dk and dv, or the kernel spilled
@@ -409,12 +412,12 @@ attn_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
                                        -st[cur][0][qi] * kLog2e)) * st[cur][1][qi]
                             : 0.f;  // p32^T
             }
-          pack_a<kN8 / 2>(pa, s);
+          pack_a<kN8 / 2, T>(pa, s);
         } else {
           zero_a(pa);
         }
-        issue_nn<kN8 / 2>(dv_acc, pa, gc);  // dv += round(p)^T g
-        issue_nt<kN8>(dp, va, gc);          // dp^T = v g^T
+        issue_nn<kN8 / 2, T>(dv_acc, pa, gc);  // dv += round(p)^T g
+        issue_nt<kN8, T>(dp, va, gc);          // dp^T = v g^T
         wgmma_wait_all();
         fence_acc(dv_acc);
         fence_acc(dp);
@@ -465,18 +468,18 @@ attn_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
           for (int j = 0; j < kN8; ++j)
 #pragma unroll
             for (int c = 0; c < 4; ++c) dp[j][c] *= scaling;
-          pack_a<kN8 / 2>(dsa, dp);
+          pack_a<kN8 / 2, T>(dsa, dp);
         } else {
           zero_a(dsa);
         }
-        issue_nn<kN8 / 2>(dk_acc, dsa, qc);  // dk += round(ds * scaling)^T q
+        issue_nn<kN8 / 2, T>(dk_acc, dsa, qc);  // dk += round(ds * scaling)^T q
         wgmma_wait_all();
         fence_acc(dk_acc);
       });
       __syncthreads();  // tile it is consumed before its buffers are refilled
     }
-    store_rows_bf16(dk + base, dk_acc, keys, L, row_stride);
-    store_rows_bf16(dv + base, dv_acc, keys, L, row_stride);
+    store_rows<T>(dk + base, dk_acc, keys, L, row_stride);
+    store_rows<T>(dv + base, dv_acc, keys, L, row_stride);
   }
   if constexpr (kDbias == 1) {  // the chunk's sum, once: rows are queries, 64 keys a row
     __syncthreads();
@@ -791,52 +794,86 @@ attn_bwd_sum_chunks(const float* __restrict__ partial, float* __restrict__ dbias
 }
 
 
-template <bool kResident>
+template <typename T, bool kResident>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* g,
                       const float* bias, int bias_batched, const float* key_bias,
                       const float* stats, void* dq, float* dsum, dim3 grid, int L, int heads,
                       float scaling, const TilePlan& plan, cudaStream_t s) {
-  using bf = __nv_bfloat16;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_bf16<kResident>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_wgmma<T, kResident>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_bf16<kResident><<<grid, 128, plan.smem, s>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(g), bias, bias_batched, key_bias, stats, static_cast<bf*>(dq), dsum,
+  attn_bwd_dq_wgmma<T, kResident><<<grid, 128, plan.smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), bias, bias_batched, key_bias, stats, static_cast<T*>(dq), dsum,
       L, heads, scaling, plan);
   return cudaGetLastError();
 }
 
-template <int kDbias>
+template <typename T, int kDbias>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* g,
                        const float* bias, int bias_batched, const float* key_bias,
                        const float* stats, const float* dsum, void* dk, void* dv, float* dbias,
                        dim3 grid, int batch, int L, int heads, float scaling, int b_chunk,
                        const TilePlan& plan, int slab_stride, int smem, cudaStream_t s) {
-  using bf = __nv_bfloat16;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkv_bf16<kDbias>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkv_wgmma<T, kDbias>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv_bf16<kDbias><<<grid, 128, smem, s>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(g), bias, bias_batched, key_bias, stats, dsum, static_cast<bf*>(dk),
-      static_cast<bf*>(dv), dbias, batch, L, heads, scaling, b_chunk, plan.n_tiles, plan.tail,
+  attn_bwd_dkv_wgmma<T, kDbias><<<grid, 128, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), bias, bias_batched, key_bias, stats, dsum, static_cast<T*>(dk),
+      static_cast<T*>(dv), dbias, batch, L, heads, scaling, b_chunk, plan.n_tiles, plan.tail,
       slab_stride);
   return cudaGetLastError();
+}
+
+// The bf16 or fp16 (T) kernels of one backward: the dq kernel (passes & 1)
+// and the dk/dv kernel (passes & 2) on their plans.
+template <typename T>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* g,
+                         const float* bias, int bias_batched, const float* key_bias,
+                         const float* stats, float* dsum, void* dq, void* dk, void* dv,
+                         float* dbias_out, dim3 grid_dq, dim3 grid_dkv, int batch, int L,
+                         int heads, float scaling, int passes, const TilePlan& plan,
+                         bool shared_bias, int dkv_slab, int dkv_smem, int b_chunk,
+                         cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
+  if (passes & 1) {
+    err = plan.resident ? launch_dq<T, true>(q, k, v, g, bias, bias_batched, key_bias, stats,
+                                             dq, dsum, grid_dq, L, heads, scaling, plan, s)
+                        : launch_dq<T, false>(q, k, v, g, bias, bias_batched, key_bias, stats,
+                                              dq, dsum, grid_dq, L, heads, scaling, plan, s);
+    if (err != cudaSuccess) return err;
+  }
+  if (passes & 2) {
+    const int width = kTile * (plan.n_tiles - 1) + plan.tail;
+    if (dkv_slab)
+      err = launch_dkv<T, 1>(q, k, v, g, bias, bias_batched, key_bias, stats, dsum, dk, dv,
+                             dbias_out, grid_dkv, batch, L, heads, scaling, b_chunk, plan,
+                             width + 8, dkv_smem, s);
+    else if (shared_bias)
+      err = launch_dkv<T, 2>(q, k, v, g, bias, bias_batched, key_bias, stats, dsum, dk, dv,
+                             dbias_out, grid_dkv, batch, L, heads, scaling, b_chunk, plan, 0,
+                             dkv_smem, s);
+    else
+      err = launch_dkv<T, 0>(q, k, v, g, bias, bias_batched, key_bias, stats, dsum, dk, dv,
+                             dbias_out, grid_dkv, batch, L, heads, scaling, b_chunk, plan, 0,
+                             dkv_smem, s);
+  }
+  return err;
 }
 
 }  // namespace
 
 // Launches the kernels on `stream` and returns cudaGetLastError() (0 on
-// success).  q, k, v, g, dq, dk, dv: (batch, seq_len, heads * 64), bf16 when
-// is_bf16 else fp32.  bias and dbias: fp32 (heads, L, L), or (batch, heads,
-// L, L) when bias_batched, or both null.  key_bias: fp32 (batch, L) or null.
-// stats: fp32 (2, batch, heads, L), each row's max and 1 / sum: the
-// forward's, read by the bf16 kernels; scratch that the fp32 kernels write.
-// dsum: fp32 scratch of batch * heads * L.  passes: a bit mask, 1 the dq
-// kernel, 2 the dk/dv kernel (and the chunk sum).  n_tiles, tail, resident,
-// stride and dq_smem: the bf16 dq kernel's plan (ops/flash_attention.py:
-// tile_plan); dkv_slab, dkv_smem and b_chunk: the dk/dv kernel's
+// success).  q, k, v, g, dq, dk, dv: (batch, seq_len, heads * 64), of the
+// dtype `dtype` names: 0 fp32, 1 bf16, 2 fp16.  bias and dbias: fp32 (heads,
+// L, L), or (batch, heads, L, L) when bias_batched, or both null.  key_bias:
+// fp32 (batch, L) or null.  stats: fp32 (2, batch, heads, L), each row's max
+// and 1 / sum: the forward's, read by the bf16 and fp16 kernels; scratch that
+// the fp32 kernels write.  dsum: fp32 scratch of batch * heads * L.  passes:
+// a bit mask, 1 the dq kernel, 2 the dk/dv kernel (and the chunk sum).
+// n_tiles, tail, resident, stride and dq_smem: the bf16 / fp16 dq kernel's
+// plan (ops/flash_attention.py:tile_plan); dkv_slab, dkv_smem and b_chunk: the dk/dv kernel's
 // (bwd_plan); a launch whose plan differs from the one for seq_len is
 // refused with cudaErrorInvalidValue.  b_chunk: batch rows per dk/dv block
 // (a shared bias's chunk; otherwise 1, or more where ceil(batch / b_chunk)
@@ -847,7 +884,7 @@ extern "C" int one_peace_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g, const void* bias,
     int bias_batched, const void* key_bias, void* dq, void* dk, void* dv, void* dbias,
     void* partial, void* stats, void* dsum, int batch, int seq_len, int heads, float scaling,
-    int is_bf16, int passes, int n_tiles, int tail, int resident, int stride, int dq_smem,
+    int dtype, int passes, int n_tiles, int tail, int resident, int stride, int dq_smem,
     int dkv_slab, int dkv_smem, int b_chunk, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -866,34 +903,23 @@ extern "C" int one_peace_flash_attention_bwd(
   const float* kbp = static_cast<const float*>(key_bias);
   float* st = static_cast<float*>(stats);
   float* ds = static_cast<float*>(dsum);
-  if (is_bf16) {
+  if (dtype != 0 && dtype != 1 && dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) {
     const TilePlan plan{n_tiles, tail, resident, stride, dq_smem};
     const int width = kTile * (n_tiles - 1) + tail;
     if (!plan_matches(plan, seq_len) || (dkv_slab && !shared_bias) ||
         dkv_smem != 4 * kTileBytes + (dkv_slab ? kTile * (width + 8) * 4 : 0) + kAlign)
       return static_cast<int>(cudaErrorInvalidValue);
-    if (passes & 1) {
-      err = resident ? launch_dq<true>(q, k, v, g, bp, bias_batched, kbp, st, dq, ds, grid_dq,
-                                       seq_len, heads, scaling, plan, s)
-                     : launch_dq<false>(q, k, v, g, bp, bias_batched, kbp, st, dq, ds, grid_dq,
-                                        seq_len, heads, scaling, plan, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    if (passes & 2) {
-      if (dkv_slab)
-        err = launch_dkv<1>(q, k, v, g, bp, bias_batched, kbp, st, ds, dk, dv, dbias_out,
-                            grid_dkv, batch, seq_len, heads, scaling, b_chunk, plan, width + 8,
-                            dkv_smem, s);
-      else if (shared_bias)
-        err = launch_dkv<2>(q, k, v, g, bp, bias_batched, kbp, st, ds, dk, dv, dbias_out,
-                            grid_dkv, batch, seq_len, heads, scaling, b_chunk, plan, 0, dkv_smem,
-                            s);
-      else
-        err = launch_dkv<0>(q, k, v, g, bp, bias_batched, kbp, st, ds, dk, dv, dbias_out,
-                            grid_dkv, batch, seq_len, heads, scaling, b_chunk, plan, 0, dkv_smem,
-                            s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    err = dtype == 1
+              ? launch_wgmma<__nv_bfloat16>(q, k, v, g, bp, bias_batched, kbp, st, ds, dq, dk,
+                                            dv, dbias_out, grid_dq, grid_dkv, batch, seq_len,
+                                            heads, scaling, passes, plan, shared_bias, dkv_slab,
+                                            dkv_smem, b_chunk, s)
+              : launch_wgmma<__half>(q, k, v, g, bp, bias_batched, kbp, st, ds, dq, dk, dv,
+                                     dbias_out, grid_dq, grid_dkv, batch, seq_len, heads,
+                                     scaling, passes, plan, shared_bias, dkv_slab, dkv_smem,
+                                     b_chunk, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     err = cudaFuncSetAttribute(attn_bwd_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kDqF32Smem));
@@ -927,14 +953,21 @@ extern "C" int one_peace_flash_attention_bwd(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dk/dv kernel's static shared memory in bytes, the larger of its two
+// The dk/dv kernel's static shared memory in bytes, the largest of its
 // instantiations', or -1 if the attributes cannot be read.
 extern "C" int one_peace_bwd_dkv_static_smem() {
-  cudaFuncAttributes with_slab, without;
-  if (cudaFuncGetAttributes(&with_slab, attn_bwd_dkv_bf16<1>) != cudaSuccess ||
-      cudaFuncGetAttributes(&without, attn_bwd_dkv_bf16<0>) != cudaSuccess)
-    return -1;
-  return static_cast<int>(std::max(with_slab.sharedSizeBytes, without.sharedSizeBytes));
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(attn_bwd_dkv_wgmma<__nv_bfloat16, 0>),
+      reinterpret_cast<const void*>(attn_bwd_dkv_wgmma<__nv_bfloat16, 1>),
+      reinterpret_cast<const void*>(attn_bwd_dkv_wgmma<__half, 0>),
+      reinterpret_cast<const void*>(attn_bwd_dkv_wgmma<__half, 1>)};
+  size_t most = 0;
+  for (const void* kernel : kernels) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
+    most = std::max(most, attr.sharedSizeBytes);
+  }
+  return static_cast<int>(most);
 }
 
 extern "C" const char* one_peace_bwd_error_string(int err) {

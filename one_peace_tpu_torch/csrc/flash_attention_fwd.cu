@@ -7,7 +7,8 @@
 //
 // on the (B, L, H*64) layout that the q/k/v projections produce, with the
 // scores and the softmax in fp32 and the probabilities rounded to v's dtype
-// before p.v, where the plain version casts them.  rel_bias is fp32
+// before p.v, where the plain version casts them.  q, k, v and out are bf16,
+// fp16 or fp32.  rel_bias is fp32
 // (H, L, L) shared over the batch, fp32 (B, H, L, L), or absent; key_bias is
 // fp32 (B, L) (-1e30 at padded keys) or absent.  out has q's dtype.  When a
 // gradient will be taken it also writes each row's max m and 1 / sum
@@ -53,6 +54,11 @@
 //     only 16 * ceil(keys / 16) deep; each width compiled apart), and in the
 //     last q tile the warps whose 16 rows all lie past L take part only in
 //     the warpgroup's wgmma: no bias, no exp, no stores;
+//   - fp16 inputs (the fp16 training and serving path) run the bf16 design
+//     unchanged, templated on the element type: the same 2-byte tiles,
+//     swizzle and fragments, wgmma's .f16 form, p rounded to fp16 before
+//     p.v as the plain version rounds it (fp16 keeps 3 more mantissa bits
+//     than bf16, so p.v is closer to fp32);
 //   - fp32 inputs (the test path) use CUDA-core FMA and a one-pass online
 //     softmax (nothing is rounded, so the order does not matter).
 // Not done yet: TMA for K, V; 128-row q tiles (half the K/V traffic); a row
@@ -60,6 +66,7 @@
 // warpgroup's products); overlapping one tile's p.v with the next q.k^T.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -93,14 +100,14 @@ __device__ __forceinline__ float biased_score(float acc, int row, int col, int L
 }
 
 // 4 warps; warp w owns query rows [16w, 16w + 16) of the block's tile.
-// kResident: one walk, the scores kept in the region (see the header).
-template <bool kResident>
+// T: bf16 or fp16.  kResident: one walk, the scores kept in the region (see
+// the header).
+template <typename T, bool kResident>
 __global__ void __launch_bounds__(128, 2)
-attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-              int bias_batched, const float* __restrict__ key_bias,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ stats, int L, int H,
-              float scaling, TilePlan plan) {
+attn_fwd_wgmma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const float* __restrict__ bias, int bias_batched,
+               const float* __restrict__ key_bias, T* __restrict__ out,
+               float* __restrict__ stats, int L, int H, float scaling, TilePlan plan) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   unsigned char* smem = aligned_smem(dyn_smem);
   unsigned char* ks = smem;                   // [2] swizzled K tiles
@@ -149,7 +156,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   auto scores = [&](auto n8c, float s[8][4], int it) {
     constexpr int kN8 = decltype(n8c)::value;
     const int k0 = it * kBlockN;
-    issue_nt<kN8>(s, qa, ks + (it & 1) * kTileBytes);
+    issue_nt<kN8, T>(s, qa, ks + (it & 1) * kTileBytes);
     // no branch between a product's issue and its wait (ptxas serialised the
     // wgmmas behind one): every warp reads the bias, at rows clamped below L
     float bv[kN8][4];
@@ -275,7 +282,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       }
   }
 
-  // walk 3: P = exp(s - m) / l, rounded to bf16, times V
+  // walk 3: P = exp(s - m) / l, rounded to T, times V
   float o[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -315,16 +322,16 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       }
       uint32_t pa[4][4];
       if (live)
-        pack_a<kN8 / 2>(pa, p);
+        pack_a<kN8 / 2, T>(pa, p);
       else
         zero_a(pa);
-      issue_nn<kN8 / 2>(o, pa, vs + (it & 1) * kTileBytes);
+      issue_nn<kN8 / 2, T>(o, pa, vs + (it & 1) * kTileBytes);
       wgmma_wait_all();
       fence_acc(o);
     });
     __syncthreads();  // tile it is consumed before its buffers are refilled
   }
-  store_rows_bf16(out + base, o, rows, L, row_stride);
+  store_rows<T>(out + base, o, rows, L, row_stride);
 }
 
 // 256 threads as 16 x 16: thread (ty, tx) owns rows 4ty..4ty+3 and, of each
@@ -445,35 +452,46 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-template <bool kResident>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float* bias,
-                        int bias_batched, const float* key_bias, void* out, float* stats,
-                        dim3 grid, int L, int heads, float scaling, const TilePlan& plan,
-                        cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_bf16<kResident>,
+template <typename T, bool kResident>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
+                         int bias_batched, const float* key_bias, void* out, float* stats,
+                         dim3 grid, int L, int heads, float scaling, const TilePlan& plan,
+                         cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_wgmma<T, kResident>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return err;
-  attn_fwd_bf16<kResident><<<grid, 128, plan.smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bias, bias_batched, key_bias,
-      static_cast<__nv_bfloat16*>(out), stats, L, heads, scaling, plan);
+  attn_fwd_wgmma<T, kResident><<<grid, 128, plan.smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      bias_batched, key_bias, static_cast<T*>(out), stats, L, heads, scaling, plan);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wgmma(bool resident, const void* q, const void* k, const void* v,
+                         const float* bias, int bias_batched, const float* key_bias, void* out,
+                         float* stats, dim3 grid, int L, int heads, float scaling,
+                         const TilePlan& plan, cudaStream_t s) {
+  return resident ? launch_wgmma<T, true>(q, k, v, bias, bias_batched, key_bias, out, stats,
+                                          grid, L, heads, scaling, plan, s)
+                  : launch_wgmma<T, false>(q, k, v, bias, bias_batched, key_bias, out, stats,
+                                           grid, L, heads, scaling, plan, s);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// q, k, v, out: (batch, seq_len, heads * 64), bf16 when is_bf16 else fp32.
+// q, k, v, out: (batch, seq_len, heads * 64), of the dtype `dtype` names:
+// 0 fp32, 1 bf16, 2 fp16 (ops/build.py:DTYPE_CODES).
 // bias: fp32 (heads, L, L), or (batch, heads, L, L) when bias_batched, or null.
 // key_bias: fp32 (batch, L) or null.  stats: fp32 (2, batch, heads, L) for each
 // row's max and 1 / sum, or null.  n_tiles, tail, resident, stride and
-// smem_bytes: the bf16 kernel's plan (ops/flash_attention.py:tile_plan); a
+// smem_bytes: the bf16 and fp16 kernel's plan (ops/flash_attention.py:tile_plan); a
 // launch whose plan differs from the one for seq_len is refused with
 // cudaErrorInvalidValue.  The fp32 kernel ignores them.
 extern "C" int one_peace_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, int bias_batched,
     const void* key_bias, void* out, void* stats, int batch, int seq_len, int heads,
-    float scaling, int is_bf16, int n_tiles, int tail, int resident, int stride,
+    float scaling, int dtype, int n_tiles, int tail, int resident, int stride,
     int smem_bytes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -482,13 +500,15 @@ extern "C" int one_peace_flash_attention_fwd(
   const float* bp = static_cast<const float*>(bias);
   const float* kbp = static_cast<const float*>(key_bias);
   float* st = static_cast<float*>(stats);
-  if (is_bf16) {
+  if (dtype != 0 && dtype != 1 && dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) {
     const TilePlan plan{n_tiles, tail, resident, stride, smem_bytes};
     if (!plan_matches(plan, seq_len)) return static_cast<int>(cudaErrorInvalidValue);
-    err = resident ? launch_bf16<true>(q, k, v, bp, bias_batched, kbp, out, st, grid, seq_len,
-                                       heads, scaling, plan, s)
-                   : launch_bf16<false>(q, k, v, bp, bias_batched, kbp, out, st, grid, seq_len,
-                                        heads, scaling, plan, s);
+    err = dtype == 1
+              ? launch_wgmma<__nv_bfloat16>(resident, q, k, v, bp, bias_batched, kbp, out, st,
+                                            grid, seq_len, heads, scaling, plan, s)
+              : launch_wgmma<__half>(resident, q, k, v, bp, bias_batched, kbp, out, st, grid,
+                                     seq_len, heads, scaling, plan, s);
     return static_cast<int>(err);
   }
   err = cudaFuncSetAttribute(attn_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -8,7 +8,9 @@
 // owns 64 rows; warp w holds rows 16w + g and 16w + g + 8 (g = lane / 4) of a
 // 64-column accumulator, columns 8j + 2t + (c & 1) (t = lane % 4), as
 // wgmma_tiles.cuh writes them.  Q/K/V/G tiles are 64 rows x 64 head dims of
-// bf16 in the 128-byte swizzle; rows past the sequence are zeros.
+// the element type T (bf16 or fp16: the kernels are templated on it, the
+// layouts are the same) in the 128-byte swizzle; rows past the sequence are
+// zeros.
 
 #pragma once
 
@@ -20,7 +22,7 @@ namespace {
 
 constexpr int kHeadDim = 64;
 constexpr int kTile = 64;                        // rows of a q tile, keys of a key tile
-constexpr int kTileBytes = kTile * kHeadDim * 2;  // a swizzled bf16 tile
+constexpr int kTileBytes = kTile * kHeadDim * 2;  // a swizzled bf16 or fp16 tile
 constexpr int kAlign = 1024;                     // the 128-byte swizzle's atom
 constexpr int kStageStride = kTile + 8;          // floats per staged bias row (two walks)
 constexpr float kNegInf = -1e30f;                // as ops/flash_attention.py NEG_INF
@@ -92,16 +94,17 @@ __device__ __forceinline__ void with_width(int width, F&& f) {
   }
 }
 
-// round(x) as A fragments of a 16 * kK16 deep product: the accumulator
-// layout of two adjacent 8-column groups is the A layout of one 16-deep step.
-template <int kK16>
+// x rounded to T as A fragments of a 16 * kK16 deep product: the
+// accumulator layout of two adjacent 8-column groups is the A layout of one
+// 16-deep step.
+template <int kK16, typename T>
 __device__ __forceinline__ void pack_a(uint32_t xa[4][4], const float x[8][4]) {
 #pragma unroll
   for (int kk = 0; kk < kK16; ++kk) {
-    xa[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    xa[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    xa[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    xa[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    xa[kk][0] = pack2<T>(x[2 * kk][0], x[2 * kk][1]);
+    xa[kk][1] = pack2<T>(x[2 * kk][2], x[2 * kk][3]);
+    xa[kk][2] = pack2<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    xa[kk][3] = pack2<T>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
   }
 }
 
@@ -113,28 +116,28 @@ __device__ __forceinline__ void zero_a(uint32_t xa[4][4]) {
 // Issue acc = A B^T over the 64 head dims: A the warpgroup's 64 rows in
 // registers, B the first 8 * kN8 rows of a swizzled tile (keys, or queries in
 // the dk/dv kernel); acc[kN8 ..] is left alone.  Committed, not waited for.
-template <int kN8>
+template <int kN8, typename T>
 __device__ __forceinline__ void issue_nt(float acc[8][4], const uint32_t a[4][4],
                                          const unsigned char* b) {
   const uint64_t desc = sw128_desc(b);
   fence_acc(acc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_64xnx16<kN8, 0>(acc, a[kk], desc + 2 * kk, kk);
+  for (int kk = 0; kk < 4; ++kk) wgmma_64xnx16<kN8, 0, T>(acc, a[kk], desc + 2 * kk, kk);
   wgmma_commit();
 }
 
 // Issue o += X B: X (64 rows x 16 * kK16, the sum index) as A fragments, B
 // the first 16 * kK16 rows of a swizzled tile read transposed (MN-major).
 // Committed, not waited for.
-template <int kK16>
+template <int kK16, typename T>
 __device__ __forceinline__ void issue_nn(float o[8][4], const uint32_t xa[4][4],
                                          const unsigned char* b) {
   const uint64_t desc = sw128_desc(b);
   fence_acc(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kK16; ++kk) wgmma_64x64x16<1>(o, xa[kk], desc + 128 * kk, 1);
+  for (int kk = 0; kk < kK16; ++kk) wgmma_64x64x16<1, T>(o, xa[kk], desc + 128 * kk, 1);
   wgmma_commit();
 }
 
@@ -150,18 +153,19 @@ __device__ __forceinline__ void stage_bias(float* dst, int stride, const float* 
       cp_async_4(dst + r * stride + c, src + static_cast<size_t>(r) * L + c, true);
 }
 
-// Rows rows[0..1] of a 16 x 64 accumulator, rounded to bf16, into a
-// (L, H*64) tensor; rows >= L are skipped.
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst, const float acc[8][4],
-                                                const int rows[2], int L, int row_stride) {
+// Rows rows[0..1] of a 16 x 64 accumulator, rounded to T (bf16 or fp16),
+// into a (L, H*64) tensor; rows >= L are skipped.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float acc[8][4], const int rows[2],
+                                           int L, int row_stride) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= L) continue;
-    __nv_bfloat16* p = dst + static_cast<size_t>(rows[r]) * row_stride + 2 * t;
+    T* p = dst + static_cast<size_t>(rows[r]) * row_stride + 2 * t;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(p + n * 8) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(p + n * 8) = pack2<T>(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 

@@ -6,15 +6,15 @@
 //   y[m, n] = (float(sum_k x_q[m, k] * w_q[n, k]) * sx[m]) * sw[n]  (+ b[n])
 //
 // with the int32 sum exact, the epilogue in fp32 in that order (each step
-// rounded, no fused multiply-add), and one rounding to the output dtype (bf16
-// or fp32).  That is the JAX package's arithmetic: `quantized_linear`
+// rounded, no fused multiply-add), and one rounding to the output dtype (bf16,
+// fp16 or fp32).  That is the JAX package's arithmetic: `quantized_linear`
 // (ops/quant.py) takes the kernel's fp32 output, adds the bias in fp32 and
 // casts once to x's dtype.  x_q is (M, K) int8 row-major, w_q is (N, K) int8
 // row-major (K contiguous: the transpose of the JAX package's (K, N)), sx is
 // (M,) fp32, sw and b are (N,) fp32.
 //
 // int8_quantize_rows is the XLA fusion in front of it (ops/quant.py:46-49),
-// which has no Pallas kernel: per row of x (M, K), bf16 or fp32,
+// which has no Pallas kernel: per row of x (M, K), bf16, fp16 or fp32,
 //
 //   sx[m]     = max(max_k |float(x[m, k])| / 127, 1e-8)
 //   x_q[m, k] = clamp(rint(float(x[m, k]) / sx[m]), -127, 127)
@@ -80,6 +80,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry point is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -251,18 +252,23 @@ __device__ __forceinline__ void load4(float f[4], const float* __restrict__ v, i
 }
 
 // Four outputs from p on, `left` of them inside the row; vec: p is aligned
-// for one 8-byte (bf16) or 16-byte (fp32) store.
+// for one 8-byte (bf16, fp16) or 16-byte (fp32) store.
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float y[4], int left, bool vec) {
   if (vec && left >= 4) {
-    uint2 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-    h[0] = __floats2bfloat162_rn(y[0], y[1]);
-    h[1] = __floats2bfloat162_rn(y[2], y[3]);
-    *reinterpret_cast<uint2*>(p) = u;
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
   } else {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       if (i < left) p[i] = __float2bfloat16_rn(y[i]);
+  }
+}
+__device__ __forceinline__ void store4(__half* p, const float y[4], int left, bool vec) {
+  if (vec && left >= 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_f16(y[0], y[1]), pack_f16(y[2], y[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i < left) p[i] = __float2half_rn(y[i]);
   }
 }
 __device__ __forceinline__ void store4(float* p, const float y[4], int left, bool vec) {
@@ -341,7 +347,7 @@ __device__ __forceinline__ void write_tile_tma(const int acc[128], uint8_t* boxe
                                                const float* __restrict__ sw,
                                                const float* __restrict__ bias,
                                                const CUtensorMap* map_out, int M, int N) {
-  constexpr int kBoxCols = 128 / sizeof(T);  // 64 bf16 or 32 fp32
+  constexpr int kBoxCols = 128 / sizeof(T);  // 64 bf16 or fp16, or 32 fp32
   static_assert((kBN / kBoxCols) % 2 == 0, "the boxes alternate across tiles too");
   const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
   float s_x[2];
@@ -375,7 +381,7 @@ __device__ __forceinline__ void write_tile_tma(const int acc[128], uint8_t* boxe
         const float y1 = epilogue(acc[4 * j + 2 * h + 1], s_x[h], w1, b1, bias != nullptr);
         uint8_t* at = box + r * 128 + (((byte >> 4) ^ (r & 7)) << 4) + (byte & 15);
         if constexpr (sizeof(T) == 2) {
-          *reinterpret_cast<uint32_t*>(at) = pack_bf16(y0, y1);
+          *reinterpret_cast<uint32_t*>(at) = pack2<T>(y0, y1);
         } else {
           *reinterpret_cast<float2*>(at) = make_float2(y0, y1);
         }
@@ -507,16 +513,20 @@ __device__ __forceinline__ int8_t quantize(float v, float s) {
   return static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
 }
 
-// 16 bytes of x as floats: 8 bf16 or 4 fp32 values.
-template <typename T> struct Vec;
-template <> struct Vec<__nv_bfloat16> {
+__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+__device__ __forceinline__ float2 to_float2(__half2 v) { return __half22float2(v); }
+
+// 16 bytes of x as floats: 8 bf16 or fp16, or 4 fp32 values.
+template <typename T> struct Vec {
+  static_assert(sizeof(T) == 2, "the 2-byte types: bf16 and fp16");
+  using T2 = std::conditional_t<std::is_same_v<T, __half>, __half2, __nv_bfloat162>;
   static constexpr int kN = 8;
-  __device__ __forceinline__ static void load(float f[8], const __nv_bfloat16* p) {
+  __device__ __forceinline__ static void load(float f[8], const T* p) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const T2* h = reinterpret_cast<const T2*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
+      const float2 x = to_float2(h[i]);
       f[2 * i] = x.x;
       f[2 * i + 1] = x.y;
     }
@@ -545,6 +555,7 @@ template <> struct Vec<float> {
 };
 
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
 // One warp per row; kVec: 16-byte loads (K a multiple of Vec<T>::kN and
@@ -648,8 +659,9 @@ int encode_output(CUtensorMap* map, void* base, int M, int N) {
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / sizeof(T)), 64};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = fn(map,
-                        sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        std::is_same_v<T, __half>          ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                        : std::is_same_v<T, __nv_bfloat16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                         2, base, dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -689,35 +701,49 @@ int launch_matmul(const void* xq, const void* wq, const void* sx, const void* sw
 
 }  // namespace
 
-// x (M, K) bf16 (is_bf16) or fp32 -> x_q (M, K) int8 and sx (M,) fp32.
-// vec: x and x_q 16-byte aligned and K a multiple of 8 (bf16) or 4 (fp32).
+// x (M, K) of the dtype `dtype` names (0 fp32, 1 bf16, 2 fp16) -> x_q (M, K)
+// int8 and sx (M,) fp32.  vec: x and x_q 16-byte aligned and K a multiple of
+// 8 (bf16, fp16) or 4 (fp32).
 extern "C" int one_peace_int8_quantize_rows(const void* x, void* xq, void* sx, int M, int K,
-                                            int is_bf16, int vec, int device, void* stream) {
+                                            int dtype, int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch_quantize<__nv_bfloat16>(x, xq, sx, M, K, vec != 0, s)
-                : launch_quantize<float>(x, xq, sx, M, K, vec != 0, s);
+  switch (dtype) {
+    case 0: err = launch_quantize<float>(x, xq, sx, M, K, vec != 0, s); break;
+    case 1: err = launch_quantize<__nv_bfloat16>(x, xq, sx, M, K, vec != 0, s); break;
+    case 2: err = launch_quantize<__half>(x, xq, sx, M, K, vec != 0, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 
-// x_q (M, K) int8 @ w_q (N, K)^T int8 -> out (M, N) bf16 (out_bf16) or fp32,
-// scaled by sx (M,) and sw (N,), plus bias (N,) fp32 when not null.  K a
-// multiple of 16; x_q and w_q 16-byte aligned.  The plan (tile_m x tile_n
+// x_q (M, K) int8 @ w_q (N, K)^T int8 -> out (M, N) of the dtype `out_dtype`
+// names (0 fp32, 1 bf16, 2 fp16), scaled by sx (M,) and sw (N,), plus bias
+// (N,) fp32 when not null.  K a multiple of 16; x_q and w_q 16-byte aligned.  The plan (tile_m x tile_n
 // tiles, stages, shared memory bytes, grid, raster group) is
 // ops/int8_matmul.py:gemm_plan's; another one is refused.
 extern "C" int one_peace_int8_matmul(const void* xq, const void* wq, const void* sx,
                                      const void* sw, const void* bias, void* out, int M, int N,
-                                     int K, int out_bf16, int tile_m, int tile_n, int stages,
+                                     int K, int out_dtype, int tile_m, int tile_n, int stages,
                                      int smem_bytes, int grid, int group, int device,
                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch_matmul<__nv_bfloat16>(xq, wq, sx, sw, bias, out, M, N, K, tile_m,
-                                                 tile_n, stages, smem_bytes, grid, group, s)
-                  : launch_matmul<float>(xq, wq, sx, sw, bias, out, M, N, K, tile_m, tile_n,
-                                         stages, smem_bytes, grid, group, s);
+  switch (out_dtype) {
+    case 0:
+      return launch_matmul<float>(xq, wq, sx, sw, bias, out, M, N, K, tile_m, tile_n, stages,
+                                  smem_bytes, grid, group, s);
+    case 1:
+      return launch_matmul<__nv_bfloat16>(xq, wq, sx, sw, bias, out, M, N, K, tile_m, tile_n,
+                                          stages, smem_bytes, grid, group, s);
+    case 2:
+      return launch_matmul<__half>(xq, wq, sx, sw, bias, out, M, N, K, tile_m, tile_n, stages,
+                                   smem_bytes, grid, group, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* one_peace_int8_error_string(int err) {

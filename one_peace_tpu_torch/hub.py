@@ -22,9 +22,9 @@ Preprocessing is the JAX hub's (ref hub_interface.py:92-193):
   with the JAX package's decoder (``data/flac.py``, no JAX).
 
 The extraction runs eagerly under ``torch.inference_mode()``: there is no
-jit, so no shape buckets.  Not ported: fp16 (the attention kernel takes bf16
-and fp32) and orbax checkpoint directories; each raises
-``NotImplementedError``.
+jit, so no shape buckets.  ``dtype`` "float32", "bf16" or "fp16": the
+attention kernels and the int8 path take all three.  Not ported: orbax
+checkpoint directories, which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from .utils.checkpoint_convert import (convert_classify_model, convert_retrieval
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
-DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 QUANTIZE = ("none", "ffn", "ffn_attn")
 
 
@@ -120,7 +120,7 @@ def from_pretrained(
     with ``model_type="one_peace_classify"``, on ``device``.
 
     ``model_path`` is a fairseq ``.pt`` or the JAX package's ``.npz``.
-    ``dtype`` is "float32" or "bf16".  The classify head has
+    ``dtype`` is "float32", "bf16" or "fp16".  The classify head has
     ``num_classes`` classes (2 when not given, as in the JAX hub) and takes
     ``classify_kwargs`` (``attn_pooling``, ``use_pooler``,
     ``use_two_images``, ...); a checkpoint whose ``classify_head`` differs
@@ -128,9 +128,6 @@ def from_pretrained(
     ``quantize``: "ffn" serves the per-modality FFN projections in int8,
     "ffn_attn" also the self-attention q/k/v/out projections, "none"
     (default) keeps the exact path; the classify head stays as it is."""
-    if dtype == "fp16":
-        raise NotImplementedError("fp16 is not ported: the attention kernel takes bf16 "
-                                  "and fp32")
     if dtype not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
     if quantize not in QUANTIZE:

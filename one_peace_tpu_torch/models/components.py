@@ -30,6 +30,7 @@ weights (``utils.checkpoint``) or by ``utils.random_weights``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Tuple
 
@@ -38,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 
@@ -338,14 +340,95 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
     return torch.where(mask, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def checkpoint_module(module: nn.Module, *args, make_kwargs=None) -> torch.Tensor:
+# The GEMMs whose outputs the ``qkv`` remat policies keep: what F.linear
+# runs under autograd (a flattened addmm, or mm without a bias).
+_GEMM_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+_remat_store = None  # (the active layer's _ProjectionStore, replaying) while a checkpoint runs
+
+
+class _ProjectionStore:
+    """The outputs of the GEMMs run inside ``saved_projections`` scopes of
+    one checkpointed layer (the q/k/v projections), in order: kept on the
+    card (``qkv``), or copied to pinned host memory (``offload_qkv``; a CPU
+    tensor is already on the host and is kept as it is).  The forward
+    records them, the recompute takes them back instead of running the
+    GEMMs.  Nothing else is kept: the attention kernel fills its output
+    outside aten dispatch, so its output and statistics must come from the
+    replay, and they do, since only these GEMMs are ever taken back."""
+
+    def __init__(self, offload: bool):
+        self.offload, self.saved, self.taken = offload, [], 0
+
+    @contextlib.contextmanager
+    def active(self, replaying: bool):
+        global _remat_store
+        before, _remat_store = _remat_store, (self, replaying)
+        self.taken = 0
+        try:
+            yield
+        finally:
+            _remat_store = before
+
+    def put(self, out: torch.Tensor) -> None:
+        if self.offload and out.device.type != "cpu":
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self.saved.append((host.copy_(out, non_blocking=True), None))
+        else:  # an alias: its version must not move before the replay reads it
+            self.saved.append((out.detach(), out._version))
+
+    def take(self, like: torch.device) -> torch.Tensor:
+        x, version = self.saved[self.taken]
+        self.taken += 1
+        if version is not None and x._version != version:
+            raise RuntimeError("a kept q/k/v projection was modified in place before the "
+                               "backward replayed it")
+        return x.to(like, non_blocking=True) if x.device != like else x.detach()
+
+
+class _ProjectionMode(TorchDispatchMode):
+    """Records (forward) or takes back (recompute) the GEMMs of a scope."""
+
+    def __init__(self, store: _ProjectionStore, replaying: bool):
+        super().__init__()
+        self.store, self.replaying = store, replaying
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in _GEMM_OPS:
+            return func(*args, **(kwargs or {}))
+        if self.replaying:
+            return self.store.take(args[0].device)
+        out = func(*args, **(kwargs or {}))
+        self.store.put(out)
+        return out
+
+
+@contextlib.contextmanager
+def saved_projections():
+    """Mark the GEMMs run inside as the q/k/v projections that the ``qkv``
+    and ``offload_qkv`` remat policies keep across a layer's checkpoint (the
+    JAX package's ``checkpoint_name(..., "qkv")``); a no-op elsewhere."""
+    if _remat_store is None:
+        yield
+        return
+    with _ProjectionMode(*_remat_store):
+        yield
+
+
+def checkpoint_module(module: nn.Module, *args, make_kwargs=None,
+                      policy: str = "full") -> torch.Tensor:
     """``module(*args, **make_kwargs())`` under ``torch.utils.checkpoint``:
     only the inputs are kept, and the backward pass runs the module again.
     Its parameters enter the checkpoint as inputs, so that the recompute
     sees the tensors the forward saw, also when ``torch.func.functional_call``
     swapped them in (the trainer's compute-dtype copies) and has since put
     the masters back.  ``make_kwargs`` runs again in the recompute, so a
-    generator it seeds draws the same masks."""
+    generator it seeds draws the same masks.  ``policy`` "qkv" also keeps
+    the outputs of the GEMMs in the module's ``saved_projections`` scopes
+    on the card, "offload_qkv" in pinned host memory, and the recompute
+    takes them back instead of running those GEMMs (the JAX package's
+    ``save_only_these_names`` and ``save_and_offload_only_these_names``);
+    any other policy keeps nothing, as "full" does."""
     named = list(module.named_parameters())
     names, params = [n for n, _ in named], [p for _, p in named]
 
@@ -354,7 +437,11 @@ def checkpoint_module(module: nn.Module, *args, make_kwargs=None) -> torch.Tenso
         return torch.func.functional_call(module, dict(zip(names, inputs[len(args):])),
                                           inputs[:len(args)], kwargs)
 
-    return checkpoint(run, *args, *params, use_reentrant=False, preserve_rng_state=False)
+    kw = {}
+    if policy in ("qkv", "offload_qkv"):
+        store = _ProjectionStore(offload=policy == "offload_qkv")
+        kw["context_fn"] = lambda: (store.active(False), store.active(True))
+    return checkpoint(run, *args, *params, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def empty_param(*shape, device=None, dtype=None) -> nn.Parameter:

@@ -9,11 +9,14 @@ The JAX package stacks the layers and runs them under ``lax.scan``; here
 they are an ``nn.ModuleList`` walked by a loop.  With ``deterministic=False``
 and a generator the training path runs: dropout and activation dropout,
 drop path on the ``linspace(0, drop_path_rate, layers)`` schedule, and
-LayerDrop.  ``checkpoint_activations`` (remat policy ``full``) recomputes
-each layer in the backward pass through ``torch.utils.checkpoint``.  Each
-layer's random masks come from a generator rebuilt from a seed drawn before
-the layer runs, so the recompute draws the same masks.  The ``qkv`` and
-``offload_qkv`` remat policies and pipelining are not ported yet.
+LayerDrop.  ``checkpoint_activations`` recomputes each layer in the backward
+pass through ``torch.utils.checkpoint``; under ``remat_policy`` ``qkv`` the
+q/k/v projections' outputs stay on the card across the checkpoint and the
+recompute runs no q/k/v GEMM, under ``offload_qkv`` they wait in pinned host
+memory (``components.checkpoint_module``); the attention is recomputed in
+every policy.  Each layer's random masks come from a generator rebuilt from
+a seed drawn before the layer runs, so the recompute draws the same masks.
+Pipelining is not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from ..core.config import EncoderConfig
 from ..ops.attention import multihead_attention
 from ..ops.quant import shared_input_linears
 from .components import (LayerNorm, Linear, checkpoint_module, drop_path, dropout, empty_param,
-                         gelu)
+                         gelu, saved_projections)
 
 MODALITIES = ("text", "image", "audio")
 
@@ -38,7 +41,8 @@ class Attention(nn.Module):
     """q/k/v projections (k_proj has no bias), optional per-head gains
     ``c_attn``, Magneto ``ln``, ``out_proj`` (``_attention``).  Any
     projection may be a ``QuantizedLinear`` (``ops.quant.quantize_ffn_``);
-    q/k/v then share one row quantize of x."""
+    q/k/v then share one row quantize of x.  The q/k/v GEMMs run in a
+    ``saved_projections`` scope: the ``qkv`` remat policies keep them."""
 
     def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
         super().__init__()
@@ -56,8 +60,9 @@ class Attention(nn.Module):
         b, l, d = x.shape
         h = self.cfg.attention_heads
         hd = d // h
-        q, k, v = (y.reshape(b, l, h, hd) for y in
-                   shared_input_linears(x, self.q_proj, self.k_proj, self.v_proj))
+        with saved_projections():
+            q, k, v = shared_input_linears(x, self.q_proj, self.k_proj, self.v_proj)
+        q, k, v = (y.reshape(b, l, h, hd) for y in (q, k, v))
         attn = multihead_attention(q, k, v, rel_bias, key_padding_mask,
                                    scaling=hd**-0.5, impl=self.cfg.attn_impl)
         if self.c_attn is not None:
@@ -152,9 +157,9 @@ class EncoderLayer(nn.Module):
 
 
 def _run_layer(layer: EncoderLayer, x, key_mask, bias, encoder_type, split_lens,
-               rate: float, deterministic: bool, seed: Optional[int], remat: bool):
+               rate: float, deterministic: bool, seed: Optional[int], remat: Optional[str]):
     """One layer, its masks drawn from a generator seeded with ``seed``;
-    under remat through ``checkpoint_module``."""
+    under remat (the policy's name) through ``checkpoint_module``."""
 
     def kwargs():
         return dict(generator=None if seed is None
@@ -163,7 +168,7 @@ def _run_layer(layer: EncoderLayer, x, key_mask, bias, encoder_type, split_lens,
     args = (x, key_mask, bias, encoder_type, split_lens, rate, deterministic)
     if not remat:
         return layer(*args, **kwargs())
-    return checkpoint_module(layer, *args, make_kwargs=kwargs)
+    return checkpoint_module(layer, *args, make_kwargs=kwargs, policy=remat)
 
 
 class FusionEncoder(nn.Module):
@@ -200,11 +205,8 @@ class FusionEncoder(nn.Module):
         deterministic, nothing is random.  Returns the output after the final
         LayerNorm of each modality."""
         cfg = self.cfg
-        remat = cfg.checkpoint_activations
-        if remat and cfg.remat_policy != "full":
-            raise NotImplementedError(f"remat_policy={cfg.remat_policy!r} is not ported "
-                                      f"yet: only 'full'")
-        remat = remat and torch.is_grad_enabled()
+        remat = (cfg.remat_policy if cfg.checkpoint_activations and torch.is_grad_enabled()
+                 else None)
         use_rng = not deterministic and generator is not None
         seeds = [None] * cfg.layers
         keep = [True] * cfg.layers

@@ -15,7 +15,9 @@ tensors to the plain versions, in both directions.  When a gradient will be
 taken, the forward also returns each query row's softmax statistics (its
 max m and 1 / sum) and the backward starts from them.  On the card there is
 no fallback: an input the kernels do not take (head dim other than 64, a
-dtype other than bf16 or fp32) raises.  Each kernel is compiled with
+dtype other than bf16, fp16 or fp32) raises.  bf16 and fp16 run the same
+wgmma kernels (templated on the element type, on the same plans); fp32 runs
+the CUDA-core kernels of the test path.  Each kernel is compiled with
 ``nvcc`` at its first launch by ``ops/build.py`` and loaded through
 ``ctypes``.
 """
@@ -28,7 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .build import build_library
+from .build import DTYPE_CODES, build_library
 
 NEG_INF = -1e30  # additive key bias at padded keys, as the TPU kernel's
 HEAD_DIM = 64  # the only head dim the kernel takes (every shipped config)
@@ -225,8 +227,8 @@ def _library(which: str = "fwd") -> ctypes.CDLL:
 
 def _check_kernel_inputs(q, k, v, rel_bias, key_bias, heads: int) -> None:
     """Raise on anything the kernel does not take (it has no fallback)."""
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"attention kernel takes bf16 or fp32, not {q.dtype}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"attention kernel takes bf16, fp16 or fp32, not {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -278,7 +280,7 @@ def flash_attention_cuda(q, k, v, rel_bias, key_bias, scaling: float, heads: int
     err = lib.one_peace_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rel_bias),
         int(rel_bias is not None and rel_bias.ndim == 4), _ptr(key_bias), out.data_ptr(),
-        _ptr(stats), b, l, heads, float(scaling), int(q.dtype == torch.bfloat16),
+        _ptr(stats), b, l, heads, float(scaling), DTYPE_CODES[q.dtype],
         plan.n_tiles, plan.tail, int(plan.resident), plan.stride, plan.smem,
         q.device.index, stream)
     if err != 0:
@@ -291,8 +293,8 @@ def flash_attention_cuda(q, k, v, rel_bias, key_bias, scaling: float, heads: int
 def flash_attention_bwd_cuda(q, k, v, g, rel_bias, key_bias, scaling: float, heads: int,
                              stats: Optional[torch.Tensor] = None, passes: int = 3):
     """Launch the backward kernels; arguments and results as
-    ``flash_attention_bwd_plain``.  The bf16 kernels start from the
-    forward's ``stats``; without them the forward kernel is launched to
+    ``flash_attention_bwd_plain``.  The bf16 and fp16 kernels start from
+    the forward's ``stats``; without them the forward kernel is launched to
     write them (and counted as a forward launch).  The fp32 kernels find
     the statistics themselves.  ``passes`` times one kernel alone (a bit
     mask: 1 the dq kernel, 2 the dk/dv kernel with its chunk sum); the
@@ -304,8 +306,7 @@ def flash_attention_bwd_cuda(q, k, v, g, rel_bias, key_bias, scaling: float, hea
     if not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("attention kernel needs a contiguous, 16-byte aligned g")
     b, l, _ = q.shape
-    bf16 = q.dtype == torch.bfloat16
-    if not bf16:
+    if q.dtype == torch.float32:
         stats = torch.empty(2, b, heads, l, dtype=torch.float32, device=q.device)
     elif stats is None:
         _, stats = flash_attention_cuda(q, k, v, rel_bias, key_bias, scaling, heads,
@@ -330,7 +331,8 @@ def flash_attention_bwd_cuda(q, k, v, g, rel_bias, key_bias, scaling: float, hea
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(rel_bias),
         int(rel_bias is not None and rel_bias.ndim == 4), _ptr(key_bias),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), _ptr(partial),
-        stats.data_ptr(), dsum.data_ptr(), b, l, heads, float(scaling), int(bf16), passes,
+        stats.data_ptr(), dsum.data_ptr(), b, l, heads, float(scaling), DTYPE_CODES[q.dtype],
+        passes,
         t.n_tiles, t.tail, int(t.resident), t.stride, t.smem, int(plan.dkv_slab),
         plan.dkv_smem, plan.b_chunk, q.device.index, stream)
     if err != 0:

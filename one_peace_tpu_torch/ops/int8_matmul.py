@@ -7,7 +7,7 @@ front of it (``ops/quant.py:46-49``).  The kernel source is
 ``csrc/int8_matmul.cu``; its header says what bounds the kernels on an H100
 and how the design answers that.
 
-- ``int8_quantize_rows(x)``: x (M, K) bf16 or fp32 -> x_q (M, K) int8 and
+- ``int8_quantize_rows(x)``: x (M, K) bf16, fp16 or fp32 -> x_q (M, K) int8 and
   sx (M,) fp32, ``sx = max(absmax / 127, 1e-8)``,
   ``x_q = clamp(round_half_even(x / sx), -127, 127)``.
 - ``int8_matmul(x_q, w_q, sx, sw, bias, out_dtype)``: x_q (M, K) int8 times
@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .build import build_library
+from .build import DTYPE_CODES, build_library
 
 # Kernel launches since the caller last set them to 0.  Only the CUDA
 # wrappers add to them, once per launch that the runtime accepted:
@@ -158,11 +158,11 @@ def _check_cuda(tensors, what: str) -> None:
 
 
 def int8_quantize_rows_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the row quantize on x (M, K), bf16 or fp32; returns new
+    """Launch the row quantize on x (M, K), bf16, fp16 or fp32; returns new
     x_q (M, K) int8 and sx (M,) fp32."""
     global quantize_launches
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"int8 quantize kernel takes bf16 or fp32, not {x.dtype}")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"int8 quantize kernel takes bf16, fp16 or fp32, not {x.dtype}")
     if x.ndim != 2:
         raise ValueError(f"int8 quantize kernel takes (M, K), got {tuple(x.shape)}")
     _check_cuda([x], "int8 quantize")
@@ -175,7 +175,7 @@ def int8_quantize_rows_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     vec = k % per_vec == 0 and x.data_ptr() % 16 == 0
     lib = _library()
     err = lib.one_peace_int8_quantize_rows(
-        x.data_ptr(), x_q.data_ptr(), sx.data_ptr(), m, k, int(x.dtype == torch.bfloat16),
+        x.data_ptr(), x_q.data_ptr(), sx.data_ptr(), m, k, DTYPE_CODES[x.dtype],
         int(vec), x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "int8 quantize")
     quantize_launches += 1
@@ -192,8 +192,8 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
     global launches
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"int8 GEMM takes int8 x_q and w_q, not {x_q.dtype}, {w_q.dtype}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"int8 GEMM writes bf16 or fp32, not {out_dtype}")
+    if out_dtype not in DTYPE_CODES:
+        raise TypeError(f"int8 GEMM writes bf16, fp16 or fp32, not {out_dtype}")
     if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[1]:
         raise ValueError(f"int8 GEMM takes x_q (M, K) and w_q (N, K), got "
                          f"{tuple(x_q.shape)} and {tuple(w_q.shape)}")
@@ -224,7 +224,7 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
     err = lib.one_peace_int8_matmul(
         x_q.data_ptr(), w_q.data_ptr(), sx.data_ptr(), sw.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        int(out_dtype == torch.bfloat16), plan.tile_m, plan.tile_n, plan.stages,
+        DTYPE_CODES[out_dtype], plan.tile_m, plan.tile_n, plan.stages,
         plan.smem_bytes, plan.grid, plan.group, x_q.device.index,
         torch.cuda.current_stream(x_q.device).cuda_stream)
     _raise_on(lib, err, "int8 GEMM")

@@ -20,7 +20,7 @@ Parameter names are the port's (``encoder_wrapper.fusion.layers.3.
 self_attn.q_proj.weight``, ``backbone.layers.3.self_attn.q_proj.weight`` of
 the detection and video trunks, ``backbone.encoder.layers.3.self_attn.
 q_proj.weight``); the rules are the JAX package's, applied to the unstacked
-layers.  Adan is not ported yet.
+layers.  ``_name: adan`` or ``use_adan`` builds Adan instead (``optim/adan.py``).
 """
 
 from __future__ import annotations
@@ -119,17 +119,20 @@ class AdamW(torch.optim.AdamW):
 
 def build_optimizer(cfg: OptimizerConfig, opt_cfg: OptimizationConfig,
                     named_params: Iterable[Tuple[str, torch.Tensor]],
-                    num_layers: int = 40) -> AdamW:
+                    num_layers: int = 40) -> torch.optim.Optimizer:
     """AdamW with one parameter group per (weight decay, layer scale); a
     parameter with one scale per leading index (a per-layer rel-pos table)
-    goes to a group at scale 1 and into ``slice_scales``."""
-    if getattr(cfg, "use_adan", False) or cfg._name == "adan":
-        raise NotImplementedError("Adan is not ported yet: use adamw")
+    goes to a group at scale 1 and into ``slice_scales``.  Under
+    ``_name: adan`` or ``use_adan``, Adan with the same layer scales."""
     named_params = list(named_params)
-    mask = decay_mask(named_params)
     scales = {name: 1.0 for name, _ in named_params}
     if opt_cfg.layer_decay and opt_cfg.layer_decay < 1.0:
         scales = layer_decay_scales(named_params, num_layers, opt_cfg.layer_decay)
+    if getattr(cfg, "use_adan", False) or cfg._name == "adan":
+        from .adan import build_adan
+
+        return build_adan(cfg, named_params, scales)
+    mask = decay_mask(named_params)
     groups: Dict[Tuple[float, float], dict] = {}
     slice_scales = []
     for name, p in named_params:

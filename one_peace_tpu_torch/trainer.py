@@ -14,8 +14,9 @@ What the JAX ``Trainer`` does inside one jitted step, in the same order:
 - global-norm clipping by optax's rule, ``g * min(1, c / ||g||)`` on the
   accumulated gradient (``clip_grad_norm_`` would add 1e-6 to the norm);
 - AdamW groups with the layer decay and the no-decay set
-  (``optim/adamw.py``), their lr set from the schedule at the count of
-  applied updates, as ``scale_by_learning_rate`` counts;
+  (``optim/adamw.py``), or Adan (``optim/adan.py``), their lr set from the
+  schedule at the count of applied updates, as ``scale_by_learning_rate``
+  counts;
 - ``step`` counts optimizer updates (``micro // update_freq``) and
   ``micro`` counts ``train_step`` calls;
 - a criterion whose ``__call__`` takes ``num_updates`` gets the count of
@@ -30,8 +31,17 @@ What the JAX ``Trainer`` does inside one jitted step, in the same order:
   logged over the trainable gradients, where the JAX ``Trainer`` logs it
   over every gradient, frozen ones included (ROADMAP section 3).
 
-The fp16 loss scaler, the EMA, Adan and ``valid_step`` are not ported yet;
-a config that asks for the first three raises.
+- ``common.fp16`` (it wins over ``common.bf16``, as in JAX) computes in
+  fp16 with dynamic loss scaling (``optim/loss_scaler.py``): the loss is
+  scaled before the backward, the fp32 gradients unscaled before their
+  norm, and the scale updated on every micro-step, skipped ones included;
+  ``loss_scale`` is logged;
+- ``ema.store_ema`` keeps an EMA of every parameter (``utils/ema.py``),
+  stepped on accumulation boundaries after the update, and held still by a
+  skipped step;
+- ``valid_step`` scores the criterion's metrics without a gradient,
+  deterministically, on the compute-dtype copies.
+
 Everything runs on the device of the model's parameters.
 """
 
@@ -51,6 +61,8 @@ from .core.config import FrameworkConfig
 
 from .models.components import split_generator
 from .optim import build_lr_schedule, build_optimizer
+from .optim.loss_scaler import LossScaler
+from .utils.ema import EMA
 
 
 class _CriterionCall(nn.Module):
@@ -68,22 +80,27 @@ class _CriterionCall(nn.Module):
             params = {}
         self.takes_updates = "num_updates" in params
 
-    def forward(self, batch, generator, num_updates: int):
+    def forward(self, batch, generator, num_updates: int, deterministic: bool = False):
         kw = {"num_updates": num_updates} if self.takes_updates else {}
-        return self.criterion(self.model, batch, generator=generator, deterministic=False, **kw)
+        return self.criterion(self.model, batch, generator=generator,
+                              deterministic=deterministic, **kw)
 
 
 class Trainer:
     def __init__(self, cfg: FrameworkConfig, model: nn.Module, criterion,
                  total_updates: Optional[int] = None):
-        if cfg.common.fp16:
-            raise NotImplementedError("fp16 with loss scaling is not ported yet: use bf16")
-        if cfg.ema.store_ema:
-            raise NotImplementedError("the EMA is not ported yet")
         self.cfg = cfg
         self.model = model
         self.criterion = criterion
-        self.compute_dtype = torch.bfloat16 if cfg.common.bf16 else torch.float32
+        if cfg.common.fp16:
+            self.compute_dtype = torch.float16
+        elif cfg.common.bf16:
+            self.compute_dtype = torch.bfloat16
+        else:
+            self.compute_dtype = torch.float32
+        if cfg.common.fp16 and getattr(model, "fp16_refusal", None):
+            raise NotImplementedError(model.fp16_refusal)
+        self.scaler = LossScaler() if cfg.common.fp16 else None
         trainable = model.trainable_mask() if hasattr(model, "trainable_mask") else {}
         self._names, self._params = [], []  # the trainable masters
         for name, p in model.named_parameters():
@@ -110,29 +127,52 @@ class Trainer:
         self.train_time = 0.0
         self.generator = torch.Generator().manual_seed(cfg.common.seed + 1)
         self._call = _CriterionCall(model, criterion)
+        self.ema = EMA(cfg.ema, model.named_parameters()) if cfg.ema.store_ema else None
 
-    def _compute_params(self, prefix: str = "model.") -> Dict[str, torch.Tensor]:
-        """The parameters in the compute dtype (the masters themselves in
-        fp32), named for ``functional_call`` on the criterion's module, or
-        on the model itself with ``prefix=""``."""
-        named = self.model.named_parameters()
+    def _compute_params(self, prefix: str = "model.",
+                        source: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """The parameters (or ``source``, a tensor per parameter name: the
+        EMA shadow) in the compute dtype (the tensors themselves in fp32),
+        named for ``functional_call`` on the criterion's module, or on the
+        model itself with ``prefix=""``."""
+        named = self.model.named_parameters() if source is None else source.items()
         if self.compute_dtype == torch.float32:
             return {f"{prefix}{n}": p for n, p in named}
         return {f"{prefix}{n}": p.to(self.compute_dtype) for n, p in named}
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+                .to(self.device) for k, v in batch.items()}
 
     def gradients(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
         """(metrics, fp32 gradients of the trainable master parameters, in
         the order of ``_names``) of the loss on ``batch`` (numpy arrays or
         tensors, as the data pipeline collates them), computed on the
-        compute-dtype copies; nothing is updated."""
-        batch = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
-                 .to(self.device) for k, v in batch.items()}
+        compute-dtype copies; under fp16 the loss is scaled before the
+        backward and the gradients unscaled after it.  Nothing is updated."""
         loss, metrics = torch.func.functional_call(
             self._call, self._compute_params(),
-            (batch, generator, self._micro // self._update_freq))
+            (self._to_device(batch), generator, self._micro // self._update_freq))
+        if self.scaler is not None:
+            loss = self.scaler.scale_loss(loss)
         grads = torch.autograd.grad(loss, self._params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self._params, grads)]
+        if self.scaler is not None:
+            self.scaler.unscale_(grads)
         return {k: v.detach() for k, v in metrics.items()}, grads
+
+    @torch.no_grad()
+    def valid_step(self, batch: Dict[str, Any], fetch: bool = False):
+        """The criterion's metrics on ``batch``, without a gradient,
+        deterministic, on the compute-dtype copies.  Tensors, or floats with
+        ``fetch``."""
+        _, metrics = torch.func.functional_call(
+            self._call, self._compute_params(),
+            (self._to_device(batch), None, self._micro // self._update_freq, True))
+        if fetch:
+            return {k: float(v) for k, v in metrics.items()}
+        return {k: v.detach() for k, v in metrics.items()}
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
         """One micro-step on ``batch``.  Returns the metrics as floats."""
@@ -145,9 +185,16 @@ class Trainer:
             self._accumulate(grads)
         del grads
         metrics = {k: float(v) for k, v in metrics.items()}
+        if self.scaler is not None:
+            self.scaler.update(finite)
+            metrics["loss_scale"] = float(self.scaler.scale)
         metrics.update(gnorm=float(gnorm), lr=lr, skipped=0.0 if finite else 1.0)
         self._micro += 1
         self.step = self._micro // self._update_freq
+        if self.ema is not None and self._micro % self._update_freq == 0:
+            # once per optimizer update, after it (the JAX gate: on the
+            # micro-step count, with that micro-step's skip)
+            self.ema.step(self.model.named_parameters(), self.step, skipped=not finite)
         metrics["step_time"] = time.time() - t0
         self.train_time += metrics["step_time"]
         return metrics
@@ -177,16 +224,18 @@ class Trainer:
         lr = self.lr_schedule(self._updates)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"]
+            group["schedule_lr"] = lr  # Adan's proximal decay takes it unscaled
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self._updates += 1
 
     def state_dict(self) -> Dict[str, Any]:
         """A host copy of the whole train state: parameters, optimizer state,
-        the accumulation in progress, counters, generator and train time.
-        Every tensor is copied to the CPU on its own, so the copy takes no
-        device memory and shares no storage with the live state."""
-        return {
+        the accumulation in progress, counters, generator and train time, and
+        the loss scale and the EMA shadow where there are.  Every tensor is
+        copied to the CPU on its own, so the copy takes no device memory and
+        shares no storage with the live state."""
+        state = {
             "params": {n: _host(p) for n, p in self.model.named_parameters()},
             "opt_state": _walk(self.optimizer.state_dict(), _host),
             "acc": None if self._acc is None else [_host(a) for a in self._acc],
@@ -197,6 +246,11 @@ class Trainer:
             "rng": self.generator.get_state(),
             "train_time": self.train_time,
         }
+        if self.scaler is not None:
+            state["loss_scale"] = self.scaler.state_dict()
+        if self.ema is not None:
+            state["ema_shadow"] = {n: _host(s) for n, s in self.ema.shadow.items()}
+        return state
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -219,6 +273,11 @@ class Trainer:
         self._micro = int(state["micro"])
         self.generator.set_state(state["rng"])
         self.train_time = float(state.get("train_time", 0.0))
+        if "loss_scale" in state and self.scaler is not None:
+            self.scaler.load_state_dict(state["loss_scale"])
+        if "ema_shadow" in state and self.ema is not None:
+            for n, s in self.ema.shadow.items():
+                s.copy_(state["ema_shadow"][n])
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:

@@ -199,12 +199,17 @@ def params_to_jax(state: Dict[str, torch.Tensor], periods: Optional[Dict[str, in
     return listify(root, ())
 
 
-def model_to_jax(model: torch.nn.Module) -> Dict[str, Any]:
-    """``params_to_jax`` of ``model.state_dict()`` with the layout the model
+def model_to_jax(model: torch.nn.Module,
+                 params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """``params_to_jax`` of ``model.state_dict()``, its entries named in
+    ``params`` (an EMA shadow) taken from there, with the layout the model
     declares through a ``jax_layout()`` method (the detector's trunk period
     and pyramid names), if it has one."""
     layout = model.jax_layout() if hasattr(model, "jax_layout") else {}
-    return params_to_jax(model.state_dict(), **layout)
+    state = model.state_dict()
+    if params is not None:
+        state.update(params)
+    return params_to_jax(state, **layout)
 
 
 def load_npz(path: str) -> Dict[str, torch.Tensor]:

@@ -48,6 +48,10 @@ class OnePeaceDetector(nn.Module):
 
     PYRAMID_KEYS = ("p4", "p8", "p16", "p32")
     STRIDES = (4, 8, 16, 32)
+    # what ``Trainer`` raises with under ``common.fp16``, before the first step
+    fp16_refusal = ("common.fp16: the detector's attention runs the det attention kernels "
+                    "#4-#6 (ops/det_attention.py), which take bf16 and fp32 only; fp16 is not "
+                    "ported for them: use common.bf16")
 
     def __init__(self, num_classes: int = 80, image_size: int = 1024, fpn_channels: int = 256,
                  with_masks: bool = True, proposer: str = "fcos", device="cuda", dtype=None,

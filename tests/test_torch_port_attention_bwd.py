@@ -166,9 +166,9 @@ def test_bwd_wrapper_raises_without_fallback(monkeypatch):
     q = torch.empty(2, 8, 128, dtype=torch.float32, device="meta")
     with pytest.raises(ValueError):
         tfa.flash_attention_bwd_cuda(q, q, q, q, None, None, 0.125, 2)
-    half = torch.empty(2, 8, 128, dtype=torch.float16, device="meta")
-    with pytest.raises(TypeError):
-        tfa.flash_attention_bwd_cuda(half, half, half, half, None, None, 0.125, 2)
+    double = torch.empty(2, 8, 128, dtype=torch.float64, device="meta")
+    with pytest.raises(TypeError):  # fp16 has a kernel arm; fp64 has none
+        tfa.flash_attention_bwd_cuda(double, double, double, double, None, None, 0.125, 2)
 
 
 @pytest.mark.cuda

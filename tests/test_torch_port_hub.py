@@ -174,8 +174,6 @@ def test_bf16_quantizes_the_cast_weights(assets):
 
 def test_unsupported_options_raise(assets, tmp_path):
     kw = dict(bpe_dir=assets["bpe"], model_cfg=assets["cfg"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        hub.from_pretrained(assets["pt"], dtype="fp16", **kw)
     with pytest.raises(NotImplementedError):  # an orbax directory
         hub.from_pretrained(str(tmp_path), **kw)
     with pytest.raises(ValueError):

@@ -219,8 +219,8 @@ def test_wrappers_raise_without_fallback(monkeypatch):
     tensors here are on the meta device, which is not a CUDA device."""
     monkeypatch.setattr(im, "build_library", lambda name: pytest.fail("built"))
     meta = dict(device="meta")
-    with pytest.raises(TypeError):
-        im.int8_quantize_rows_cuda(torch.empty(4, 16, dtype=torch.float16, **meta))
+    with pytest.raises(TypeError):  # fp16 has a kernel arm; fp64 has none
+        im.int8_quantize_rows_cuda(torch.empty(4, 16, dtype=torch.float64, **meta))
     with pytest.raises(ValueError):  # valid, but not on a CUDA device
         im.int8_quantize_rows_cuda(torch.empty(4, 16, dtype=torch.bfloat16, **meta))
     x_q = torch.empty(4, 32, dtype=torch.int8, **meta)
@@ -230,7 +230,7 @@ def test_wrappers_raise_without_fallback(monkeypatch):
     with pytest.raises(TypeError):
         im.int8_matmul_cuda(x_q.float(), w_q, sx, sw)
     with pytest.raises(TypeError):
-        im.int8_matmul_cuda(x_q, w_q, sx, sw, out_dtype=torch.float16)
+        im.int8_matmul_cuda(x_q, w_q, sx, sw, out_dtype=torch.float64)
     with pytest.raises(ValueError):  # K mismatch
         im.int8_matmul_cuda(x_q, w_q[:, :16], sx, sw)
     with pytest.raises(ValueError):  # wrong scale shape

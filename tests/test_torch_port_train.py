@@ -351,17 +351,3 @@ def test_state_dict_round_trip():
     second.train_step(batches[3])
     for (name, a), (_, b) in zip(first.model.named_parameters(), second.model.named_parameters()):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
-
-
-@pytest.mark.parametrize("field", ["fp16", "ema", "adan"])
-def test_unported_trainer_options_raise(field):
-    cfg = _framework_cfg()
-    if field == "fp16":
-        cfg.common.fp16 = True
-    elif field == "ema":
-        cfg.ema.store_ema = True
-    else:
-        cfg.optimizer._name = "adan"
-    _, state = _weights(cfg.model)
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, _port_model(cfg.model, state), build_criterion(cfg.criterion))

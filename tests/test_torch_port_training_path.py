@@ -190,13 +190,6 @@ def test_drop_path_schedule_and_layerdrop(monkeypatch):
     torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
-def test_unported_remat_policies_raise():
-    model = _model(checkpoint_activations=True, remat_policy="qkv")
-    tokens, _ = _batch()
-    with pytest.raises(NotImplementedError):
-        model.encoder_wrapper(src_tokens=tokens, encoder_type="text")
-
-
 def test_port_never_imports_jax():
     import subprocess
 

@@ -48,7 +48,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    2-layer full-width fairseq ``.pt`` written under ``build/``, quantize
    "ffn" and "ffn_attn", fp32 and bf16, text / image / audio embeddings on
    the kernel path against the plain int8 path, the launch counts per
-   forward, ``process_image(on_device=True)``; then at depth 20 in bf16 the
+   forward, ``process_image(on_device=True)``; then at depth 12 in bf16 the
    GEMM and quantize launches of one "ffn" and one "ffn_attn" image forward
    (60 / 40 and 140 / 80), and images/s and clips/s for the bf16, "ffn"
    and "ffn_attn" paths;
@@ -64,12 +64,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    grid (B=2, 64 x 64), its windows (B=32, 16 x 16; with each bias alone and
    none), a ragged 50 x 50 grid, a 1 x 64, an 8 x 8 and an 80 x 80 grid, so
    that each branch of the forward's plan runs (logged per case); (b)
-   ``OnePeaceDetector`` at full width and depth 40, 1024 px, 80 classes,
-   RPN and masks, on seeded random
-   weights: the kernel path against the plain path (the stride-16 map, the
-   pyramid, the cascade and mask heads on fixed proposals; cosine per image
-   >= 1-1e-6 fp32, >= 0.999 bf16), 40 launches per trunk forward, then
-   ``detect()``; (c) images/s of ``detect()`` at B=2 in bf16 on both paths,
+   ``OnePeaceDetector`` at full width and depth 12 (``CUT_DEPTH``; phase 22
+   runs it at depth 40), 1024 px, 80 classes, RPN and masks, on seeded
+   random weights: the kernel path against the plain path (the stride-16
+   map, the pyramid, the cascade and mask heads on fixed proposals; cosine
+   per image >= 1-1e-6 fp32, >= 0.999 bf16), a launch per trunk layer,
+   then ``detect()``; (c) images/s of ``detect()`` at B=2 in bf16 on the
+   kernel path,
    one profiled call (``detect_profile.txt`` beside phase 7's profile), and
    ms per global and windowed layer for the kernel, its plain version and
    SDPA with the bias materialised (kernel and SDPA in turns), the kernel's
@@ -86,8 +87,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``load_config``, ``CocoDetectionTask.build_model``,
    ``DetectionCriterion`` and ``Trainer`` (bf16 over fp32 masters, AdamW
    with layer decay): ms per step, images/s, peak memory, launches per step
-   (80 forward, 40 backward) and a falling loss on both paths, one profiled
-   step (``det_train_profile.txt``); (d) ms per global and windowed layer of
+   (80 forward, 40 backward) and a falling loss, one profiled step
+   (``det_train_profile.txt``), and the plain path at depth 12 (a falling
+   loss, no launch); (d) ms per global and windowed layer of
    the backward by pass, each pass with no bias, toep only, bh + bw only and
    both, the plain backward and SDPA's backward with the materialised bias
    needing a gradient, and the backward's ratio to it;
@@ -100,9 +102,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    to 4: the updates' losses within 1e-6 relative and the final masters'
    cosine >= 1-1e-6, then ``cli.evaluate`` on the run's
    ``checkpoint_best.npz`` (64 images, 320 texts); (c) the recipe at depth
-   20 (``CUT_DEPTH``: 9's times and the recipes' runs through ``cli.train``
-   in 13(c)-20(d) are cut from 40 to 20 layers to keep the script inside
-   its time limit) through ``cli.train`` from the config's init, B=32, 6 updates and one
+   12 (``CUT_DEPTH``: 9's times, 11's detector, 12(c)'s plain step, 21(d)
+   and the recipes' runs through ``cli.train`` in 13(c)-20(d) are cut from
+   40 to 12 layers to keep the script inside its time limit) through
+   ``cli.train`` from the config's init, B=32, 6 updates and one
    validation, no saves: ms per update from data beside phase 7(b)'s, pairs
    per second, peak memory, the attention kernels' launches per update and
    in validation, and one profiled update (``train_cli_profile.txt``);
@@ -116,11 +119,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    drop path 0.6): 4 updates, one validation and ``checkpoint_best.npz``,
    whose ``params_from_jax`` read-back must equal the masters bit for bit;
    then ``cli.evaluate`` on it must detect what the validation detected and
-   print its AP dict (to 1e-6); (c) the recipe at depth 20 through
+   print its AP dict (to 1e-6); (c) the recipe at depth 12 through
    ``cli.train`` from the config's init, B=2, 6 updates and one validation
    over the 8 valid images, no saves: ms per update from data beside
    12(c)'s ms per step, images per second, peak memory, the det attention's
-   launches per update (40 forward, 20 backward) and in validation (20),
+   launches per update (2 forward, 1 backward a layer) and in validation
+   (1 a layer),
    validation's wall time split between ``detect()``, the host's mask paste
    and AP records and the AP sweep, the host's share at 100 detections per
    image, and one profiled update (``det_cli_profile.txt``);
@@ -135,9 +139,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    seeded head): an image head at 384 px with attention pooling, a vl head
    at 480 px and an audio head, fp32 and bf16, the kernel path against the
    plain path (cosine of the logits per sample >= 1-1e-6 / 0.999, 2 launches
-   of #1 per forward), then quantize="ffn" against the plain int8 path;
-   (b) each task's gradients at 4 layers, full width, through ``Trainer``
-   and the classify criterion (image_classify at 384 px, B=8, Mixup and
+   of #1 per forward), then the same model quantized as quantize="ffn"
+   quantizes it (``quantize_ffn_`` after the cast) against the plain int8
+   path;
+   (b) each task's gradients at 2 layers (4 until PR 20), full width,
+   through ``Trainer`` and the classify criterion (image_classify at 384 px, B=8, Mixup and
    CutMix soft targets; VQA at 480 px, B=4, BCE over 3129 answers;
    VGGSound B=8, clips of 5-15 s), kernel path against plain path with
    7(a)'s bounds, then 3 AdamW steps on each; (c) synthetic JPEGs, a VQA
@@ -145,10 +151,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    recipe through ``cli.train`` at depth 2 (4 updates, one validation,
    ``checkpoint_best.npz`` read back bit-equal to the masters) and
    ``cli.evaluate`` on the export (the validation's accuracy to 1e-6);
-   (d) the image_classify recipe at depth 20, 384 px, B=32 through
+   (d) the image_classify recipe at depth 12, 384 px, B=32 through
    ``cli.train`` from the config's init: 6 updates and one validation over
    64 images, no saves: ms per update, images/s, MFU, peak memory, the
-   launches per update (40 / 20) and in validation (20 / 0), a falling loss
+   launches per update (2 / 1 a layer) and in validation (1 / 0 a layer), a falling loss
    and one profiled update (``classify_cli_profile.txt``).
 16. pretraining: (a) first, #1 and #2 alone at the slice's new shapes (the
    students' per-sample (B, H, L, L) biases at L=65 and 124, B=32, and at
@@ -163,7 +169,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    with its export read back bit-equal, then the AL stage-2 recipe
    restoring it: the shared leaves carried bit-equal, ``logit_scale``
    reset, the frozen parameters bit-unchanged after 3 updates; (d) both
-   recipes at depth 20 (VL B=32, AL B=16), 5 updates each: the median ms
+   recipes at depth 12 (VL B=32, AL B=16), 5 updates each: the median ms
    per update, pairs or clips per second, MFU, peak memory, the launches
    per update, one profiled update each (``pretrain_{vl,al}_profile.txt``:
    the idle share and the per-sample bias gathers' index backward).
@@ -194,11 +200,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    bounds, and the assignments that differ between the paths; (c) a
    synthetic ADE20K tree under ``build/smoke_ade_train/`` and the
    Mask2Former recipe through ``cli.train`` at depth 4 in fp32, straight to
-   4 updates and stopped at 2 and resumed (losses to 1e-6, masters to
+   4 updates (one save, at 4) and stopped at 2 and resumed (losses to 1e-6,
+   masters to
    cosine 1-1e-6), ``checkpoint_best.npz`` by mIoU and ``cli.evaluate`` on it
-   equal to a direct ``valid_step`` loop; (d) the recipe at depth 20 through
+   equal to a direct ``valid_step`` loop; (d) the recipe at depth 12 through
    ``cli.train``, B=2, bf16: ms per update, images/s, MFU of the trunk's
-   FLOPs, peak memory, launches per update (40 / 20) and one profiled update
+   FLOPs, peak memory, launches per update (2 / 1 a layer) and one profiled update
    (``seg_train_profile.txt``: the idle share, the bias gathers' index
    backward, #1, #2 and the matching's host time).
 19. video: (a) first, #1 with the backward's statistics and #2 alone at the
@@ -218,7 +225,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    and resumed (update losses to 1e-6), ``checkpoint_best.npz`` read back
    bit-equal to its step's masters, the trunk unchanged, and
    ``cli.evaluate`` under 3 clips x ThreeCrop equal to a direct
-   ``valid_step`` loop; (d) the recipe at depth 20 through ``cli.train``,
+   ``valid_step`` loop; (d) the recipe at depth 12 through ``cli.train``,
    B=8, bf16: ms per update, clips/s, MFU, peak memory, launches per update
    (80 / 40), one validation over 8 clips (72 views) with its ms per clip
    and peak, and one profiled update (``video_train_profile.txt``: the idle
@@ -242,7 +249,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``build/smoke_classify_rest/`` and each recipe through ``cli.train`` at
    depth 2 (2 updates, one validation, ``checkpoint_best.npz`` read back
    bit-equal to the masters) and ``cli.evaluate`` on the export (its
-   accuracy, acc@0.5 or map to 1e-6); (d) the NLVR2 recipe at depth 20,
+   accuracy, acc@0.5 or map to 1e-6); (d) the NLVR2 recipe at depth 12,
    384 px, B=16 pairs through ``cli.train``: ms per update (median of 3),
    pairs/s, MFU, peak memory, the launches per update (80 / 40) and one
    profiled update (``nlvr2_train_profile.txt``: the idle share, #1, #2).
@@ -261,17 +268,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    the EMA (ms, MFU, peak, the scale after each step, skips, 160 / 80
    launches a step; the EMA update and the unscale alone, one step
    profiled); (d)
-   ``full`` / ``qkv`` / ``offload_qkv`` on that model: gradients bit-equal,
+   ``full`` / ``qkv`` / ``offload_qkv`` on a vl model at depth 12 (``CUT_DEPTH``):
+   gradients bit-equal,
    GEMMs in the backward, the median ms of three in turns, peak, one
    call each profiled; (e) Adan card vs CPU on the
    same clipped gradients at depth 2, and its step at depth 40 against its
    bound; (f) ``cli.train`` at depth 2 with fp16, the EMA and Adan,
    stopped and resumed bit-equal, ``checkpoint_best.npz`` the shadow.
+22. detection in fp16 and int8 serving of the vision trunks: (a) first,
+   the fp16 arms of #4, #5 and #6 alone against their plain versions at
+   every case and plan branch of 11(a) and 12(a) (two backward calls
+   bit-equal), at a fifth of bf16's bounds, then per global and windowed
+   layer in turns with the bf16 kernels and SDPA in fp16 on the
+   materialised bias; then each run with the launches of #4, #5/#6, #3 and
+   3b set to 0 before it and held to its expected counts after it: (b) the
+   depth-40 detector in fp16, kernel path against plain path (11(b)'s
+   outputs, cosine >= 0.999, 40 launches of #4 a trunk forward); (c) 12(b)
+   in fp16 (the loss scaled as the ``Trainer`` scales it), then the
+   depth-40 recipe through ``Trainer`` with ``common.fp16``: 3 steps, 80 /
+   40 launches a step, the loss scale after each step, the skips and ms
+   per step beside 12(c)'s; (d) ``vision.zoo.quantize_serving_params`` on
+   the bf16 depth-40 detector: 120 / 80 launches of #3 / 3b a trunk
+   forward, the int8 kernel path against the plain int8 path, #3 / 3b at
+   M = 8192 and 25096 against their plain versions and in turns with bf16
+   ``torch.matmul``, and the trunk forward and ``detect()``, int8 against
+   bf16, medians of 3 in turns; (e) the Mask2Former recipe at depth 40 in
+   int8: the kernel path against the plain int8 path at B=1, images/s at
+   B=8 with and without int8; the video classifier at depth 4 in int8
+   against the plain int8 path.
 
 The CLI checks 13(b), 14(b), 15(c), 16(c) and 19(c) run at depth 2
 (resume, export and ``cli.evaluate`` do not depend on depth); 17(d) and
 18(c) run at depth 4, since the ViT-Adapter splits the trunk into four
-interaction groups.  Phase 10 runs after phase 14, when the
+interaction groups.  Phase 10 runs after phase 15, when the
 process started with the script has written its state under
 ``build/golden_state/``.
 
@@ -325,6 +354,7 @@ from one_peace_tpu_torch.tasks.vision_tasks import CocoDetectionTask
 from one_peace_tpu_torch.trainer import Trainer
 from one_peace_tpu_torch.utils.checkpoint_convert import convert_retrieval_model
 from one_peace_tpu_torch.utils.random_weights import fill_random_
+from one_peace_tpu_torch.vision import zoo as tzoo
 from one_peace_tpu_torch.vision.zoo import OnePeaceDetector
 
 ROOT = Path(__file__).resolve().parent
@@ -341,7 +371,7 @@ BF16_MAX_ERR, BF16_MEAN_ERR, FP32_MAX_ERR = 2e-2, 2e-3, 1e-4
 # the depth of phase 9's times through the hub and of the recipes' runs
 # through cli.train in 13(c)-20(d): the 4B model's 40 layers halved, so that
 # the script stays inside its time limit
-CUT_DEPTH = 20
+CUT_DEPTH = 12
 
 
 def log(msg: str) -> None:
@@ -1202,8 +1232,14 @@ def write_hub_pt(work: Path) -> tuple:
 
 
 def serve_int8(card: str, prep: "Prep") -> dict:
-    """Phase 9: int8 serving at full width through the hub.  Returns the
-    int8 kernels' launch counts over the kernel-path forwards."""
+    """Phase 9: int8 serving at full width through the hub: "none", "ffn"
+    and "ffn_attn" in fp32 and bf16.  fp32 loads once through
+    ``from_pretrained`` and is quantized in place ("ffn", then its attention
+    for "ffn_attn", as ``quantize_ffn_`` skips what is already int8); bf16
+    "none" is those fp32 weights cast before the quantize (the cast
+    ``from_pretrained(dtype="bf16")`` makes), and bf16 "ffn" and "ffn_attn"
+    load through ``from_pretrained(dtype="bf16", quantize=...)``.  Returns
+    the int8 kernels' launch counts over the kernel-path forwards."""
     cfg = ModelConfig(head_type="val")
     cfg.encoder.layers = 2
     bpe, pt = prep.take("9", "a 2-layer full-width fairseq .pt")
@@ -1217,13 +1253,26 @@ def serve_int8(card: str, prep: "Prep") -> dict:
     launched = {"gemm": 0, "quantize": 0}
     task = TaskConfig()
     bounds = {"float32": 1 - 1e-6, "bf16": 0.999}
+    weights32 = None
     for dtype in ("float32", "bf16"):
         reference, inputs = None, None
         for quantize in ("none", "ffn", "ffn_attn"):
             t0 = time.time()
-            hub = port_hub.from_pretrained(str(pt), dtype=dtype, bpe_dir=bpe, model_cfg=cfg,
-                                           task_cfg=task, quantize=quantize, device="cuda")
-            log(f"9: from_pretrained {dtype} quantize={quantize}: {time.time() - t0:.1f} s")
+            if dtype == "float32" and quantize != "none":
+                quantize_ffn_(hub.model, include_attn=quantize == "ffn_attn")
+                how = "quantize_ffn_ in place on the loaded fp32 model"
+            elif dtype == "bf16" and quantize == "none":
+                hub = port_hub.OnePeaceHubInterface(cfg, task, weights32.to(torch.bfloat16),
+                                                    dtype=torch.bfloat16, bpe_dir=bpe)
+                weights32 = None
+                how = "the loaded fp32 weights cast"
+            else:
+                hub = port_hub.from_pretrained(str(pt), dtype=dtype, bpe_dir=bpe, model_cfg=cfg,
+                                               task_cfg=task, quantize=quantize, device="cuda")
+                how = "from_pretrained"
+                if dtype == "float32":
+                    weights32 = copy.deepcopy(hub.model)
+            log(f"9: {dtype} quantize={quantize} ({how}): {time.time() - t0:.1f} s")
             if inputs is None:
                 inputs = {"text": {"src_tokens": hub.process_text(texts)},
                           "image": {"src_images": hub.process_image(images)},
@@ -1234,7 +1283,8 @@ def serve_int8(card: str, prep: "Prep") -> dict:
                        "audio": hub.extract_audio_features}
             if quantize == "none":
                 reference = {m: extract[m](**kw).float() for m, kw in inputs.items()}
-                del hub
+                if dtype == "bf16":
+                    del hub
                 continue
             want = (6, 4) if quantize == "ffn" else (14, 8)
             for modality, kwargs in inputs.items():
@@ -1262,8 +1312,9 @@ def serve_int8(card: str, prep: "Prep") -> dict:
                 if cos < bounds[dtype]:
                     raise RuntimeError(f"9: {dtype} {quantize} {modality}: kernel and plain "
                                        f"int8 paths disagree")
-            del hub
-            torch.cuda.empty_cache()
+            if dtype == "bf16" or quantize == "ffn_attn":
+                del hub
+                torch.cuda.empty_cache()
     time_int8_paths(card, bpe)
     return launched
 
@@ -1554,17 +1605,27 @@ def det_operands(gen, b, hg, wg, dtype, toep_on=True, decomp_on=True):
     return q, k, v, toep, bh, bw
 
 
-def check_det_kernel(gen) -> float:
+# max and mean |diff| bounds of the det forward against its plain version, by
+# dtype: phase 3's for bf16 and fp32, a fifth of bf16's for fp16 (as 21(a))
+DET_FWD_BOUNDS = {torch.bfloat16: (BF16_MAX_ERR, BF16_MEAN_ERR),
+                  torch.float16: (BF16_MAX_ERR / 5, BF16_MEAN_ERR / 5),
+                  torch.float32: (FP32_MAX_ERR, math.inf)}
+
+
+def check_det_kernel(gen, dtypes=(torch.bfloat16, torch.float32), tag: str = "11(a)") -> float:
     """Phase 11(a): the det attention kernel against det_attention_plain on
-    the same inputs, bf16 and fp32, with and without the LSE, at the
+    the same inputs, in each of ``dtypes``, with and without the LSE, at the
     detection trunk's shapes; returns the largest max |diff| of the output.
-    Bounds as phase 3's: bf16 2e-2 max and 2e-3 mean, fp32 1e-4; LSE 1e-4."""
+    Bounds ``DET_FWD_BOUNDS``, LSE 1e-4.  Each 2-byte case logs the branch
+    of ``det_attention.fwd_plan`` it took, and the check fails unless both
+    ran.  22(a) runs it in fp16."""
     worst, modes = 0.0, set()
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         for b, hg, wg, toep_on, decomp_on in DET_CASES:
             ops = det_operands(gen, b, hg, wg, dtype, toep_on, decomp_on)
             plan = da.fwd_plan(hg, wg, toep_on, decomp_on)
-            modes.add(plan.mode)
+            if dtype != torch.float32:
+                modes.add(plan.mode)
             for with_lse in (False, True):
                 got = da.det_attention_cuda(*ops, (hg, wg), 0.125, DET_HEADS, with_lse=with_lse)
                 torch.cuda.synchronize()
@@ -1574,28 +1635,34 @@ def check_det_kernel(gen) -> float:
                 if with_lse:
                     (got, lse), (want, want_lse) = got, want
                     if not torch.isfinite(lse).all():
-                        raise RuntimeError("11(a): det kernel LSE is not finite")
+                        raise RuntimeError(f"{tag}: det kernel LSE is not finite")
                     lse_err = (lse - want_lse).abs().max().item()
                 if not torch.isfinite(got).all():
-                    raise RuntimeError("11(a): det kernel output is not finite")
+                    raise RuntimeError(f"{tag}: det kernel output is not finite")
                 err = (got.float() - want.float()).abs()
                 mx, mean = err.max().item(), err.mean().item()
                 worst = max(worst, mx)
                 branch = (f"plan: {DET_FWD_MODES[plan.mode]}, {plan.smem_bytes} B shared"
-                          if dtype == torch.bfloat16 else "fp32 kernel: gather")
-                log(f"11(a) det kernel vs plain {str(dtype)[6:]} B={b} grid {hg}x{wg} "
+                          if dtype != torch.float32 else "fp32 kernel: gather")
+                log(f"{tag} det kernel vs plain {str(dtype)[6:]} B={b} grid {hg}x{wg} "
                     f"toep={toep_on} decomp={decomp_on} lse={with_lse} ({branch}): max|d| "
                     f"{mx:.3e} mean|d| {mean:.3e}"
                     + (f", LSE max|d| {lse_err:.3e}" if with_lse else ""))
-                bad = (mx > BF16_MAX_ERR or mean > BF16_MEAN_ERR if dtype == torch.bfloat16
-                       else mx > FP32_MAX_ERR)
-                if bad or lse_err > 1e-4:
-                    raise RuntimeError(f"11(a): the det kernel disagrees with its plain version "
+                max_bound, mean_bound = DET_FWD_BOUNDS[dtype]
+                if mx > max_bound or mean > mean_bound or lse_err > 1e-4:
+                    raise RuntimeError(f"{tag}: the det kernel disagrees with its plain version "
                                        f"({dtype}, B={b}, {hg}x{wg}, lse={with_lse})")
                 del got, want
             del ops
     if modes != set(DET_FWD_MODES):
-        raise RuntimeError(f"11(a): the cases took the plan's branches {modes} only")
+        raise RuntimeError(f"{tag}: the cases took the plan's branches {modes} only")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_det_head_dim() -> None:
+    """11(a): head dim 32 raises on the card (the kernel takes 64 only, and
+    there is no plain fallback)."""
     q = torch.randn(2, 16, 4, 32, device="cuda")
     try:
         da.det_flash_attention(q, q, q, None, None, None, (4, 4), 32 ** -0.5)
@@ -1603,125 +1670,165 @@ def check_det_kernel(gen) -> float:
         log(f"11(a) head dim 32 on the card raises, no plain fallback: {e}")
     else:
         raise RuntimeError("11(a): the det kernel path took head dim 32")
-    torch.cuda.empty_cache()
-    return worst
 
 
-def check_detector(gen, card: str) -> int:
-    """Phase 11(b): OnePeaceDetector at full width and depth 40 (1.5B trunk,
-    d 1536, 24 heads, window 16, a global layer every 4th), 1024 px, 80
-    classes, the RPN proposer and the mask head, on random weights from a
-    seeded generator.  The kernel path against the plain path on the same
-    weights: the stride-16 map, each pyramid level, the cascade scores and
-    boxes and the mask logits on fixed proposals, cosine per image >=
-    1-1e-6 in fp32 and >= 0.999 in bf16, 40 kernel launches per trunk
-    forward (30 over 16 x 16 windows, 10 over the 64 x 64 grid).  Then
-    ``detect()`` in bf16 and its images/s on both paths.  Returns the
-    kernel's launches over this phase's runs (the counter is set to 0 here)."""
+def det_window_grids(layers: int) -> list:
+    """The grids of #4's launches in one trunk forward: three 16 x 16 window
+    layers, then a global 64 x 64 one, ``layers // 4`` times."""
+    return ([(16, 16)] * 3 + [(64, 64)]) * (layers // 4)
+
+
+@contextlib.contextmanager
+def recorded_det_grids():
+    """Observe the grid of every call of the det forward wrapper (the wrapper
+    itself counts the launch)."""
+    grids, kernel = [], da.det_attention_cuda
+
+    def recording(q, k, v, toep, bh, bw, hw, *args, **kwargs):
+        grids.append(tuple(hw))
+        return kernel(q, k, v, toep, bh, bw, hw, *args, **kwargs)
+
+    da.det_attention_cuda = recording
+    try:
+        yield grids
+    finally:
+        da.det_attention_cuda = kernel
+
+
+def build_detector(layers: int):
+    """The 1024 px detector (RPN, masks, 80 classes) at full width and
+    ``layers`` deep in fp32, on seeded random weights (non-zero rel-pos
+    tables)."""
     t0 = time.time()
-    det = OnePeaceDetector(proposer="rpn", device="cuda", dtype=torch.float32)
+    det = OnePeaceDetector(proposer="rpn", device="cuda", dtype=torch.float32, layers=layers)
     fill_random_(det, torch.Generator(device="cuda").manual_seed(0))
-    det.eval()
-    n_trunk = sum(p.numel() for p in det.backbone.parameters())
-    log(f"11(b) detector: {n_trunk / 1e9:.3f}B trunk parameters, "
+    log(f"detector at depth {layers}: "
+        f"{sum(p.numel() for p in det.backbone.parameters()) / 1e9:.3f}B trunk parameters, "
         f"{sum(p.numel() for p in det.parameters()) / 1e9:.3f}B in all "
         f"({time.time() - t0:.1f} s to build and fill)")
+    return det.eval()
+
+
+def detector_inputs(gen) -> dict:
+    """Two 1024 px images, 512 boxes per image for the cascade and the first
+    100 of them for the mask head, with their image indices."""
     n_img, n_box, n_mask = 2, 512, 100
     images = torch.randn(n_img, 3, 1024, 1024, generator=gen, device="cuda")
     rs = np.random.RandomState(0)
     corner = rs.uniform(0, 900, (n_img * n_box, 2))
     boxes = np.concatenate([corner, corner + rs.uniform(16, 400, (n_img * n_box, 2))], 1)
     boxes = torch.from_numpy(boxes.astype(np.float32)).cuda()
-    bidx = torch.arange(n_img, device="cuda").repeat_interleave(n_box)
-    mboxes = boxes.reshape(n_img, n_box, 4)[:, :n_mask].reshape(-1, 4)
-    mbidx = torch.arange(n_img, device="cuda").repeat_interleave(n_mask)
+    return {"images": images, "boxes": boxes,
+            "bidx": torch.arange(n_img, device="cuda").repeat_interleave(n_box),
+            "mboxes": boxes.reshape(n_img, n_box, 4)[:, :n_mask].reshape(-1, 4),
+            "mbidx": torch.arange(n_img, device="cuda").repeat_interleave(n_mask)}
 
-    grids, kernel = [], da.det_attention_cuda
 
-    def recording(q, k, v, toep, bh, bw, hw, *args, **kwargs):
-        grids.append(tuple(hw))  # observes only: the wrapper itself counts the launch
-        return kernel(q, k, v, toep, bh, bw, hw, *args, **kwargs)
+def detector_outputs(det, inputs: dict) -> dict:
+    """The stride-16 map, each pyramid level, the cascade's scores and boxes
+    and the mask logits on the fixed boxes, without a gradient."""
+    with torch.no_grad():
+        f16 = det.backbone(inputs["images"])
+        pyr = det.fpn(f16)
+        feats = tuple(pyr[k] for k in det.PYRAMID_KEYS)
+        scores, refined = det.box_head(feats, inputs["boxes"], inputs["bidx"])
+        masks = det.mask_head(feats, inputs["mboxes"], inputs["mbidx"])
+    torch.cuda.synchronize()
+    return {"f16": f16, **pyr, "scores": scores, "boxes": refined, "masks": masks}
 
-    da.launches = 0
-    da.det_attention_cuda = recording
+
+def compare_detector_paths(det, inputs: dict, bound: float, tag: str) -> dict:
+    """The kernel path against the plain path on the same weights: every
+    output of ``detector_outputs``, cosine per image >= ``bound``, and #4's
+    launches over the kernel path's trunk forward (``det_window_grids``)."""
+    layers, n_img = len(det.backbone.layers), inputs["images"].shape[0]
+    outs = {}
     try:
-        for dtype, bound in ((torch.float32, 1 - 1e-6), (torch.bfloat16, 0.999)):
-            det.to(dtype)
-            outs = {}
-            for impl in ("pallas", "xla"):
-                det.backbone.attn_impl = impl
-                grids.clear()
-                with torch.no_grad():
-                    f16 = det.backbone(images)
-                    torch.cuda.synchronize()
-                    want = ([(16, 16)] * 3 + [(64, 64)]) * 10 if impl == "pallas" else []
-                    if grids != want:
-                        raise RuntimeError(f"11(b) {impl}: kernel launches over grids {grids}")
-                    pyr = det.fpn(f16)
-                    feats = tuple(pyr[k] for k in det.PYRAMID_KEYS)
-                    scores, refined = det.box_head(feats, boxes, bidx)
-                    masks = det.mask_head(feats, mboxes, mbidx)
-                out = {"f16": f16, **pyr, "scores": scores, "boxes": refined, "masks": masks}
-                if not all(torch.isfinite(x).all() for x in out.values()):
-                    raise RuntimeError(f"11(b) {str(dtype)[6:]} {impl}: non-finite output")
-                outs[impl] = out
-            report = {key: min_cosine(outs["pallas"][key].reshape(n_img, -1),
-                                      outs["xla"][key].reshape(n_img, -1))
-                      for key in outs["pallas"]}
-            log(f"11(b) {str(dtype)[6:]} 1024 px B={n_img}, kernel vs plain path, min cosine "
-                f"per image: " + ", ".join(f"{k} {v:.9f}" for k, v in report.items())
-                + f" (bound {bound}); 40 launches per trunk forward: 30 windowed, 10 global")
-            if min(report.values()) < bound:
-                raise RuntimeError(f"11(b) {str(dtype)[6:]}: kernel and plain paths disagree")
-            del outs
-            torch.cuda.empty_cache()
-
-        det.backbone.attn_impl = "pallas"
-        with torch.no_grad():
-            results = det.detect(images.bfloat16(), score_thresh=0.0, max_proposals=64)
-        for r in results:
-            n = len(r["boxes"])
-            if (n == 0 or r["masks"].shape != (n, 28, 28) or not np.isfinite(r["boxes"]).all()
-                    or not np.isfinite(r["masks"]).all()):
-                raise RuntimeError(f"11(b) detect(): bad result {[(k, v.shape) for k, v in r.items()]}")
-        log(f"11(b) detect() bf16 kernel path, score_thresh 0, 64 proposals: "
-            f"{[len(r['boxes']) for r in results]} detections with 28x28 masks, all finite")
-
-        # two settings: the recipe's (score_thresh 0.05, 512 proposals; on random
-        # weights no class scores above 0.05, so the mask head does not run) and
-        # 11(b)'s (score_thresh 0, 64 proposals: 100 detections with masks per
-        # image, so every head runs); the median and spread of 3 calls each
-        x = images.bfloat16()
-        settings = {"recipe": {}, "masks": {"score_thresh": 0.0, "max_proposals": 64}}
-        wall = {}
-        for label, kwargs in settings.items():
-            times, counts = {"pallas": [], "xla": []}, {}
-            for impl in ("pallas", "xla"):
-                det.backbone.attn_impl = impl
-                det.detect(x, **kwargs)
-                for _ in range(3):
-                    torch.cuda.synchronize()
-                    t0 = time.time()
-                    results = det.detect(x, **kwargs)
-                    torch.cuda.synchronize()
-                    times[impl].append(1e3 * (time.time() - t0))
-                counts[impl] = [len(r["boxes"]) for r in results]
-                if label == "masks" and any(
-                        not len(r["boxes"]) or r["masks"].shape != (len(r["boxes"]), 28, 28)
-                        for r in results):
-                    raise RuntimeError(f"11(c) detect() {impl}: detections or masks missing")
-            for impl, ms in times.items():
-                med = wall[label, impl] = float(np.median(ms))
-                log(f"11(c) detect() 1024 px B={n_img} bf16 {impl}, {label} setting {kwargs}: "
-                    f"{counts[impl]} detections; median {med:.1f} ms per batch over {len(ms)} "
-                    f"calls (min {min(ms):.1f}, max {max(ms):.1f}), "
-                    f"{n_img / med * 1e3:.2f} images/s ({card})")
-        det.backbone.attn_impl = "pallas"
-        profile_call(lambda: det.detect(x, **settings["masks"]), wall["masks", "pallas"],
-                     "11(c)", "detect_profile.txt")
+        for impl in ("pallas", "xla"):
+            det.backbone.attn_impl = impl
+            with recorded_det_grids() as grids:
+                out = detector_outputs(det, inputs)
+            want = det_window_grids(layers) if impl == "pallas" else []
+            if grids != want:
+                raise RuntimeError(f"{tag} {impl}: kernel launches over grids {grids}")
+            if not all(torch.isfinite(x).all() for x in out.values()):
+                raise RuntimeError(f"{tag} {impl}: non-finite output")
+            outs[impl] = out
     finally:
-        da.det_attention_cuda = kernel
         det.backbone.attn_impl = "pallas"
+    report = {key: min_cosine(outs["pallas"][key].reshape(n_img, -1),
+                              outs["xla"][key].reshape(n_img, -1)) for key in outs["pallas"]}
+    log(f"{tag} 1024 px B={n_img}, kernel vs plain path, min cosine per image: "
+        + ", ".join(f"{k} {v:.9f}" for k, v in report.items())
+        + f" (bound {bound}); {layers} launches of #4 per trunk forward: {3 * layers // 4} "
+        f"windowed, {layers // 4} global")
+    if min(report.values()) < bound:
+        raise RuntimeError(f"{tag}: kernel and plain paths disagree")
+    return report
+
+
+DETECT_SETTINGS = {"recipe": {}, "masks": {"score_thresh": 0.0, "max_proposals": 64}}
+
+
+def check_detect_results(results, tag: str) -> None:
+    """Every image has detections with 28 x 28 masks, all finite."""
+    for r in results:
+        n = len(r["boxes"])
+        if (n == 0 or r["masks"].shape != (n, 28, 28) or not np.isfinite(r["boxes"]).all()
+                or not np.isfinite(r["masks"]).all()):
+            raise RuntimeError(f"{tag} detect(): bad result {[(k, v.shape) for k, v in r.items()]}")
+
+
+def check_detector(gen, card: str) -> int:
+    """Phase 11(b): OnePeaceDetector at full width and depth ``CUT_DEPTH``
+    (d 1536, 24 heads, window 16, a global layer every 4th), 1024 px, 80
+    classes, the RPN proposer and the mask head, on random weights from a
+    seeded generator.  The kernel path against the plain path on the same
+    weights: the stride-16 map, each pyramid level, the cascade scores and
+    boxes and the mask logits on fixed proposals, cosine per image >=
+    1-1e-6 in fp32 and >= 0.999 in bf16, a launch per trunk layer (3 in 4
+    over 16 x 16 windows, 1 in 4 over the 64 x 64 grid).  Then ``detect()``
+    in bf16 and its images/s on the kernel path (11(c)).  Phase 22 runs the
+    detector at depth 40 in fp16, bf16 and int8.  Returns the kernel's
+    launches over this phase's runs (the counter is set to 0 here)."""
+    det = build_detector(CUT_DEPTH)
+    inputs = detector_inputs(gen)
+    n_img = inputs["images"].shape[0]
+    da.launches = 0
+    for dtype, bound in ((torch.float32, 1 - 1e-6), (torch.bfloat16, 0.999)):
+        det.to(dtype)
+        compare_detector_paths(det, inputs, bound, f"11(b) {str(dtype)[6:]} depth {CUT_DEPTH}")
+        torch.cuda.empty_cache()
+    x = inputs["images"].bfloat16()
+    with torch.no_grad():
+        results = det.detect(x, **DETECT_SETTINGS["masks"])
+    check_detect_results(results, "11(b)")
+    log(f"11(b) detect() bf16 kernel path, score_thresh 0, 64 proposals: "
+        f"{[len(r['boxes']) for r in results]} detections with 28x28 masks, all finite")
+
+    # two settings: the recipe's (score_thresh 0.05, 512 proposals; on random
+    # weights no class scores above 0.05, so the mask head does not run) and
+    # 11(b)'s (score_thresh 0, 64 proposals: 100 detections with masks per
+    # image, so every head runs); the median and spread of 3 calls each on the
+    # kernel path (the median leaves out a first call's set-up)
+    wall = {}
+    for label, kwargs in DETECT_SETTINGS.items():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            results = det.detect(x, **kwargs)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.time() - t0))
+        if label == "masks":
+            check_detect_results(results, "11(c)")
+        med = wall[label] = float(np.median(times))
+        log(f"11(c) detect() 1024 px B={n_img} bf16 depth {CUT_DEPTH}, {label} setting {kwargs}: "
+            f"{[len(r['boxes']) for r in results]} detections; median {med:.1f} ms per batch "
+            f"over {len(times)} calls (min {min(times):.1f}, max {max(times):.1f}), "
+            f"{n_img / med * 1e3:.2f} images/s ({card})")
+    profile_call(lambda: det.detect(x, **DETECT_SETTINGS["masks"]), wall["masks"], "11(c)",
+                 "detect_profile.txt")
     launched = da.launches
     del det
     torch.cuda.empty_cache()
@@ -1790,21 +1897,28 @@ DET_BWD_NAMES = ("dq", "dk", "dv", "dtoep", "dbh", "dbw")
 DET_BWD_MODES = {da.BWD_GATHER: "gather", da.BWD_SLAB: "staged, bias sums in registers"}
 
 
-def check_det_bwd_kernel(gen) -> dict:
+# max and mean |diff| bounds of the det backward relative to max and mean
+# |plain|, by dtype: phase 6's for bf16 and fp32, a fifth of bf16's for fp16
+DET_BWD_BOUNDS = {torch.bfloat16: (2e-2, 5e-3), torch.float16: (2e-2 / 5, 5e-3 / 5),
+                  torch.float32: (1e-4, math.inf)}
+
+
+def check_det_bwd_kernel(gen, dtypes=(torch.bfloat16, torch.float32),
+                         tag: str = "12(a)") -> dict:
     """Phase 12(a): the det attention backward kernels (pass 1 with the
     dtoep pass, #5; pass 2, #6) against det_attention_bwd_plain on the same
-    inputs (the forward kernel's output and LSE), bf16 and fp32; the same
-    call twice must be bit-equal.  Returns the largest max |diff| of #5's
-    outputs (dq, dtoep, dbh, dbw) and of #6's (dk, dv).  Bounds relative to
-    max |plain|, as phase 6's: fp32 1e-4, bf16 2e-2 max and 5e-3 mean.
-    Each bf16 case logs the branch of ``det_attention.bwd_plan`` it took;
-    the phase fails unless both ran."""
+    inputs (the forward kernel's output and LSE), in each of ``dtypes``; the
+    same call twice must be bit-equal.  Returns the largest max |diff| of
+    #5's outputs (dq, dtoep, dbh, dbw) and of #6's (dk, dv).  Bounds
+    ``DET_BWD_BOUNDS``, relative to max and mean |plain|.  Each 2-byte case
+    logs the branch of ``det_attention.bwd_plan`` it took; the phase fails
+    unless both ran.  22(a) runs it in fp16."""
     worst = {"dq": 0.0, "dkv": 0.0}
     modes = set()
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         for b, hg, wg, toep_on, decomp_on in DET_BWD_CASES:
             plan = da.bwd_plan(hg, wg, toep_on, decomp_on)
-            if dtype == torch.bfloat16:
+            if dtype != torch.float32:
                 modes.add(plan.mode)
             ops = det_operands(gen, b, hg, wg, dtype, toep_on, decomp_on)
             out, lse = da.det_attention_cuda(*ops, (hg, wg), 0.125, DET_HEADS, with_lse=True)
@@ -1821,9 +1935,9 @@ def check_det_bwd_kernel(gen) -> dict:
                 if x is None:
                     continue
                 if not torch.isfinite(x).all():
-                    raise RuntimeError(f"12(a): det backward {name} is not finite")
+                    raise RuntimeError(f"{tag}: det backward {name} is not finite")
                 if not torch.equal(x, z):
-                    raise RuntimeError(f"12(a): det backward {name} differs between two calls")
+                    raise RuntimeError(f"{tag}: det backward {name} differs between two calls")
                 err = (x.float() - y.float()).abs()
                 scale = y.float().abs()
                 rel_max = err.max().item() / max(scale.max().item(), 1e-30)
@@ -1831,23 +1945,22 @@ def check_det_bwd_kernel(gen) -> dict:
                 group = "dkv" if name in ("dk", "dv") else "dq"
                 worst[group] = max(worst[group], err.max().item())
                 parts.append(f"{name} {rel_max:.2e}/{rel_mean:.2e}")
-                bad = (rel_max > 1e-4 if dtype == torch.float32
-                       else rel_max > 2e-2 or rel_mean > 5e-3)
-                if bad:
-                    raise RuntimeError(f"12(a): det backward {name} disagrees with the plain "
+                max_bound, mean_bound = DET_BWD_BOUNDS[dtype]
+                if rel_max > max_bound or rel_mean > mean_bound:
+                    raise RuntimeError(f"{tag}: det backward {name} disagrees with the plain "
                                        f"version: {str(dtype)[6:]} B={b} {hg}x{wg} "
                                        f"toep={toep_on} decomp={decomp_on}: max {rel_max:.3e} "
                                        f"mean {rel_mean:.3e}")
             branch = (f"plan: {DET_BWD_MODES[plan.mode]}, shared {plan.dq_smem}/"
-                      f"{plan.dkv_smem}/{plan.dtoep_smem} B" if dtype == torch.bfloat16
+                      f"{plan.dkv_smem}/{plan.dtoep_smem} B" if dtype != torch.float32
                       else "fp32 kernels: gather")
-            log(f"12(a) det bwd kernel vs plain {str(dtype)[6:]} B={b} grid {hg}x{wg} "
+            log(f"{tag} det bwd kernel vs plain {str(dtype)[6:]} B={b} grid {hg}x{wg} "
                 f"toep={toep_on} decomp={decomp_on} ({branch}): max/mean |d| relative "
                 f"{', '.join(parts)}; bit-equal over two calls")
             del ops, out, lse, dout, got, again, want
             torch.cuda.empty_cache()
     if modes != set(DET_BWD_MODES):
-        raise RuntimeError(f"12(a): the cases took the plan's branches {modes} only")
+        raise RuntimeError(f"{tag}: the cases took the plan's branches {modes} only")
     return worst
 
 
@@ -1895,48 +2008,63 @@ def det_batch(cfg, gen, b: int) -> dict:
             "gt_valid": torch.from_numpy(valid).cuda(), "gt_masks": torch.from_numpy(masks).cuda()}
 
 
-def check_det_train_paths(gen) -> None:
+def check_det_train_paths(gen, computes=("fp32", "bf16"), tag: str = "12(b)", batch=None,
+                          ref32=None) -> tuple:
     """Phase 12(b): the detection fine-tuning objective at full width with 4
     trunk layers (3 windowed, 1 global), pyramid, RPN, cascade and masks, at
     1024 px and B=2, drop path 0.6 and remat as the recipe: the kernel path
     against the plain path on the same weights, batch and generator seed
-    (the same drop-path masks, RPN sample and jitter).  fp32: losses within
-    1e-5, the gradient cosine over all parameters together >= 1-1e-6 and
-    every parameter's >= 1-1e-4 (the heads' ReLU units whose input lies within
-    the two paths' ~1e-7 difference of 0 flip, and move an FC weight's
-    gradient cosine to ~1-1e-5); bf16 compute: the kernel path no further
+    (the same drop-path masks, RPN sample and jitter), in each compute dtype
+    of ``computes``.  fp32: losses within 1e-5, the gradient cosine over all
+    parameters together >= 1-1e-6 and every parameter's >= 1-1e-4 (the
+    heads' ReLU units whose input lies within the two paths' ~1e-7
+    difference of 0 flip, and move an FC weight's gradient cosine to
+    ~1-1e-5); bf16 (and fp16, 22(c)) compute: the kernel path no further
     from the fp32 gradients than the plain path, over all parameters
-    together to 1e-3 and per parameter to 0.02, losses within 2e-3.  (Phase
-    7(a)'s 0.999 between the two bf16 paths does not carry over: here the
-    plain path itself sits at cosine ~0.9965 from fp32 over all parameters,
-    and a parameter's distance to fp32 moves by up to ~0.01 from one batch
-    to the next on either path.)  Launches: 8 forward (4 layers and their
-    recompute), 4 backward."""
-    batch, ref32 = None, None
-    for bf16 in (False, True):
-        name = "bf16" if bf16 else "fp32"
-        cfg = det_config(["model.encoder.layers=4", f"common.bf16={str(bf16).lower()}"])
+    together to 1e-3 and per parameter to 0.02, losses within 2e-3.
+    (Phase 7(a)'s 0.999 between the two bf16 paths does not carry over:
+    here the plain path itself sits at cosine ~0.9965 from fp32 over all
+    parameters, and a parameter's distance to fp32 moves by up to ~0.01 from
+    one batch to the next on either path.)  fp16 scales the loss as the
+    ``Trainer`` does, from 2^15, halving while a gradient is not finite (a
+    step the ``Trainer`` would skip); both paths take the same scale.
+    Launches: 8 forward (4 layers and their recompute), 4 backward.
+    Returns the batch and the fp32 gradients (the reference of 22(c))."""
+    for compute in computes:
+        cfg = det_config(["model.encoder.layers=4", f"common.bf16={str(compute == 'bf16').lower()}",
+                          f"common.fp16={str(compute == 'fp16').lower()}"])
         trainer = det_trainer(cfg)
         batch = batch or det_batch(cfg, gen, 2)
         runs = {}
         for impl in ("pallas", "xla"):
             trainer.model.backbone.attn_impl = impl
-            da.launches = da.bwd_launches = 0
-            metrics, grads = trainer.gradients(batch, torch.Generator().manual_seed(5))
-            torch.cuda.synchronize()
+            while True:
+                da.launches = da.bwd_launches = 0
+                metrics, grads = trainer.gradients(batch, torch.Generator().manual_seed(5))
+                torch.cuda.synchronize()
+                finite = all(torch.isfinite(g).all() for g in grads)
+                if finite or trainer.scaler is None or impl == "xla":
+                    break
+                trainer.scaler.update(False)
+                log(f"{tag} {compute} {impl}: a gradient is not finite at the loss scale; the "
+                    f"scale halves to {trainer.scaler.scale:g}")
             launched = (da.launches, da.bwd_launches)
             want = (8, 4) if impl == "pallas" else (0, 0)
             if launched != want:
-                raise RuntimeError(f"12(b) {name} {impl}: launches {launched}, expected {want}")
-            if not all(torch.isfinite(g).all() for g in grads):
-                raise RuntimeError(f"12(b) {name} {impl}: non-finite gradient")
+                raise RuntimeError(f"{tag} {compute} {impl}: launches {launched}, expected {want}")
+            if not finite:
+                raise RuntimeError(f"{tag} {compute} {impl}: non-finite gradient")
             runs[impl] = (float(metrics["loss"]), grads)
         names = trainer._names
+        scale = "" if trainer.scaler is None else f", loss scale {trainer.scaler.scale:g}"
         del trainer
-        ref32 = judge_train_paths(f"12(b) {name} 4-layer detector 1024 px B=2", runs, names,
-                                  None if not bf16 else ref32, bf16_loss_tol=2e-3)
+        reference = judge_train_paths(f"{tag} {compute} 4-layer detector 1024 px B=2{scale}",
+                                      runs, names, None if compute == "fp32" else ref32,
+                                      bf16_loss_tol=2e-3)
+        ref32 = reference if compute == "fp32" else ref32
         del runs
         torch.cuda.empty_cache()
+    return batch, ref32
 
 
 def judge_train_paths(tag: str, runs: dict, names: list, ref32, bf16_loss_tol: float,
@@ -1986,7 +2114,7 @@ def judge_train_paths(tag: str, runs: dict, names: list, ref32, bf16_loss_tol: f
         flat32 = [torch.cat([g.flatten() for g in ref32])]
         total_k = grad_cosines([torch.cat([g.flatten() for g in grads_k])], flat32)[0]
         total_p = grad_cosines([torch.cat([g.flatten() for g in grads_p])], flat32)[0]
-        log(f"{tag}: bf16 vs the fp32 gradients, all parameters together: kernel path "
+        log(f"{tag}: vs the fp32 gradients, all parameters together: kernel path "
             f"{total_k:.6f}, plain path {total_p:.6f}; per parameter min kernel path "
             f"{min(cos_k):.6f}, plain path {min(cos_p):.6f}, largest shortfall of the kernel "
             f"path {cos_p[gap] - cos_k[gap]:.2e} ({names[gap]})")
@@ -2003,14 +2131,16 @@ def train_det_full_depth(gen, card: str) -> dict:
     B=2, bf16 compute over fp32 masters, AdamW with layer decay, remat, drop
     path 0.6; the warm-up is cut to 0 so a few steps move the weights.  Each
     path gets a fresh trainer (the same seeded weights) and every step the
-    same batch and generator state, so the loss must fall.  Returns the
-    kernel path's launches per step and the times."""
+    same batch and generator state, so the loss must fall; the plain path
+    runs at depth ``CUT_DEPTH``.  Returns the batch, the kernel path's
+    launches per step and the times."""
     cfg = det_config(["lr_scheduler.warmup_updates=0"])
     batch = det_batch(cfg, gen, 2)
-    result = {}
-    for impl, steps in (("pallas", 3), ("xla", 1)):
+    result = {"batch": batch}
+    for impl, steps, layers in (("pallas", 3, 40), ("xla", 1, CUT_DEPTH)):
         t0 = time.time()
-        trainer = det_trainer(cfg)
+        trainer = det_trainer(det_config(["lr_scheduler.warmup_updates=0",
+                                          f"model.encoder.layers={layers}"]))
         torch.cuda.synchronize()
         trainer.model.backbone.attn_impl = impl
         if impl == "pallas":
@@ -2037,7 +2167,7 @@ def train_det_full_depth(gen, card: str) -> dict:
         want = (80, 40) if impl == "pallas" else (0, 0)
         ms = 1e3 * sum(times) / steps
         peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"12(c) {impl} depth 40 B=2 bf16: {ms:.1f} ms per step (steps "
+        log(f"12(c) {impl} depth {layers} B=2 bf16: {ms:.1f} ms per step (steps "
             f"{[round(1e3 * x, 1) for x in times]}), {2 / ms * 1e3:.2f} images/s, peak "
             f"{peak:.1f} GiB, losses {[round(x, 5) for x in losses]} (the first a warm-up "
             f"step), launches per step: det attention forward {launched[0]}, backward "
@@ -2246,7 +2376,6 @@ def check_cli_resume(data: dict, layers: int = 2) -> dict:
     cosine 1-1e-6.  Then ``cli.evaluate`` reads the straight run's
     ``checkpoint_best.npz``: 64 images, 320 texts."""
     from one_peace_tpu_torch.cli import evaluate as evaluate_cli
-    from one_peace_tpu_torch.utils import native_checkpoint as ckpt
 
     root = data["root"]
     runs = {"straight": root / "straight", "resumed": root / "resumed"}
@@ -2267,7 +2396,7 @@ def check_cli_resume(data: dict, layers: int = 2) -> dict:
     run_train_cli(argv("straight", "log"))
     quiet = ("dataset.disable_validation=true", "checkpoint.best_checkpoint_metric=")
     run_train_cli(argv("resumed", "part1", "optimization.max_epoch=1", *quiet))
-    mid = ckpt.restore_train_state(str(runs["resumed"] / "step_2"))["trainer"]
+    mid = train_state_lazily(runs["resumed"] / "step_2")["trainer"]
     if (mid["step"], mid["mini"]) != (2, 1):
         raise RuntimeError(f"13(b): the epoch-1 save is at step {mid['step']} with "
                            f"{mid['mini']} micro-gradients pending, not 2 and 1")
@@ -2279,8 +2408,8 @@ def check_cli_resume(data: dict, layers: int = 2) -> dict:
     log(f"13(b) depth {layers}, B=8, update_freq=2: update losses straight {straight}, "
         f"stopped after update 2 (a micro-batch pending) and resumed {resumed} "
         f"({time.time() - t0:.1f} s for the three runs)")
-    a = ckpt.restore_train_state(str(runs["straight"] / "step_4"))["trainer"]["params"]
-    b = ckpt.restore_train_state(str(runs["resumed"] / "step_4"))["trainer"]["params"]
+    a = train_state_lazily(runs["straight"] / "step_4")["trainer"]["params"]
+    b = train_state_lazily(runs["resumed"] / "step_4")["trainer"]["params"]
     dot = na = nb = 0.0
     diff, equal = 0.0, True
     for name in a:
@@ -2943,12 +3072,16 @@ def serve_classify(card: str, prep: "Prep") -> dict:
     """Phase 15(a): classify serving at full width through the hub.  A
     2-layer full-width fairseq ``.pt`` per head (the trunk's branches the
     head uses, 16 x 16 pretrained image tables, a seeded head), loaded by
-    ``from_pretrained(model_type="one_peace_classify")``: an image head at
-    384 px with attention pooling, a vl head at 480 px, an audio head.  fp32
-    and bf16: the kernel path against the plain path (cosine per sample
-    >= 1-1e-6 / 0.999), 2 launches of #1 per forward; then quantize="ffn",
-    the int8 kernels against the plain int8 path, with their launches.
-    Returns the int8 kernels' launches over the kernel-path forwards."""
+    ``from_pretrained(model_type="one_peace_classify")`` in fp32: an image
+    head at 384 px with attention pooling, a vl head at 480 px, an audio
+    head.  fp32, and bf16 (the loaded weights cast, as ``from_pretrained(
+    dtype="bf16")`` casts them): the kernel path against the plain path
+    (cosine per sample >= 1-1e-6 / 0.999), 2 launches of #1 per forward;
+    then the same model quantized as ``from_pretrained(quantize="ffn")``
+    quantizes it (``quantize_ffn_`` after the cast; phase 9 loads "ffn" and
+    bf16 through ``from_pretrained`` itself), the int8 kernels against the
+    plain int8 path, with their launches.  Returns the int8 kernels' launches over the
+    kernel-path forwards."""
     base = ModelConfig(head_type="val")
     base.encoder.layers = 2
     enc = base.encoder
@@ -2963,15 +3096,23 @@ def serve_classify(card: str, prep: "Prep") -> dict:
         cfg.encoder.image_adapter.rel_bucket_size = px // 16
         task_cfg = TaskConfig(patch_image_size=px)
         inputs = None
+        t0 = time.time()
+        hub = port_hub.from_pretrained(
+            str(pt), model_type="one_peace_classify", dtype="float32", bpe_dir=bpe,
+            model_cfg=cfg, task_cfg=task_cfg, num_classes=classes, classify_kwargs=kw,
+            device="cuda")
+        weights32 = copy.deepcopy(hub.model)  # bf16 below: these weights cast, as the hub casts
         for dtype in ("float32", "bf16"):
             reference = None
-            for quantize in ("none", "ffn"):
+            if dtype == "bf16":
                 t0 = time.time()
-                hub = port_hub.from_pretrained(
-                    str(pt), model_type="one_peace_classify", dtype=dtype, bpe_dir=bpe,
-                    model_cfg=cfg, task_cfg=task_cfg, num_classes=classes, classify_kwargs=kw,
-                    quantize=quantize, device="cuda")
-                model = hub.model
+                hub = port_hub.OnePeaceHubInterface(cfg, task_cfg, weights32.to(torch.bfloat16),
+                                                    dtype=torch.bfloat16, bpe_dir=bpe)
+            model = hub.model
+            for quantize in ("none", "ffn"):
+                if quantize == "ffn":
+                    t0 = time.time()
+                    quantize_ffn_(model)
                 if inputs is None:
                     inputs = {}
                     if head in ("image", "vl"):
@@ -3026,12 +3167,15 @@ def serve_classify(card: str, prep: "Prep") -> dict:
                 cos = min_cosine(got, plain)
                 log(f"15(a) {task} {head} head {px} px {dtype} quantize={quantize} B={b}: min "
                     f"cosine of the logits kernel vs {what} {cos:.9f} (bound {bounds[dtype]}); "
-                    f"{counts}; from_pretrained and the forwards {time.time() - t0:.1f} s")
+                    f"{counts}; " + ("the hub and the forwards" if quantize == "none"
+                                     else "the quantize and the forwards")
+                    + f" {time.time() - t0:.1f} s")
                 if cos < bounds[dtype]:
                     raise RuntimeError(f"15(a) {task} {dtype} {quantize}: the kernel path "
                                        f"disagrees with the {what}")
-                del hub, model
-                torch.cuda.empty_cache()
+            del hub, model
+            torch.cuda.empty_cache()
+        del weights32
         pt.unlink()
     return launched
 
@@ -3086,9 +3230,13 @@ def classify_batch(task: str, rng) -> dict:
             "target": torch.from_numpy(rng.randint(0, VGGSOUND_CLASSES, 8)).cuda()}
 
 
+CLASSIFY_CHECK_LAYERS = 2  # 15(b)'s depth (4 until PR 20): the bounds do not depend on it
+
+
 def check_classify_train_paths() -> None:
-    """Phase 15(b): each task's fine-tuning gradients at 4 layers, full
-    width, through ``Trainer`` with the classify criterion, kernel path
+    """Phase 15(b): each task's fine-tuning gradients at
+    ``CLASSIFY_CHECK_LAYERS`` layers, full width, through ``Trainer`` with
+    the classify criterion, kernel path
     against plain path on the same weights and batch, with phase 7(a)'s
     bounds: fp32 losses within 1e-5 and every gradient's cosine >= 1-1e-6;
     bf16 the kernel path no further from the fp32 gradients than the plain
@@ -3101,7 +3249,7 @@ def check_classify_train_paths() -> None:
         ref32 = None
         for bf16 in (False, True):
             name = "bf16" if bf16 else "fp32"
-            cfg = classify_train_config(task, 4, bf16, False, 0.0)
+            cfg = classify_train_config(task, CLASSIFY_CHECK_LAYERS, bf16, False, 0.0)
             trainer = classify_trainer(cfg, task)
             runs = {}
             for impl in ("pallas", "xla"):
@@ -3110,7 +3258,8 @@ def check_classify_train_paths() -> None:
                 metrics, grads = trainer.gradients(batch)
                 torch.cuda.synchronize()
                 launched = (fa.launches - before[0], fa.bwd_launches - before[1])
-                want = (4, 4) if impl == "pallas" else (0, 0)
+                per_layer = CLASSIFY_CHECK_LAYERS if impl == "pallas" else 0
+                want = (per_layer, per_layer)
                 if launched != want:
                     raise RuntimeError(f"15(b) {task} {name} {impl}: launches {launched}, "
                                        f"expected {want}")
@@ -3122,7 +3271,8 @@ def check_classify_train_paths() -> None:
             (loss_k, acc_k, grads_k), (loss_p, acc_p, grads_p) = runs["pallas"], runs["xla"]
             cos = grad_cosines(grads_k, grads_p)
             worst = min(range(len(cos)), key=cos.__getitem__)
-            log(f"15(b) {task} {name} 4 layers {lengths}: loss kernel {loss_k:.7f} plain "
+            log(f"15(b) {task} {name} {CLASSIFY_CHECK_LAYERS} layers {lengths}: loss kernel "
+                f"{loss_k:.7f} plain "
                 f"{loss_p:.7f} (accuracy {acc_k:.3f} / {acc_p:.3f}); gradient cosine kernel vs "
                 f"plain per parameter min {cos[worst]:.9f} ({names[worst]}), {len(cos)} "
                 f"parameters")
@@ -4389,15 +4539,28 @@ def direct_miou(overrides: list, path: Path, dtype=None) -> tuple:
     return stats, seen[-1]
 
 
+def train_state_lazily(step_dir: Path) -> dict:
+    """A ``step_<n>`` train-state bundle memory-mapped: only the tensors read
+    are read from the file (a depth-4 seg bundle is 7 GB, its masters a
+    third of it)."""
+    from one_peace_tpu_torch.utils import native_checkpoint as ckpt
+
+    return torch.load(step_dir / ckpt.STATE_FILE, map_location="cpu", weights_only=True,
+                      mmap=True)
+
+
 def check_seg_train_cli(card: str, prep: "Prep", layers: int = 4) -> dict:
     """Phase 18(c): a synthetic ADE20K tree under ``build/smoke_ade_train/``
     (6 train images, 3 batches of 2 an epoch; 2 valid), and the Mask2Former
     recipe through ``cli.train`` at full width and depth ``layers`` in fp32,
-    4 updates at lr 1e-5 from update 0, a save and a validation every 2
-    updates, ``checkpoint_best.npz`` by mIoU: once straight; once to the end
-    of epoch 1 (3 updates: the repeat, whose last save is at update 2,
-    mid-epoch), and resumed from that save to 4 (the iterator restores the
-    dataset's crop generator mid-epoch).  The backward's atomics (the
+    4 updates at lr 1e-5 from update 0: once straight, with a validation at
+    update 4 (``checkpoint_best.npz`` by mIoU: the masters there) and no
+    train-state save; once to the
+    end of epoch 1 (3 updates: the repeat, with a save every 2 updates, the
+    last at update 2, mid-epoch), and resumed from that save to 4 (the
+    iterator restores the dataset's crop generator mid-epoch), with a
+    validation at update 4 as the straight run's and no export.  Each
+    run's masters are kept on the card at its validation.  The backward's atomics (the
     deformable sampling's and the point sampling's) make two runs of the
     same updates differ: by up to 6e-6 relative in the update losses by
     update 4 on an H100, the seeded random weights' gradients being large.
@@ -4406,6 +4569,7 @@ def check_seg_train_cli(card: str, prep: "Prep", layers: int = 4) -> dict:
     moved update 3's by 43%), and the final masters to cosine 1-1e-6; then
     ``cli.evaluate`` on the straight run's export must equal a direct
     ``valid_step`` loop on it (mIoU to 1e-6 and the per-class counts)."""
+    import one_peace_tpu_torch.cli.train as train_cli
     from one_peace_tpu_torch.cli import evaluate as evaluate_cli
     from one_peace_tpu_torch.utils import native_checkpoint as ckpt
 
@@ -4416,22 +4580,35 @@ def check_seg_train_cli(card: str, prep: "Prep", layers: int = 4) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     common = ["common.bf16=false", "common.log_interval=1", "optimization.lr=1e-5",
               "lr_scheduler.warmup_updates=0", "optimization.max_update=4",
-              "checkpoint.save_interval_updates=2", "checkpoint.best_checkpoint_metric=miou",
-              "checkpoint.save_interval=1000", "dataset.validate_interval=1000"]
+              "checkpoint.best_checkpoint_metric=miou", "checkpoint.save_interval=1000",
+              "dataset.validate_interval=1000"]
 
     def argv(name, log_name, *extra):
         return seg_train_argv(specs, runs[name], layers, [
             *common, f"common.log_file={runs[name]}/{log_name}.jsonl", *extra])
 
-    run_train_cli(argv("straight", "log"))
-    quiet = ("dataset.disable_validation=true", "checkpoint.best_checkpoint_metric=")
-    run_train_cli(argv("resumed", "part1", "optimization.max_epoch=1", *quiet))
-    mid = ckpt.restore_train_state(str(runs["resumed"] / "step_2"))
-    if (mid["trainer"]["step"], mid["iterator"]["consumed"]) != (2, 2):
-        raise RuntimeError(f"18(c): the save is at step {mid['trainer']['step']}, batch "
-                           f"{mid['iterator']['consumed']} of its epoch, not 2 and 2")
-    del mid
-    run_train_cli(argv("resumed", "part2", *quiet))
+    kept, real_validate = [], train_cli.validate  # (step, masters) at each validation
+
+    def keeping_validate(cfg_, task_, model_, trainer_, progress_):
+        kept.append((trainer_.step, {n: p.detach().clone()
+                                     for n, p in trainer_.model.named_parameters()}))
+        return real_validate(cfg_, task_, model_, trainer_, progress_)
+
+    train_cli.validate = keeping_validate
+    try:
+        run_train_cli(argv("straight", "log", "dataset.validate_interval_updates=4"))
+        quiet = ("dataset.disable_validation=true", "checkpoint.best_checkpoint_metric=",
+                 "checkpoint.save_interval_updates=2")
+        run_train_cli(argv("resumed", "part1", "optimization.max_epoch=1", *quiet))
+        mid = train_state_lazily(runs["resumed"] / "step_2")
+        if (mid["trainer"]["step"], mid["iterator"]["consumed"]) != (2, 2):
+            raise RuntimeError(f"18(c): the save is at step {mid['trainer']['step']}, batch "
+                               f"{mid['iterator']['consumed']} of its epoch, not 2 and 2")
+        del mid
+        run_train_cli(argv("resumed", "part2", "checkpoint.best_checkpoint_metric=",
+                           "dataset.validate_interval_updates=4"))
+    finally:
+        train_cli.validate = real_validate
     straight = update_losses(runs["straight"] / "log.jsonl")
     repeat = update_losses(runs["resumed"] / "part1.jsonl")
     resumed = update_losses(runs["resumed"] / "part2.jsonl")
@@ -4441,11 +4618,14 @@ def check_seg_train_cli(card: str, prep: "Prep", layers: int = 4) -> dict:
         f"repeated to the end of epoch 1 {repeat} (largest relative difference {spread:.2e}), "
         f"updates 3-4 resumed from the save at update 2 (mid-epoch) {resumed} (largest "
         f"relative difference {off:.2e}) ({time.time() - t0:.1f} s for the three runs)")
-    a = ckpt.restore_train_state(str(runs["straight"] / "step_4"))["trainer"]["params"]
-    b = ckpt.restore_train_state(str(runs["resumed"] / "step_4"))["trainer"]["params"]
+    # the straight run validates once, part 1 never, part 2 once
+    if [step for step, _ in kept] != [4, 4]:
+        raise RuntimeError(f"18(c): validations at updates {[step for step, _ in kept]}, not "
+                           f"one at update 4 in the straight run and one in the resumed run")
+    (_, a), (_, b) = kept
     dot = na = nb = diff = 0.0
     for name in a:
-        x, y = a[name].cuda().double(), b[name].cuda().double()
+        x, y = a[name].double(), b[name].double()
         dot, na, nb = (dot + float(x.flatten() @ y.flatten()), na + float(x.norm() ** 2),
                        nb + float(y.norm() ** 2))
         diff = max(diff, float((x - y).abs().max()))
@@ -4457,7 +4637,7 @@ def check_seg_train_cli(card: str, prep: "Prep", layers: int = 4) -> dict:
           and cosine >= 1 - 1e-6)
     if not ok:
         raise RuntimeError("18(c): the resumed run does not end where the straight run does")
-    del a, b
+    del a, b, kept
     best = runs["straight"] / "checkpoint_best.npz"
     meta = ckpt.load_metadata(str(best))
     overrides = seg_train_argv(specs, runs["straight"], layers, ["common.bf16=false"])[4:]
@@ -4881,7 +5061,7 @@ def check_video_cli(corpus: dict, card: str, layers: int = 2) -> dict:
         run_train_cli(argv("straight", "log"))
     quiet = ("dataset.disable_validation=true", "checkpoint.best_checkpoint_metric=")
     run_train_cli(argv("resumed", "part1", "optimization.max_epoch=1", *quiet))
-    mid = ckpt.restore_train_state(str(runs["resumed"] / "step_2"))
+    mid = train_state_lazily(runs["resumed"] / "step_2")
     if (mid["trainer"]["step"], mid["iterator"]["consumed"]) != (2, 2):
         raise RuntimeError(f"19(c): the save is at step {mid['trainer']['step']}, batch "
                            f"{mid['iterator']['consumed']} of its epoch, not 2 and 2")
@@ -4903,8 +5083,7 @@ def check_video_cli(corpus: dict, card: str, layers: int = 2) -> dict:
         raise RuntimeError("19(c): the resumed run does not repeat the straight run")
     best = runs["straight"] / "checkpoint_best.npz"
     meta = ckpt.load_metadata(str(best))
-    masters = ckpt.restore_train_state(str(runs["straight"] / f"step_{meta['step']}"))[
-        "trainer"]["params"]
+    masters = train_state_lazily(runs["straight"] / f"step_{meta['step']}")["trainer"]["params"]
     exported = load_npz(str(best))
     same = sorted(exported) == sorted(masters) and all(
         torch.equal(exported[k], masters[k]) for k in masters)
@@ -5675,14 +5854,18 @@ def check_int8_fp16() -> dict:
     """21(a): the row quantize on fp16 x and the GEMM writing fp16, bit-equal
     to their plain versions at the serving shapes, the ragged ones and the
     plan's edges (phase 8's), with and without the bias.  Returns the largest
-    differences (0)."""
+    differences."""
     gen = torch.Generator(device="cuda").manual_seed(213)
+    worst = {"quantize": 0.0, "gemm": 0.0}
     for m, k in ((65792, 1536), (65792, 6144), (16032, 6144), (13, 100)):
         x = (torch.randn(m, k, generator=gen, device="cuda") * 2).half()
         got, want = im.int8_quantize_rows_cuda(x), im.int8_quantize_rows_plain(x)
         torch.cuda.synchronize()
+        err = max((got[0].int() - want[0].int()).abs().max().item(),
+                  (got[1] - want[1]).abs().max().item())
+        worst["quantize"] = max(worst["quantize"], float(err))
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise RuntimeError(f"21(a) the fp16 int8 quantize disagrees at ({m}, {k})")
+            raise RuntimeError(f"21(a) the fp16 int8 quantize disagrees at ({m}, {k}): max {err}")
         log(f"21(a) int8 quantize vs plain fp16 ({m} x {k}): bit-equal")
         del x, got, want
     for m, k, n in FFN_SHAPES + RAGGED_SHAPES + EDGE_SHAPES:
@@ -5695,8 +5878,9 @@ def check_int8_fp16() -> dict:
             got = im.int8_matmul_cuda(x_q, w_q, sx, sw, b, torch.float16)
             torch.cuda.synchronize()
             want = im.int8_matmul_plain(x_q, w_q, sx, sw, b, torch.float16)
+            err = (got.float() - want.float()).abs().max().item()
+            worst["gemm"] = max(worst["gemm"], err)
             if not torch.equal(got, want):
-                err = (got.float() - want.float()).abs().max().item()
                 raise RuntimeError(f"21(a) the fp16 int8 GEMM disagrees at ({m}, {k}, {n}) "
                                    f"bias={b is not None}: max {err}")
             del got, want
@@ -5704,7 +5888,7 @@ def check_int8_fp16() -> dict:
             f"bias")
         del x_q, w_q, sx, sw, bias
     torch.cuda.empty_cache()
-    return {"quantize": 0.0, "gemm": 0.0}
+    return worst
 
 
 def time_int8_fp16(card: str) -> dict:
@@ -5992,7 +6176,7 @@ def train_fp16_full_depth(gen, card: str, runs: dict) -> tuple:
     Then what fp16 adds to bf16's step, each alone by CUDA events: the EMA
     update (beside its bytes' time) and the unscale of the gradients; and
     one step profiled (``fp16_train_profile.txt``, beside 7(b)'s
-    ``train_profile.txt``).  Returns the row and the model (for 21(d))."""
+    ``train_profile.txt``).  Returns the row and the model (for 21(e))."""
     cfg = fp16_train_config(40, True, 0.5, ema=True)
     trainer = make_trainer(cfg)
     batch = train_batch(cfg, gen, 32)
@@ -6059,19 +6243,20 @@ class CountGemms(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def check_remat_policies(model, gen, card: str) -> dict:
-    """21(d): ``full``, ``qkv`` and ``offload_qkv`` on one depth-40 vl model
-    (21(c)'s, bf16 compute over its fp32 masters, remat, drop path 0.5),
-    B=32, ``remat_policy`` flipped between runs: the gradients of each
-    policy bit-equal to ``full``'s under the same masks, the GEMMs the
-    backward dispatches (3 x 40 x 2 fewer under the qkv policies: the text
-    and the image pass of each layer) and the peak memory of that run, then
+def check_remat_policies(gen, card: str, layers: int = CUT_DEPTH) -> dict:
+    """21(d): ``full``, ``qkv`` and ``offload_qkv`` on one vl model at full
+    width and depth ``layers`` (seeded random weights, bf16 compute over
+    fp32 masters, remat, drop path 0.5), B=32, ``remat_policy`` flipped
+    between runs: the gradients of each policy bit-equal to ``full``'s under
+    the same masks, the GEMMs the backward dispatches (3 x ``layers`` x 2
+    fewer under the qkv policies: the text and the image pass of each
+    layer) and the peak memory of that run, then
     ms per forward and backward (the median of 3, the policies timed in
     turns), and one call of each profiled: the card's busy time and its
     time in GEMM kernels (``remat_<policy>_profile.txt``)."""
-    cfg = train_config(40, True, True, 0.5)
-    trainer = Trainer(cfg, model, build_criterion(cfg.criterion))
-    enc = model.cfg.encoder
+    cfg = train_config(layers, True, True, 0.5)
+    trainer = make_trainer(cfg, seed=214)
+    enc = trainer.model.cfg.encoder
     batch = train_batch(cfg, gen, 32)
     batch_t = trainer._to_device(batch)
 
@@ -6113,7 +6298,7 @@ def check_remat_policies(model, gen, card: str) -> dict:
         gemm_ms = sum(r.self_device_time_total for r in times
                       if any(k in r.key.lower() for k in ("gemm", "nvjet", "xmma"))) / 1e3
         row.update(busy_ms=busy, gemm_ms=gemm_ms)
-        log(f"21(d) remat_policy={policy} depth 40 B=32 bf16: forward + backward median "
+        log(f"21(d) remat_policy={policy} depth {layers} B=32 bf16: forward + backward median "
             f"{row['ms']:.1f} ms of {len(row['times'])} in turns "
             f"({min(row['times']):.1f}-{max(row['times']):.1f}); profiled, the card busy "
             f"{busy:.1f} ms, {gemm_ms:.1f} ms of it in GEMM kernels; peak "
@@ -6125,7 +6310,8 @@ def check_remat_policies(model, gen, card: str) -> dict:
     # fewer per layer and pass
     fewer = {p: rows["full"]["backward_gemms"] - rows[p]["backward_gemms"]
              for p in ("qkv", "offload_qkv")}
-    if not all(r["equal_to_full"] for r in rows.values()) or set(fewer.values()) != {3 * 40 * 2}:
+    if not all(r["equal_to_full"] for r in rows.values()) or set(fewer.values()) != {
+            3 * layers * 2}:
         raise RuntimeError(f"21(d): the qkv policies' gradients or GEMM counts are off: "
                            f"{rows}")
     del trainer, full
@@ -6148,7 +6334,9 @@ def adan_config(layers: int) -> FrameworkConfig:
 
 def check_adan(model, card: str) -> dict:
     """21(e): Adan over 3 updates of the vl model at full width, depth 2,
-    fp32, on the card and on the CPU from the same weights: the card
+    a text vocabulary of 1024 (Adan is elementwise; the CPU's share of the
+    phase is its steps), fp32, on the card and on the CPU from the same
+    weights: the card
     computes each update's gradients (B=2, a batch of its own each) and
     clips them, and both optimizers step on those same gradients.  Each
     parameter's update (its change over the 3 updates) must agree within
@@ -6160,6 +6348,7 @@ def check_adan(model, card: str) -> dict:
     val model's 4B would need 96 GB, over the card's 80), against its bound
     (every read and write once)."""
     cfg = adan_config(2)
+    cfg.model.encoder.text_adapter.vocab_size = 1024  # 77M embedding rows fewer for the CPU
     cpu = OnePeaceRetrievalModel(cfg.model, device="cpu", dtype=torch.float32)
     fill_random_(cpu, torch.Generator().manual_seed(5))
     card_model = OnePeaceRetrievalModel(cfg.model, device="cuda", dtype=torch.float32)
@@ -6281,6 +6470,369 @@ def check_fp16_cli(data: dict, layers: int = 2) -> dict:
     return {"bit_equal": same}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: detection in fp16, and int8 serving of the vision trunks
+# ---------------------------------------------------------------------------
+
+PHASE22_KERNELS = ("det_fwd", "det_bwd", "gemm", "quantize")  # #4, #5/#6, #3, 3b
+
+
+@contextlib.contextmanager
+def phase22_run(runs: dict, name: str, want: dict):
+    """One run of phase 22 on the main path: the launch counts of #4, #5/#6
+    (one backward call launches both), #3 and 3b set to 0 just before it
+    and read just after, kept in ``runs[name]`` and held to ``want`` (a
+    count per kernel; a kernel not named must not launch)."""
+    da.launches = da.bwd_launches = im.launches = im.quantize_launches = 0
+    yield
+    torch.cuda.synchronize()
+    got = dict(zip(PHASE22_KERNELS, (da.launches, da.bwd_launches, im.launches,
+                                     im.quantize_launches)))
+    runs[name] = got
+    expected = {k: want.get(k, 0) for k in PHASE22_KERNELS}
+    log(f"22 {name}: launches #4 {got['det_fwd']}, #5/#6 {got['det_bwd']}, int8 GEMM "
+        f"{got['gemm']}, quantize {got['quantize']} (expected "
+        + ", ".join(str(expected[k]) for k in PHASE22_KERNELS) + ")")
+    if got != expected:
+        raise RuntimeError(f"22 {name}: launches {got}, expected {expected}")
+
+
+def det_fp16_train(cfg, batch: dict, card: str, bf16_ms: float, runs: dict) -> dict:
+    """22(c): the recipe at depth 40 through ``Trainer`` with
+    ``common.fp16``: a warm-up step, then 3 steps on 12(c)'s batch with the
+    same generator state each, 80 launches of #4 and 40 of #5/#6 a step.
+    Logs the loss scale after each step, the skipped steps and ms per step
+    beside 12(c)'s bf16 step from this run.  Some step must be applied, and
+    the loss after it must be below the first."""
+    t0 = time.time()
+    trainer = det_trainer(cfg)
+    torch.cuda.synchronize()
+    log(f"22(c) detector from the recipe with common.fp16 ({time.time() - t0:.1f} s to build "
+        f"and fill)")
+    rng_state = trainer.generator.get_state()
+    first = trainer.train_step(batch)
+    steps, losses, times, scales, skipped = 3, [first["loss"]], [], [first["loss_scale"]], [
+        first["skipped"]]
+    torch.cuda.reset_peak_memory_stats()
+    with phase22_run(runs, "22(c) fp16 depth-40 steps", {"det_fwd": 80 * steps,
+                                                        "det_bwd": 40 * steps}):
+        for _ in range(steps):
+            trainer.generator.set_state(rng_state)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.time() - t1))
+            losses.append(metrics["loss"])
+            scales.append(metrics["loss_scale"])
+            skipped.append(metrics["skipped"])
+    ms = float(np.mean(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"22(c) depth 40 B=2 fp16 with loss scaling: {ms:.1f} ms per step (steps "
+        f"{[round(x, 1) for x in times]}; 12(c)'s bf16 step in this run {bf16_ms:.1f} ms), "
+        f"{2 / ms * 1e3:.2f} images/s, peak {peak:.1f} GiB, losses "
+        f"{[round(x, 5) for x in losses]} (the first a warm-up step), loss scale after each "
+        f"step {[float(x) for x in scales]}, skipped {[int(x) for x in skipped]} "
+        f"({int(sum(skipped))} of {steps + 1}) ({card})")
+    applied = [i for i, x in enumerate(skipped[:-1]) if not x]
+    if (not all(map(math.isfinite, losses)) or not applied
+            or not min(losses[i + 1] for i in applied) < losses[0]):
+        raise RuntimeError(f"22(c): the fp16 loss on a repeated batch did not fall: {losses}, "
+                           f"skipped {skipped}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"ms": ms, "losses": losses, "scales": scales, "skipped": skipped}
+
+
+def in_turns_wall(fns: dict, rounds: int = 3) -> dict:
+    """The median ms of ``rounds`` calls of each function (host clock,
+    synchronised), taken in turns (a, b, b, a, ...); the median leaves out a
+    first call's set-up."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fns[name]()
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.time() - t0))
+    return {name: float(np.median(ms)) for name, ms in times.items()}
+
+
+def serve_det_int8(det, inputs: dict, card: str, runs: dict) -> dict:
+    """22(d): ``vision.zoo.quantize_serving_params`` on the bf16 depth-40
+    detector (a copy): 120 launches of #3 and 80 of 3b per trunk forward at
+    M = 2 x 64 x 64 = 8192 rows (40 of #4), the int8 kernel path against
+    the plain int8 path (the same attention kernel, the int8 ops' plain
+    versions) on the stride-16 map, cosine per image >= 0.999; the trunk
+    forward in ms and ``detect()`` in images/s (every head running:
+    score_thresh 0, 64 proposals), int8 against bf16, medians of 3 in
+    turns."""
+    x = inputs["images"].bfloat16()
+    qdet = tzoo.quantize_serving_params(copy.deepcopy(det))
+    with phase22_run(runs, "22(d) int8 trunk forward", {"det_fwd": 40, "gemm": 120,
+                                                       "quantize": 80}):
+        with torch.no_grad():
+            got = qdet.backbone(x)
+    with torch.no_grad(), plain_int8():
+        plain = qdet.backbone(x)
+        bf16 = det.backbone(x)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and torch.isfinite(plain).all()):
+        raise RuntimeError("22(d): the int8 trunk's map is not finite")
+    cos = min_cosine(got.reshape(2, -1), plain.reshape(2, -1))
+    to_bf16 = min_cosine(got.reshape(2, -1), bf16.reshape(2, -1))
+    log(f"22(d) int8 detector trunk depth 40, 1024 px B=2: stride-16 map kernel path vs plain "
+        f"int8 path min cosine per image {cos:.9f} (bit-equal: {torch.equal(got, plain)}; "
+        f"bound 0.999); vs the bf16 trunk {to_bf16:.6f}")
+    if cos < 0.999:
+        raise RuntimeError("22(d): the int8 kernel path disagrees with the plain int8 path")
+    del got, plain, bf16
+
+    def trunk(model):
+        def run():
+            with torch.no_grad():
+                model.backbone(x)
+        return run
+
+    trunk_ms = in_turns_wall({"bf16": trunk(det), "int8": trunk(qdet)})
+    kwargs = DETECT_SETTINGS["masks"]
+    with torch.no_grad():
+        results = qdet.detect(x, **kwargs)
+    check_detect_results(results, "22(d) int8")
+    detect_ms = in_turns_wall({"bf16": lambda: det.detect(x, **kwargs),
+                               "int8": lambda: qdet.detect(x, **kwargs)})
+    log(f"22(d) depth 40, 1024 px B=2, medians of 3 in turns: the trunk forward bf16 "
+        f"{trunk_ms['bf16']:.1f} ms, int8 {trunk_ms['int8']:.1f} ms "
+        f"({trunk_ms['bf16'] - trunk_ms['int8']:.1f} ms, "
+        f"{100 * (1 - trunk_ms['int8'] / trunk_ms['bf16']):.1f}% less); detect() (score_thresh "
+        f"0, 64 proposals, {[len(r['boxes']) for r in results]} detections) bf16 "
+        f"{detect_ms['bf16']:.1f} ms = {2e3 / detect_ms['bf16']:.2f} images/s, int8 "
+        f"{detect_ms['int8']:.1f} ms = {2e3 / detect_ms['int8']:.2f} images/s ({card})")
+    del qdet
+    torch.cuda.empty_cache()
+    return {"trunk_ms": trunk_ms, "detect_ms": detect_ms}
+
+
+VISION_INT8_ROWS = (8192, 25096)  # the det trunk at 1024 px, B=2; the seg trunk at 896 px, B=8
+
+
+def time_vision_int8(card: str) -> dict:
+    """22(d) kernels: the row quantize (3b) on bf16 x and the GEMM (#3)
+    writing bf16 at the vision trunks' row counts (``VISION_INT8_ROWS``) and
+    the FFN's two (K, N), bit-equal to their plain versions (``gemm_plan``
+    at these M on the card), the GEMM in turns with bf16 ``torch.matmul``,
+    each beside its bound and plain version.  Returns the rows by shape and
+    the largest differences to the plain versions ("worst")."""
+    gen = torch.Generator(device="cuda").manual_seed(224)
+    rows = {"gemm": {}, "quantize": {}, "worst": {"gemm": 0.0, "quantize": 0.0}}
+    for m in VISION_INT8_ROWS:
+        for k in (1536, 6144):
+            x = torch.randn(m, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+            got, want = im.int8_quantize_rows_cuda(x), im.int8_quantize_rows_plain(x)
+            err = max((got[0].int() - want[0].int()).abs().max().item(),
+                      (got[1] - want[1]).abs().max().item())
+            rows["worst"]["quantize"] = max(rows["worst"]["quantize"], float(err))
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise RuntimeError(f"22(d) the int8 quantize disagrees at ({m}, {k}): max {err}")
+            kernel_ms = cuda_time_ms(lambda: im.int8_quantize_rows_cuda(x), iters=20)
+            plain_ms = cuda_time_ms(lambda: im.int8_quantize_rows_plain(x), iters=5)
+            bound = bound_ms(x.numel() * 3 + m * 4, 3 * x.numel(), H100_FP32_PEAK_TFLOPS * 1e12)
+            log(f"22(d) int8 quantize ({m} x {k}) bf16: bit-equal to plain; kernel "
+                f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms by "
+                f"{bound[1]} ({card})")
+            rows["quantize"][f"(M, K) = ({m}, {k})"] = {
+                "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None}
+            del x, got, want
+        for k, n in ((1536, 6144), (6144, 1536)):
+            x_q = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+            w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+            sx = torch.rand(m, generator=gen, device="cuda") * 1e-3
+            sw = torch.rand(n, generator=gen, device="cuda") * 1e-3
+            got = im.int8_matmul_cuda(x_q, w_q, sx, sw, None, torch.bfloat16)
+            want = im.int8_matmul_plain(x_q, w_q, sx, sw, None, torch.bfloat16)
+            err = (got.float() - want.float()).abs().max().item()
+            rows["worst"]["gemm"] = max(rows["worst"]["gemm"], err)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"22(d) the int8 GEMM disagrees at ({m}, {k}, {n}): max {err}")
+            del got, want
+            xb = torch.randn(m, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+            wb = torch.randn(n, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+            turns = in_turns({
+                "kernel": lambda: im.int8_matmul_cuda(x_q, w_q, sx, sw, None, torch.bfloat16),
+                "bf16": lambda: xb @ wb.T}, iters=10)
+            plain_ms = cuda_time_ms(lambda: im.int8_matmul_plain(x_q, w_q, sx, sw, None,
+                                                                 torch.bfloat16), iters=3,
+                                    warmup=1)
+            bound = gemm_bound(m, k, n)
+            plan = im.gemm_plan(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+            log(f"22(d) int8 GEMM ({m}, {k}, {n}) -> bf16: bit-equal to plain ({plan.tiles_m} x "
+                f"{-(-n // plan.tile_n)} tiles of {plan.tile_m} x {plan.tile_n}); kernel "
+                f"{turns['kernel']:.4f} ms ({2 * m * k * n / turns['kernel'] / 1e9:.1f} TOPS), "
+                f"bf16 torch.matmul {turns['bf16']:.4f} ms "
+                f"({turns['kernel'] / turns['bf16']:.2f}x; in turns); plain {plain_ms:.3f} ms; "
+                f"bound {bound[0]:.4f} ms by {bound[1]} ({card})")
+            rows["gemm"][f"(M, K, N) = ({m}, {k}, {n})"] = {
+                "ms": turns["kernel"], "plain_ms": plain_ms, "library_ms": turns["bf16"],
+                "bound_ms": bound[0], "bound_by": bound[1]}
+            del x_q, w_q, xb, wb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_seg_video_int8(card: str, runs: dict) -> dict:
+    """22(e): ``quantize_serving_params`` on the Mask2Former recipe at depth
+    40 in bf16 (17(c)'s weights): at B=1 the int8 kernel path against the
+    plain int8 path on the logits (cosine per image >= 0.999), 120 launches
+    of #3 and 80 of 3b a forward (M = 3137 rows); at B=8 (M = 25096) images
+    per second with and without int8, medians of 3 in turns, beside 17(c)'s
+    bf16 rate.  Then the video classifier (the recipe at depth 4, 32 frames,
+    256 px, B=2 clips: M = 2 x 32 x 257 rows) in bf16 with int8: the kernel
+    path against the plain int8 path on the logits, 12 launches of #3 and 8
+    of 3b a forward."""
+    from one_peace_tpu_torch.tasks.vision_tasks import Ade20kSegTask, K400VideoTask
+
+    cfg = load_config(str(SEG_RECIPE), [])
+    layers = cfg.model.encoder.layers
+    model = Ade20kSegTask.build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    fill_random_(model, torch.Generator(device="cuda").manual_seed(173)).eval()
+    qmodel = tzoo.quantize_serving_params(copy.deepcopy(model))
+    gen = torch.Generator(device="cuda").manual_seed(225)
+    one = torch.randn(1, 3, SEG_PX, SEG_PX, generator=gen, device="cuda")
+    with phase22_run(runs, "22(e) int8 Mask2Former B=1", {"gemm": 3 * layers,
+                                                          "quantize": 2 * layers}):
+        with torch.no_grad():
+            got = qmodel.logits(one).float()
+    with torch.no_grad(), plain_int8():
+        plain = qmodel.logits(one).float()
+    cos = min_cosine(got.reshape(1, -1), plain.reshape(1, -1))
+    log(f"22(e) int8 Mask2Former depth {layers} 896 px B=1: logits kernel path vs plain int8 "
+        f"path cosine {cos:.9f} (bit-equal: {torch.equal(got, plain)}; bound 0.999)")
+    if not torch.isfinite(got).all() or cos < 0.999:
+        raise RuntimeError("22(e): the int8 segmenter's kernel path disagrees")
+    del one, got, plain
+    eight = torch.randn(8, 3, SEG_PX, SEG_PX, generator=gen, device="cuda")
+
+    def logits(m):
+        def run():
+            with torch.no_grad():
+                m.logits(eight)
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = in_turns_wall({"bf16": logits(model), "int8": logits(qmodel)})
+    log(f"22(e) Mask2Former depth {layers} 896 px B=8 (M = {8 * SEG_L} rows), medians of 3 in "
+        f"turns: bf16 {ms['bf16']:.1f} ms = {8e3 / ms['bf16']:.2f} images/s, int8 "
+        f"{ms['int8']:.1f} ms = {8e3 / ms['int8']:.2f} images/s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card})")
+    del model, qmodel, eight
+    torch.cuda.empty_cache()
+
+    vcfg = load_config(str(K400_RECIPE), ["model.encoder.layers=4"])
+    video = K400VideoTask.build_model(vcfg, device="cuda")
+    fill_random_(video, torch.Generator(device="cuda").manual_seed(193))
+    video = video.bfloat16().eval()
+    qvideo = tzoo.quantize_serving_params(copy.deepcopy(video))
+    clips = torch.randn(2, K400_FRAMES, 3, K400_PX, K400_PX, generator=gen, device="cuda")
+    with phase22_run(runs, "22(e) int8 video depth 4", {"gemm": 12, "quantize": 8}):
+        with torch.no_grad():
+            got = qvideo(clips.bfloat16()).float()
+    with torch.no_grad(), plain_int8():
+        plain = qvideo(clips.bfloat16()).float()
+    cos = min_cosine(got, plain)
+    log(f"22(e) int8 video classifier depth 4, 32 frames, B=2 (M = {2 * K400_FRAMES * K400_N} "
+        f"rows): logits kernel path vs plain int8 path min cosine per clip {cos:.9f} "
+        f"(bit-equal: {torch.equal(got, plain)}; bound 0.999)")
+    if not torch.isfinite(got).all() or cos < 0.999:
+        raise RuntimeError("22(e): the int8 video classifier's kernel path disagrees")
+    del video, qvideo, clips, got, plain
+    torch.cuda.empty_cache()
+    return {"seg_ms": ms}
+
+
+DET_TIMED = (("global", (2, 64, 64)), ("windowed", (32, 16, 16)))  # (B, hg, wg), 11(c)'s
+
+
+def time_det_fp16(card: str) -> dict:
+    """22(a) times, per global and windowed layer: the fp16 forward (#4),
+    pass 1 with the dtoep pass (#5) and pass 2 (#6), each in turns with the
+    bf16 kernel on the same inputs rounded to bf16 and with SDPA in fp16 on
+    the bias materialised in fp16 (its backward with the bias taking a
+    gradient, as 12(d)'s); beside them the plain versions and the bounds
+    (11(c)'s and 12(d)'s: the dense fp16 peak is bf16's, the bytes are the
+    same).  Returns {"fwd" | "dq" | "dkv": {layer: row}}."""
+    gen = torch.Generator(device="cuda").manual_seed(222)
+    peak = H100_BF16_PEAK_TFLOPS * 1e12
+    rows = {"fwd": {}, "dq": {}, "dkv": {}}
+    for name, (b, hg, wg) in DET_TIMED:
+        q32, k32, v32, toep, bh, bw = det_operands(gen, b, hg, wg, torch.float32)
+        l, hw, biases = hg * wg, (hg, wg), (toep, bh, bw)
+        half = [x.half() for x in (q32, k32, v32)]
+        bf = [x.bfloat16() for x in (q32, k32, v32)]
+        del q32, k32, v32
+        bias = (bh.transpose(2, 3)[..., None] + bw[..., None, :]).reshape(b, DET_HEADS, l, l)
+        bias += da.bias_from_toeplitz(toep, hg, wg)[None]
+        mask = bias.half()
+        del bias
+        q4, k4, v4 = (x.view(b, l, DET_HEADS, 64).transpose(1, 2) for x in half)
+        fwd = in_turns({
+            "kernel": lambda: da.det_attention_cuda(*half, *biases, hw, 0.125, DET_HEADS),
+            "bf16": lambda: da.det_attention_cuda(*bf, *biases, hw, 0.125, DET_HEADS),
+            "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, scale=0.125)}, iters=10)
+        plain_ms = cuda_time_ms(lambda: da.det_attention_plain(*half, *biases, hw, 0.125,
+                                                               DET_HEADS), iters=3, warmup=1)
+        unit = b * DET_HEADS * l * l * 64
+        qkv, bias_bytes = half[0].numel() * 2, 4 * sum(x.numel() for x in biases)
+        bound = bound_ms(4 * qkv + bias_bytes, 4 * unit, peak)
+        log(f"22(a) det attention forward per {name} layer B={b} grid {hg}x{wg} fp16: kernel "
+            f"{fwd['kernel']:.4f} ms, the bf16 kernel {fwd['bf16']:.4f} ms, SDPA in fp16 on "
+            f"the materialised bias {fwd['sdpa']:.4f} ms ({fwd['kernel'] / fwd['sdpa']:.2f}x; "
+            f"in turns); plain {plain_ms:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({card})")
+        rows["fwd"][name] = {"ms": fwd["kernel"], "plain_ms": plain_ms,
+                             "library_ms": fwd["sdpa"], "bound_ms": bound[0],
+                             "bound_by": bound[1], "bf16_ms": fwd["bf16"]}
+
+        out, lse = da.det_attention_cuda(*half, *biases, hw, 0.125, DET_HEADS, with_lse=True)
+        out_b, lse_b = da.det_attention_cuda(*bf, *biases, hw, 0.125, DET_HEADS, with_lse=True)
+        dout = torch.randn(out.shape, generator=gen, device="cuda")
+        args = (*half, *biases, out, dout.half(), lse, hw, 0.125, DET_HEADS)
+        args_b = (*bf, *biases, out_b, dout.bfloat16(), lse_b, hw, 0.125, DET_HEADS)
+        leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+        leaf_mask = mask.detach().requires_grad_()
+        res = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=leaf_mask,
+                                                               scale=0.125)
+        g4 = args[7].view(b, l, DET_HEADS, 64).transpose(1, 2)
+        bwd = in_turns({
+            "dq": lambda: da.det_attention_bwd_cuda(*args, passes=3),
+            "dq_bf16": lambda: da.det_attention_bwd_cuda(*args_b, passes=3),
+            "dkv": lambda: da.det_attention_bwd_cuda(*args, passes=4),
+            "dkv_bf16": lambda: da.det_attention_bwd_cuda(*args_b, passes=4),
+            "sdpa": lambda: torch.autograd.grad(res, [*leaves, leaf_mask], g4,
+                                                retain_graph=True)}, iters=5)
+        plain_ms = cuda_time_ms(lambda: da.det_attention_bwd_plain(*args), iters=2, warmup=1)
+        stats = 2 * 4 * lse.numel()
+        bounds = {"dq": bound_ms(5 * qkv + stats + 2 * bias_bytes, 6 * unit, peak),
+                  "dkv": bound_ms(6 * qkv + stats + bias_bytes, 8 * unit, peak)}
+        for kernel, what in (("dq", "pass 1 + dtoep (#5)"), ("dkv", "pass 2 (#6)")):
+            log(f"22(a) det attention backward per {name} layer B={b} grid {hg}x{wg} fp16, "
+                f"{what}: kernel {bwd[kernel]:.4f} ms, the bf16 kernel "
+                f"{bwd[kernel + '_bf16']:.4f} ms (in turns); SDPA's backward in fp16 on the "
+                f"materialised bias {bwd['sdpa']:.4f} ms; the whole plain backward "
+                f"{plain_ms:.3f} ms; bound {bounds[kernel][0]:.4f} ms by {bounds[kernel][1]} "
+                f"({card})")
+            rows[kernel][name] = {"ms": bwd[kernel], "plain_ms": plain_ms,
+                                  "library_ms": bwd["sdpa"], "bound_ms": bounds[kernel][0],
+                                  "bound_by": bounds[kernel][1], "bf16_ms": bwd[kernel + "_bf16"]}
+        del half, bf, biases, toep, bh, bw, mask, q4, k4, v4, out, lse, out_b, lse_b, dout
+        del args, args_b, leaves, leaf_mask, res, g4
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -6288,7 +6840,7 @@ def main() -> None:
     card = card_line()
     log(card)
     clock = [time.time(), time.time()]
-    golden_state = GoldenState()  # phase 10's host work, beside phases 2-14
+    golden_state = GoldenState()  # phase 10's host work, beside phases 2-15
     prep = Prep()  # started after the build, which it would slow
     try:
         run_phases(card, clock, golden_state, prep)
@@ -6298,7 +6850,7 @@ def main() -> None:
 
 
 def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) -> None:
-    """Phases 2-21 (10 after 14) and the two last lines."""
+    """Phases 2-22 (10 after 14) and the two last lines."""
 
     def mark(phase: str) -> None:
         """Log the phase's wall time and the script's so far."""
@@ -6309,10 +6861,19 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # 2. build: one nvcc per kernel source, started together
+    # 2. build: one nvcc per kernel source, started together, each timed
     t0 = time.time()
-    libs = build.build_libraries()
-    log(f"built {', '.join(lib.name for lib in libs.values())} in {time.time() - t0:.1f} s")
+    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+
+    def timed_build(name):
+        start = time.time()
+        return build.build_library(name), time.time() - start
+
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(timed_build, names)))
+    libs = {name: lib for name, (lib, _) in built.items()}
+    log("built " + ", ".join(f"{lib.name} in {sec:.1f} s" for lib, sec in built.values())
+        + f"; {time.time() - t0:.1f} s together")
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "C75" in line:  # C7508, C7517
@@ -6378,8 +6939,9 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     mark("9")
 
     # 11. detection serving: the det attention kernel vs plain, the 1024 px
-    # detector at depth 40 through it (its launches counted from 0 here), and times
+    # detector at depth 12 through it (its launches counted from 0 here), and times
     det_worst = check_det_kernel(gen)
+    check_det_head_dim()
     det_launches = check_detector(gen, card)
     if det_launches == 0:
         raise RuntimeError("the detection path never launched the det attention kernel")
@@ -6391,7 +6953,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     # full-width objective on both paths, the depth-40 recipe through the
     # Trainer (its launches counted from 0 after a warm-up step), and times
     det_bwd_worst = check_det_bwd_kernel(gen)
-    check_det_train_paths(gen)
+    det_batch4, det_grads32 = check_det_train_paths(gen)  # 22(c) checks fp16 against these
     det_train = train_det_full_depth(gen, card)
     det_fwd_train, det_bwd_train = det_train["pallas"]["total"]
     det_bwd_times = time_det_backward(gen, card)
@@ -6426,14 +6988,6 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
 
     mark("14")
 
-    # 10. the depth-40 golden through the .pt route, run here, when the
-    # process started with the script has its state written (~215 s of host
-    # work): run after phase 12 it waited 42 s for it
-    fp16_runs = {}  # phase 21's fp16 launches by run (its golden check runs here, on this state)
-    golden16 = check_golden(golden_state, fp16_runs)[1]
-
-    mark("10")
-
     # 15. classification: #1 and #2 alone at the slice's shapes against
     # their plain versions and SDPA (15(e)); then, the launches counted from
     # 0, classify serving through the hub (15(a)), the three tasks'
@@ -6455,6 +7009,14 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     fwd_times.setdefault("shapes", {}).update(cls_fwd_rows)
     bwd_times.setdefault("shapes", {}).update(cls_bwd_rows)
     mark("15")
+
+    # 10. the depth-40 golden through the .pt route, run here, when the
+    # process started with the script has its state written (~260 s of host
+    # work): run after phase 12 it waited 42 s for it, after phase 14 13 s
+    fp16_runs = {}  # phase 21's fp16 launches by run (its golden check runs here, on this state)
+    golden16 = check_golden(golden_state, fp16_runs)[1]
+
+    mark("10")
 
     # 16. pretraining: #1 and #2 alone at the slice's shapes against their
     # plain versions and SDPA (16(a)); then, the launches counted from 0,
@@ -6580,7 +7142,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     # (21(a)); then, the fp16 launches counted (21(b)'s golden ran in phase
     # 10, on its state): 4B embeddings in fp16 and int8 "ffn" in fp16
     # (21(b)), the retrieval step in fp16 with loss scaling and the EMA
-    # (21(c)), the remat policies on that model (21(d), bf16), Adan (21(e),
+    # (21(c)), the remat policies at CUT_DEPTH (21(d), bf16), Adan (21(e),
     # fp32) and the retrieval recipe through cli.train with fp16, the EMA and
     # Adan (21(f))
     t21 = time.time()
@@ -6595,7 +7157,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     check_fp16_train_paths(gen21)
     _, model21 = train_fp16_full_depth(gen21, card, fp16_runs)
     mark("21(c)")
-    check_remat_policies(model21, gen21, card)
+    check_remat_policies(gen21, card)
     mark("21(d)")
     check_adan(model21, card)
     del model21
@@ -6611,6 +7173,48 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
         + ", ".join(f"{k} {v:.6f}" for k, v in golden16.items())
         + f"); the phase took {time.time() - t21:.1f} s")
     mark("21(f)")
+
+    # 22. detection in fp16 and int8 serving of the vision trunks: the fp16
+    # arms of #4-#6 alone against their plain versions and in turns with the
+    # bf16 kernels and SDPA in fp16 (22(a)); then, each run's launches
+    # counted from 0: the depth-40 detector in fp16 (22(b)), int8 detection
+    # (22(d)), 12(b) in fp16 and the depth-40 recipe through Trainer with
+    # common.fp16 (22(c)), int8 segmentation and video (22(e))
+    t22 = time.time()
+    gen22 = torch.Generator(device="cuda").manual_seed(221)
+    det16_fwd_err = check_det_kernel(gen22, (torch.float16,), "22(a)")
+    det16_bwd_err = check_det_bwd_kernel(gen22, (torch.float16,), "22(a)")
+    det16_times = time_det_fp16(card)
+    mark("22(a)")
+    runs22 = {}
+    det = build_detector(40)
+    inputs = detector_inputs(gen22)
+    det16 = copy.deepcopy(det).half()
+    with phase22_run(runs22, "22(b) fp16 detector", {"det_fwd": 40}):
+        compare_detector_paths(det16, inputs, 0.999, "22(b) fp16 depth 40")
+    del det16
+    mark("22(b)")
+    serve_det_int8(det.bfloat16(), inputs, card, runs22)
+    vision_int8 = time_vision_int8(card)
+    del det, inputs
+    torch.cuda.empty_cache()
+    mark("22(d)")
+    check_det_train_paths(None, ("fp16",), "22(c)", det_batch4, det_grads32)
+    del det_batch4, det_grads32
+    det_fp16_train(det_config(["lr_scheduler.warmup_updates=0", "common.fp16=true"]),
+                   det_train["batch"], card, det_train["pallas"]["ms"], runs22)
+    mark("22(c)")
+    serve_seg_video_int8(card, runs22)
+    counts22 = {k: sum(run[k] for run in runs22.values()) for k in PHASE22_KERNELS}
+    # #4 and #5/#6 launch in fp16 in 22(b) and 22(c); 22(d)'s int8 trunk runs #4 in bf16
+    det16_launches = {k: sum(run[k] for name, run in runs22.items() if name.startswith(
+        ("22(b)", "22(c)"))) for k in ("det_fwd", "det_bwd")}
+    det_bf16_22 = counts22["det_fwd"] - det16_launches["det_fwd"]
+    log(f"22 launches over its main-path runs ({', '.join(runs22)}): #4 fp16 "
+        f"{det16_launches['det_fwd']}, #4 bf16 {det_bf16_22}, #5/#6 fp16 "
+        f"{det16_launches['det_bwd']}, int8 GEMM {counts22['gemm']}, quantize "
+        f"{counts22['quantize']}; the phase took {time.time() - t22:.1f} s")
+    mark("22(e)")
 
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
@@ -6660,13 +7264,30 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
                            for shape in ((65792, 1536), (65792, 6144))}),
               source="int8_matmul"),
         entry("det_attention_fwd", "one_peace_tpu/ops/det_attention.py:277",
-              det_launches + det_fwd_train + coco_fwd, det_worst, det_times["global"]),
+              det_launches + det_fwd_train + coco_fwd + det_bf16_22, det_worst,
+              det_times["global"]),
         entry("det_attention_bwd_dq", "one_peace_tpu/ops/det_attention.py:618",
               det_bwd_train + coco_bwd, det_bwd_worst["dq"], det_bwd_times["global"]["dq"],
               source="det_attention_bwd"),
         entry("det_attention_bwd_dkv", "one_peace_tpu/ops/det_attention.py:642",
               det_bwd_train + coco_bwd, det_bwd_worst["dkv"], det_bwd_times["global"]["dkv"],
-              source="det_attention_bwd")]}))
+              source="det_attention_bwd"),
+        entry("det_attention_fwd (fp16)", "one_peace_tpu/ops/det_attention.py:277",
+              det16_launches["det_fwd"], det16_fwd_err, with_shapes(det16_times["fwd"]),
+              source="det_attention_fwd"),
+        entry("det_attention_bwd_dq (fp16)", "one_peace_tpu/ops/det_attention.py:618",
+              det16_launches["det_bwd"], det16_bwd_err["dq"], with_shapes(det16_times["dq"]),
+              source="det_attention_bwd"),
+        entry("det_attention_bwd_dkv (fp16)", "one_peace_tpu/ops/det_attention.py:642",
+              det16_launches["det_bwd"], det16_bwd_err["dkv"], with_shapes(det16_times["dkv"]),
+              source="det_attention_bwd"),
+        entry("int8_matmul (vision trunks)", "one_peace_tpu/ops/quant_pallas.py:75",
+              counts22["gemm"], vision_int8["worst"]["gemm"], with_shapes(vision_int8["gemm"]),
+              source="int8_matmul"),
+        entry("int8_quantize_rows (vision trunks)", "one_peace_tpu/ops/quant.py:46",
+              counts22["quantize"], vision_int8["worst"]["quantize"],
+              with_shapes(vision_int8["quantize"]),
+              source="int8_matmul")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,8 +15,8 @@
 //   dbh[b, h, ky, q] = sum_kx ds;  dbw[b, h, q, kx] = sum_ky ds
 //   dtoep[h, dy, qx, kx] = sum over b and over the (qy, ky) with
 //                          qy - ky + hg - 1 = dy of ds
-// where round() is to the inputs' dtype (bf16 or fp32), exactly where the TPU
-// kernels and det_attention_bwd_plain round; dq/dk/dv have the inputs' dtype,
+// where round() is to the inputs' dtype (fp32, bf16 or fp16), exactly where
+// the TPU kernels and det_attention_bwd_plain round; dq/dk/dv have the inputs' dtype,
 // the bias cotangents are fp32.  Neither (B, H, L, L) p nor ds exists.
 //
 // What bounds it on an H100 (1.5B trunk, H=24, Dh=64, B=2 at 1024 px):
@@ -34,6 +34,7 @@
 //
 // What this design does about it, and where each reduction happens:
 //   - Three kernels on one stream, each block one warpgroup (4 warps).  bf16
+//     and fp16 run one set of kernels, templated on the element type; their
 //     products run on wgmma m64n64k16 (wgmma_tiles.cuh): q.k^T, g.v^T, k.q^T
 //     and v.g^T with both operands from 128-byte-swizzled tiles written by
 //     cp.async; ds.K, p^T.G and ds^T.Q with A = round(ds) or round(p) from
@@ -99,6 +100,7 @@
 // item's Q, G and bw rows once for several of them.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -114,7 +116,8 @@ constexpr int kTile = 64;              // rows of a q tile, keys of a key tile
 constexpr int kThreads = 128;          // 4 warps, 16 rows each
 constexpr int kDsStride = kTile + 1;   // fp32 staging rows: no bank conflicts
 
-// How the bf16 kernels read the bias (ops/det_attention.py: BWD_GATHER, BWD_SLAB).
+// How the 2-byte kernels read the bias (ops/det_attention.py: BWD_GATHER,
+// BWD_SLAB).
 constexpr int kGather = 0;  // per score from device memory, any grid
 constexpr int kSlab = 1;    // staged in shared memory (and registers); wg in {8, 16, 32, 64}
 
@@ -128,7 +131,7 @@ constexpr int kQStride = padded_stride(1 << kLw, 8);
 template <int kLw>
 constexpr int kKStride = padded_stride(1 << kLw, 4);
 
-// The bf16 kernels' plan for one grid (ops/det_attention.py:bwd_plan): the
+// The 2-byte kernels' plan for one grid (ops/det_attention.py:bwd_plan): the
 // caller's mode, and the staging geometry that follows from wg.
 struct Plan {
   int mode;       // kGather or kSlab
@@ -147,13 +150,20 @@ Plan make_plan(int mode, int wg) {
 
 using bf16 = __nv_bfloat16;
 
-// A Q/K/V/G tile of 64 rows: bf16 in the 128-byte swizzle that wgmma reads
+// The 2-byte element types, bf16 and fp16 (__half): one set of kernels serves
+// both, their tiles, swizzle, fragments and plans being those of any 2-byte
+// type; only the products' type (.bf16 or .f16) and the rounding of packed
+// values differ.
+template <typename T>
+constexpr bool kTwoByte = std::is_same<T, bf16>::value || std::is_same<T, __half>::value;
+
+// A Q/K/V/G tile of 64 rows: bf16 or fp16 in the 128-byte swizzle that wgmma reads
 // (wgmma_tiles.cuh; 128 bytes a row, the tile 1024-byte aligned), fp32 in
 // rows padded to kF32Stride floats.
 constexpr int kF32Stride = kHeadDim + 4;
 constexpr int kAlign = 1024;
 template <typename T>
-constexpr int kRowBytes = std::is_same<T, bf16>::value ? 128 : kF32Stride * 4;
+constexpr int kRowBytes = kTwoByte<T> ? 128 : kF32Stride * 4;
 template <typename T>
 constexpr int kTileBytes = kTile * kRowBytes<T>;
 
@@ -163,15 +173,20 @@ __device__ __forceinline__ T* tile_row(unsigned char* tile, int r) {
   return reinterpret_cast<T*>(tile + r * kRowBytes<T>);
 }
 
-// D = A (16x16, row) * B (16x8, col) + D, bf16 in, fp32 accumulate.
+// D = A (16x16, row) * B (16x8, col) + D, T (bf16 or fp16) in, fp32 accumulate.
+#define DET_MMA_16816(TY)                                                            \
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "            \
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"             \
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])                      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+template <typename T>
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0,
                                           uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  static_assert(kTwoByte<T>, "mma.sync takes a 2-byte type here");
+  if constexpr (std::is_same<T, __half>::value) DET_MMA_16816("f16");
+  else DET_MMA_16816("bf16");
 }
+#undef DET_MMA_16816
 
 // 64 rows of one head into a tile, asynchronously: row r is row rows[r] of
 // the (rows, H*64) tensor `src` (already offset to the head), or zeros when
@@ -182,8 +197,7 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, const T* src, cons
   constexpr int kChunks = kHeadDim * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks a row
   for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks, row = rows[r];
-    const int at = std::is_same<T, bf16>::value ? r * 128 + ((c ^ (r & 7)) << 4)
-                                                : r * kRowBytes<T> + 16 * c;
+    const int at = kTwoByte<T> ? r * 128 + ((c ^ (r & 7)) << 4) : r * kRowBytes<T> + 16 * c;
     cp_async_16(dst + at,
                 src + static_cast<size_t>(row < 0 ? 0 : row) * row_stride + c * 16 / sizeof(T),
                 row >= 0);
@@ -194,7 +208,7 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, const T* src, cons
 template <typename T>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const T* src, int row0, int L,
                                           int row_stride) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (kTwoByte<T>) {
     load_tile_async(dst, src, row0, L, row_stride);
   } else {
     for (int i = threadIdx.x; i < kTile * 16; i += kThreads) {
@@ -241,11 +255,13 @@ __device__ __forceinline__ void stage_bh(float* dst, const float* bh, int ky_lo,
 
 // acc (16 x 8*kN8) = A (16 rows x 64) * B (8*kN8 rows x 64)^T on mma.sync;
 // a and b point at the first row of each, rows a multiple of 8 into a
-// swizzled bf16 tile (so row g's chunk c sits at g * 128 + ((c ^ g) << 4)).
-template <int kN8>
-__device__ __forceinline__ void tile_nt(float acc[][4], const bf16* a, const bf16* b) {
+// swizzled tile of the 2-byte type T (so row g's chunk c sits at
+// g * 128 + ((c ^ g) << 4)).
+template <int kN8, typename T>
+__device__ __forceinline__ void tile_nt(float acc[][4], const T* a, const T* b) {
+  static_assert(kTwoByte<T>, "the fp32 tiles take the FMA overload below");
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  auto at = [&](const bf16* tile, int r, int e) {  // elements e, e + 1 of row r (r & 7 == g)
+  auto at = [&](const T* tile, int r, int e) {  // elements e, e + 1 of row r (r & 7 == g)
     return *reinterpret_cast<const uint32_t*>(reinterpret_cast<const unsigned char*>(tile) +
                                               r * 128 + (((e >> 3) ^ g) << 4) + (e & 7) * 2);
   };
@@ -263,7 +279,7 @@ __device__ __forceinline__ void tile_nt(float acc[][4], const bf16* a, const bf1
     for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_16816(acc[j], af[kk], at(b, j * 8 + g, kk * 16 + 2 * t),
+      mma_16816<T>(acc[j], af[kk], at(b, j * 8 + g, kk * 16 + 2 * t),
                 at(b, j * 8 + g, kk * 16 + 8 + 2 * t));
   }
 }
@@ -321,60 +337,66 @@ __device__ __forceinline__ void tile_nn(float o[8][4], const float* xs, const fl
   }
 }
 
-// bf16 products of one warpgroup on wgmma m64n64k16, from 128-byte-swizzled
-// tiles; each is issued and committed, and its accumulator may be read only
-// after product_wait.
+// Products of one warpgroup on wgmma m64n64k16 in the 2-byte type T, from
+// 128-byte-swizzled tiles; each is issued and committed, and its accumulator
+// may be read only after product_wait.
 // acc = A B^T over the 64 head dims: A and B 64 rows each (acc holds the
 // warp's 16 rows of A).
+template <typename T>
 __device__ __forceinline__ void product_nt(float acc[8][4], const unsigned char* a,
                                            const unsigned char* b) {
   const uint64_t da = sw128_desc(a), db = sw128_desc(b);
   fence_acc(acc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_64x64x16_ss<0>(acc, da + 2 * kk, db + 2 * kk, kk);
+  for (int kk = 0; kk < 4; ++kk) wgmma_64x64x16_ss<0, T>(acc, da + 2 * kk, db + 2 * kk, kk);
   wgmma_commit();
 }
 // o += x B: x (64 rows x 64, the sum index) in registers as wgmma A
 // fragments (pack_a), B the tile's 64 rows (the sum index) transposed.
+template <typename T>
 __device__ __forceinline__ void product_nn(float o[8][4], const uint32_t xa[4][4],
                                            const unsigned char* b) {
   const uint64_t db = sw128_desc(b);
   fence_acc(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_64x64x16<1>(o, xa[kk], db + 128 * kk, 1);
+  for (int kk = 0; kk < 4; ++kk) wgmma_64x64x16<1, T>(o, xa[kk], db + 128 * kk, 1);
   wgmma_commit();
 }
 __device__ __forceinline__ void product_wait(float a[8][4]) {
   wgmma_wait_all();
   fence_acc(a);
 }
-// round(x), x in the accumulator layout, as A fragments: the accumulator
-// layout of two adjacent 8-column tiles is the A layout of one 16-deep step.
+// round(x) to T, x in the accumulator layout, as A fragments: the
+// accumulator layout of two adjacent 8-column tiles is the A layout of one
+// 16-deep step.
+template <typename T>
 __device__ __forceinline__ void pack_a(uint32_t xa[4][4], const float x[8][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    xa[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    xa[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    xa[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    xa[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    xa[kk][0] = pack2<T>(x[2 * kk][0], x[2 * kk][1]);
+    xa[kk][1] = pack2<T>(x[2 * kk][2], x[2 * kk][3]);
+    xa[kk][2] = pack2<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    xa[kk][3] = pack2<T>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
   }
 }
 
-// Rows rows[0..1] of a 16 x 64 accumulator, times scale, into a (L, H*64)
-// tensor; rows >= L are skipped.
-__device__ __forceinline__ void store_rows(bf16* dst, const float acc[8][4], const int rows[2],
+// Rows rows[0..1] of a 16 x 64 accumulator, times scale and rounded to the
+// 2-byte type T, into a (L, H*64) tensor; rows >= L are skipped.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float acc[8][4], const int rows[2],
                                            int L, int row_stride, float scale) {
+  static_assert(kTwoByte<T>, "fp32 rows take the overload below");
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= L) continue;
-    bf16* p = dst + static_cast<size_t>(rows[r]) * row_stride + 2 * t;
+    T* p = dst + static_cast<size_t>(rows[r]) * row_stride + 2 * t;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
       *reinterpret_cast<uint32_t*>(p + n * 8) =
-          pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+          pack2<T>(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
   }
 }
 
@@ -451,14 +473,14 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
 }
 
 // s = A B^T and dp = C D^T over the 64 head dims (the warp's 16 rows of A and
-// C), done on return: bf16 on wgmma, fp32 on FMA.
+// C), done on return: bf16 or fp16 on wgmma, fp32 on FMA.
 template <typename T>
 __device__ __forceinline__ void two_products(float s[8][4], float dp[8][4], unsigned char* a,
                                              unsigned char* b, unsigned char* c,
                                              unsigned char* d) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    product_nt(s, a, b);
-    product_nt(dp, c, d);
+  if constexpr (kTwoByte<T>) {
+    product_nt<T>(s, a, b);
+    product_nt<T>(dp, c, d);
     wgmma_wait_all();
     fence_acc(s);
     fence_acc(dp);
@@ -502,7 +524,7 @@ __host__ __device__ inline DqSmem dq_layout(int mode, bool toep, bool decomp, in
   if (mode == kGather && decomp) off += kTile * wg * 4;
   s.cols = off;  // kGather: [2] PosTable
   if (mode == kGather) off += 2 * static_cast<int>(sizeof(PosTable));
-  s.total = off + (std::is_same<T, bf16>::value ? kAlign : 0);
+  s.total = off + (kTwoByte<T> ? kAlign : 0);
   return s;
 }
 
@@ -514,10 +536,9 @@ det_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            const float* __restrict__ bh, const float* __restrict__ bw, T* __restrict__ dq,
            float* __restrict__ dbh, float* __restrict__ dbw, int L, int H, int hg, int wg,
            float scaling, Plan plan) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int KT = kTileBytes<T>;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  unsigned char* smem = align_smem<kBf16>(dyn_smem);
+  unsigned char* smem = align_smem<kTwoByte<T>>(dyn_smem);
   const bool decomp = bh != nullptr;
   const DqSmem lay = dq_layout<T>(kMode, toep != nullptr, decomp, wg, plan);
   unsigned char* qs = smem + lay.qs;
@@ -594,8 +615,8 @@ det_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       cp_async_wait_prev();
       fence_async_shared();
       __syncthreads();
-      product_nt(s, qs, ks + cur * KT);  // s = q k^T and dp = g v^T, while the bias is read
-      product_nt(dp, gs, vs + cur * KT);
+      product_nt<T>(s, qs, ks + cur * KT);  // s = q k^T and dp = g v^T, while the bias is read
+      product_nt<T>(dp, gs, vs + cur * KT);
       const float* sl = slab + cur * slab_size;
       const float* bc = bhs + cur * kNr * kTile;
       // at wg = 64 the tile is one grid row: its bh goes into the row's lse
@@ -633,8 +654,8 @@ det_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
           s[j][e] = p * (dp[j][e] - delta_r[e >> 1]);  // ds
         }
       uint32_t dsa[4][4];  // read by the wgmma until product_wait
-      pack_a(dsa, s);
-      product_nn(o, dsa, ks + cur * KT);  // dq += round(ds) k, while the bias sums run
+      pack_a<T>(dsa, s);
+      product_nn<T>(o, dsa, ks + cur * KT);  // dq += round(ds) k, while the bias sums run
       if (decomp) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
@@ -737,14 +758,14 @@ det_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
           s[j][c] = p * (dp[j][c] - delta_r[r]);  // ds
         }
       float* my_ds = dss + warp * 16 * kDsStride;
-      if (!kBf16 || decomp) {
+      if (!kTwoByte<T> || decomp) {
         stage_rows(my_ds, s);
         __syncwarp();
       }
-      if constexpr (kBf16) {  // dq += round(ds) k
+      if constexpr (kTwoByte<T>) {  // dq += round(ds) k
         uint32_t dsa[4][4];
-        pack_a(dsa, s);
-        product_nn(o, dsa, ks + cur * KT);
+        pack_a<T>(dsa, s);
+        product_nn<T>(o, dsa, ks + cur * KT);
         product_wait(o);
       } else {
         tile_nn(o, my_ds, tile_row<T>(ks + cur * KT, 0));
@@ -821,7 +842,7 @@ __host__ __device__ inline DkvSmem dkv_layout(int mode, bool toep, bool decomp, 
                        : 2 * static_cast<int>(sizeof(QueryTable));
   s.stage = off;  // kGather: fp32 staging, 64 x kDsStride floats
   if (mode == kGather) off += kTile * kDsStride * 4;
-  s.total = off + (std::is_same<T, bf16>::value ? kAlign : 0);
+  s.total = off + (kTwoByte<T> ? kAlign : 0);
   return s;
 }
 
@@ -832,10 +853,9 @@ det_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
             const float* __restrict__ delta, const float* __restrict__ toep,
             const float* __restrict__ bh, const float* __restrict__ bw, T* __restrict__ dk,
             T* __restrict__ dv, int L, int H, int hg, int wg, float scaling, Plan plan) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int KT = kTileBytes<T>;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  unsigned char* smem = align_smem<kBf16>(dyn_smem);
+  unsigned char* smem = align_smem<kTwoByte<T>>(dyn_smem);
   const bool decomp = bh != nullptr;
   const DkvSmem lay = dkv_layout<T>(kMode, toep != nullptr, decomp, plan);
   unsigned char* ks = smem + lay.ks;
@@ -920,7 +940,7 @@ det_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
       fence_async_shared();
       __syncthreads();
       const float* tab = tabs + cur * kTab;
-      product_nt(s, ks, qc);  // s^T, while the bias is read
+      product_nt<T>(s, ks, qc);  // s^T, while the bias is read
       float bv[8][4];  // toep + bw, less the query's lse less bh
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -947,9 +967,9 @@ det_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
           s[j][e] = keys[e >> 1] < L ? p : 0.f;
         }
       uint32_t pa[4][4];  // read by the wgmma until product_wait
-      pack_a(pa, s);
-      product_nn(dv_acc, pa, gc);  // dv += round(p)^T g
-      product_nt(dp, vs, gc);      // dp^T = v g^T
+      pack_a<T>(pa, s);
+      product_nn<T>(dv_acc, pa, gc);  // dv += round(p)^T g
+      product_nt<T>(dp, vs, gc);      // dp^T = v g^T
       if (it + 1 < n_tiles) {  // the bias buffers are read: refill them for the next q tile
         __syncthreads();
         stage_bias(q0 + kTile);
@@ -968,8 +988,8 @@ det_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         }
       }
       uint32_t dsa[4][4];
-      pack_a(dsa, dp);
-      product_nn(dk_acc, dsa, qc);  // dk += round(ds)^T q
+      pack_a<T>(dsa, dp);
+      product_nn<T>(dk_acc, dsa, qc);  // dk += round(ds)^T q
       product_wait(dk_acc);
       __syncthreads();  // tile it is consumed before its buffers are refilled
     }
@@ -1015,8 +1035,8 @@ det_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
           const int col = 8 * j + 2 * t + (c & 1);
           bv[j][c] = bias_at(bias, kp[c >> 1], tab.t[col], tab.h[col], tab.w[col]);
         }
-      if constexpr (kBf16) {
-        product_nt(s, ks, qc);  // s^T
+      if constexpr (kTwoByte<T>) {
+        product_nt<T>(s, ks, qc);  // s^T
         product_wait(s);
       } else {
         tile_nt<8>(s, tile_row<T>(ks, warp * 16), tile_row<T>(qc, 0));
@@ -1028,11 +1048,11 @@ det_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
           const int col = 8 * j + 2 * t + (c & 1);
           s[j][c] = keys[c >> 1] < L ? __expf(s[j][c] * scaling + bv[j][c] - tab.lse[col]) : 0.f;
         }
-      if constexpr (kBf16) {
+      if constexpr (kTwoByte<T>) {
         uint32_t pa[4][4];
-        pack_a(pa, s);
-        product_nn(dv_acc, pa, gc);  // dv += round(p)^T g
-        product_nt(dp, vs, gc);      // dp^T = v g^T
+        pack_a<T>(pa, s);
+        product_nn<T>(dv_acc, pa, gc);  // dv += round(p)^T g
+        product_nt<T>(dp, vs, gc);      // dp^T = v g^T
         wgmma_wait_all();
         fence_acc(dv_acc);
         fence_acc(dp);
@@ -1049,10 +1069,10 @@ det_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
           const int col = 8 * j + 2 * t + (c & 1);
           dp[j][c] = s[j][c] * (dp[j][c] - tab.delta[col]);  // ds^T
         }
-      if constexpr (kBf16) {  // dk += round(ds)^T q
+      if constexpr (kTwoByte<T>) {  // dk += round(ds)^T q
         uint32_t dsa[4][4];
-        pack_a(dsa, dp);
-        product_nn(dk_acc, dsa, qc);
+        pack_a<T>(dsa, dp);
+        product_nn<T>(dk_acc, dsa, qc);
         product_wait(dk_acc);
       } else {
         __syncwarp();  // p is consumed
@@ -1074,7 +1094,7 @@ det_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 // ky = qy - (dy - hg + 1) (columns kx0 + [0, kCols)).  A 64-row tile holds
 // 64 / kCols items; the warps of one item hold kCols / 16 chunks of 16 query
 // columns each.  With the decomposed bias, each item's bw rows (its queries'
-// kx0 + [0, kCols)) are staged with its Q and G rows.  bf16 64-wide items
+// kx0 + [0, kCols)) are staged with its Q and G rows.  2-byte 64-wide items
 // run on wgmma, narrower ones on mma.sync.
 // ---------------------------------------------------------------------------
 
@@ -1083,9 +1103,9 @@ struct ItemTable {
   float lse[kTile], delta[kTile], bh[kTile];
 };
 
-// The dtoep pass runs 64-wide bf16 items on wgmma, narrower ones on mma.sync.
+// The dtoep pass runs 64-wide 2-byte items on wgmma, narrower ones on mma.sync.
 template <typename T, int kCols>
-constexpr bool kDtoepWgmma = std::is_same<T, bf16>::value && kCols == 64;
+constexpr bool kDtoepWgmma = kTwoByte<T> && kCols == 64;
 // Floats per staged bw row: = 8 mod 16 for conflict-free float2 reads; 16 at
 // kCols = 16 (2-way conflicts on 4 reads an item) so that the 16 x 16
 // windows' pass fits three blocks per SM.
@@ -1230,8 +1250,8 @@ det_bwd_dtoep(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const ItemTable& tab = tabs[cur];
     const float* bwc = bws + cur * kTile * kBs;
     if constexpr (kWgmma) {  // s = q k^T and dp = g v^T, while the bias is read
-      product_nt(s, base, base + 2 * KT);
-      product_nt(dp, base + KT, base + 3 * KT);
+      product_nt<T>(s, base, base + 2 * KT);
+      product_nt<T>(dp, base + KT, base + 3 * KT);
     }
     float xb[kN8][4], drow[2];  // each score's bias less its row's lse; each row's delta
 #pragma unroll
@@ -1324,7 +1344,7 @@ struct Operands {
   int passes;
 };
 
-// The caller's shared memory per launch (bf16 only): it must equal this
+// The caller's shared memory per launch (2-byte types only): it must equal this
 // file's layouts, or the plan and the kernels disagree.
 struct SmemCheck {
   int dq, dkv, dtoep;
@@ -1334,7 +1354,7 @@ template <typename T, int kCols>
 cudaError_t launch_dtoep(const Operands& a, const SmemCheck& want, cudaStream_t s) {
   const int n_xt = (a.wg + kTile - 1) / kTile;
   const int smem = dtoep_layout<T, kCols>(a.bh != nullptr).total;
-  if (std::is_same<T, bf16>::value && smem != want.dtoep) return cudaErrorInvalidValue;
+  if (kTwoByte<T> && smem != want.dtoep) return cudaErrorInvalidValue;
   return launch(det_bwd_dtoep<T, kCols>, dim3(2 * a.hg - 1, a.heads, n_xt * n_xt), smem, s,
                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta, a.toep,
@@ -1344,7 +1364,6 @@ cudaError_t launch_dtoep(const Operands& a, const SmemCheck& want, cudaStream_t 
 // The passes in `a.passes` with the kernels of one plan branch.
 template <typename T, int kMode, int kLw>
 cudaError_t run(const Operands& a, const Plan& plan, const SmemCheck& want, cudaStream_t s) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   const T* qt = static_cast<const T*>(a.q);
   const T* kt = static_cast<const T*>(a.k);
   const T* vt = static_cast<const T*>(a.v);
@@ -1354,7 +1373,7 @@ cudaError_t run(const Operands& a, const Plan& plan, const SmemCheck& want, cuda
   cudaError_t err = cudaSuccess;
   if (a.passes & 1) {
     const int smem = dq_layout<T>(kMode, toep, decomp, a.wg, plan).total;
-    if (kBf16 && smem != want.dq) return cudaErrorInvalidValue;
+    if (kTwoByte<T> && smem != want.dq) return cudaErrorInvalidValue;
     err = launch(det_bwd_dq<T, kMode, kLw>, grid, smem, s, qt, kt, vt, gt, a.lse, a.delta, a.toep,
                  a.bh, a.bw, static_cast<T*>(a.dq), a.dbh, a.dbw, a.L, a.heads, a.hg, a.wg,
                  a.scaling, plan);
@@ -1368,7 +1387,7 @@ cudaError_t run(const Operands& a, const Plan& plan, const SmemCheck& want, cuda
   }
   if (a.passes & 4) {
     const int smem = dkv_layout<T>(kMode, toep, decomp, plan).total;
-    if (kBf16 && smem != want.dkv) return cudaErrorInvalidValue;
+    if (kTwoByte<T> && smem != want.dkv) return cudaErrorInvalidValue;
     err = launch(det_bwd_dkv<T, kMode, kLw>, grid, smem, s, qt, kt, vt, gt, a.lse, a.delta,
                  a.toep, a.bh, a.bw, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.L, a.heads,
                  a.hg, a.wg, a.scaling, plan);
@@ -1376,18 +1395,35 @@ cudaError_t run(const Operands& a, const Plan& plan, const SmemCheck& want, cuda
   return err;
 }
 
+// The 2-byte kernels of the plan's branch: the gather, or the staged bias at
+// wg = 8, 16, 32 or 64.
+template <typename T>
+cudaError_t run_2byte(const Operands& a, int mode, const SmemCheck& want, cudaStream_t s) {
+  if (mode == kGather) return run<T, kGather, 0>(a, make_plan(kGather, a.wg), want, s);
+  if (mode != kSlab) return cudaErrorInvalidValue;
+  const Plan plan = make_plan(kSlab, a.wg);
+  switch (a.wg) {
+    case 8: return run<T, kSlab, 3>(a, plan, want, s);
+    case 16: return run<T, kSlab, 4>(a, plan, want, s);
+    case 32: return run<T, kSlab, 5>(a, plan, want, s);
+    case 64: return run<T, kSlab, 6>(a, plan, want, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Launches the three kernels on `stream` and returns cudaGetLastError() (0 on
 // success).  q, k, v, g (the output's cotangent), dq, dk, dv: (batch, L,
-// heads * 64), bf16 when is_bf16 else fp32, L = hg * wg.  lse and delta
+// heads * 64) of the dtype `dtype` names (0 fp32, 1 bf16, 2 fp16;
+// ops/build.py: DTYPE_CODES), L = hg * wg.  lse and delta
 // (rowsum(g * out)): fp32 (batch, heads, L).  toep and dtoep: fp32
 // (heads, 2hg-1, wg, wg), or toep null (then dtoep is not written), or dtoep
 // null (not wanted).  bh, dbh: fp32 (batch, heads, hg, L); bw, dbw: fp32
 // (batch, heads, L, wg); all four or none.  passes: a bit mask of the kernels
 // to launch, 1 pass 1 (dq, dbh, dbw), 2 dtoep, 4 pass 2 (dk, dv); 7 is the
 // whole backward (the others time one pass alone).  mode and dq_smem ..
-// dtoep_smem: the bf16 kernels' plan for this grid and these biases
+// dtoep_smem: the 2-byte kernels' plan for this grid and these biases
 // (ops/det_attention.py:bwd_plan: kGather or kSlab, and each launch's
 // shared memory, checked against this file's layouts); the fp32 kernels
 // gather and ignore it.
@@ -1395,7 +1431,7 @@ extern "C" int one_peace_det_attention_bwd(
     const void* q, const void* k, const void* v, const void* g, const void* lse,
     const void* delta, const void* toep, const void* bh, const void* bw, void* dq, void* dk,
     void* dv, void* dtoep, void* dbh, void* dbw, int batch, int seq_len, int heads, int hg,
-    int wg, float scaling, int is_bf16, int passes, int mode, int dq_smem, int dkv_smem,
+    int wg, float scaling, int dtype, int passes, int mode, int dq_smem, int dkv_smem,
     int dtoep_smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1406,21 +1442,11 @@ extern "C" int one_peace_det_attention_bwd(
                    tp != nullptr ? static_cast<float*>(dtoep) : nullptr, static_cast<float*>(dbh),
                    static_cast<float*>(dbw), batch, seq_len, heads, hg, wg, scaling, passes};
   const SmemCheck want{dq_smem, dkv_smem, dtoep_smem};
-  if (!is_bf16) {
-    err = run<float, kGather, 0>(a, make_plan(kGather, wg), want, s);
-  } else if (mode == kGather) {
-    err = run<bf16, kGather, 0>(a, make_plan(kGather, wg), want, s);
-  } else if (mode == kSlab) {
-    const Plan plan = make_plan(kSlab, wg);
-    switch (wg) {
-      case 8: err = run<bf16, kSlab, 3>(a, plan, want, s); break;
-      case 16: err = run<bf16, kSlab, 4>(a, plan, want, s); break;
-      case 32: err = run<bf16, kSlab, 5>(a, plan, want, s); break;
-      case 64: err = run<bf16, kSlab, 6>(a, plan, want, s); break;
-      default: err = cudaErrorInvalidValue;
-    }
-  } else {
-    err = cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: err = run<float, kGather, 0>(a, make_plan(kGather, wg), want, s); break;
+    case 1: err = run_2byte<bf16>(a, mode, want, s); break;
+    case 2: err = run_2byte<__half>(a, mode, want, s); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

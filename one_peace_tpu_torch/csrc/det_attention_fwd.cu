@@ -15,7 +15,7 @@
 // (H, 2hg-1, wg, wg), or absent; bh (B, H, hg, L) and bw (B, H, L, wg) are the
 // decomposed rel-pos factors (detectron2's add_decomposed_rel_pos), fp32, both
 // or neither.  Neither the (B, H, L, L) scores nor the (H, L, L) bias exist.
-// out has q's dtype.
+// out has q's dtype: fp32, bf16 or fp16.
 //
 // What bounds it on an H100 (1.5B trunk, H=24, Dh=64, per image):
 //   global layer at 1024 px, L = 4096: q.k^T + p.v = 4*H*L^2*Dh = 103 GFLOP
@@ -59,11 +59,15 @@
 //     memory, needed one block per SM and lost to the gather);
 //   - two passes over the key tiles: the first finds each row's max m and sum
 //     l (and the log-sum-exp), the second computes P = exp2(s log2e -
-//     (m log2e + log2 l)) and rounds it to bf16 before P.V, exactly where the
-//     plain version casts its fp32 probabilities to v's dtype (the TPU kernel
-//     rounds the unnormalised P; in the retrieval kernel that one-pass order
-//     drifted from the plain path almost to the 0.999 cosine bound at depth
-//     40);
+//     (m log2e + log2 l)) and rounds it to v's dtype (bf16 or fp16) before
+//     P.V, exactly where the plain version casts its fp32 probabilities to
+//     v's dtype (the TPU kernel rounds the unnormalised P; in the retrieval
+//     kernel that one-pass order drifted from the plain path almost to the
+//     0.999 cosine bound at depth 40);
+//   - bf16 and fp16 run one kernel, templated on the element type: the
+//     tiles, swizzle, fragments and plans are those of any 2-byte type, only
+//     the wgmma's type (.bf16 or .f16) and the rounding of P and of the
+//     output differ;
 //   - fp32 inputs (the test path) use CUDA-core FMA, a one-pass online
 //     softmax and the per-score gather.
 // Not done yet: TMA for K, V and the slab; sharing one slab between the two
@@ -72,6 +76,7 @@
 // K and V).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -83,12 +88,13 @@ namespace {
 constexpr int kHeadDim = 64;
 constexpr int kBlockM = 64;              // query rows per block
 constexpr int kBlockN = 64;              // keys per K/V tile
-constexpr int kTileBytes = kBlockN * kHeadDim * 2;  // a bf16 K/V tile: 64 rows of 128 B
+constexpr int kTileBytes = kBlockN * kHeadDim * 2;  // a 2-byte K/V tile: 64 rows of 128 B
 constexpr int kAlign = 1024;             // the 128-byte swizzle's atom: 8 rows of 128 B
 constexpr int kF32Stride = kHeadDim + 1; // fp32 smem row stride: no bank conflicts
 constexpr float kNegInf = -1e30f;
 
-// How the bf16 kernel reads the bias (ops/det_attention.py: FWD_GATHER, FWD_SLAB).
+// How the 2-byte (bf16 or fp16) kernel reads the bias (ops/det_attention.py:
+// FWD_GATHER, FWD_SLAB).
 constexpr int kGather = 0;  // per score from device memory
 constexpr int kSlab = 1;    // toep and bh staged per tile pair, bw in registers
 constexpr float kLog2e = 1.4426950408889634f;
@@ -102,7 +108,7 @@ struct Plan {
   int smem_bytes;  // dynamic shared memory of the launch
 };
 
-// Byte offsets into the bf16 kernel's dynamic shared memory.
+// Byte offsets into the 2-byte kernel's dynamic shared memory.
 struct Smem {
   int ks, vs, slab, bh, cols, total;
 };
@@ -321,7 +327,7 @@ __device__ __forceinline__ void bias_tile(float bv[8][4], float ys[2], const flo
 // K tile in shared memory, in the mma accumulator layout: s[j][c] + ys[c >> 1]
 // is row rows[c >> 1], key k0 + 8j + 2t + (c & 1).  The bias is read while
 // q.k^T runs; only the last tile masks.
-template <bool kToep, bool kDecomp, int kMode>
+template <typename T, bool kToep, bool kDecomp, int kMode>
 __device__ __forceinline__ void score_tile(float s[8][4], float ys[2], const uint32_t qa[4][4],
                                            const unsigned char* ks, const float* slab,
                                            const float* bhs, const int* cols, const int rq[2],
@@ -332,7 +338,7 @@ __device__ __forceinline__ void score_tile(float s[8][4], float ys[2], const uin
   fence_acc(s);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_64x64x16<0>(s, qa[kk], desc + 2 * kk, kk);
+  for (int kk = 0; kk < 4; ++kk) wgmma_64x64x16<0, T>(s, qa[kk], desc + 2 * kk, kk);
   wgmma_commit();
   float bv[8][4];
   bias_tile<kToep, kDecomp, kMode>(bv, ys, slab, bhs, cols, rq, rows, bwr, k0, bias);
@@ -352,13 +358,13 @@ __device__ __forceinline__ void score_tile(float s[8][4], float ys[2], const uin
 }
 
 // 4 warps; warp w owns query rows [16w, 16w + 16) of the block's tile.
-template <bool kToep, bool kDecomp, int kMode>
+// T is the 2-byte element type, bf16 or fp16 (__half).
+template <typename T, bool kToep, bool kDecomp, int kMode>
 __global__ void __launch_bounds__(128, 3)
-det_attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ toep,
-                  const float* __restrict__ bh, const float* __restrict__ bw,
-                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                  int L, int H, int hg, int wg, float scaling, Plan plan) {
+det_attn_fwd_wgmma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ toep, const float* __restrict__ bh,
+                   const float* __restrict__ bw, T* __restrict__ out, float* __restrict__ lse,
+                   int L, int H, int hg, int wg, float scaling, Plan plan) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   const Smem lay = smem_layout(kToep, kDecomp, kMode, plan);
   unsigned char* smem =
@@ -424,7 +430,7 @@ det_attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   };
   auto scores = [&](int it) {
     const int buf = it & 1;
-    score_tile<kToep, kDecomp, kMode>(s, ys, qa, ks + buf * kTileBytes, slab + buf * slab_size,
+    score_tile<T, kToep, kDecomp, kMode>(s, ys, qa, ks + buf * kTileBytes, slab + buf * slab_size,
                                       bhs + buf * bh_size, cols + buf * 3 * kBlockN, rq, rows,
                                       bwr, it * kBlockN, scaling, bias);
   };
@@ -475,7 +481,7 @@ det_attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       if (row_ids[r] < L) lse[bh_head * L + row_ids[r]] = m[r] + logf(l[r]);
   }
 
-  // pass 2: P = exp(s - m) / l, rounded to bf16, times V
+  // pass 2: P = exp(s - m) / l, rounded to T, times V
   float o[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -501,16 +507,16 @@ det_attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     uint32_t pa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pa[kk][0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
     const uint64_t desc = sw128_desc(vs + buf * kTileBytes);
     fence_acc(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_64x64x16<1>(o, pa[kk], desc + 128 * kk, 1);
+    for (int kk = 0; kk < 4; ++kk) wgmma_64x64x16<1, T>(o, pa[kk], desc + 128 * kk, 1);
     wgmma_commit();
     wgmma_wait_all();
     fence_acc(o);
@@ -520,10 +526,10 @@ det_attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row_ids[r] >= L) continue;
-    __nv_bfloat16* dst = out + base + static_cast<size_t>(row_ids[r]) * row_stride + 2 * t;
+    T* dst = out + base + static_cast<size_t>(row_ids[r]) * row_stride + 2 * t;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) = pack_bf16(o[n][2 * r], o[n][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dst + n * 8) = pack2<T>(o[n][2 * r], o[n][2 * r + 1]);
   }
 }
 
@@ -646,45 +652,58 @@ det_attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <bool kToep, bool kDecomp, int kMode>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float* toep,
-                        const float* bh, const float* bw, void* out, float* lse, dim3 grid,
-                        int L, int heads, int hg, int wg, float scaling, const Plan& plan,
-                        cudaStream_t s) {
+template <typename T, bool kToep, bool kDecomp, int kMode>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* toep,
+                         const float* bh, const float* bw, void* out, float* lse, dim3 grid,
+                         int L, int heads, int hg, int wg, float scaling, const Plan& plan,
+                         cudaStream_t s) {
   const Smem lay = smem_layout(kToep, kDecomp, kMode, plan);
   if (lay.total != plan.smem_bytes) return cudaErrorInvalidValue;  // the plan is inconsistent
-  cudaError_t err = cudaFuncSetAttribute(det_attn_fwd_bf16<kToep, kDecomp, kMode>,
+  cudaError_t err = cudaFuncSetAttribute(det_attn_fwd_wgmma<T, kToep, kDecomp, kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
   if (err != cudaSuccess) return err;
-  det_attn_fwd_bf16<kToep, kDecomp, kMode><<<grid, 128, lay.total, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), toep, bh, bw, static_cast<__nv_bfloat16*>(out), lse,
-      L, heads, hg, wg, scaling, plan);
+  det_attn_fwd_wgmma<T, kToep, kDecomp, kMode><<<grid, 128, lay.total, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), toep, bh, bw,
+      static_cast<T*>(out), lse, L, heads, hg, wg, scaling, plan);
   return cudaGetLastError();
 }
 
+// The 2-byte kernel of the plan's branch.
+template <typename T, bool kToep, bool kDecomp>
+cudaError_t launch_2byte(const void* q, const void* k, const void* v, const float* toep,
+                         const float* bh, const float* bw, void* out, float* lse, dim3 grid,
+                         int L, int heads, int hg, int wg, float scaling, const Plan& plan,
+                         cudaStream_t s) {
+  if constexpr (!kToep && !kDecomp)  // no bias to read: one kernel serves every plan
+    return launch_wgmma<T, kToep, kDecomp, kGather>(q, k, v, toep, bh, bw, out, lse, grid, L,
+                                                    heads, hg, wg, scaling, plan, s);
+  else switch (plan.mode) {
+    case kGather:
+      return launch_wgmma<T, kToep, kDecomp, kGather>(q, k, v, toep, bh, bw, out, lse, grid, L,
+                                                      heads, hg, wg, scaling, plan, s);
+    case kSlab:
+      if (wg % 2 != 0 || kBlockN % wg != 0) return cudaErrorInvalidValue;
+      return launch_wgmma<T, kToep, kDecomp, kSlab>(q, k, v, toep, bh, bw, out, lse, grid, L,
+                                                    heads, hg, wg, scaling, plan, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// dtype: 0 fp32, 1 bf16, 2 fp16 (ops/build.py: DTYPE_CODES).
 template <bool kToep, bool kDecomp>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* toep,
                    const float* bh, const float* bw, void* out, float* lse, int batch, int L,
-                   int heads, int hg, int wg, float scaling, bool is_bf16, const Plan& plan,
+                   int heads, int hg, int wg, float scaling, int dtype, const Plan& plan,
                    cudaStream_t s) {
   const dim3 grid(batch, (L + kBlockM - 1) / kBlockM, heads);
-  if (is_bf16) {
-    if constexpr (!kToep && !kDecomp)  // no bias to read: one kernel serves every plan
-      return launch_bf16<kToep, kDecomp, kGather>(q, k, v, toep, bh, bw, out, lse, grid, L,
-                                                  heads, hg, wg, scaling, plan, s);
-    else switch (plan.mode) {
-      case kGather:
-        return launch_bf16<kToep, kDecomp, kGather>(q, k, v, toep, bh, bw, out, lse, grid, L,
-                                                    heads, hg, wg, scaling, plan, s);
-      case kSlab:
-        if (wg % 2 != 0 || kBlockN % wg != 0) return cudaErrorInvalidValue;
-        return launch_bf16<kToep, kDecomp, kSlab>(q, k, v, toep, bh, bw, out, lse, grid, L,
-                                                  heads, hg, wg, scaling, plan, s);
-      default:
-        return cudaErrorInvalidValue;
-    }
-  }
+  if (dtype == 1)
+    return launch_2byte<__nv_bfloat16, kToep, kDecomp>(q, k, v, toep, bh, bw, out, lse, grid, L,
+                                                       heads, hg, wg, scaling, plan, s);
+  if (dtype == 2)
+    return launch_2byte<__half, kToep, kDecomp>(q, k, v, toep, bh, bw, out, lse, grid, L, heads,
+                                                hg, wg, scaling, plan, s);
+  if (dtype != 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(det_attn_fwd_f32<kToep, kDecomp>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kF32Smem));
@@ -699,16 +718,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* toe
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// q, k, v, out: (batch, L, heads * 64), bf16 when is_bf16 else fp32, L = hg * wg.
+// q, k, v, out: (batch, L, heads * 64) of the dtype `dtype` names (0 fp32, 1 bf16,
+// 2 fp16; ops/build.py: DTYPE_CODES), L = hg * wg.
 // toep: fp32 (heads, 2hg-1, wg, wg) or null.  bh: fp32 (batch, heads, hg, L)
 // and bw: fp32 (batch, heads, L, wg), both or neither.  lse: fp32
 // (batch, heads, L) or null.  mode, tile_rows, slab_rows, stride and
-// smem_bytes: the bf16 kernel's plan for this grid and these biases
+// smem_bytes: the 2-byte kernel's plan for this grid and these biases
 // (ops/det_attention.py:fwd_plan); the fp32 kernel ignores them.
 extern "C" int one_peace_det_attention_fwd(
     const void* q, const void* k, const void* v, const void* toep, const void* bh,
     const void* bw, void* out, void* lse, int batch, int seq_len, int heads, int hg, int wg,
-    float scaling, int is_bf16, int mode, int tile_rows, int slab_rows, int stride,
+    float scaling, int dtype, int mode, int tile_rows, int slab_rows, int stride,
     int smem_bytes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -720,16 +740,16 @@ extern "C" int one_peace_det_attention_fwd(
   const Plan plan{mode, tile_rows, slab_rows, stride, smem_bytes};
   if (tp != nullptr && h != nullptr)
     err = launch<true, true>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling,
-                             is_bf16, plan, s);
+                             dtype, plan, s);
   else if (tp != nullptr)
     err = launch<true, false>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling,
-                              is_bf16, plan, s);
+                              dtype, plan, s);
   else if (h != nullptr)
     err = launch<false, true>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling,
-                              is_bf16, plan, s);
+                              dtype, plan, s);
   else
     err = launch<false, false>(q, k, v, tp, h, w, out, ls, batch, seq_len, heads, hg, wg, scaling,
-                               is_bf16, plan, s);
+                               dtype, plan, s);
   return static_cast<int>(err);
 }
 

@@ -19,8 +19,10 @@ the others) with two additive biases:
 ``DetAttentionFunction``: CUDA tensors go to the kernels
 (``csrc/det_attention_fwd.cu``, ``csrc/det_attention_bwd.cu``, built by
 ``ops/build.py`` at their first launch), CPU tensors to the plain versions,
-in both directions.  There is no fallback on the card: whatever the kernels
-do not take (a head dim other than 64) raises.  ``compute_decomp`` stays
+in both directions, in fp32, bf16 or fp16 (q, k, v and the output; the biases,
+their cotangents and the log-sum-exp are fp32 in every case).  There is no
+fallback on the card: whatever the kernels do not take (a head dim other
+than 64) raises.  ``compute_decomp`` stays
 outside the Function, as in JAX, so the gradients of rel_h, rel_w and the
 decomposed bias's share of dq come from autograd chained onto dbh and dbw.
 """
@@ -34,7 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..utils.interpolate import bicubic_resize_matrix
-from .build import build_library
+from .build import DTYPE_CODES, build_library
 
 HEAD_DIM = 64  # the only head dim the kernel takes (every shipped config)
 
@@ -180,7 +182,8 @@ def det_attention_bwd_plain(q, k, v, toep, bh, bw, out, dout, lse, hw: Tuple[int
     return (*(x.to(q.dtype).reshape(b, l, hdim) for x in (dq, dk, dv)), dtoep, dbh, dbw)
 
 
-# How the bf16 forward kernel reads the bias (``csrc/det_attention_fwd.cu``):
+# How the 2-byte (bf16 or fp16) forward kernel reads the bias
+# (``csrc/det_attention_fwd.cu``):
 # per score from device memory, or from a slab of toep and bh's rows staged in
 # shared memory per tile pair with bw held in registers.
 FWD_GATHER, FWD_SLAB = 0, 1
@@ -188,7 +191,7 @@ FWD_TILE = 64  # query rows of a block and keys of a K/V tile
 
 
 class FwdPlan(NamedTuple):
-    """The bf16 forward kernel's plan for one grid and set of biases."""
+    """The 2-byte forward kernel's plan for one grid and set of biases."""
     mode: int        # FWD_GATHER or FWD_SLAB
     tile_rows: int   # the most grid rows one 64-token tile spans
     n_disp: int      # the most displacements qy - ky of any (q tile, key tile) pair
@@ -199,7 +202,7 @@ class FwdPlan(NamedTuple):
 
 def _fwd_smem_bytes(mode: int, has_toep: bool, has_decomp: bool, tile_rows: int,
                     slab_rows: int, stride: int) -> int:
-    """``smem_layout`` of ``det_attention_fwd.cu``: K and V tiles (bf16,
+    """``smem_layout`` of ``det_attention_fwd.cu``: K and V tiles (2-byte,
     double-buffered, 128-byte swizzled rows), then the toep slab and bh's
     rows (double-buffered) or the gather's column table, and 1024 bytes to
     align the tiles to the swizzle's 1024-byte atom."""
@@ -214,7 +217,7 @@ def _fwd_smem_bytes(mode: int, has_toep: bool, has_decomp: bool, tile_rows: int,
 
 @functools.lru_cache(maxsize=None)
 def fwd_plan(hg: int, wg: int, has_toep: bool = True, has_decomp: bool = True) -> FwdPlan:
-    """Plan the bf16 forward kernel on an (hg, wg) grid.  A (q tile at q0,
+    """Plan the 2-byte forward kernel on an (hg, wg) grid.  A (q tile at q0,
     key tile) pair whose keys span grid rows ky_lo..ky_hi reads toep's flat
     rows (qy - ky + hg - 1) * wg + qx = q + (hg - 1 - ky) * wg: the
     64 + (ky_hi - ky_lo) * wg rows from q0 + (hg - 1 - ky_hi) * wg on.  Where
@@ -236,17 +239,17 @@ def fwd_plan(hg: int, wg: int, has_toep: bool = True, has_decomp: bool = True) -
                    _fwd_smem_bytes(mode, has_toep, has_decomp, tile_rows, slab_rows, stride))
 
 
-# How the bf16 backward kernels read the bias (``csrc/det_attention_bwd.cu``):
+# How the 2-byte backward kernels read the bias (``csrc/det_attention_bwd.cu``):
 # per score from device memory, or staged per tile in shared memory (toep's
 # rows, bh's rows, and bw's in pass 2 and the dtoep pass) and registers (bw
 # in pass 1), with dbh and dbw summed in registers.
 BWD_GATHER, BWD_SLAB = 0, 1
-BF16_TILE_BYTES = FWD_TILE * HEAD_DIM * 2  # a 128-byte-swizzled bf16 Q/K/V/G tile
-SWIZZLE_ALIGN = 1024  # the bf16 kernels align their shared memory to the swizzle's atom
+TILE_BYTES = FWD_TILE * HEAD_DIM * 2  # a 128-byte-swizzled 2-byte Q/K/V/G tile
+SWIZZLE_ALIGN = 1024  # the 2-byte kernels align their shared memory to the swizzle's atom
 
 
 class BwdPlan(NamedTuple):
-    """The bf16 backward kernels' plan for one grid and set of biases."""
+    """The 2-byte backward kernels' plan for one grid and set of biases."""
     mode: int        # BWD_GATHER or BWD_SLAB
     tile_rows: int   # grid rows of a 64-key tile (BWD_SLAB: 64 // wg)
     slab_rows: int   # toep rows staged per tile pair: 64 + (tile_rows - 1) * wg
@@ -265,14 +268,14 @@ def dtoep_cols(wg: int) -> int:
 def _bwd_smem_bytes(mode: int, has_toep: bool, has_decomp: bool, wg: int, tile_rows: int,
                     slab_rows: int, q_stride: int, k_stride: int) -> Tuple[int, int, int]:
     """``dq_layout``, ``dkv_layout`` and ``dtoep_layout`` of
-    ``det_attention_bwd.cu`` for bf16: six swizzled tiles each in passes 1
+    ``det_attention_bwd.cu`` for a 2-byte type: six swizzled tiles each in passes 1
     and 2, then the staged bias (double-buffered in pass 1, single in pass
     2, with the q tile's lse, delta and bh rows) or the gather's ds
     staging, dbw sums and position tables; eight tiles and two item tables
     in the dtoep pass, with each item's bw rows; and 1024 bytes to align
     the tiles to the swizzle's atom where wgmma reads them (all but the
     dtoep pass's 16- and 32-wide items)."""
-    tiles = 6 * BF16_TILE_BYTES
+    tiles = 6 * TILE_BYTES
     if mode == BWD_SLAB:
         dq = (tiles + (2 * slab_rows * q_stride * 4 if has_toep else 0)
               + (2 * tile_rows * FWD_TILE * 4 if has_decomp else 0))
@@ -285,14 +288,14 @@ def _bwd_smem_bytes(mode: int, has_toep: bool, has_decomp: bool, wg: int, tile_r
         dkv = tiles + 2 * 5 * FWD_TILE * 4 + staging
     cols = dtoep_cols(wg)
     bw_stride = 16 if cols == 16 else cols + 8
-    dtoep = 8 * BF16_TILE_BYTES + 2 * 6 * FWD_TILE * 4 + (
+    dtoep = 8 * TILE_BYTES + 2 * 6 * FWD_TILE * 4 + (
         2 * FWD_TILE * bw_stride * 4 if has_decomp else 0)
     return dq + SWIZZLE_ALIGN, dkv + SWIZZLE_ALIGN, dtoep + (SWIZZLE_ALIGN if cols == 64 else 0)
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_plan(hg: int, wg: int, has_toep: bool = True, has_decomp: bool = True) -> BwdPlan:
-    """Plan the bf16 backward kernels on an (hg, wg) grid.  Where wg is 8, 16,
+    """Plan the 2-byte backward kernels on an (hg, wg) grid.  Where wg is 8, 16,
     32 or 64 (the 64 x 64 grid, its 16 x 16 windows) a 64-token tile is
     64 // wg whole grid rows with one column pattern, so the kernels stage
     the bias: per (q tile at q0, key tile at ky_lo) pair toep's flat rows
@@ -333,8 +336,8 @@ def _library(which: str = "fwd") -> ctypes.CDLL:
 
 def _check_kernel_inputs(q, k, v, toep, bh, bw, hw, heads: int) -> None:
     """Raise on anything the kernel does not take (it has no fallback)."""
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"det attention kernel takes bf16 or fp32, not {q.dtype}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"det attention kernel takes bf16, fp16 or fp32, not {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -383,7 +386,7 @@ def det_attention_cuda(q, k, v, toep, bh, bw, hw: Tuple[int, int], scaling: floa
     err = lib.one_peace_det_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(toep), _ptr(bh), _ptr(bw),
         out.data_ptr(), _ptr(lse), b, l, heads, hw[0], hw[1], float(scaling),
-        int(q.dtype == torch.bfloat16), plan.mode, plan.tile_rows, plan.slab_rows, plan.stride,
+        DTYPE_CODES[q.dtype], plan.mode, plan.tile_rows, plan.slab_rows, plan.stride,
         plan.smem_bytes, q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"det attention kernel launch failed: "
@@ -425,7 +428,7 @@ def det_attention_bwd_cuda(q, k, v, toep, bh, bw, out, dout, lse, hw: Tuple[int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), _ptr(toep), _ptr(bh), _ptr(bw), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _ptr(dtoep), _ptr(dbh), _ptr(dbw), b, l, heads, hw[0], hw[1],
-        float(scaling), int(q.dtype == torch.bfloat16), passes, plan.mode, plan.dq_smem,
+        float(scaling), DTYPE_CODES[q.dtype], passes, plan.mode, plan.dq_smem,
         plan.dkv_smem, plan.dtoep_smem, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -100,7 +100,16 @@ def quantize_ffn_(model: nn.Module, include_attn: bool = False) -> nn.Module:
     (``*_ffn``) for ``QuantizedLinear``s, in place (``quantize_ffn_params``).
     ``include_attn`` also swaps the self-attention ``q_proj``/``k_proj``/
     ``v_proj``/``out_proj``; per-head gains and the Magneto LN stay as they
-    are.  Quantizes the weights in their current dtype; returns ``model``."""
+    are.  Quantizes the weights in their current dtype, so cast the model to
+    its serving dtype first (as ``hub.from_pretrained`` does); serving only,
+    the int8 path takes no gradient.  Returns ``model``.
+
+    ``vision.zoo.quantize_serving_params`` is this function (the JAX
+    package's ``vision/zoo.quantize_serving_params``): on a zoo model it
+    swaps the det and video trunks' ``image_ffn`` and the seg stack's
+    ``backbone.encoder`` FFNs, and the heads and adapters stay as they are.
+    On the card each such layer then runs the int8 GEMM (#3) three times
+    behind two row quantizes (3b)."""
     for name, module in list(model.named_modules()):
         leaf = name.rsplit(".", 1)[-1]
         names = ()

@@ -98,8 +98,6 @@ class Trainer:
             self.compute_dtype = torch.bfloat16
         else:
             self.compute_dtype = torch.float32
-        if cfg.common.fp16 and getattr(model, "fp16_refusal", None):
-            raise NotImplementedError(model.fp16_refusal)
         self.scaler = LossScaler() if cfg.common.fp16 else None
         trainable = model.trainable_mask() if hasattr(model, "trainable_mask") else {}
         self._names, self._params = [], []  # the trainable masters

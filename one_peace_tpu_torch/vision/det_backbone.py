@@ -43,6 +43,7 @@ from ..models.components import (Conv, LayerNorm, Linear, checkpoint_module, con
                                  linear_resize_matrix, max_pool)
 from ..models.rel_pos import make_image_bucket_position
 from ..ops.det_attention import det_flash_attention, interpolate_rel_table, toeplitz_tables
+from ..ops.quant import shared_input_linears
 
 
 def window_partition(x: torch.Tensor, ws: int):
@@ -174,7 +175,8 @@ class DetAttention(nn.Module):
 
 
 class DetFFN(nn.Module):
-    """``wo(ffn_ln(gelu(wi_0 x) * wi_1 x))``."""
+    """``wo(ffn_ln(gelu(wi_0 x) * wi_1 x))``.  Quantized ``wi_0`` and ``wi_1``
+    (``vision.zoo.quantize_serving_params``) share one row quantize of x."""
 
     def __init__(self, d: int, f: int, device=None, dtype=None):
         super().__init__()
@@ -185,7 +187,8 @@ class DetFFN(nn.Module):
         self.wo = Linear(f, d, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(self.ffn_ln(gelu(self.wi_0(x)) * self.wi_1(x)))
+        a, g = shared_input_linears(x, self.wi_0, self.wi_1)
+        return self.wo(self.ffn_ln(gelu(a) * g))
 
 
 class DetLayer(nn.Module):

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..models.components import resize_linear
+from ..ops.quant import quantize_ffn_
 from ..utils.checkpoint import params_from_jax
 from ..utils.checkpoint_convert import (convert_encoder_wrapper, load_torch_state_dict,
                                         upgrade_state_dict)
@@ -41,6 +42,11 @@ from .upernet import UperNetHead
 from .video_backbone import VideoClassifierV2
 
 
+# the JAX package's ``vision/zoo.quantize_serving_params``: int8 serving of a
+# zoo model's trunk FFNs, in place (``quantize_ffn_``'s docstring)
+quantize_serving_params = quantize_ffn_
+
+
 class OnePeaceDetector(nn.Module):
     """Cascade Mask R-CNN over the windowed ONE-PEACE trunk.  ``backbone_kw``
     go to ``DetBackbone``: its geometry, ``drop_path_rate``,
@@ -48,10 +54,6 @@ class OnePeaceDetector(nn.Module):
 
     PYRAMID_KEYS = ("p4", "p8", "p16", "p32")
     STRIDES = (4, 8, 16, 32)
-    # what ``Trainer`` raises with under ``common.fp16``, before the first step
-    fp16_refusal = ("common.fp16: the detector's attention runs the det attention kernels "
-                    "#4-#6 (ops/det_attention.py), which take bf16 and fp32 only; fp16 is not "
-                    "ported for them: use common.bf16")
 
     def __init__(self, num_classes: int = 80, image_size: int = 1024, fpn_channels: int = 256,
                  with_masks: bool = True, proposer: str = "fcos", device="cuda", dtype=None,

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu.ops import flash_attention as jfa
 from one_peace_tpu_torch.ops import flash_attention as tfa

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from chip_smoke import CLASSIFY_RECIPES, VQA_ANSWERS, write_classify_corpus
 from one_peace_tpu import hub as jax_hub

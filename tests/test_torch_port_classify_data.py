@@ -14,6 +14,7 @@ the same logits."""
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 from PIL import Image
 
 from chip_smoke import write_bpe_dir

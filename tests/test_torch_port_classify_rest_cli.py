@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from chip_smoke import CLASSIFY_REST_RECIPES, FSD50K_CLASSES, write_classify_rest_corpus
 from one_peace_tpu.models.classify import OnePeaceClassifyModel as JaxModel

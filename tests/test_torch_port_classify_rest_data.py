@@ -19,6 +19,7 @@ import io
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from chip_smoke import FSD50K_CLASSES, write_classify_rest_corpus
 from one_peace_tpu.core.config import FrameworkConfig as JaxFrameworkConfig

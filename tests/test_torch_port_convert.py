@@ -9,6 +9,7 @@ import copy
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 import torch_fixture as tf
 from helpers import tiny_model_config

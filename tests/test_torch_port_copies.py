@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from helpers import tiny_model_config
 from torch_fixture import make_random_state_dict

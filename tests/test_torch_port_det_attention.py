@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu.ops import det_attention as jda
 from one_peace_tpu.ops import flash_attention as jfa
@@ -164,8 +165,8 @@ def test_dispatch_and_guards():
                                  None, (4, 4), HEADS)
     with pytest.raises(ValueError, match="CUDA device"):
         tda._check_kernel_inputs(*wide, None, None, None, (4, 4), HEADS)
-    with pytest.raises(TypeError, match="bf16 or fp32"):
-        tda._check_kernel_inputs(*(x.half() for x in wide), None, None, None, (4, 4), HEADS)
+    with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
+        tda._check_kernel_inputs(*(x.double() for x in wide), None, None, None, (4, 4), HEADS)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tda.det_flash_attention(*(x.reshape(2, 16, HEADS, 64).to("meta") for x in wide),
                                 None, None, None, (4, 4), 0.125)

@@ -20,6 +20,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu_torch.ops import build
 from one_peace_tpu_torch.ops import det_attention as tda

@@ -28,6 +28,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from chip_smoke import write_coco_corpus
 from test_vision_checkpoint import _fake_vision_sd

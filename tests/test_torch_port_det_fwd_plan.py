@@ -14,6 +14,7 @@ runs on the card (``chip_smoke.py`` phase 11(a))."""
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu_torch.ops import det_attention as tda
 

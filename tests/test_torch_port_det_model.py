@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from test_vision_checkpoint import D, F, HEADS, LAYERS, PRETRAIN_BUCKET, _fake_vision_sd
 

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu.ops import flash_attention as jfa
 from one_peace_tpu.vision import det_train as jdt
@@ -161,7 +162,7 @@ def test_rpn_loss_balanced_matches_jax(rpn_pair):
         return jrpn.rpn_loss(jdet.proposer, p, f, jnp.asarray(boxes), jnp.asarray(labels),
                              jnp.asarray(valid), sampler="balanced")
 
-    (want, jm), (jgp, jgf) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+    (want, jm), (jgp, jgf) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
         params["proposer"], [jnp.asarray(f) for f in feats])
     tfeats = [_t(f).requires_grad_() for f in feats]
     got, m = trpn.rpn_loss(tdet.proposer, tfeats, _t(boxes), _t(labels), _t(valid),
@@ -236,7 +237,7 @@ def test_cascade_box_loss_matches_jax(rpn_pair):
         return jax_cascade_box_loss(jdet.box_head, p, tuple(jnp.asarray(f) for f in feats),
                                     *map(jnp.asarray, args), prop_valid=jnp.asarray(valid[1]))
 
-    (want, jm), jg = jax.value_and_grad(jloss, has_aux=True)(params["box_head"])
+    (want, jm), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params["box_head"])
     got, m = cascade_box_loss(tdet.box_head, [_t(f) for f in feats], *map(_t, args),
                               prop_valid=_t(valid[1]))
     got.backward()
@@ -256,7 +257,7 @@ def test_fcos_loss_matches_jax(fcos_pair):
         return jdt.fcos_loss(jdet.proposer, p, [jnp.asarray(f) for f in feats],
                              jnp.asarray(boxes), jnp.asarray(labels), jnp.asarray(valid))
 
-    (want, jm), jg = jax.value_and_grad(jloss, has_aux=True)(params["proposer"])
+    (want, jm), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params["proposer"])
     got, m = tdt.fcos_loss(tdet.proposer, [_t(f) for f in feats], _t(boxes), _t(labels),
                            _t(valid))
     got.backward()
@@ -280,7 +281,7 @@ def test_mask_loss_matches_jax(rpn_pair):
         return jdt.mask_loss(jdet.mask_head, p, tuple(jnp.asarray(f) for f in feats),
                              *map(jnp.asarray, args), mask_stride=MASK_STRIDE)
 
-    want, jg = jax.value_and_grad(jloss)(params["mask_head"])
+    want, jg = jax.jit(jax.value_and_grad(jloss))(params["mask_head"])
     got = tdt.mask_loss(tdet.mask_head, [_t(f) for f in feats], *map(_t, args),
                         mask_stride=MASK_STRIDE)
     got.backward()

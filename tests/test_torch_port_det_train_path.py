@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu.optim.adamw import decay_mask as jax_decay_mask
 from one_peace_tpu.optim.adamw import layer_decay_scales as jax_layer_decay_scales

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from helpers import tiny_model_config
 from one_peace_tpu.core.config import EMAConfig as JaxEMAConfig

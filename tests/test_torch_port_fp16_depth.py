@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 if __name__ == "__main__":  # run as a script: the repo and tests/ on the path
     sys.path[:0] = [str(Path(__file__).resolve().parents[1]), str(Path(__file__).parent)]

@@ -3,7 +3,7 @@ dynamic loss scaler's state machine, the ``Trainer`` under ``common.fp16``
 (loss scaling, skipped steps, accumulation), the plain attention forward and
 backward in fp16 (the oracle of the kernels' fp16 arms), fp16 hub
 embeddings, the int8 serving path writing fp16, and the detection
-``Trainer``'s refusal (the det attention kernels #4-#6 take no fp16).
+recipe's ``Trainer`` taking a step in fp16.
 
 Tolerances: the scaler is exact (both hold the scale in fp32 and round
 alike).  fp16 rounds every op's output to 11 significant bits (half an ulp
@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from helpers import tiny_model_config
 from one_peace_tpu import hub as jax_hub
@@ -37,6 +38,7 @@ from one_peace_tpu_torch.optim.loss_scaler import LossScaler
 from one_peace_tpu_torch.tasks.vision_tasks import CocoDetectionTask
 from one_peace_tpu_torch.trainer import Trainer
 from one_peace_tpu_torch.utils.checkpoint import params_from_jax
+from one_peace_tpu_torch.utils.random_weights import fill_random_
 from test_torch_port_hub import assets as hub_assets  # noqa: F401  (a fixture)
 from test_torch_port_train import _batch, _framework_cfg, _np_tree, _port_model, _trainers, _weights
 
@@ -178,17 +180,37 @@ def test_fp16_state_round_trip_carries_the_scale():
         "scale": 2.0**14, "good_steps": 0}
 
 
-def test_detection_fp16_raises_naming_the_det_kernels():
-    """The det attention kernels #4-#6 take bf16 and fp32 only: a detection
-    config with common.fp16 raises before the first step, naming them."""
+def test_detection_fp16_builds_a_trainer_and_steps():
+    """The detection recipe with common.fp16 builds a ``Trainer`` and takes
+    a step in fp16 with loss scaling: the det attention runs its fp16
+    arm (the plain version on the CPU; kernels #4-#6 on the card), the
+    masters stay fp32 and the step is finite or skipped with the scale
+    halved (``test_torch_port_det_fp16.py`` holds it to the JAX Trainer)."""
     cfg = load_config(DET_RECIPE, ["model.encoder.layers=4", "model.encoder.embed_dim=32",
                                    "model.encoder.ffn_embed_dim=64",
                                    "model.encoder.attention_heads=4", "task.image_size=64",
-                                   "task.window_size=2", "common.fp16=true"])
+                                   "task.window_size=2", "task.num_classes=4",
+                                   "task.max_proposals=16", "common.fp16=true"])
     det = CocoDetectionTask.build_model(cfg, device="cpu")
+    fill_random_(det, torch.Generator().manual_seed(0))
     cfg.criterion._name = CocoDetectionTask.criterion_name
-    with pytest.raises(NotImplementedError, match="#4-#6"):
-        Trainer(cfg, det, build_criterion(cfg.criterion))
+    trainer = Trainer(cfg, det, build_criterion(cfg.criterion), total_updates=4)
+    assert trainer.compute_dtype == torch.float16
+    rs = np.random.RandomState(0)
+    boxes = np.array([[[4.0, 6.0, 40.0, 30.0], [20.0, 10.0, 60.0, 50.0]]] * 2, np.float32)
+    masks = np.zeros((2, 2, 16, 16), np.uint8)
+    masks[:, :, 2:8, 1:10] = 1
+    batch = {"src_images": rs.randn(2, 3, 64, 64).astype(np.float32), "gt_boxes": boxes,
+             "gt_labels": np.array([[1, 2], [0, 3]]), "gt_valid": np.ones((2, 2), bool),
+             "gt_masks": masks}
+    saved, torch.backends.mkldnn.enabled = torch.backends.mkldnn.enabled, False
+    try:  # PyTorch's own CPU kernels: oneDNN builds its fp16 ones at first use, ~55 s
+        metrics = trainer.train_step(batch)
+    finally:
+        torch.backends.mkldnn.enabled = saved
+    assert metrics["skipped"] in (0.0, 1.0) and np.isfinite(metrics["loss"])
+    assert metrics["loss_scale"] == 2.0**15 / (2.0 if metrics["skipped"] else 1.0)
+    assert all(p.dtype == torch.float32 for p in det.parameters())
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu.ops import flash_attention as jfa
 from one_peace_tpu.ops.quant_pallas import int8_matmul as jax_int8_matmul

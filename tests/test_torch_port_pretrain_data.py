@@ -24,6 +24,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from chip_smoke import PRETRAIN_RECIPES, write_pretrain_corpus
 from one_peace_tpu.cli import train as jax_train

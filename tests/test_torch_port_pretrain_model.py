@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from helpers import tiny_model_config
 from one_peace_tpu.core.config import CriterionConfig, decoder_default_config
@@ -407,7 +408,7 @@ def test_criterion_matches_jax_value_and_grad(pairs, side):
     def jax_loss(p):
         return jax_crit(jax_model, p, _jnp(batch), rng=None, deterministic=False)
 
-    (want_loss, want_metrics), want_grads = jax.value_and_grad(jax_loss, has_aux=True)(
+    (want_loss, want_metrics), want_grads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(
         jax.tree.map(jnp.asarray, params))
     want_grads = _flat_grads(want_grads)
 

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu.core.config import FrameworkConfig
 from one_peace_tpu.criterions.criterions import AudioTextPretrainCriterion as JaxALCriterion
@@ -88,8 +89,8 @@ def test_stage2_trainer_matches_jax_trainer():
 
     batches = [al_batch(np.random.RandomState(s)) for s in (21, 22)]
     # the trainable gradients' norm at the first batch, on the JAX side
-    grads = jax.grad(lambda p: jax_crit(jax_model, p, jax.tree.map(jnp.asarray, batches[0]),
-                                        deterministic=False)[0])(jax.tree.map(jnp.asarray, params))
+    grads = jax.jit(jax.grad(lambda p: jax_crit(jax_model, p, jax.tree.map(
+        jnp.asarray, batches[0]), deterministic=False)[0]))(jax.tree.map(jnp.asarray, params))
     grads = params_from_jax(_np_tree(grads))
     trainable_norm = float(torch.stack([grads[n].double().norm() for n in port._names]).norm())
     for i, batch in enumerate(batches):

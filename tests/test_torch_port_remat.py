@@ -9,6 +9,7 @@ memory is needed."""
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from helpers import tiny_model_config

@@ -17,6 +17,7 @@ import json
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from chip_smoke import write_ade_corpus
 from torch_fixture import make_random_state_dict

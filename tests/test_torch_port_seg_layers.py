@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu.vision import adapter as jadapter
 from one_peace_tpu.vision import mask2former as jm2f

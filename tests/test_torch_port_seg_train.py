@@ -23,6 +23,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from helpers import tiny_encoder_config
 

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu.criterions.vision_criterions import SegmentationCriterion as JaxCriterion
 from one_peace_tpu_torch.criterions import build_criterion

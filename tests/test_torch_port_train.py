@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 import torch_fixture as tf
 from helpers import tiny_model_config
@@ -138,9 +139,9 @@ def test_criterion_gradients_match_jax(head_type, label_smoothing, impl):
     batch = _batch(cfg, audio=audio)
     jax_crit = (JaxAudioITC if audio else JaxImageITC)(ccfg)
     jax_model = JaxModel(cfg)
-    (jloss, jmetrics), jgrads = jax.value_and_grad(
+    (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jax_crit(jax_model, p, {k: jnp.asarray(v) for k, v in batch.items()},
-                           rng=None, deterministic=True), has_aux=True)(params)
+                           rng=None, deterministic=True), has_aux=True))(params)
     want = params_from_jax(_np_tree(jgrads))
 
     model = _port_model(cfg, state, impl)

@@ -23,6 +23,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 from PIL import Image
 
 import torch_fixture as tf

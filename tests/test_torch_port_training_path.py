@@ -9,6 +9,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from helpers import tiny_model_config
 from one_peace_tpu_torch.models import encoder as enc

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from chip_smoke import write_k400_corpus
 from test_torch_port_video_model import numpy_weights_

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cores  # noqa: F401  (torch's threads split between xdist workers)
 
 from one_peace_tpu.optim import adamw as jadamw
 from one_peace_tpu.vision import backbone as jbackbone
@@ -179,7 +180,7 @@ def test_trainable_gradients_match_jax_grad():
     finally:
         for p in tm.parameters():
             p.requires_grad_(False)
-    jgrad = jax.grad(lambda t: (jm(t, jnp.asarray(x)) * proj).sum())(tree)
+    jgrad = jax.jit(jax.grad(lambda t: (jm(t, jnp.asarray(x)) * proj).sum()))(tree)
     want = params_from_jax(jax.tree.map(np.asarray, jgrad))
     names = [n for n, _ in tm.named_parameters() if train[n]]
     assert len(names) == LAYERS * 12 + 6

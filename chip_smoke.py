@@ -48,14 +48,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    2-layer full-width fairseq ``.pt`` written under ``build/``, quantize
    "ffn" and "ffn_attn", fp32 and bf16, text / image / audio embeddings on
    the kernel path against the plain int8 path, the launch counts per
-   forward, ``process_image(on_device=True)``; then at depth 12 in bf16 the
-   GEMM and quantize launches of one "ffn" and one "ffn_attn" image forward
-   (60 / 40 and 140 / 80), and images/s and clips/s for the bf16, "ffn"
+   forward, ``process_image(on_device=True)``; then at depth 4 (``CUT_DEPTH``) in bf16
+   the GEMM and quantize launches of one "ffn" and one "ffn_attn" image
+   forward (3 / 2 and 7 / 4 a layer), and images/s and clips/s for the bf16, "ffn"
    and "ffn_attn" paths;
 10. the depth-40 golden (``tests/fixtures/full_geometry_golden.npz``): the
    seeded 4B fairseq state regenerated and converted by the port's ``.pt``
    route in a process of its own, started with the script so that its
-   minutes on the host overlap phases 2-14 (it holds no card), written as
+   minutes on the host overlap phases 2-17 (it holds no card), written as
    raw files and read memory-mapped onto the card, and the fp32
    model on the kernel path held to the golden embeddings at cosine >=
    1-1e-3;
@@ -64,7 +64,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    grid (B=2, 64 x 64), its windows (B=32, 16 x 16; with each bias alone and
    none), a ragged 50 x 50 grid, a 1 x 64, an 8 x 8 and an 80 x 80 grid, so
    that each branch of the forward's plan runs (logged per case); (b)
-   ``OnePeaceDetector`` at full width and depth 12 (``CUT_DEPTH``; phase 22
+   ``OnePeaceDetector`` at full width and depth 4 (``CUT_DEPTH``; phase 22
    runs it at depth 40), 1024 px, 80 classes, RPN and masks, on seeded
    random weights: the kernel path against the plain path (the stride-16
    map, the pyramid, the cascade and mask heads on fixed proposals; cosine
@@ -88,7 +88,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``DetectionCriterion`` and ``Trainer`` (bf16 over fp32 masters, AdamW
    with layer decay): ms per step, images/s, peak memory, launches per step
    (80 forward, 40 backward) and a falling loss, one profiled step
-   (``det_train_profile.txt``), and the plain path at depth 12 (a falling
+   (``det_train_profile.txt``), and the plain path at depth 4 (a falling
    loss, no launch); (d) ms per global and windowed layer of
    the backward by pass, each pass with no bias, toep only, bh + bw only and
    both, the plain backward and SDPA's backward with the materialised bias
@@ -102,9 +102,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    to 4: the updates' losses within 1e-6 relative and the final masters'
    cosine >= 1-1e-6, then ``cli.evaluate`` on the run's
    ``checkpoint_best.npz`` (64 images, 320 texts); (c) the recipe at depth
-   12 (``CUT_DEPTH``: 9's times, 11's detector, 12(c)'s plain step, 21(d)
-   and the recipes' runs through ``cli.train`` in 13(c)-20(d) are cut from
-   40 to 12 layers to keep the script inside its time limit) through
+   8 (``CUT_DEPTH``: 9's times, 11's detector, 12(c)'s plain step, 21(d),
+   23(a) and the recipes' runs through ``cli.train`` in 13(c)-20(d) are cut
+   from 40 to 4 layers to keep the script inside
+   its time limit) through
    ``cli.train`` from the config's init, B=32, 6 updates and one
    validation, no saves: ms per update from data beside phase 7(b)'s, pairs
    per second, peak memory, the attention kernels' launches per update and
@@ -116,11 +117,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    a sub-pixel box in each image; (b) ``cli.train`` on the detection recipe
    at full width and depth 2 (one windowed and one global layer; 1024 px,
    B=2, bf16 over fp32 masters, remat,
-   drop path 0.6): 4 updates, one validation and ``checkpoint_best.npz``,
+   drop path 0.6): 2 updates, one validation and ``checkpoint_best.npz``,
    whose ``params_from_jax`` read-back must equal the masters bit for bit;
    then ``cli.evaluate`` on it must detect what the validation detected and
-   print its AP dict (to 1e-6); (c) the recipe at depth 12 through
-   ``cli.train`` from the config's init, B=2, 6 updates and one validation
+   print its AP dict (to 1e-6); (c) the recipe at depth 4 through
+   ``cli.train`` from the config's init, B=2, 4 updates and one validation
    over the 8 valid images, no saves: ms per update from data beside
    12(c)'s ms per step, images per second, peak memory, the det attention's
    launches per update (2 forward, 1 backward a layer) and in validation
@@ -151,7 +152,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    recipe through ``cli.train`` at depth 2 (4 updates, one validation,
    ``checkpoint_best.npz`` read back bit-equal to the masters) and
    ``cli.evaluate`` on the export (the validation's accuracy to 1e-6);
-   (d) the image_classify recipe at depth 12, 384 px, B=32 through
+   (d) the image_classify recipe at depth 4, 384 px, B=32 through
    ``cli.train`` from the config's init: 6 updates and one validation over
    64 images, no saves: ms per update, images/s, MFU, peak memory, the
    launches per update (2 / 1 a layer) and in validation (1 / 0 a layer), a falling loss
@@ -169,7 +170,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    with its export read back bit-equal, then the AL stage-2 recipe
    restoring it: the shared leaves carried bit-equal, ``logit_scale``
    reset, the frozen parameters bit-unchanged after 3 updates; (d) both
-   recipes at depth 12 (VL B=32, AL B=16), 5 updates each: the median ms
+   recipes at depth 4 (VL B=32, AL B=16), 5 updates each: the median ms
    per update, pairs or clips per second, MFU, peak memory, the launches
    per update, one profiled update each (``pretrain_{vl,al}_profile.txt``:
    the idle share and the per-sample bias gathers' index backward).
@@ -203,7 +204,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    4 updates (one save, at 4) and stopped at 2 and resumed (losses to 1e-6,
    masters to
    cosine 1-1e-6), ``checkpoint_best.npz`` by mIoU and ``cli.evaluate`` on it
-   equal to a direct ``valid_step`` loop; (d) the recipe at depth 12 through
+   equal to a direct ``valid_step`` loop; (d) the recipe at depth 4 through
    ``cli.train``, B=2, bf16: ms per update, images/s, MFU of the trunk's
    FLOPs, peak memory, launches per update (2 / 1 a layer) and one profiled update
    (``seg_train_profile.txt``: the idle share, the bias gathers' index
@@ -225,7 +226,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    and resumed (update losses to 1e-6), ``checkpoint_best.npz`` read back
    bit-equal to its step's masters, the trunk unchanged, and
    ``cli.evaluate`` under 3 clips x ThreeCrop equal to a direct
-   ``valid_step`` loop; (d) the recipe at depth 12 through ``cli.train``,
+   ``valid_step`` loop; (d) the recipe at depth 4 through ``cli.train``,
    B=8, bf16: ms per update, clips/s, MFU, peak memory, launches per update
    (80 / 40), one validation over 8 clips (72 views) with its ms per clip
    and peak, and one profiled update (``video_train_profile.txt``: the idle
@@ -249,7 +250,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``build/smoke_classify_rest/`` and each recipe through ``cli.train`` at
    depth 2 (2 updates, one validation, ``checkpoint_best.npz`` read back
    bit-equal to the masters) and ``cli.evaluate`` on the export (its
-   accuracy, acc@0.5 or map to 1e-6); (d) the NLVR2 recipe at depth 12,
+   accuracy, acc@0.5 or map to 1e-6); (d) the NLVR2 recipe at depth 4,
    384 px, B=16 pairs through ``cli.train``: ms per update (median of 3),
    pairs/s, MFU, peak memory, the launches per update (80 / 40) and one
    profiled update (``nlvr2_train_profile.txt``: the idle share, #1, #2).
@@ -268,7 +269,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the EMA (ms, MFU, peak, the scale after each step, skips, 160 / 80
    launches a step; the EMA update and the unscale alone, one step
    profiled); (d)
-   ``full`` / ``qkv`` / ``offload_qkv`` on a vl model at depth 12 (``CUT_DEPTH``):
+   ``full`` / ``qkv`` / ``offload_qkv`` on a vl model at depth 4 (``CUT_DEPTH``):
    gradients bit-equal,
    GEMMs in the backward, the median ms of three in turns, peak, one
    call each profiled; (e) Adan card vs CPU on the
@@ -296,12 +297,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8: the kernel path against the plain int8 path at B=1, images/s at
    B=8 with and without int8; the video classifier at depth 4 in int8
    against the plain int8 path.
+23. data parallelism and FSDP on the card, each run over a one-rank NCCL
+   group opened in this process (a ``FileStore`` under ``build/``): (a) the
+   retrieval step at full width, depth ``CUT_DEPTH``, bf16, B=32 (7(b)'s
+   build): 3 updates through the ``Trainer`` FSDP-wrapped by the sharding
+   rules, then, freed, through the unwrapped one on the same seeded weights
+   and batches: per update the loss and gnorm, their largest relative
+   difference against ``PARALLEL_BOUND``, ms, peak, #1 and #2's launches
+   held to the unwrapped run's, and one profiled update of each (the card's
+   busy time, the idle share, NCCL's share under FSDP); (b) the same for the
+   detection step at 1024 px, B=2, depth 2 (one windowed, one global
+   layer), #4-#6's launches; (c) ``python -m torch.distributed.run
+   --standalone --nproc_per_node 1 -m one_peace_tpu_torch.cli.train`` on
+   phase 13's corpus at depth 2 with ``distributed.fsdp=1``, started before
+   17(d) so that its start-up overlaps 17(d) and phase 10: its
+   ``train_inner`` losses and validation Recall held to the same arguments
+   without torchrun, and its bundle resumed without torchrun (the next
+   update's loss).
 
 The CLI checks 13(b), 14(b), 15(c), 16(c) and 19(c) run at depth 2
 (resume, export and ``cli.evaluate`` do not depend on depth); 17(d) and
 18(c) run at depth 4, since the ViT-Adapter splits the trunk into four
-interaction groups.  Phase 10 runs after phase 15, when the
-process started with the script has written its state under
+interaction groups.  Phase 10 runs after phase 17, when
+the process started with the script has written its state under
 ``build/golden_state/``.
 
 Every timed kernel also prints its bound: the larger of its bytes over the
@@ -324,6 +342,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -371,7 +390,10 @@ BF16_MAX_ERR, BF16_MEAN_ERR, FP32_MAX_ERR = 2e-2, 2e-3, 1e-4
 # the depth of phase 9's times through the hub and of the recipes' runs
 # through cli.train in 13(c)-20(d): the 4B model's 40 layers halved, so that
 # the script stays inside its time limit
-CUT_DEPTH = 12
+CUT_DEPTH = 4
+# the recipes that set distributed.fsdp: 8 (detection, segmentation, K400,
+# pretraining) run in this one process with the override that names it
+ONE_PROCESS = "distributed.fsdp=1"
 
 
 def log(msg: str) -> None:
@@ -1970,7 +1992,7 @@ DET_RECIPE = ROOT / "recipes" / "detection" / "cascade_mask_rcnn_1024.yaml"
 def det_config(overrides=()):
     """The detection recipe through the port's load_config, with
     ``overrides``; the criterion is the task's."""
-    cfg = load_config(str(DET_RECIPE), list(overrides))
+    cfg = load_config(str(DET_RECIPE), [ONE_PROCESS, *overrides])
     cfg.criterion._name = cfg.criterion._name or CocoDetectionTask.criterion_name
     return cfg
 
@@ -2718,7 +2740,7 @@ def det_cli_argv(paths: dict, save_dir: Path, layers: int, extra=()) -> list:
             "dataset.batch_size=2",
             "lr_scheduler.warmup_updates=0", "common.log_interval=1", "common.seed=3407",
             f"checkpoint.save_dir={save_dir}", "checkpoint.save_interval=1000",
-            f"common.log_file={save_dir}/log.jsonl", *extra]
+            f"common.log_file={save_dir}/log.jsonl", ONE_PROCESS, *extra]
 
 
 @contextlib.contextmanager
@@ -2781,7 +2803,7 @@ def validation_line(run: dict) -> str:
 
 def check_det_cli(paths: dict, card: str, layers: int = 2) -> dict:
     """Phase 14(b): the recipe at full width, depth ``layers``, through
-    ``cli.train``: 4 updates at B=2 from the config's init, one validation
+    ``cli.train``: 2 updates at B=2 from the config's init, one validation
     over the 8 valid images and ``checkpoint_best.npz``.  The export, read
     back through ``params_from_jax``, must equal the masters at the
     validation bit for bit; ``cli.evaluate`` on the export (bf16, as the
@@ -2793,8 +2815,8 @@ def check_det_cli(paths: dict, card: str, layers: int = 2) -> dict:
 
     save_dir = COCO_DIR / f"depth{layers}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    argv = det_cli_argv(paths, save_dir, layers, ["optimization.max_update=4",
-                                                  "dataset.validate_interval_updates=4"])
+    argv = det_cli_argv(paths, save_dir, layers, ["optimization.max_update=2",
+                                                  "dataset.validate_interval_updates=2"])
     t0 = time.time()
     with recorded_validation(keep_masters=True) as runs, recorded_steps(da) as steps:
         run_train_cli(argv)
@@ -2802,7 +2824,7 @@ def check_det_cli(paths: dict, card: str, layers: int = 2) -> dict:
     log(f"14(b) cli.train, depth {layers}, B=2: update losses {losses}, launches per update "
         f"(#4, #5/#6) {sorted({(s['fwd'], s['bwd']) for s in steps})} "
         f"({time.time() - t0:.1f} s with the model's build)")
-    if len(runs) != 1 or len(losses) != 4 or not all(map(math.isfinite, losses)):
+    if len(runs) != 1 or len(losses) != 2 or not all(map(math.isfinite, losses)):
         raise RuntimeError(f"14(b): {len(runs)} validations, losses {losses}")
     run = runs[0]
     log(f"14(b) validation: {validation_line(run)}; stats {run['stats']}")
@@ -2874,7 +2896,7 @@ def time_host_eval(paths: dict, card: str) -> str:
 
 def train_det_cli_full_depth(paths: dict, card: str, ms_12c: float) -> dict:
     """Phase 14(c): the recipe at depth ``CUT_DEPTH`` through ``cli.train`` from the
-    config's init (``init_detector_``), B=2, 6 updates and one validation
+    config's init (``init_detector_``), B=2, 4 updates and one validation
     over the 8 valid images; no saves, no best export.  Update 4 runs under
     torch.profiler from the end of update 3.  The det attention must launch
     twice a layer forward (the layers and their recompute) and once backward
@@ -2883,8 +2905,8 @@ def train_det_cli_full_depth(paths: dict, card: str, ms_12c: float) -> dict:
     layers = CUT_DEPTH
     save_dir = COCO_DIR / f"depth{layers}"
     shutil.rmtree(save_dir, ignore_errors=True)
-    argv = det_cli_argv(paths, save_dir, layers, ["optimization.max_update=6",
-                                              "dataset.validate_interval_updates=6",
+    argv = det_cli_argv(paths, save_dir, layers, ["optimization.max_update=4",
+                                              "dataset.validate_interval_updates=4",
                                               "checkpoint.best_checkpoint_metric="])
     torch.cuda.reset_peak_memory_stats()
     with profiled_update(4) as prof, recorded_validation() as runs, \
@@ -2897,11 +2919,11 @@ def train_det_cli_full_depth(paths: dict, card: str, ms_12c: float) -> dict:
     update_ms = [1e3 * (b["t1"] - a["t1"]) for a, b in zip(steps, steps[1:])]
     steady = [ms for i, ms in enumerate(update_ms, 2) if i != 4]  # 4 is profiled
     ms = sum(steady) / len(steady)
-    log(f"14(c) cli.train at depth {layers}, B=2, 6 updates from the config's init in {wall:.1f} s "
+    log(f"14(c) cli.train at depth {layers}, B=2, 4 updates from the config's init in {wall:.1f} s "
         f"(model build, data and validation included) ({card})")
     log(f"14(c) losses {[round(x, 5) for x in losses]}; ms inside train_step "
         f"{[round(1e3 * (s['t1'] - s['t0']), 1) for s in steps]} (update 1 warms up)")
-    log(f"14(c) updates 2-6 from data, each from the end of the last (the batch's fetch and "
+    log(f"14(c) updates 2-4 from data, each from the end of the last (the batch's fetch and "
         f"copy included; 4 profiled): {[round(x, 1) for x in update_ms]} ms, beside phase "
         f"12(c)'s {ms_12c:.1f} ms per step at depth 40 on a hand-built batch in this run; steady "
         f"{ms:.1f} ms per update, {2 / ms * 1e3:.2f} images/s, peak {peak:.1f} GiB ({card})")
@@ -2919,7 +2941,7 @@ def train_det_cli_full_depth(paths: dict, card: str, ms_12c: float) -> dict:
         log(f"14(c) validation over 8 images: {validation_line(r)} ({card})")
         log(f"14(c) validation stats {r['stats']}")
     log(f"14(c) host evaluation at 100 detections per image: {time_host_eval(paths, card)}")
-    if not all(map(math.isfinite, losses)) or len(losses) != 6:
+    if not all(map(math.isfinite, losses)) or len(losses) != 4:
         raise RuntimeError(f"14(c): losses {losses}")
     if per_update != [want]:
         raise RuntimeError(f"14(c): det attention launches per update {per_update}, "
@@ -3634,7 +3656,7 @@ def pretrain_argv(data: dict, stage: str, save_dir: Path, layers: int, batch: in
             f"model.encoder.layers={layers}", "common.log_interval=1",
             f"dataset.batch_size={batch}", "dataset.batch_size_valid=32",
             f"checkpoint.save_dir={save_dir}", "checkpoint.save_interval=1000",
-            f"common.log_file={save_dir}/log.jsonl", *extra]
+            f"common.log_file={save_dir}/log.jsonl", ONE_PROCESS, *extra]
 
 
 def pretrain_launches(stage: str, enc_layers: int, dec_layers: int, remat: bool) -> tuple:
@@ -4398,7 +4420,7 @@ def seg_trainer(overrides: list, seed: int = 183) -> Trainer:
     weights, its criterion and ``Trainer``."""
     from one_peace_tpu_torch.tasks.vision_tasks import Ade20kSegTask
 
-    cfg = load_config(str(SEG_RECIPE), overrides)
+    cfg = load_config(str(SEG_RECIPE), [ONE_PROCESS, *overrides])
     cfg.criterion._name = cfg.criterion._name or Ade20kSegTask.criterion_name
     model = Ade20kSegTask.build_model(cfg, device="cuda")
     fill_random_(model, torch.Generator(device="cuda").manual_seed(seed))
@@ -4512,7 +4534,8 @@ def seg_train_argv(specs: dict, save_dir: Path, layers: int, extra=()) -> list:
     return ["--config", str(SEG_RECIPE), "--device", "cuda", f"task.data={specs['train']}",
             f"task.valid_data={specs['valid']}", f"model.encoder.layers={layers}",
             "dataset.batch_size=2", "dataset.batch_size_valid=2",
-            f"checkpoint.save_dir={save_dir}", "checkpoint.keep_last_epochs=1", *extra]
+            f"checkpoint.save_dir={save_dir}", "checkpoint.keep_last_epochs=1", ONE_PROCESS,
+            *extra]
 
 
 def direct_miou(overrides: list, path: Path, dtype=None) -> tuple:
@@ -4898,7 +4921,7 @@ def video_trainer(overrides: list, seed: int = 193) -> Trainer:
     non-zero), its criterion and ``Trainer``: the trunk frozen."""
     from one_peace_tpu_torch.tasks.vision_tasks import K400VideoTask
 
-    cfg = load_config(str(K400_RECIPE), overrides)
+    cfg = load_config(str(K400_RECIPE), [ONE_PROCESS, *overrides])
     cfg.criterion._name = cfg.criterion._name or K400VideoTask.criterion_name
     model = K400VideoTask.build_model(cfg, device="cuda")
     fill_random_(model, torch.Generator(device="cuda").manual_seed(seed))
@@ -4994,7 +5017,7 @@ def k400_argv(corpus: dict, train: str, save_dir: Path, layers: int, extra=()) -
     return ["--config", str(K400_RECIPE), "--device", "cuda", f"task.data={train}",
             f"task.image_dir={corpus['root']}", f"task.valid_data={corpus['valid']}",
             "task.num_classes=400", f"model.encoder.layers={layers}",
-            f"checkpoint.save_dir={save_dir}", *extra]
+            f"checkpoint.save_dir={save_dir}", ONE_PROCESS, *extra]
 
 
 @contextlib.contextmanager
@@ -6833,6 +6856,280 @@ def time_det_fp16(card: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 23. data parallelism and FSDP on one card
+# ---------------------------------------------------------------------------
+
+# the largest relative difference of an update's loss or gnorm, the FSDP-
+# wrapped trainer against the unwrapped one in bf16: FSDP gathers the same
+# bf16 parameters, but sums a layer's gradient over its text and image
+# passes in fp32, where the unwrapped copy sums it in bf16 (2^-8 relative
+# per element)
+PARALLEL_BOUND = 1e-2
+PARALLEL_DIR = ROOT / "build" / "smoke_parallel"
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL group in this process over a ``FileStore`` under
+    ``build/``, with a timeout; destroyed at the end of the block."""
+    import datetime
+
+    import torch.distributed as dist
+
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    store = PARALLEL_DIR / f"store_{time.time_ns()}"
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300),
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def nccl_share(rows, busy_ms: float) -> tuple:
+    """(ms, share of the busy time) of the NCCL all-gather and reduce-scatter
+    kernels in ``device_times`` rows."""
+    ms = sum(r.self_device_time_total for r in rows if "nccl" in r.key.lower()
+             and ("allgather" in r.key.lower() or "reducescatter" in r.key.lower())) / 1e3
+    return ms, ms / busy_ms
+
+
+def relative_gap(a: list, b: list) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b, strict=True))
+
+
+def sharded_vs_plain(tag: str, make, batches: list, ops, card: str) -> dict:
+    """The same updates, on the same seeded weights and batches, through the
+    trainer FSDP-wrapped over a one-rank group and then, once it is freed,
+    through the unwrapped one: per update the loss and gnorm, ms, the peak,
+    the launches of ``ops``' kernels; then one more update of each profiled
+    (the card's busy time, the idle share, the NCCL share under FSDP).  Raises if the losses or gnorms differ by more than
+    ``PARALLEL_BOUND``, or the launches differ or are 0."""
+    out = {}
+    for name in ("fsdp", "plain"):
+        with one_rank_group() if name == "fsdp" else contextlib.nullcontext():
+            trainer = make()
+            sharded = sum(hasattr(p, "device_mesh") for p in trainer.model.parameters())
+            if (name == "fsdp") != (sharded > 0):
+                raise RuntimeError(f"{tag} {name}: {sharded} FSDP-sharded parameters")
+            rng_state = trainer.generator.get_state()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.launches = ops.bwd_launches = 0
+            losses, gnorms, times = [], [], []
+            for batch in batches:
+                t0 = time.time()
+                metrics = trainer.train_step(batch)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.time() - t0))
+                losses.append(metrics["loss"])
+                gnorms.append(metrics["gnorm"])
+            run = {"losses": losses, "gnorms": gnorms, "ms": times, "sharded": sharded,
+                   "launches": (ops.launches, ops.bwd_launches),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            from torch.profiler import ProfilerActivity, profile
+
+            trainer.generator.set_state(rng_state)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                trainer.train_step(batches[0])
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.time() - t0)
+            rows, busy = device_times(prof)
+            run["nccl_ms"], run["nccl_share"] = nccl_share(rows, busy)
+            run["busy_ms"], run["idle"] = busy, 1 - busy / wall
+            out[name] = run
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    fsdp, plain = out["fsdp"], out["plain"]
+    gap = max(relative_gap(fsdp["losses"], plain["losses"]),
+              relative_gap(fsdp["gnorms"], plain["gnorms"]))
+    out["gap"] = gap
+    for name, run in out.items():
+        if name == "gap":
+            continue
+        log(f"{tag} {name}: losses {[round(x, 6) for x in run['losses']]}, gnorms "
+            f"{[round(x, 5) for x in run['gnorms']]}, ms per update "
+            f"{[round(x, 1) for x in run['ms']]} (the first warms up), peak "
+            f"{run['peak_gib']:.1f} GiB, launches (fwd, bwd) {run['launches']}, "
+            f"{run['sharded']} sharded parameters ({card})")
+    log(f"{tag} one profiled update: card busy {fsdp['busy_ms']:.1f} ms under FSDP (idle "
+        f"{100 * fsdp['idle']:.0f}%), {plain['busy_ms']:.1f} ms unwrapped (idle "
+        f"{100 * plain['idle']:.0f}%); FSDP's NCCL all-gather and reduce-scatter "
+        f"{fsdp['nccl_ms']:.2f} ms, {100 * fsdp['nccl_share']:.2f}% of its card time; largest "
+        f"relative difference of loss or gnorm {gap:.3e} (bound {PARALLEL_BOUND:g}) ({card})")
+    if not gap <= PARALLEL_BOUND:
+        raise RuntimeError(f"{tag}: FSDP and the unwrapped trainer differ by {gap:.3e}")
+    if fsdp["launches"] != plain["launches"] or min(fsdp["launches"]) == 0:
+        raise RuntimeError(f"{tag}: launches {fsdp['launches']} under FSDP, "
+                           f"{plain['launches']} unwrapped")
+    return out
+
+
+def train_sharded(gen, card: str) -> dict:
+    """Phase 23(a): the retrieval step at full width, depth ``CUT_DEPTH``, bf16,
+    remat, drop path 0.5, vl B=32 as 7(b) builds it: 3 updates FSDP-wrapped
+    over a one-rank NCCL group, then unwrapped (``sharded_vs_plain``)."""
+    cfg = train_config(layers=CUT_DEPTH, bf16=True, remat=True, drop_path=0.5)
+    batches = [train_batch(cfg, gen, 32) for _ in range(3)]
+    out = sharded_vs_plain("23(a) retrieval step", lambda: make_trainer(cfg), batches, fa, card)
+    for name in ("fsdp", "plain"):
+        steady = statistics.median(out[name]["ms"][1:])
+        out[name]["steady_ms"] = steady
+    log(f"23(a) ms per update (median of updates 2-3): FSDP {out['fsdp']['steady_ms']:.1f}, "
+        f"unwrapped {out['plain']['steady_ms']:.1f} ({card})")
+    return out
+
+
+def train_det_sharded(gen, card: str) -> dict:
+    """Phase 23(b): the detection step at full width, 1024 px, B=2, bf16,
+    depth 2 with one windowed and one global layer (14(b)'s), so that #4-#6
+    run: 3 updates FSDP-wrapped, then unwrapped (``sharded_vs_plain``)."""
+    overrides = ["lr_scheduler.warmup_updates=0", "model.encoder.layers=2",
+                 "task.global_period=2"]
+    cfg = det_config(overrides)
+    batches = [det_batch(cfg, gen, 2) for _ in range(3)]
+    out = sharded_vs_plain("23(b) detection step", lambda: det_trainer(det_config(overrides)),
+                           batches, da, card)
+    for name in ("fsdp", "plain"):
+        out[name]["steady_ms"] = statistics.median(out[name]["ms"][1:])
+    log(f"23(b) ms per update (median of updates 2-3): FSDP {out['fsdp']['steady_ms']:.1f}, "
+        f"unwrapped {out['plain']['steady_ms']:.1f} ({card})")
+    return out
+
+
+TORCHRUN_LAYERS = 2  # 23(c)'s depth
+
+
+def torchrun_argv(data: dict, save_dir: Path) -> list:
+    """23(c)'s ``cli.train`` arguments: phase 13's corpus at full width and
+    depth ``TORCHRUN_LAYERS``, 5 updates, a validation and a bundle at update
+    4, ``distributed.fsdp=1``."""
+    return retrieval_argv(data, save_dir, TORCHRUN_LAYERS, 8, [
+        "optimization.max_update=5", "dataset.validate_interval_updates=4",
+        "checkpoint.save_interval_updates=4", "checkpoint.save_interval=1000",
+        "checkpoint.best_checkpoint_metric=", f"common.log_file={save_dir}/log.jsonl",
+        ONE_PROCESS])
+
+
+class TorchrunCli:
+    """23(c)'s launch users run, ``python -m torch.distributed.run
+    --standalone --nproc_per_node 1 -m one_peace_tpu_torch.cli.train``, as a
+    subprocess started before 17(d) (whose checks and phase 10's take no
+    times) so that its start-up on the host overlaps them; 23(c) waits for
+    it.  Its output goes to ``LOG``, beside the profiles; ``stop`` kills it
+    if it is still running."""
+
+    LOG = Path("chiprun_out") / "torchrun_cli.log"
+
+    def __init__(self):
+        self.proc, self.log, self.t0, self.seconds = None, None, 0.0, None
+        self.ended = None  # when the process ended, on the host clock
+        self.save_dir = PARALLEL_DIR / "torchrun"
+
+    def start(self, data: dict) -> None:
+        import os
+
+        shutil.rmtree(self.save_dir, ignore_errors=True)
+        self.LOG.parent.mkdir(exist_ok=True)
+        self.log = open(self.LOG, "w")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "one_peace_tpu_torch.cli.train",
+               *torchrun_argv(data, self.save_dir)]
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=self.log, stderr=subprocess.STDOUT,
+                                     env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+        def note_end(proc=self.proc):
+            proc.wait()
+            self.ended = time.time()
+
+        threading.Thread(target=note_end, daemon=True).start()
+
+    def wait(self, timeout: float = 600.0) -> int:
+        t0 = time.time()
+        rc = self.proc.wait(timeout=timeout)
+        while self.ended is None:  # its watcher thread notes the end
+            time.sleep(0.01)
+        self.seconds = self.ended - self.t0
+        self.log.close()
+        log(f"23(c) the torchrun run took {self.seconds:.1f} s from its start, rc {rc}; this "
+            f"phase waited {time.time() - t0:.1f} s for it")
+        return rc
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.log is not None and not self.log.closed:
+            self.log.close()
+
+
+def check_torchrun_cli(data: dict, card: str, child: TorchrunCli) -> dict:
+    """Phase 23(c): the torchrun launch of ``cli.train`` (``TorchrunCli``,
+    started before 17(d)) on phase 13's corpus at full width, depth
+    ``TORCHRUN_LAYERS``, ``distributed.fsdp=1``, 5 updates, one validation
+    and a bundle at update 4: its ``train_inner`` losses and its validation
+    Recall held to the same arguments run in this process without torchrun;
+    then its bundle at update 4 resumed here without torchrun, whose fifth
+    update's loss must be the straight run's."""
+    RECALL = ("txt_r1", "txt_r5", "txt_r10", "img_r1", "img_r5", "img_r10")
+
+    def logged(save_dir, tag):
+        lines = [json.loads(x) for x in (save_dir / "log.jsonl").read_text().splitlines()]
+        return [x for x in lines if x["tag"] == tag]
+
+    runs = {"torchrun": child.save_dir, "straight": PARALLEL_DIR / "straight"}
+    shutil.rmtree(runs["straight"], ignore_errors=True)
+    rc = child.wait()
+    if rc != 0:
+        tail = child.LOG.read_text()[-2000:]
+        raise RuntimeError(f"23(c) torchrun exited {rc}: {tail}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.launches = fa.bwd_launches = 0
+    t0 = time.time()
+    run_train_cli(torchrun_argv(data, runs["straight"]))
+    straight_s = time.time() - t0
+    inner = {name: logged(d, "train_inner") for name, d in runs.items()}
+    valid = {name: logged(d, "valid") for name, d in runs.items()}
+    losses = {name: [x["loss"] for x in lines] for name, lines in inner.items()}
+    gap = relative_gap(losses["torchrun"], losses["straight"])
+    recall = {name: {k: v[0][k] for k in RECALL} for name, v in valid.items()}
+    n_images = valid["straight"][0]["img_count"]
+    recall_gap = max(abs(recall["torchrun"][k] - recall["straight"][k]) for k in RECALL)
+    log(f"23(c) torchrun --nproc_per_node 1 cli.train, depth {TORCHRUN_LAYERS}: "
+        f"{child.seconds:.1f} s (start-up included), losses "
+        f"{[round(x, 6) for x in losses['torchrun']]}, Recall {recall['torchrun']}; without "
+        f"torchrun ({straight_s:.1f} s): losses {[round(x, 6) for x in losses['straight']]}, "
+        f"Recall {recall['straight']}; largest relative loss difference over updates 1-5 "
+        f"{gap:.3e} (bound {PARALLEL_BOUND:g}), largest Recall difference {recall_gap:.4f} "
+        f"points (bound one of {n_images} images, {100 / n_images:.4f}) ({card})")
+    if len(losses["torchrun"]) != 5 or not gap <= PARALLEL_BOUND:
+        raise RuntimeError(f"23(c): the torchrun losses {losses['torchrun']} differ from "
+                           f"{losses['straight']}")
+    if not recall_gap <= 100 / n_images:
+        raise RuntimeError(f"23(c): the torchrun Recall {recall['torchrun']} differs from "
+                           f"{recall['straight']}")
+    if not (runs["torchrun"] / "step_4").is_dir():
+        raise RuntimeError("23(c): the torchrun run saved no bundle at update 4")
+    run_train_cli(torchrun_argv(data, runs["torchrun"]))  # resumes its step_4, one process
+    resumed = [x for x in logged(runs["torchrun"], "train_inner") if x["step"] == 5]
+    fifth = losses["straight"][4]
+    resume_gap = abs(resumed[-1]["loss"] - fifth) / abs(fifth) if resumed else math.inf
+    log(f"23(c) the torchrun bundle resumed without torchrun: update 5 loss "
+        f"{resumed[-1]['loss'] if resumed else None} against the straight run's {fifth:.6f}, "
+        f"relative difference {resume_gap:.3e} (bound {PARALLEL_BOUND:g})")
+    if not resume_gap <= PARALLEL_BOUND:
+        raise RuntimeError("23(c): the resumed update's loss differs from the straight run's")
+    return {"launches": (fa.launches, fa.bwd_launches), "gap": gap, "recall_gap": recall_gap,
+            "resume_gap": resume_gap, "torchrun_s": child.seconds}
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -6840,17 +7137,20 @@ def main() -> None:
     card = card_line()
     log(card)
     clock = [time.time(), time.time()]
-    golden_state = GoldenState()  # phase 10's host work, beside phases 2-15
+    golden_state = GoldenState()  # phase 10's host work, beside phases 2-17
     prep = Prep()  # started after the build, which it would slow
+    torchrun = TorchrunCli()  # 23(c)'s subprocess, started before phase 10
     try:
-        run_phases(card, clock, golden_state, prep)
+        run_phases(card, clock, golden_state, prep, torchrun)
     finally:
+        torchrun.stop()
         prep.stop()
         golden_state.stop()
 
 
-def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) -> None:
-    """Phases 2-22 (10 after 14) and the two last lines."""
+def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep,
+               torchrun: "TorchrunCli") -> None:
+    """Phases 2-23 (10 after 17) and the two last lines."""
 
     def mark(phase: str) -> None:
         """Log the phase's wall time and the script's so far."""
@@ -6939,7 +7239,7 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     mark("9")
 
     # 11. detection serving: the det attention kernel vs plain, the 1024 px
-    # detector at depth 12 through it (its launches counted from 0 here), and times
+    # detector at depth 4 (CUT_DEPTH) through it (its launches counted from 0 here), and times
     det_worst = check_det_kernel(gen)
     check_det_head_dim()
     det_launches = check_detector(gen, card)
@@ -7010,14 +7310,6 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     bwd_times.setdefault("shapes", {}).update(cls_bwd_rows)
     mark("15")
 
-    # 10. the depth-40 golden through the .pt route, run here, when the
-    # process started with the script has its state written (~260 s of host
-    # work): run after phase 12 it waited 42 s for it, after phase 14 13 s
-    fp16_runs = {}  # phase 21's fp16 launches by run (its golden check runs here, on this state)
-    golden16 = check_golden(golden_state, fp16_runs)[1]
-
-    mark("10")
-
     # 16. pretraining: #1 and #2 alone at the slice's shapes against their
     # plain versions and SDPA (16(a)); then, the launches counted from 0,
     # both criterions' gradients at 4 layers (16(b)), the VL recipe and the
@@ -7056,6 +7348,9 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     mark("17(b)")
     serve_seg_full_depth(card)
     mark("17(c)")
+    # 23(c)'s torchrun subprocess starts here: its start-up on the host
+    # overlaps 17(d) and phase 10, which take no times
+    torchrun.start(data)
     check_seg_cli(card, prep)
     seg_fwd = fa.launches
     log(f"17 launches over the phase: #1 {seg_fwd}; the phase took {time.time() - t17:.1f} s")
@@ -7063,6 +7358,15 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     if seg_fwd == 0:
         raise RuntimeError("the segmentation path never launched the attention kernel")
     fwd_times["shapes"].update(seg_rows)
+
+    # 10. the depth-40 golden through the .pt route, run here, when the
+    # process started with the script has its state written (~260 s of host
+    # work): run after phase 12 it waited 42 s for it, after phase 14 13 s,
+    # after 15 34 s (with the recipes at depth 8)
+    fp16_runs = {}  # phase 21's fp16 launches by run (its golden check runs here, on this state)
+    golden16 = check_golden(golden_state, fp16_runs)[1]
+
+    mark("10")
 
     # 18. segmentation training: #1 with statistics and #2 alone at L = 3137,
     # B=2 (18(a)); then, the launches counted from 0, both segmenters'
@@ -7216,6 +7520,26 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
         f"{counts22['quantize']}; the phase took {time.time() - t22:.1f} s")
     mark("22(e)")
 
+    # 23. data parallelism and FSDP: the retrieval and detection steps
+    # FSDP-wrapped over a one-rank NCCL group against the unwrapped trainer,
+    # each run's launches counted from 0 and held to the other's (23(a),
+    # 23(b)); then the torchrun launch of cli.train against the same argv
+    # without it, and its bundle resumed in one process (23(c))
+    t23 = time.time()
+    gen23 = torch.Generator(device="cuda").manual_seed(230)
+    shard_a = train_sharded(gen23, card)
+    mark("23(a)")
+    shard_b = train_det_sharded(gen23, card)
+    mark("23(b)")
+    shard_c = check_torchrun_cli(data, card, torchrun)
+    par_fwd = sum(shard_a[k]["launches"][0] for k in ("fsdp", "plain")) + shard_c["launches"][0]
+    par_bwd = sum(shard_a[k]["launches"][1] for k in ("fsdp", "plain")) + shard_c["launches"][1]
+    par_det_fwd = sum(shard_b[k]["launches"][0] for k in ("fsdp", "plain"))
+    par_det_bwd = sum(shard_b[k]["launches"][1] for k in ("fsdp", "plain"))
+    log(f"23 launches over its runs: #1 {par_fwd}, #2 {par_bwd}, #4 {par_det_fwd}, #5/#6 "
+        f"{par_det_bwd}; the phase took {time.time() - t23:.1f} s")
+    mark("23(c)")
+
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
     if imported:
@@ -7241,10 +7565,10 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
     log(json.dumps({"kernels": [
         entry("flash_attention_fwd", "one_peace_tpu/ops/flash_attention.py:239",
               embed_launches + fwd_train + cli_fwd + cls_fwd + pre_fwd + seg_fwd + seg_train_fwd
-              + vid_fwd + rest_fwd, worst, fwd_times),
+              + vid_fwd + rest_fwd + par_fwd, worst, fwd_times),
         entry("flash_attention_bwd", "one_peace_tpu/ops/flash_attention.py:409",
-              bwd_train + cli_bwd + cls_bwd + pre_bwd + seg_train_bwd + vid_bwd + rest_bwd,
-              bwd_worst, bwd_times),
+              bwd_train + cli_bwd + cls_bwd + pre_bwd + seg_train_bwd + vid_bwd + rest_bwd
+              + par_bwd, bwd_worst, bwd_times),
         entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75",
               int8_launches["gemm"] + cls_int8["gemm"], int8_worst["gemm"], gemm),
         quantize,
@@ -7264,14 +7588,14 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep) ->
                            for shape in ((65792, 1536), (65792, 6144))}),
               source="int8_matmul"),
         entry("det_attention_fwd", "one_peace_tpu/ops/det_attention.py:277",
-              det_launches + det_fwd_train + coco_fwd + det_bf16_22, det_worst,
+              det_launches + det_fwd_train + coco_fwd + det_bf16_22 + par_det_fwd, det_worst,
               det_times["global"]),
         entry("det_attention_bwd_dq", "one_peace_tpu/ops/det_attention.py:618",
-              det_bwd_train + coco_bwd, det_bwd_worst["dq"], det_bwd_times["global"]["dq"],
-              source="det_attention_bwd"),
+              det_bwd_train + coco_bwd + par_det_bwd, det_bwd_worst["dq"],
+              det_bwd_times["global"]["dq"], source="det_attention_bwd"),
         entry("det_attention_bwd_dkv", "one_peace_tpu/ops/det_attention.py:642",
-              det_bwd_train + coco_bwd, det_bwd_worst["dkv"], det_bwd_times["global"]["dkv"],
-              source="det_attention_bwd"),
+              det_bwd_train + coco_bwd + par_det_bwd, det_bwd_worst["dkv"],
+              det_bwd_times["global"]["dkv"], source="det_attention_bwd"),
         entry("det_attention_fwd (fp16)", "one_peace_tpu/ops/det_attention.py:277",
               det16_launches["det_fwd"], det16_fwd_err, with_shapes(det16_times["fwd"]),
               source="det_attention_fwd"),

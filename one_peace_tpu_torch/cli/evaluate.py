@@ -32,6 +32,13 @@ training CLI's ``checkpoint_best.npz``), runs the task's evaluation loop on
   over the test views of ``task.video_test_clips`` clips x ThreeCrop
   (``task.video_test_three_crop``), the views' softmax probabilities
   averaged per clip.
+- Under ``torchrun`` every process loads the whole model on its card (no
+  sharding: evaluation keeps no optimizer state), scores its contiguous
+  slice of each batch of ``dataset.batch_size_valid``, and the task's
+  reducer merges the ranks' parts; rank 0 prints and writes the metrics.
+
+  torchrun --nproc_per_node 8 -m one_peace_tpu_torch.cli.evaluate \
+      --config eval.yaml --path ckpt.npz [--device cuda]
 """
 
 from __future__ import annotations
@@ -55,17 +62,23 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--path", required=True, help="checkpoint path (.pt/.npz)")
     parser.add_argument("--output", default=None, help="metrics JSON output path")
     parser.add_argument("--device", default="cuda", help="torch device of the model")
+    parser.add_argument("--dist-timeout", type=float, default=1800.0,
+                        help="seconds a collective may wait before it raises")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
     from ..core.config import load_config
+    from ..data.iterators import batch_rows_of
     from ..hub import from_pretrained
     from ..metrics.metrics import fetch_once
+    from ..parallel.mesh import close_distributed, init_distributed, local_device
     from ..tasks import build_task
     from .train import load_weights
 
     cfg = load_config(args.config, args.overrides)
-    logging.basicConfig(level=logging.INFO)
+    rank, world = init_distributed(args.device, args.dist_timeout)
+    args.device = str(local_device(args.device))
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING)
 
     task = build_task(cfg.task, cfg)
     if hasattr(task, "build_model"):
@@ -92,19 +105,22 @@ def main(argv: Optional[list] = None) -> int:
     fetches_before = fetch_once.calls
     task.begin_valid_epoch(model, None)
     itr = task.get_batch_iterator("valid", cfg.dataset.batch_size_valid,
-                                  ensure_equal_batch=False)
+                                  shard_id=rank, num_shards=world, ensure_equal_batch=False)
     for batch in itr.next_epoch_itr():
-        task.valid_step(model, None, batch)
+        if batch_rows_of(batch):
+            task.valid_step(model, None, batch)
     stats = task.merge_results()
     stats["eval_wall_s"] = round(time.time() - t0, 3)
     stats["eval_compiled_programs"] = task.eval_compiles
     # a Recall pass fetches to the host once (Recall.merge_results)
     stats["eval_batched_fetches"] = fetch_once.calls - fetches_before
     printable = {k: v for k, v in stats.items() if isinstance(v, (int, float))}
-    print(json.dumps(printable, indent=2))
-    if args.output:
-        with open(args.output, "w") as fh:
-            json.dump(printable, fh)
+    if rank == 0:
+        print(json.dumps(printable, indent=2))
+        if args.output:
+            with open(args.output, "w") as fh:
+                json.dump(printable, fh)
+    close_distributed()
     return 0
 
 

@@ -40,6 +40,9 @@ best export, and preemption-safe resume, on one card.
       task.data=train.tsv task.valid_data=valid.tsv task.valid_file=valid.json \
       task.bpe_dir=bpe checkpoint.restore_file=stage1/checkpoint_best.npz [--device cuda]
 
+  torchrun --nproc_per_node 8 -m one_peace_tpu_torch.cli.train \
+      --config recipes/detection/cascade_mask_rcnn_1024.yaml task.data=... [--device cuda]
+
 - **Weights.** For the retrieval and classify models,
   ``checkpoint.restore_file`` is a fairseq ``.pt`` (converted by
   ``utils/checkpoint_convert``: ``convert_retrieval_model`` or
@@ -69,11 +72,21 @@ best export, and preemption-safe resume, on one card.
   the JAX package is ported (``one_peace_retrieval``,
   ``one_peace_classify``, ``one_peace_pretrain`` and the tasks' own), and
   models a ``--user-dir`` plugin registers.
-- **Batches.** One card runs the batch it is given: ``dataset.batch_size``
-  samples a micro-batch.  A recipe's ``distributed`` section (the detection
-  and segmentation recipes' ``fsdp: 8``, with their per-host batch sizes) is
-  the TPU layout and is not read: one card runs the reference's per-GPU
-  batch when ``dataset.batch_size`` is set to it (2 for segmentation).  The batch keys that are evaluation bookkeeping
+- **Processes.** Under ``torchrun`` (``--nproc_per_node N``) each process
+  drives one card (``cuda:LOCAL_RANK``, NCCL; gloo with ``--device cpu``)
+  and the recipe's ``distributed`` section is the mesh: ``dp`` x ``fsdp``
+  must be the number of processes (``dp: -1`` takes what ``fsdp`` leaves),
+  and the trainer shards the parameters over ``fsdp`` with FSDP2
+  (``parallel/``).  ``tp``, ``pp`` and ``sp`` above 1 are refused.  Without
+  ``torchrun`` one process runs, and a recipe that sets ``fsdp: 8`` (the
+  detection, segmentation, pretraining, K400 and 4B fine-tuning recipes)
+  raises unless it is given ``distributed.fsdp=1``.  Rank 0 alone logs,
+  saves bundles and exports; every rank takes part in the gathers that a
+  save and an export need.
+- **Batches.** ``dataset.batch_size`` samples are the global batch of a
+  micro-step, as in the JAX package: every rank builds it and keeps its
+  contiguous slice (``data.iterators.RankSliceIterator``), so that the
+  augmentation draws are those of one process.  The batch keys that are evaluation bookkeeping
   (``HOST_KEYS``: ids, counts, the detection GT's crowd flags, areas and
   resize factors) stay on the host; the criterion does not read them.
 - **Saves.** ``step_<n>/`` train-state bundles every
@@ -90,7 +103,9 @@ best export, and preemption-safe resume, on one card.
   rewound: a resumed run draws other crops than the straight run did, as in
   the JAX CLI.
 - **Validation** runs on the trainer's compute-dtype copies of the masters
-  (``Trainer._compute_params``) through ``functional_call``: no second model;
+  (``Trainer.eval_params``) through ``functional_call``: no second model;
+  under FSDP each rank gathers the parameters for the pass and scores its
+  slice of each batch, and the task's reducer merges the ranks' parts;
   with ``ema.store_ema``, on copies of the EMA shadow instead, unless the
   task's ``uses_ema`` (default ``ema.ema_eval``) says otherwise.  The best
   export is the tree that validation scored, in the JAX package's layout
@@ -282,6 +297,8 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--user-dir", default=None,
                         help="plugin module dir with extra @register'd tasks/models")
     parser.add_argument("--device", default="cuda", help="torch device to train on")
+    parser.add_argument("--dist-timeout", type=float, default=1800.0,
+                        help="seconds a collective may wait before it raises")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
     if args.user_dir:
@@ -292,13 +309,19 @@ def main(argv: Optional[list] = None) -> int:
     from ..core.config import load_config
     from ..core.metrics import ProgressLogger, aggregate, build_sinks, log_scalar
     from ..criterions import build_criterion
+    from ..parallel.mesh import (close_distributed, init_distributed, local_device,
+                                 mesh_shape)
     from ..tasks import build_task
     from ..trainer import Trainer
     from ..utils import native_checkpoint as ckpt
 
     cfg = load_config(args.config, args.overrides)
-    logging.basicConfig(level=logging.INFO)
-    device = torch.device(args.device)
+    rank, world = init_distributed(args.device, args.dist_timeout)
+    d = cfg.distributed
+    mesh_shape(d.dp, d.fsdp, d.tp, d.pp, d.sp, world)  # a layout that does not fit raises
+    main_rank = rank == 0
+    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING)
+    device = local_device(args.device)
 
     task = build_task(cfg.task, cfg)
     if not cfg.criterion._name:
@@ -311,14 +334,18 @@ def main(argv: Optional[list] = None) -> int:
     load_weights(cfg, model, device)
     trainer = Trainer(cfg, model, criterion)
 
-    progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
-                              cfg.common.tensorboard_logdir, sinks=build_sinks(cfg.common))
-    inner_progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
-                                    tag="train_inner", sinks=progress.sinks)
-    valid_progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
-                                    tag="valid", sinks=progress.sinks)
+    if main_rank:
+        progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
+                                  cfg.common.tensorboard_logdir, sinks=build_sinks(cfg.common))
+        inner_progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
+                                        tag="train_inner", sinks=progress.sinks)
+        valid_progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
+                                        tag="valid", sinks=progress.sinks)
+    else:
+        progress = inner_progress = valid_progress = _Silent()
     itr = task.get_batch_iterator(
         "train", cfg.dataset.batch_size, seed=cfg.common.seed,
+        shard_id=rank, num_shards=world,
         ensure_equal_batch=cfg.dataset.ensure_equal_batch,
         skip_remainder_batch=cfg.optimization.skip_remainder_batch)
     best = {"value": None}
@@ -347,12 +374,14 @@ def main(argv: Optional[list] = None) -> int:
 
     def save(step):
         with record_function("checkpoint_save"):
-            ckpt.save_train_state(cfg.checkpoint.save_dir, step, full_state(),
-                                  keep=cfg.checkpoint.keep_last_epochs)
+            state = full_state()  # every rank gathers
+            if main_rank:
+                ckpt.save_train_state(cfg.checkpoint.save_dir, step, state,
+                                      keep=cfg.checkpoint.keep_last_epochs)
 
     max_update = cfg.optimization.max_update or int(1e9)
     max_epoch = cfg.optimization.max_epoch or int(1e9)
-    profiler = Profiler(cfg.common)
+    profiler = Profiler(cfg.common) if main_rank else _Silent()
     last_val_step = -1
     last_save_step = -1
 
@@ -360,7 +389,7 @@ def main(argv: Optional[list] = None) -> int:
         nonlocal last_val_step
         with record_function("validate"):
             stats = validate(cfg, task, model, trainer, valid_progress)
-        _maybe_save_best(cfg, task, trainer, stats, best)
+        _maybe_save_best(cfg, task, trainer, stats, best, main_rank)
         last_val_step = trainer.step
 
     while trainer.step < max_update and itr.epoch <= max_epoch:
@@ -402,7 +431,17 @@ def main(argv: Optional[list] = None) -> int:
     profiler.close(trainer.step)
     ckpt.wait_for_saves()
     progress.close()
+    close_distributed()
     return 0
+
+
+class _Silent:
+    """The loggers and profiler of a rank other than 0: they do nothing."""
+
+    sinks = ()
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
 
 
 def _should_validate(cfg, task, step: int, epoch: int, end_of_epoch: bool) -> bool:
@@ -433,11 +472,11 @@ def _eval_params_source(cfg, task, trainer):
     return None
 
 
-def _maybe_save_best(cfg, task, trainer, stats, best) -> None:
+def _maybe_save_best(cfg, task, trainer, stats, best, main_rank: bool = True) -> None:
     """Track ``best_checkpoint_metric``; export the tree that validation
     scored (the masters or the EMA shadow) as ``checkpoint_best.npz`` when
     it improves, and keep the k best exports (ref checkpoint_utils.py save
-    policy)."""
+    policy).  Every rank gathers the tree; rank 0 writes it."""
     from ..utils import native_checkpoint as ckpt
     from ..utils.checkpoint import model_to_jax
 
@@ -448,17 +487,18 @@ def _maybe_save_best(cfg, task, trainer, stats, best) -> None:
     better = (best["value"] is None or
               (value > best["value"] if cfg.checkpoint.maximize_best_checkpoint_metric
                else value < best["value"]))
-    export = None
-    source = _eval_params_source(cfg, task, trainer)
+    keep_k = cfg.checkpoint.keep_best_checkpoints > 0
+    if not (better or keep_k):
+        return
+    export = model_to_jax(trainer.model,
+                          trainer.full_params(_eval_params_source(cfg, task, trainer)))
     if better:
         best["value"] = value
-        export = model_to_jax(trainer.model, source)
         path = os.path.join(cfg.checkpoint.save_dir, "checkpoint_best.npz")
-        ckpt.save_params(path, export, metadata={key: float(value), "step": trainer.step})
-        logger.info("new best %s=%.4f -> %s", key, value, path)
-    if cfg.checkpoint.keep_best_checkpoints > 0:
-        if export is None:
-            export = model_to_jax(trainer.model, source)
+        if main_rank:
+            ckpt.save_params(path, export, metadata={key: float(value), "step": trainer.step})
+            logger.info("new best %s=%.4f -> %s", key, value, path)
+    if keep_k and main_rank:
         kpath = ckpt.save_best_k(
             cfg.checkpoint.save_dir, key, float(value),
             cfg.checkpoint.maximize_best_checkpoint_metric,
@@ -470,20 +510,26 @@ def _maybe_save_best(cfg, task, trainer, stats, best) -> None:
 def validate(cfg, task, model, trainer, progress) -> Dict[str, float]:
     """One pass over the valid split on the trainer's compute-dtype copies
     of the masters, or of the EMA shadow (``_eval_params_source``); prints
-    and returns the task's numeric stats."""
+    and returns the task's numeric stats.  Across data ranks each scores
+    its slice of every batch (none of a ragged last batch, maybe) and the
+    reducer merges the parts."""
+    from ..data.iterators import batch_rows_of
     from ..metrics.metrics import fetch_once
+    from ..parallel.mesh import data_rank_world
 
-    with torch.no_grad():
-        params = trainer._compute_params(prefix="",
-                                         source=_eval_params_source(cfg, task, trainer))
+    rank, world = data_rank_world()
+
     fetches_before = fetch_once.calls
-    task.begin_valid_epoch(model, params)
-    itr = task.get_batch_iterator("valid", cfg.dataset.batch_size_valid,
-                                  ensure_equal_batch=False)
-    for batch in itr.next_epoch_itr():
-        task.valid_step(model, params, batch)
-    stats = task.merge_results()
-    del params
+    with trainer.eval_params(_eval_params_source(cfg, task, trainer)) as params:
+        task.begin_valid_epoch(model, params)
+        itr = task.get_batch_iterator("valid", cfg.dataset.batch_size_valid,
+                                      shard_id=rank, num_shards=world,
+                                      ensure_equal_batch=False)
+        for batch in itr.next_epoch_itr():
+            if batch_rows_of(batch):
+                task.valid_step(model, params, batch)
+        stats = task.merge_results()
+        del params
     stats = {k: v for k, v in stats.items() if isinstance(v, (int, float))}
     # the whole pass fetches to the host once (Recall.merge_results)
     stats["eval_batched_fetches"] = fetch_once.calls - fetches_before

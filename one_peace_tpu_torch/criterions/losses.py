@@ -9,6 +9,13 @@ parts of it).  The classification losses (cross entropy with label
 smoothing, BCE over multi-hot targets, soft-target cross entropy) compute
 in fp32 and sum over the batch, as the JAX package's do; so do RefCOCO's
 box loss (L1 and 1 - GIoU) and AQA's multiple-choice hinge.
+
+Across data ranks (``parallel.data.batch_rows``) the contrastive losses
+score this rank's rows against the gallery of the global batch, gathered
+without a gradient, with the targets offset by this rank's first row, and
+DCL and the GIoU term divide by the count over every rank: each rank's
+value, weighted by its share of the batch and summed, is the one-process
+loss of the global batch, as the JAX loss over the mesh is.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..parallel.data import gather_rows, global_mean, leading_rows
 
 
 def label_smoothed_nll(lprobs: torch.Tensor, targets: torch.Tensor,
@@ -32,11 +41,13 @@ def label_smoothed_nll(lprobs: torch.Tensor, targets: torch.Tensor,
 def itc_loss(emb_a: torch.Tensor, emb_b: torch.Tensor, logit_scale: torch.Tensor,
              label_smoothing: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Symmetric InfoNCE over the batch.  emb_a, emb_b: (B, D) L2-normalised.
-    Returns (loss, {"a2b_ncorrect", "b2a_ncorrect"})."""
-    targets = torch.arange(emb_a.shape[0], device=emb_a.device)
+    Returns (loss, {"a2b_ncorrect", "b2a_ncorrect"}).  Across data ranks
+    the rows are this rank's and the gallery the global batch's."""
+    offset, _ = leading_rows()
+    targets = torch.arange(emb_a.shape[0], device=emb_a.device) + offset
     a32, b32 = emb_a.float(), emb_b.float()
-    sim_a2b = logit_scale * (a32 @ b32.detach().T)
-    sim_b2a = logit_scale * (b32 @ a32.detach().T)
+    sim_a2b = logit_scale * (a32 @ gather_rows(b32).detach().T)
+    sim_b2a = logit_scale * (b32 @ gather_rows(a32).detach().T)
     loss = 0.5 * (label_smoothed_nll(torch.log_softmax(sim_a2b, -1), targets, label_smoothing)
                   + label_smoothed_nll(torch.log_softmax(sim_b2a, -1), targets, label_smoothing))
     metrics = {"a2b_ncorrect": (sim_a2b.argmax(1) == targets).sum(),
@@ -61,36 +72,49 @@ def dcl_loss(student: torch.Tensor, teacher: torch.Tensor, mask_indices: torch.T
     galleries of B/g samples each (the reference's per-rank galleries); the
     NLL is summed over every scored row and divided by their count.
     Unscored rows are dropped with ``where``: a padded row's own column is
-    -inf, so its NLL is inf."""
+    -inf, so its NLL is inf.  Across data ranks the galleries are the global
+    batch's: the teacher's tokens of every rank are gathered for
+    ``gallery_chunks`` 1, and with more each rank must hold whole galleries;
+    the count is the global one."""
     b, l, d = student.shape
-    n = b * (l - 1)
-    sf = student[:, 1:].float().reshape(n, d)
-    tf = teacher[:, 1:].detach().float().reshape(n, d)
-    scored = mask_indices[:, 1:].reshape(n)
-    if padding_mask is not None:
-        pad = padding_mask[:, -(l - 1):].reshape(n)
-        scored = scored & ~pad
-        col_valid = ~pad
-    else:
-        col_valid = torch.ones(n, dtype=torch.bool, device=student.device)
+    offset, total_rows = leading_rows()
+    total_rows = total_rows or b
+    sf = student[:, 1:].float()
+    tf = teacher[:, 1:].detach().float()
+    scored = mask_indices[:, 1:]
+    pad = (padding_mask[:, -(l - 1):] if padding_mask is not None
+           else torch.zeros(b, l - 1, dtype=torch.bool, device=student.device))
+    scored = scored & ~pad
     g = max(int(gallery_chunks), 1)
-    if b % g:
-        raise ValueError(f"a batch of {b} does not split into {g} DCL galleries")
-    sf, tf = sf.reshape(g, n // g, d), tf.reshape(g, n // g, d)
-    scored, col_valid = scored.reshape(g, n // g), col_valid.reshape(g, n // g)
+    if total_rows % g:
+        raise ValueError(f"a batch of {total_rows} does not split into {g} DCL galleries")
+    per = total_rows // g  # samples a gallery
+    if g == 1 and b != total_rows:  # one gallery over every rank's tokens
+        tf, col_valid, first = gather_rows(tf), ~gather_rows(pad), offset
+        groups = 1
+    else:
+        if b % per or offset % per:
+            raise ValueError(f"DCL galleries of {per} samples split across ranks holding "
+                             f"{b} rows from row {offset}")
+        col_valid, first, groups = ~pad, 0, b // per
+    nq = b * (l - 1) // groups
+    sf, scored = sf.reshape(groups, nq, d), scored.reshape(groups, nq)
+    tf = tf.reshape(groups, -1, d)
+    col_valid = col_valid.reshape(groups, -1)
     sn = sf / torch.linalg.vector_norm(sf, dim=-1, keepdim=True).clamp(min=1e-6)
     tn = tf / torch.linalg.vector_norm(tf, dim=-1, keepdim=True).clamp(min=1e-6)
-    sim = logit_scale * (sn @ tn.transpose(1, 2))  # (g, N/g, N/g)
+    sim = logit_scale * (sn @ tn.transpose(1, 2))  # (g, N/g, N/g) on one process
     sim = sim.masked_fill(~col_valid[:, None, :], float("-inf"))
     lprobs = torch.log_softmax(sim, dim=-1)
-    nll = -lprobs.diagonal(dim1=1, dim2=2)
+    own = first * (l - 1) + torch.arange(nq, device=student.device)
+    nll = -lprobs.gather(-1, own.expand(groups, nq)[..., None])[..., 0]
     if label_smoothing > 0.0:
         n_valid = col_valid.float().sum(-1, keepdim=True)
         smooth = -torch.where(col_valid[:, None, :], lprobs, 0.0).sum(-1)
         eps_i = label_smoothing / (n_valid - 1).clamp(min=1.0)
         nll = (1.0 - label_smoothing - eps_i) * nll + eps_i * smooth
     total = torch.where(scored, nll, 0.0).sum()
-    return total / scored.float().sum().clamp(min=1.0)
+    return global_mean(total, scored.float().sum(), min_count=1.0)
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -143,7 +167,7 @@ def refcoco_loss(pred_coords_sigmoid: torch.Tensor, targets: torch.Tensor,
     valid = (pred_coords_sigmoid[:, :2] < pred_coords_sigmoid[:, 2:]).all(dim=1)
     ious = box_giou(pred_coords_sigmoid, targets)
     vf = valid.float()
-    loss_iou = ((1 - ious) * vf).sum() / vf.sum().clamp(min=1.0)
+    loss_iou = global_mean(((1 - ious) * vf).sum(), vf.sum(), min_count=1.0)
     return l1 + loss_iou
 
 

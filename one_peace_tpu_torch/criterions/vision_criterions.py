@@ -11,6 +11,7 @@ import torch
 
 from ..core.config import CriterionConfig
 from ..models.components import generator_on, resize_linear
+from ..parallel.data import global_mean
 from ..vision.det_train import detector_training_loss
 from ..vision.mask2former_loss import mask2former_loss
 from ..vision.upernet import seg_cross_entropy
@@ -95,7 +96,7 @@ class SegmentationCriterion:
         c = logits.shape[-1]
         loss = seg_cross_entropy(logits, tgt, self.ignore_index, self.label_smoothing)
         vf = (tgt != self.ignore_index).float()
-        acc = ((logits.argmax(-1) == tgt) * vf).sum() / vf.sum().clamp_min(1.0)
+        acc = global_mean(((logits.argmax(-1) == tgt) * vf).sum(), vf.sum(), min_count=1.0)
         return loss, {"loss": loss, "pixel_acc": 100.0 * acc, "valid_frac": vf.mean(),
                       "num_classes": torch.tensor(float(c))}
 

@@ -8,10 +8,13 @@ per-epoch shuffle (seed + epoch), strided sharding across data-parallel
 workers (new_islice), ``ensure_equal_batch`` padding so every shard sees
 the same batch count, state_dict/fast-forward for preemption-safe resume.
 
-One card is one shard, so ``num_shards`` is 1 on the port's training
-path; the multi-shard arithmetic is kept for data-parallel runs.  A
-background-thread prefetcher overlaps host-side decode/augment with device
-steps (the reference uses DataLoader workers).
+The tasks do not use the strided shards: ``dataset.batch_size`` is the
+global batch, as in the JAX package, and across data ranks each rank builds
+the global batch and keeps its contiguous slice (``RankSliceIterator``), so
+that every generator draws what one process draws.  The strided arithmetic
+is kept as the JAX package's.  A background-thread prefetcher overlaps
+host-side decode/augment with device steps (the reference uses DataLoader
+workers).
 
 One difference from the JAX package: every generator a batch draws from
 in fetch order is saved with the position, in the state it had after the
@@ -224,3 +227,44 @@ class EpochBatchIterator:
         for name, encoded in saved.items():
             _restore(self.generators[name], encoded)
         self._drawn = {name: _get_state(self.generators[name]) for name in saved}
+
+
+class RankSliceIterator:
+    """An ``EpochBatchIterator`` over the global batches whose every batch is
+    cut to data rank ``shard_id``'s contiguous slice of ``num_shards``
+    (``parallel.data.slice_rows``): a ragged last batch gives the first ranks
+    one row more, and a rank may get none (an evaluation loop skips such a
+    batch; the trainer refuses it on every rank).  Everything else
+    (epoch, position, generators, ``collate_fn``, ``state_dict``) is the
+    inner iterator's, the same on every rank."""
+
+    def __init__(self, inner: EpochBatchIterator, shard_id: int, num_shards: int):
+        self.__dict__.update(inner=inner, shard_id=shard_id, num_shards=num_shards)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.inner, name, value)
+
+    def __len__(self):
+        return len(self.inner)
+
+    def next_epoch_itr(self, shuffle: Optional[bool] = None) -> Iterator:
+        from ..parallel.data import slice_rows
+
+        for batch in self.inner.next_epoch_itr(shuffle=shuffle):
+            yield slice_rows(batch, self.shard_id, self.num_shards)
+
+
+def batch_rows_of(batch: Dict) -> int:
+    """The number of samples in a collated batch (its ``id`` column, or its
+    first array's leading dimension)."""
+    if "id" in batch:
+        return len(batch["id"])
+    return next((len(v) for v in batch.values() if np.ndim(v) > 0), 0)
+
+
+def shard_iterator(inner: EpochBatchIterator, shard_id: int, num_shards: int):
+    """``inner`` itself for one shard, else its ``RankSliceIterator``."""
+    return inner if num_shards <= 1 else RankSliceIterator(inner, shard_id, num_shards)

@@ -11,10 +11,12 @@ by ``tests/test_torch_port_coco_data.py``).
 soft scores (``ncorrect``/``count``), after the JAX package's (held equal by
 ``tests/test_torch_port_classify_data.py``); each batch's count stays on
 the card and ``merge_results`` fetches them all at once.
-One card holds the whole evaluation set, so nothing is gathered across
-processes: a sharded evaluation raises in the task's
-``get_batch_iterator``, and the JAX reducer's ``_sync_across_processes``
-is not copied.
+Every reducer merges its parts across data ranks in ``merge_results``
+where the JAX reducers call ``eval_gather_ragged`` / ``eval_allsum``
+(``metrics/gather.py``): when its ``num_shards`` (set by the task from the
+iterator's) is above 1, rows are gathered in rank order and counters
+summed; ranks fed the same data (``num_shards`` 1) are not merged.  Every
+rank calls ``merge_results``, with or without rows of its own.
 ``MIoU``: the ADE20K mean IoU over a confusion matrix, after the JAX
 package's (held equal by ``tests/test_torch_port_seg_data.py``).
 ``IouAcc``: RefCOCO's Acc@0.5 on boxes in the original image's
@@ -35,6 +37,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from .gather import eval_allsum, eval_gather_ragged
 
 
 def fetch_once(tree):
@@ -65,6 +69,8 @@ fetch_once.calls = 0
 
 
 class Recall:
+    num_shards = 1  # the evaluation iterator's; above 1 the parts are merged
+
     def initialize(self, text_ids, text_logits):
         # accepts arrays OR lists of (possibly device) chunks; conversion
         # is deferred to merge_results (fetch_once)
@@ -79,20 +85,22 @@ class Recall:
         self.image_logits_list.append(image_logits)
 
     def merge_results(self, output_predict: bool = False) -> Dict:
-        if not self.image_ids_list:  # no valid batches accumulated
+        got = fetch_once({
+            "ti": self.text_ids, "tl": self.text_logits,
+            "ii": self.image_ids_list, "il": self.image_logits_list})
+        image_ids = eval_gather_ragged(np.concatenate(
+            [np.asarray(x) for x in got["ii"]] or [np.zeros(0, np.int64)]), self.num_shards)
+        image_logits = eval_gather_ragged(np.concatenate(
+            [np.asarray(x, np.float32) for x in got["il"]] or [np.zeros(0, np.float32)]),
+            self.num_shards)
+        if not len(image_ids):  # no valid batches accumulated
             return {"txt_r1": 0.0, "txt_r5": 0.0, "txt_r10": 0.0,
                     "txt_r_mean": 0.0, "img_count": 0,
                     "img_r1": 0.0, "img_r5": 0.0, "img_r10": 0.0,
                     "img_r_mean": 0.0, "txt_count": 0, "r_mean": 0.0}
-        got = fetch_once({
-            "ti": self.text_ids, "tl": self.text_logits,
-            "ii": self.image_ids_list, "il": self.image_logits_list})
         self.text_ids = np.asarray(got["ti"])
         self.text_logits = np.concatenate(
             [np.asarray(x, np.float32) for x in got["tl"]])
-        image_ids = np.concatenate([np.asarray(x) for x in got["ii"]])
-        image_logits = np.concatenate(
-            [np.asarray(x, np.float32) for x in got["il"]])
         sim_i2t = image_logits @ self.text_logits.T
         return self.retrieval_eval(image_ids, sim_i2t, output_predict)
 
@@ -142,6 +150,8 @@ _COCO_AREA_RANGES = {
 
 
 class Accuracy:
+    num_shards = 1
+
     def initialize(self):
         self.ncorrect_list: List = []
         self.total = 0
@@ -160,12 +170,17 @@ class Accuracy:
 
     def merge_results(self) -> Dict:
         ncorrect = float(sum(float(x) for x in fetch_once(self.ncorrect_list)))
-        return {"accuracy": 100.0 * ncorrect / max(self.total, 1), "count": self.total}
+        ncorrect, total = eval_allsum(np.asarray([ncorrect, self.total], np.float64),
+                                      self.num_shards)
+        total = int(total)
+        return {"accuracy": 100.0 * float(ncorrect) / max(total, 1), "count": total}
 
 
 class IouAcc:
     """Grounding Acc@0.5: predicted boxes rescaled back to original image
     coordinates by the resize ratios (ref tasks/vl_tasks/refcoco.py:24-48)."""
+
+    num_shards = 1
 
     def initialize(self):
         self.ncorrect = 0.0
@@ -187,7 +202,10 @@ class IouAcc:
         self.total += len(ious)
 
     def merge_results(self) -> Dict:
-        return {"acc@0.5": 100.0 * self.ncorrect / max(self.total, 1), "count": self.total}
+        ncorrect, total = eval_allsum(np.asarray([self.ncorrect, self.total], np.float64),
+                                      self.num_shards)
+        total = int(total)
+        return {"acc@0.5": 100.0 * float(ncorrect) / max(total, 1), "count": total}
 
 
 def average_precision(target: np.ndarray, score: np.ndarray) -> float:
@@ -210,6 +228,8 @@ class MAP:
     """Multi-label mean average precision (ref metrics/map.py:11-35): the
     sigmoid of the logits, each class's average precision, their mean."""
 
+    num_shards = 1
+
     def initialize(self):
         self.logits: List = []
         self.targets: List = []
@@ -221,11 +241,14 @@ class MAP:
         self.targets.append(targets)
 
     def merge_results(self) -> Dict:
-        if not self.logits:  # no valid batches accumulated
-            return {"map": 0.0, "count": 0}
         got = fetch_once({"l": self.logits, "t": self.targets})
-        logits = np.concatenate([np.asarray(x, np.float32) for x in got["l"]])
-        targets = np.concatenate([np.asarray(x, np.float32) for x in got["t"]])
+        empty = [np.zeros(0, np.float32)]
+        logits = eval_gather_ragged(np.concatenate(
+            [np.asarray(x, np.float32) for x in got["l"]] or empty), self.num_shards)
+        targets = eval_gather_ragged(np.concatenate(
+            [np.asarray(x, np.float32) for x in got["t"]] or empty), self.num_shards)
+        if not len(logits):  # no valid batches accumulated
+            return {"map": 0.0, "count": 0}
         preds = 1.0 / (1.0 + np.exp(-logits))
         ap = [average_precision(targets[:, c], preds[:, c]) for c in range(targets.shape[1])]
         return {"map": 100.0 * float(np.mean(ap)), "count": len(targets)}
@@ -236,6 +259,8 @@ class MIoU:
     metric of the reference's seg app; ignore_index pixels excluded).  The
     segmentation task sums each batch's confusion matrix on the card and
     folds it in once (``update_confusion``)."""
+
+    num_shards = 1
 
     def __init__(self, num_classes: int, ignore_index: int = 255):
         self.num_classes = num_classes
@@ -267,9 +292,11 @@ class MIoU:
         self.union += cm.sum(0) + cm.sum(1) - inter
 
     def merge_results(self) -> Dict:
-        present = self.union > 0
+        intersection, union = eval_allsum(np.stack([self.intersection, self.union]),
+                                          self.num_shards)
+        present = union > 0
         iou = np.zeros(self.num_classes, np.float64)
-        iou[present] = self.intersection[present] / self.union[present]
+        iou[present] = intersection[present] / union[present]
         miou = float(iou[present].mean()) if present.any() else 0.0
         return {"miou": 100.0 * miou, "acc_classes": int(present.sum())}
 
@@ -296,10 +323,11 @@ class DetectionAP:
     The expensive geometry (IoU matrices, at most maxDets x maxGts per
     image) is computed ONCE per image in ``compute``; ``merge_results``
     re-walks only those small matrices, so the 10-threshold x 4-area sweep
-    is score-sorts and cumsums.  One card holds the whole evaluation, so
-    nothing is gathered across processes (a sharded iterator raises in the
-    task); ``_pack_ragged_images`` / ``_unpack_ragged_images`` are the
-    exchange format such a gather would use (ROADMAP queue 7)."""
+    is score-sorts and cumsums.  A sharded evaluation (``num_shards`` above
+    1) gathers every rank's per-image records in ``merge_results`` through
+    ``_pack_ragged_images`` / ``_unpack_ragged_images``, in rank order."""
+
+    num_shards = 1
 
     def __init__(self, num_classes: int,
                  iou_thresholds: Optional[List[float]] = None,
@@ -523,7 +551,17 @@ class DetectionAP:
             "classes_with_gt": classes_with_gt,
         }
 
+    def _sync_across_processes(self) -> None:
+        """Every rank's images, in rank order (a sharded evaluation only)."""
+        if self.num_shards <= 1:
+            return
+        packed = _pack_ragged_images(self.images)
+        gathered = {k: eval_gather_ragged(v, self.num_shards) for k, v in packed.items()}
+        self.images = _unpack_ragged_images(gathered)
+        self.has_masks = any("iou_mask" in r for r in self.images)
+
     def merge_results(self) -> Dict:
+        self._sync_across_processes()
         out = self._accumulate("iou_box")
         if self.has_masks:
             segm = self._accumulate("iou_mask")

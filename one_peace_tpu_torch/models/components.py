@@ -42,6 +42,8 @@ from torch.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.data import batch_rand
+
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -312,13 +314,14 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout: keep with probability 1 - rate, scale by 1 / keep.
     Identity when deterministic or at rate 0; otherwise ``generator`` (on
-    x's device) draws the mask."""
+    x's device) draws the mask (for the global batch across data ranks,
+    ``parallel.data.batch_rand``)."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout with rate > 0 needs a generator when not deterministic")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = batch_rand(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -328,13 +331,15 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
     (B, L, D), an image of the trunk's (B, h, w, C) maps), shared over the
     rest, kept rows scaled by 1 / keep (in x's dtype).  The mask has shape
     (B,) + (1,) * (ndim - 1), so on (B, L, D) it draws as the JAX package's
-    (B, 1, 1).  Identity when deterministic, without a generator, or at
+    (B, 1, 1); across data ranks it is drawn for the global batch
+    (``parallel.data.batch_rand``).  Identity when deterministic, without a
+    generator, or at
     rate 0."""
     if deterministic or generator is None or rate == 0.0:
         return x
     keep = np.float32(1.0) - np.float32(rate)
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < float(keep)
+    mask = batch_rand(shape, generator, x.device) < float(keep)
     scale = np.float32(1.0) / max(keep, np.float32(1e-8)) if keep > 0 else 0.0
     scaled = x * torch.tensor(float(scale), dtype=x.dtype, device=x.device)
     return torch.where(mask, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -428,8 +433,10 @@ def checkpoint_module(module: nn.Module, *args, make_kwargs=None,
     on the card, "offload_qkv" in pinned host memory, and the recompute
     takes them back instead of running those GEMMs (the JAX package's
     ``save_only_these_names`` and ``save_and_offload_only_these_names``);
-    any other policy keeps nothing, as "full" does."""
-    named = list(module.named_parameters())
+    any other policy keeps nothing, as "full" does.  FSDP's sharded
+    parameters stay out: FSDP gathers them for the forward and again for the
+    recompute, and a shard swapped in would replace what it gathered."""
+    named = [(n, p) for n, p in module.named_parameters() if not hasattr(p, "device_mesh")]
     names, params = [n for n, _ in named], [p for _, p in named]
 
     def run(*inputs):

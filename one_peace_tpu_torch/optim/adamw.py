@@ -120,7 +120,8 @@ class AdamW(torch.optim.AdamW):
 def build_optimizer(cfg: OptimizerConfig, opt_cfg: OptimizationConfig,
                     named_params: Iterable[Tuple[str, torch.Tensor]],
                     num_layers: int = 40) -> torch.optim.Optimizer:
-    """AdamW with one parameter group per (weight decay, layer scale); a
+    """AdamW with one parameter group per (weight decay, layer scale, FSDP
+    sharded or not); a
     parameter with one scale per leading index (a per-layer rel-pos table)
     goes to a group at scale 1 and into ``slice_scales``.  Under
     ``_name: adan`` or ``use_adan``, Adan with the same layer scales."""
@@ -143,8 +144,12 @@ def build_optimizer(cfg: OptimizerConfig, opt_cfg: OptimizationConfig,
                 scale = 1.0
             scale = float(scale)
         wd = cfg.weight_decay if mask[name] else 0.0
-        group = groups.setdefault((wd, scale), {"params": [], "names": [], "weight_decay": wd,
-                                                "lr_scale": scale, "lr": 0.0})
+        # FSDP's sharded parameters (DTensors) and replicated ones in groups
+        # of their own: a multi-tensor step takes one kind at a time
+        sharded = hasattr(p, "device_mesh")
+        group = groups.setdefault((wd, scale, sharded),
+                                  {"params": [], "names": [], "weight_decay": wd,
+                                   "lr_scale": scale, "lr": 0.0})
         group["params"].append(p)
         group["names"].append(name)
     b1, b2 = cfg.adam_betas

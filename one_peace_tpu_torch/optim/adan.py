@@ -107,12 +107,19 @@ def _chunks(params: List[torch.Tensor], limit: int):
 
 def build_adan(cfg, named_params: List[Tuple[str, torch.Tensor]],
                scales: Dict[str, Union[float, torch.Tensor]]) -> Adan:
-    """Adan over ``named_params`` in one group (every parameter decays),
+    """Adan over ``named_params`` in one group, or two under FSDP (every
+    parameter decays),
     each moved by its layer-decay scale in ``scales`` (by name)."""
     per_param = {}
     for name, p in named_params:
         s = scales[name]
         per_param[p] = s.to(p.device, p.dtype) if isinstance(s, torch.Tensor) else float(s)
-    group = {"params": [p for _, p in named_params], "names": [n for n, _ in named_params]}
-    return Adan([group], per_param, betas=tuple(cfg.adan_betas), eps=cfg.adam_eps,
+    # FSDP's sharded parameters (DTensors) and replicated ones in groups of
+    # their own: a multi-tensor step takes one kind at a time
+    groups = []
+    for sharded in (False, True):
+        kind = [(n, p) for n, p in named_params if hasattr(p, "device_mesh") == sharded]
+        if kind:
+            groups.append({"params": [p for _, p in kind], "names": [n for n, _ in kind]})
+    return Adan(groups, per_param, betas=tuple(cfg.adan_betas), eps=cfg.adam_eps,
                 weight_decay=cfg.weight_decay)

@@ -20,19 +20,17 @@ import torch
 
 from ..core.config import FrameworkConfig, TaskConfig
 from ..data.collate import collate
-from ..data.iterators import EpochBatchIterator
+from ..data.iterators import EpochBatchIterator, shard_iterator
 from ..data.tokenizer import TextTokenizer, find_bpe_dir
 from ..data.tsv import load_tables
 
 
-def refuse_shards(num_shards: int) -> None:
-    """Raise for a sharded iterator: each shard's reducer would hold only
-    its part of the evaluation set, and nothing merges the parts yet, so
-    refuse rather than under-count."""
-    if num_shards > 1:
-        raise NotImplementedError(
-            "sharded data needs a cross-process gather in merge_results, which is "
-            "not ported yet (ROADMAP queue 7, metrics/gather.py)")
+def shard_reducers(task, split: str, num_shards: int) -> None:
+    """A sharded evaluation split: the task's reducer merges the ranks'
+    parts (``metrics/gather.py``); one shard, or the training split, leaves
+    it alone."""
+    if split != "train" and hasattr(task, "metric"):
+        task.metric.num_shards = num_shards
 
 
 class BaseTask:
@@ -101,20 +99,22 @@ class BaseTask:
                            shard_id: int = 0, num_shards: int = 1,
                            ensure_equal_batch: bool = True,
                            skip_remainder_batch: bool = False) -> EpochBatchIterator:
-        refuse_shards(num_shards)
+        """Batches of ``batch_size`` samples, the global batch; with
+        ``num_shards`` data ranks, rank ``shard_id``'s contiguous slice of
+        each (``data.iterators.RankSliceIterator``), and the evaluation
+        reducer merges the ranks' parts."""
         dataset = self.datasets[split]
         pad = self.tokenizer.pad
-        return EpochBatchIterator(
+        shard_reducers(self, split, num_shards)
+        return shard_iterator(EpochBatchIterator(
             dataset,
             collate_fn=lambda samples: collate(samples, pad_idx=pad),
             batch_size=batch_size,
             seed=seed,
-            shard_id=shard_id,
-            num_shards=num_shards,
             shuffle=(split == "train"),
             ensure_equal_batch=ensure_equal_batch,
             skip_remainder_batch=skip_remainder_batch,
-        )
+        ), shard_id, num_shards)
 
     # evaluation hooks (overridden per task family)
     def begin_valid_epoch(self, model, params):

@@ -190,6 +190,17 @@ class AudioTextPretrainTask(RetrievalTaskMixin, BaseTask):
                                   "al_audio_mask_ratio": c.al_audio_mask_ratio}
 
 
+def refuse_default_classes(name: str, cfg, classes: int) -> None:
+    """Raise when ``task.num_classes`` is left at ``TaskConfig``'s default,
+    naming the task's own class count: a head of the default width meets
+    targets of another (VQA's soft targets) or trains over classes that
+    never occur (VGGSound's, FSD50K's)."""
+    if cfg.num_classes == TaskConfig.num_classes:
+        raise ValueError(f"{name}: task.num_classes is left at TaskConfig's default of "
+                         f"{cfg.num_classes}; {name.upper()} has {classes} classes: pass "
+                         f"task.num_classes={classes}")
+
+
 class ClassifyTaskBase(BaseTask):
     """Accuracy-scored classification family."""
 
@@ -216,9 +227,15 @@ class ClassifyTaskBase(BaseTask):
 @TASKS.register("vqa")
 class VqaTask(ClassifyTaskBase):
     """VQA scored by the soft score of the argmax answer (ref
-    tasks/vl_tasks/vqa.py)."""
+    tasks/vl_tasks/vqa.py).  Its soft targets have 3129 classes; the recipe
+    leaves ``task.num_classes`` at ``TaskConfig``'s default, which is
+    refused."""
 
     dataset_cls = D.VqaDataset
+
+    def __init__(self, cfg, framework_cfg=None):
+        refuse_default_classes("vqa", cfg, 3129)
+        super().__init__(cfg, framework_cfg)
 
     def valid_step(self, model, params, batch):
         logits = self.eval_model(model, params, self._net_input(batch))
@@ -264,7 +281,14 @@ class ImageClassifyTask(ClassifyTaskBase):
 
 @TASKS.register("vggsound")
 class VggsoundTask(ClassifyTaskBase):
+    """VGGSound's 309 classes; the recipe leaves ``task.num_classes`` at
+    ``TaskConfig``'s default, which is refused."""
+
     dataset_cls = D.VggsoundDataset
+
+    def __init__(self, cfg, framework_cfg=None):
+        refuse_default_classes("vggsound", cfg, 309)
+        super().__init__(cfg, framework_cfg)
 
     def dataset_kwargs(self):
         return {"max_duration": self.cfg.max_duration,
@@ -295,10 +319,7 @@ class Fsd50kTask(ClassifyTaskBase):
     dataset_cls = D.Fsd50kDataset
 
     def __init__(self, cfg, framework_cfg=None):
-        if cfg.num_classes == TaskConfig.num_classes:
-            raise ValueError(f"fsd50k: task.num_classes is left at TaskConfig's default of "
-                             f"{cfg.num_classes}; FSD50K has 200 classes: pass "
-                             f"task.num_classes=200")
+        refuse_default_classes("fsd50k", cfg, 200)
         super().__init__(cfg, framework_cfg)
         self.metric = MAP()
 

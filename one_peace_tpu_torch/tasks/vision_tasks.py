@@ -37,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data.iterators import EpochBatchIterator
+from ..data.iterators import EpochBatchIterator, shard_iterator
 from ..data.vision_datasets import (Ade20kSegDataset, CocoDetectionDataset,
                                     RawframeVideoDataset, vision_collate)
 from ..metrics.metrics import Accuracy, DetectionAP, MIoU, fetch_once
@@ -45,7 +45,7 @@ from ..models.components import resize_linear
 from ..vision.mask_paste import paste_masks
 from ..vision.zoo import (OnePeaceDetector, OnePeaceMask2FormerSegmenter, OnePeaceSegmenter,
                          OnePeaceVideoClassifier)
-from .base_task import refuse_shards
+from .base_task import shard_reducers
 
 
 class VisionTaskBase:
@@ -70,18 +70,17 @@ class VisionTaskBase:
                            shard_id: int = 0, num_shards: int = 1,
                            ensure_equal_batch: bool = True,
                            skip_remainder_batch: bool = False) -> EpochBatchIterator:
-        refuse_shards(num_shards)
-        return EpochBatchIterator(
+        """Global batches, sliced by data rank, as ``BaseTask``'s."""
+        shard_reducers(self, split, num_shards)
+        return shard_iterator(EpochBatchIterator(
             self.datasets[split],
             collate_fn=vision_collate,
             batch_size=batch_size,
             seed=seed,
-            shard_id=shard_id,
-            num_shards=num_shards,
             shuffle=(split == "train"),
             ensure_equal_batch=ensure_equal_batch,
             skip_remainder_batch=skip_remainder_batch,
-        )
+        ), shard_id, num_shards)
 
     @property
     def eval_compiles(self) -> int:

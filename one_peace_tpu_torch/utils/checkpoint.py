@@ -122,7 +122,9 @@ def params_from_jax(tree: Dict[str, Any],
 
 
 def params_to_jax(state: Dict[str, torch.Tensor], periods: Optional[Dict[str, int]] = None,
-                  names: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
+                  names: Optional[Dict[str, str]] = None,
+                  window_shapes: Optional[Dict[str, Dict[tuple, tuple]]] = None
+                  ) -> Dict[str, Any]:
     """A ``state_dict`` -> the JAX package's parameter tree, the inverse of
     ``params_from_jax``: ``weight`` of two or more dimensions becomes ``w``
     in the JAX layout (conv and transposed-conv kernels HWIO), a
@@ -135,11 +137,15 @@ def params_to_jax(state: Dict[str, torch.Tensor], periods: Optional[Dict[str, in
     ``periods`` maps a module list of the detection trunk (``"backbone.layers"``)
     to its global period p: its layers ``g * p + s`` are stacked back into
     ``win_layers`` (groups, p - 1, ...) and ``glob_layers`` (groups, ...)
-    beside it.  ``names`` maps a module's path to its key in the JAX tree
-    (``"fpn.scale_4_0"`` -> ``"scale_4.0"``).  Leaves are numpy arrays,
+    beside it; at period 1 (no windowed layers) ``win_layers`` holds empty
+    (groups, 0, ...) leaves of a windowed layer's shapes: a global layer's,
+    but where ``window_shapes[stack]`` gives a leaf's (its path in the JAX
+    layer, such as ``("self_attn", "rel_pos_h")``) shape.  ``names`` maps a
+    module's path to its key in the JAX tree (``"fpn.scale_4_0"`` ->
+    ``"scale_4.0"``).  Leaves are numpy arrays,
     except bf16 ones, which stay bf16 tensors (numpy has no bf16 of its own;
     ``native_checkpoint.save_params`` takes both)."""
-    periods, names = periods or {}, names or {}
+    periods, names, window_shapes = periods or {}, names or {}, window_shapes or {}
     root: Dict[str, Any] = {}
     for key, value in state.items():
         *parents, name = key.split(".")
@@ -169,11 +175,19 @@ def params_to_jax(state: Dict[str, torch.Tensor], periods: Optional[Dict[str, in
     def numbered(node: Dict[str, Any]) -> list:
         return [node[str(i)] for i in range(len(node))]
 
-    def regroup(layers: list, period: int) -> Dict[str, Any]:
-        if period < 2:
-            # the JAX tree keeps (groups, 0, ...) windowed leaves, whose
-            # shapes the state_dict does not hold
-            raise NotImplementedError("a trunk without windowed layers (global period 1)")
+    def empty_windows(layer: Any, groups: int, shapes: Dict[tuple, tuple], path=()) -> Any:
+        """(groups, 0, ...) leaves in the structure of ``layer``."""
+        if isinstance(layer, dict):
+            return {k: empty_windows(v, groups, shapes, path + (k,)) for k, v in layer.items()}
+        shape = (groups, 0) + tuple(shapes.get(path, layer.shape))
+        if isinstance(layer, torch.Tensor):
+            return torch.zeros(shape, dtype=layer.dtype)
+        return np.zeros(shape, layer.dtype)
+
+    def regroup(layers: list, period: int, shapes: Dict[tuple, tuple]) -> Dict[str, Any]:
+        if period == 1:
+            return {"win_layers": empty_windows(layers[0], len(layers), shapes),
+                    "glob_layers": stack(layers)}
         groups = [layers[g:g + period] for g in range(0, len(layers), period)]
         return {"win_layers": stack([stack(group[:-1]) for group in groups]),
                 "glob_layers": stack([group[-1] for group in groups])}
@@ -189,9 +203,10 @@ def params_to_jax(state: Dict[str, torch.Tensor], periods: Optional[Dict[str, in
             return [listify(node[str(i)], path + (str(i),)) for i in range(len(keys))]
         out: Dict[str, Any] = {}
         for k, v in node.items():
-            period = periods.get(".".join(path + (k,)))
+            stack_path = ".".join(path + (k,))
+            period = periods.get(stack_path)
             if period:
-                out.update(regroup(numbered(v), period))
+                out.update(regroup(numbered(v), period, window_shapes.get(stack_path, {})))
             else:
                 out[k] = listify(v, path + (k,))
         return out

@@ -10,7 +10,8 @@ after, every ``ema_update_freq`` updates, it moves to
 ``p * (1 - decay)`` added to it with one rounding, the fused multiply-add
 that XLA compiles the JAX update to (not ``lerp``, whose rounding
 differs).  A skipped (non-finite) step leaves it where it was.  The
-trainer steps it on accumulation boundaries only.
+trainer steps it on accumulation boundaries only.  Under FSDP the shadow of
+a sharded parameter is sharded as it is, and the update runs on the shards.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.config import EMAConfig
+from ..parallel.data import local_tensor
 
 
 class EMA:
@@ -48,8 +50,8 @@ class EMA:
             self._copy(named_params)  # a skipped step left the parameters as they were
         elif num_updates % cfg.ema_update_freq == 0 and not skipped:
             rest = float(np.float32(1 - cfg.ema_decay))
-            named = list(named_params)
-            shadows = [self.shadow[name] for name, _ in named]
+            named = [(name, local_tensor(p)) for name, p in named_params]
+            shadows = [local_tensor(self.shadow[name]) for name, _ in named]
             torch._foreach_mul_(shadows, cfg.ema_decay)
             for s, (_, p) in zip(shadows, named):
                 # p * (1 - decay) + s rounded once, through fp64 (the product

@@ -9,7 +9,10 @@ locations; a location is positive for the smallest valid GT box that
 contains it and whose largest distance falls in the level's range.
 
 The JAX package ``vmap``s per image; here a loop over the batch keeps the
-same per-image semantics (assignment, the cascade's CE mean).  The caller's
+same per-image semantics (assignment, the cascade's CE mean).  Across data
+ranks the counts that normalise (FCOS's positives, the mask head's boxes)
+are the global batch's, and the draws per image are those of the global
+batch (``parallel.data``).  The caller's
 generator is split into three streams: the trunk's drop path, the RPN
 sampler and the proposal jitter.
 """
@@ -21,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..models.components import generator_on, split_generator
+from ..parallel.data import batch_rand, global_mean, global_sum
 from .cascade_rcnn import cascade_box_loss
 from .roi_align import roi_align
 from .rpn import rpn_loss
@@ -103,10 +107,12 @@ def fcos_loss(head, feats: List[torch.Tensor], gt_boxes, gt_labels, gt_valid
                                   ).clamp(0.0, 1.0))
             total_ctr = total_ctr + (optax_bce(ctr[i].reshape(-1).float(), ctr_tgt) * posf).sum()
             num_pos = num_pos + posf.sum()
-    denom = torch.as_tensor(num_pos).clamp(min=1.0)
-    loss = (total_cls + total_box + total_ctr) / denom
-    return loss, {"fcos_cls": total_cls / denom, "fcos_box": total_box / denom,
-                  "fcos_ctr": total_ctr / denom, "fcos_pos": torch.as_tensor(num_pos)}
+    num_pos = torch.as_tensor(num_pos)
+    loss = global_mean(total_cls + total_box + total_ctr, num_pos, min_count=1.0)
+    return loss, {"fcos_cls": global_mean(total_cls, num_pos, min_count=1.0),
+                  "fcos_box": global_mean(total_box, num_pos, min_count=1.0),
+                  "fcos_ctr": global_mean(total_ctr, num_pos, min_count=1.0),
+                  "fcos_pos": global_sum(num_pos)}
 
 
 def mask_loss(head, features, boxes, batch_indices, gt_masks, mask_labels, valid,
@@ -124,7 +130,7 @@ def mask_loss(head, features, boxes, batch_indices, gt_masks, mask_labels, valid
         tgt = (tgt > 0.5).float()
     per = optax_bce(sel.float(), tgt).mean((1, 2))
     vf = valid.float()
-    return (per * vf).sum() / vf.sum().clamp(min=1.0)
+    return global_mean((per * vf).sum(), vf.sum(), min_count=1.0)
 
 
 def detector_training_loss(detector, images, gt_boxes, gt_labels, gt_valid,
@@ -166,8 +172,7 @@ def detector_training_loss(detector, images, gt_boxes, gt_labels, gt_valid,
     props = gt_boxes
     if gen_jitter is not None:
         wh = torch.cat([gt_boxes[..., 2:4] - gt_boxes[..., 0:2]] * 2, -1)
-        noise = torch.rand(gt_boxes.shape, generator=generator_on(gen_jitter, device),
-                           device=device)
+        noise = batch_rand(gt_boxes.shape, generator_on(gen_jitter, device), device)
         props = gt_boxes + (noise - 0.5) * proposal_jitter * wh
 
     # the cascade per image (assignment IoUs within each image); gt_valid

@@ -31,6 +31,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.data import batch_rand, global_mean
 from .matching import hungarian_assign
 
 OVERSAMPLE, IMPORTANCE = 3.0, 0.75
@@ -40,8 +41,9 @@ def _uniforms(generator: torch.Generator, shapes: Sequence[Tuple[int, ...]],
               device) -> List[torch.Tensor]:
     """The loss's random numbers: one uniform [0, 1) tensor per shape, in
     order (the matching points, the oversampled candidates, the uniform
-    fill)."""
-    return [torch.rand(s, generator=generator, device=device) for s in shapes]
+    fill), each of (levels, batch, ...), drawn for the global batch across
+    data ranks (``parallel.data.batch_rand``)."""
+    return [batch_rand(s, generator, device, dim=1) for s in shapes]
 
 
 def point_sample(mask: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -137,7 +139,7 @@ def mask2former_loss(all_cls: torch.Tensor, all_masks: torch.Tensor, gt_masks: t
     match_pts, cand, rand = _uniforms(
         generator, [(lvls, b, num_points, 2), (lvls, b, k, n_cand, 2), (lvls, b, k, n_rand, 2)],
         device)
-    num_total_masks = gt_valid.sum().float().clamp_min(1.0)
+    num_masks = gt_valid.sum().float()
     cw = torch.ones(c1, device=device)
     cw[num_classes] = no_object_weight
     levels = torch.arange(lvls, device=device)[:, None, None]
@@ -159,7 +161,7 @@ def mask2former_loss(all_cls: torch.Tensor, all_masks: torch.Tensor, gt_masks: t
                                          labels.gather(-1, col)))
     ce = -torch.log_softmax(all_cls.float(), -1).gather(-1, labels[..., None])[..., 0]
     wts = cw[labels]
-    cls_l = cls_weight * (ce * wts).sum((1, 2)) / wts.sum((1, 2)).clamp_min(1.0)
+    cls_l = cls_weight * global_mean((ce * wts).sum((1, 2)), wts.sum((1, 2)), min_count=1.0)
 
     # the mask losses on the matched queries, at importance-sampled points
     matched = all_masks[levels, images, col]                  # (L, B, K, H, W)
@@ -169,9 +171,10 @@ def mask2former_loss(all_cls: torch.Tensor, all_masks: torch.Tensor, gt_masks: t
     pg = point_sample(gt_masks, pts)
     vf = valid.float()
     bce = _bce_logits(pm, pg).mean(-1)
-    mask_l = mask_weight * ((bce * vf).sum((1, 2)) * num_points) / (num_total_masks * num_points)
+    mask_l = mask_weight * global_mean((bce * vf).sum((1, 2)) * num_points,
+                                       num_masks * num_points, min_count=num_points)
     dice = _dice(torch.sigmoid(pm), pg)
-    dice_l = dice_weight * (dice * vf).sum((1, 2)) / num_total_masks
+    dice_l = dice_weight * global_mean((dice * vf).sum((1, 2)), num_masks, min_count=1.0)
     loss = cls_l.sum() + mask_l.sum() + dice_l.sum()
     metrics = {
         "m2f_cls": cls_l[-1], "m2f_mask": mask_l[-1], "m2f_dice": dice_l[-1],

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..models.components import Conv, conv2d
+from ..parallel.data import leading_rows
 from .detection import empty_result, nms
 
 # detectron2's Box2BoxTransform scale clamp: log(1000/16)
@@ -199,6 +200,9 @@ def rpn_loss(head: RPNHead, feats: List[torch.Tensor], gt_boxes, gt_labels, gt_v
         raise ValueError("rpn_loss(sampler='subsample') needs a generator; pass one through "
                          "detector_training_loss, or set criterion.rpn_sampler='balanced'")
 
+    if sampler == "subsample":  # the draws of the global batch's earlier images
+        for _ in range(leading_rows()[0]):
+            _uniforms(generator, anchors.shape[0], device)
     obj_losses, box_losses, n_pos = [], [], []
     for i in range(b):
         gtb, gtv = gt_boxes[i].float(), gt_valid[i].bool()

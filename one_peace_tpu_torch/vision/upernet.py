@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..models.components import Conv, conv2d, resize_linear
+from ..parallel.data import global_mean
 from .adapter import ConvGN
 
 
@@ -83,8 +84,9 @@ def seg_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: 
     """Pixel-wise CE with the ignore label, the logits (B, h, w, C) resized to
     the labels' (B, H, W) first (``resize_linear``: JAX's bilinear weights):
     the UperNet training objective (mmseg's decode-head loss), the mean over
-    the counted pixels.  ``label_smoothing`` mixes in the mean of -log p over
-    the classes, as the segmentation criterion does."""
+    the counted pixels (of the global batch across data ranks).
+    ``label_smoothing`` mixes in the mean of -log p over the classes, as the
+    segmentation criterion does."""
     if tuple(logits.shape[1:3]) != tuple(labels.shape[1:3]):
         logits = resize_linear(logits, labels.shape[1:3], (1, 2))
     valid = labels != ignore_index
@@ -94,4 +96,4 @@ def seg_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: 
     if label_smoothing > 0:
         nll = (1 - label_smoothing) * nll + label_smoothing * -lp.mean(-1)
     vf = valid.float()
-    return (nll * vf).sum() / vf.sum().clamp_min(1.0)
+    return global_mean((nll * vf).sum(), vf.sum(), min_count=1.0)

@@ -95,9 +95,17 @@ class OnePeaceDetector(nn.Module):
         """What ``utils.checkpoint.params_to_jax`` needs to rebuild the JAX
         package's tree from this model's ``state_dict``: the trunk's global
         period (its layers regroup into ``win_layers`` / ``glob_layers``) and
-        the JAX keys of the pyramid's levels (``scale_4_0`` -> ``scale_4.0``)."""
-        return {"periods": {"backbone.layers": self.backbone.global_period},
-                "names": {f"fpn.{self.fpn.stage_name(s)}": f"scale_{s}" for s in self.fpn.scales}}
+        the JAX keys of the pyramid's levels (``scale_4_0`` -> ``scale_4.0``),
+        and a windowed layer's rel-pos shapes, which a trunk of global layers
+        only (period 1) exports as empty ``win_layers`` leaves."""
+        bb = self.backbone
+        window = {}
+        if bb.use_decomposed:
+            shape = (2 * bb.window_size - 1, bb.d // bb.heads)
+            window = {("self_attn", "rel_pos_h"): shape, ("self_attn", "rel_pos_w"): shape}
+        return {"periods": {"backbone.layers": bb.global_period},
+                "names": {f"fpn.{self.fpn.stage_name(s)}": f"scale_{s}" for s in self.fpn.scales},
+                "window_shapes": {"backbone.layers": window}}
 
     def features(self, images: torch.Tensor):
         """images (B, 3, H, W) -> (the pyramid dict, the proposer's outputs

@@ -131,7 +131,8 @@ TASKS = {  # name: (table, task config fields)
         _name="image_classify", head_type="image", patch_image_size=32, num_classes=4,
         cutmix=1.0, cutmix_minmax="0.3,0.7", mixup_mode="pair", selected_cols="image,label")),
     "vqa": ("vqa.tsv", dict(head_type="vl", patch_image_size=32, num_classes=3129)),
-    "vggsound": ("vggsound.tsv", dict(head_type="audio", max_duration=1)),
+    # VGGSound refuses task.num_classes left at 1000 (its 309 classes)
+    "vggsound": ("vggsound.tsv", dict(head_type="audio", max_duration=1, num_classes=309)),
 }
 
 

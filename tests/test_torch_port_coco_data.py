@@ -334,5 +334,13 @@ def test_sharded_iterator_raises(corpus):
     task = build_task(cfg.task, cfg)
     task.load_dataset("train")
     assert task.get_batch_iterator("train", 2).batch_size == 2
-    with pytest.raises(NotImplementedError, match="gather"):
-        task.get_batch_iterator("train", 2, shard_id=1, num_shards=2)
+    # no longer raises: rank 1 of 2 takes the second image of each global
+    # batch of 2, whose augmentation draws are those of the whole batch
+    whole = next(iter(task.get_batch_iterator("train", 2).next_epoch_itr()))
+    again = build_task(cfg.task, cfg)  # a fresh dataset: its generator from the start
+    again.load_dataset("train")
+    part = next(iter(again.get_batch_iterator("train", 2, shard_id=1,
+                                              num_shards=2).next_epoch_itr()))
+    assert part["src_images"].shape[0] == 1
+    for key in ("src_images", "gt_boxes", "gt_labels", "gt_valid"):
+        np.testing.assert_array_equal(part[key], whole[key][1:], err_msg=key)

@@ -11,7 +11,10 @@ the segmentation path's (the ADE20K dataset, the reference points, the
 adaptive-pool matrix, the sine encoding, the slide window grid), whose
 behaviour ``tests/test_torch_port_seg_*.py`` hold equal, and the video
 path's (the rawframe dataset with its colour jitter, the sub-grid token
-indices), whose behaviour ``tests/test_torch_port_video_*.py`` hold equal."""
+indices), whose behaviour ``tests/test_torch_port_video_*.py`` hold equal,
+and the host leftovers: the BLEU scorer and the edit distance (their native
+libraries built under ``build/native/``), the layer-diff harness and the
+watchdog, each held to the same scores, distances, reports or source."""
 
 import dataclasses
 import inspect
@@ -38,6 +41,10 @@ from one_peace_tpu.data import tokenizer as jax_tokenizer
 from one_peace_tpu.utils import checkpoint_convert as jax_convert
 from one_peace_tpu.utils import interpolate as jax_interpolate
 from one_peace_tpu.data import vision_datasets as jax_vision_datasets
+from one_peace_tpu.metrics import bleu as jax_bleu
+from one_peace_tpu.metrics import edit_distance as jax_edit_distance
+from one_peace_tpu.utils import diff_harness as jax_diff_harness
+from one_peace_tpu.utils import watchdog as jax_watchdog
 from one_peace_tpu.vision import adapter as jax_adapter
 from one_peace_tpu.vision import mask2former as jax_mask2former
 from one_peace_tpu.vision import upernet as jax_upernet
@@ -53,6 +60,10 @@ from one_peace_tpu_torch.data import tokenizer as port_tokenizer
 from one_peace_tpu_torch.utils import checkpoint_convert as port_convert
 from one_peace_tpu_torch.utils import interpolate as port_interpolate
 from one_peace_tpu_torch.data import vision_datasets as port_vision_datasets
+from one_peace_tpu_torch.metrics import bleu as port_bleu
+from one_peace_tpu_torch.metrics import edit_distance as port_edit_distance
+from one_peace_tpu_torch.utils import diff_harness as port_diff_harness
+from one_peace_tpu_torch.utils import watchdog as port_watchdog
 from one_peace_tpu_torch.vision import adapter as port_adapter
 from one_peace_tpu_torch.vision import mask2former as port_mask2former
 from one_peace_tpu_torch.vision import upernet as port_upernet
@@ -81,7 +92,11 @@ def test_port_imports_nothing_of_the_jax_package():
         "      'one_peace_tpu_torch.models.pretrain' in names,\n"
         "      'one_peace_tpu_torch.data.masking' in names,\n"
         "      all(f'one_peace_tpu_torch.vision.{m}' in names for m in\n"
-        "          ('adapter', 'mask2former', 'ms_deform_attn', 'upernet', 'video_backbone')))\n"
+        "          ('adapter', 'mask2former', 'ms_deform_attn', 'upernet', 'video_backbone'))\n"
+        "      and all(f'one_peace_tpu_torch.{m}' in names for m in\n"
+        "          ('parallel.mesh', 'parallel.sharding', 'parallel.data', 'metrics.gather',\n"
+        "           'metrics.bleu', 'metrics.edit_distance', 'utils.watchdog',\n"
+        "           'utils.diff_harness')))\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
@@ -210,7 +225,13 @@ VERBATIM_COPIES = [
     (port_mask2former, jax_mask2former, "sine_positional_encoding")] + [
     (port_vision_datasets, jax_vision_datasets, name) for name in (
         "RawframeVideoDataset", "_jitter_brightness_contrast_saturation", "_jitter_hue")] + [
-    (port_video_backbone, jax_video_backbone, "subgrid_token_indices")]
+    (port_video_backbone, jax_video_backbone, "subgrid_token_indices")] + [
+    (port_watchdog, jax_watchdog, name) for name in ("WatchdogTimeout", "Watchdog", "_Guard")] + [
+    (port_diff_harness, jax_diff_harness, name)
+    for name in ("diff_layer_states", "first_divergence")] + [
+    (port_bleu, jax_bleu, name) for name in ("_BleuStat", "BleuScorer")] + [
+    (port_edit_distance, jax_edit_distance, name)
+    for name in ("edit_distance", "edit_distance_batch", "edit_alignment")]
 
 
 @pytest.mark.parametrize("port,original,name", VERBATIM_COPIES,
@@ -284,3 +305,59 @@ def test_conversion_rules_equal(rule, tmp_path):
         torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
         _assert_tree_equal(port_convert.load_torch_state_dict(str(path)),
                            jax_convert.load_torch_state_dict(str(path)))
+
+
+def _sequences(rs, n, low=4, high=30):
+    return [rs.randint(0, 12, rs.randint(low, high)).tolist() for _ in range(n)]
+
+
+def test_bleu_copy_scores_equal():
+    """Corpus BLEU of seeded token sequences, every order and smoothing; the
+    port's library is built under build/."""
+    assert "build" in Path(port_bleu._SO).parts
+    rs = np.random.RandomState(0)
+    refs, preds = _sequences(rs, 20), _sequences(rs, 20)
+    preds[3] = refs[3]  # one exact match
+    preds[5] = [1, 2]  # shorter than every order but two
+    scorers = [module.BleuScorer() for module in (port_bleu, jax_bleu)]
+    for scorer in scorers:
+        for ref, pred in zip(refs, preds):
+            scorer.add(ref, pred)
+    got, want = scorers
+    assert got.precisions() == want.precisions() and got.brevity() == want.brevity()
+    for order in (1, 2, 4):
+        for smooth in ("none", "exp", "add-1"):
+            assert got.score(order, smooth) == want.score(order, smooth), (order, smooth)
+    assert 0.0 < got.score(4, "exp") < 100.0
+
+
+def test_edit_distance_copy_equal():
+    """Distances one by one and batched (padded), and the alignments, of
+    seeded sequences; the port's library is built under build/."""
+    assert "build" in Path(port_edit_distance._SO).parts
+    rs = np.random.RandomState(1)
+    a, b = _sequences(rs, 16, 0, 12), _sequences(rs, 16, 0, 12)
+    for x, y in zip(a, b):
+        assert port_edit_distance.edit_distance(x, y) == jax_edit_distance.edit_distance(x, y)
+        assert port_edit_distance.edit_alignment(x, y) == jax_edit_distance.edit_alignment(x, y)
+    pad = 1
+    width = max(len(s) for s in a + b) + 2
+    pa = np.full((16, width), pad, np.int32)
+    pb = np.full((16, width + 3), pad, np.int32)
+    for i, (x, y) in enumerate(zip(a, b)):
+        pa[i, :len(x)] = [v if v != pad else 0 for v in x]
+        pb[i, :len(y)] = [v if v != pad else 0 for v in y]
+    got = port_edit_distance.edit_distance_batch(pa, pb, pad_id=pad)
+    np.testing.assert_array_equal(got, jax_edit_distance.edit_distance_batch(pa, pb, pad_id=pad))
+    assert got.max() > 0
+
+
+def test_diff_harness_copy_reports_equal():
+    rs = np.random.RandomState(2)
+    want = rs.randn(5, 3, 8)
+    got = want + rs.randn(5, 3, 8) * np.array([0, 1e-7, 1e-3, 0.5, 2.0])[:, None, None]
+    names = [f"layer{i}" for i in range(5)]
+    reports = [m.diff_layer_states(got, want, names) for m in (port_diff_harness, jax_diff_harness)]
+    assert reports[0] == reports[1]
+    assert port_diff_harness.first_divergence(reports[0]) == \
+        jax_diff_harness.first_divergence(reports[1]) == reports[0][3]

@@ -5,8 +5,8 @@ at toy size (D 32, F 64, 4 heads, 4 layers, 64 px, window 2, 3 classes,
 
 - ``params_to_jax`` with the detector's ``jax_layout`` inverts
   ``params_from_jax`` on the detector tree (keys, shapes, values), for
-  global periods 2 and 4 and both proposers, bf16 leaves too; a trunk of
-  global layers only raises.
+  global periods 2, 4 and 1 (a trunk of global layers only, whose empty
+  windowed leaves the JAX tree keeps) and both proposers, bf16 leaves too.
 - ``init_detector_`` against ``OnePeaceDetector.init``: every leaf that the
   JAX init holds constant is equal; every random leaf lies within the bound
   of its JAX distribution, with a standard deviation within 10% of it.
@@ -94,10 +94,8 @@ def test_params_to_jax_inverts_params_from_jax_on_the_detector(proposer, period)
     det = OnePeaceDetector(proposer=proposer, device="cpu", **geometry)
     state = params_from_jax(params)
     det.load_state_dict(state, strict=True)
-    if period == 1:  # no windowed layers: their (groups, 0, ...) shapes are not in the state
-        with pytest.raises(NotImplementedError, match="global period 1"):
-            params_to_jax(state, **det.jax_layout())
-        return
+    # period 1 (no windowed layers) exports the JAX tree's empty
+    # (groups, 0, ...) windowed leaves from the model's shapes
     back = _flat(params_to_jax(state, **det.jax_layout()))
     assert sorted(back) == sorted(tree)
     assert "fpn/scale_4.0/up1/w" in back and "backbone/win_layers/gamma_1" in back
@@ -233,7 +231,8 @@ def test_cli_train_then_both_evaluates(corpus, capsys):
         "lr_scheduler.warmup_updates": "1", "common.log_interval": "1", "common.seed": "5",
         "common.log_file": f"{save_dir}/log.jsonl", "checkpoint.save_dir": str(save_dir),
         "checkpoint.save_interval": "1000"})
-    assert train.main(["--config", RECIPE, "--device", "cpu", *ov]) == 0
+    # one process: the recipe's fsdp: 8 needs torchrun
+    assert train.main(["--config", RECIPE, "--device", "cpu", *ov, "distributed.fsdp=1"]) == 0
     lines = [json.loads(x) for x in (save_dir / "log.jsonl").read_text().splitlines()]
     assert [x["step"] for x in lines if x["tag"] == "train_inner"] == [1, 2, 3]
     valid = [x for x in lines if x["tag"] == "valid"]

@@ -190,7 +190,8 @@ def test_detection_fp16_builds_a_trainer_and_steps():
                                    "model.encoder.ffn_embed_dim=64",
                                    "model.encoder.attention_heads=4", "task.image_size=64",
                                    "task.window_size=2", "task.num_classes=4",
-                                   "task.max_proposals=16", "common.fp16=true"])
+                                   "task.max_proposals=16", "common.fp16=true",
+                                   "distributed.fsdp=1"])  # one process
     det = CocoDetectionTask.build_model(cfg, device="cpu")
     fill_random_(det, torch.Generator().manual_seed(0))
     cfg.criterion._name = CocoDetectionTask.criterion_name

@@ -380,13 +380,24 @@ def test_task_train_batches_equal(corpus, side):
 
 
 def test_sharded_iterator_raises(corpus):
-    """One card is one shard: a sharded split has nothing to merge its
-    reducers' parts, so the port refuses it instead of under-counting."""
+    """A sharded split no longer raises: rank 1 of 2 gets the second
+    contiguous slice of each global batch (a ragged last batch splits as
+    evenly as it can), and the task's reducer is set to merge the ranks'
+    parts."""
     cfg = _framework_cfg(corpus, "image")
     task = build_task(cfg.task, cfg)
     task.load_dataset("valid")
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        task.get_batch_iterator("valid", 4, num_shards=2, shard_id=1)
+    whole = list(task.get_batch_iterator("valid", 4, ensure_equal_batch=False).next_epoch_itr())
+    assert task.metric.num_shards == 1
+    itr = task.get_batch_iterator("valid", 4, num_shards=2, shard_id=1, ensure_equal_batch=False)
+    assert task.metric.num_shards == 2 and itr.num_shards == 2 and len(itr) == len(whole)
+    got = list(itr.next_epoch_itr())
+    assert len(got) == len(whole)
+    for part, full in zip(got, whole):
+        n = len(full["id"])
+        first = n - n // 2
+        np.testing.assert_array_equal(part["id"], full["id"][first:])
+        np.testing.assert_array_equal(part["src_images"], full["src_images"][first:])
 
 
 def _host_embeddings(chunks) -> np.ndarray:

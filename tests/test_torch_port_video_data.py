@@ -60,7 +60,8 @@ def overrides(corpus, *extra):
 
 def configs(corpus, *extra):
     """The recipe with ``overrides`` in both packages."""
-    return (port_config.load_config(RECIPE, overrides(corpus, *extra)),
+    # the port's trainer runs in one process: the recipe's fsdp: 8 needs torchrun
+    return (port_config.load_config(RECIPE, overrides(corpus, *extra, "distributed.fsdp=1")),
             jax_config.load_config(RECIPE, overrides(corpus, *extra)))
 
 
@@ -196,7 +197,8 @@ def _train(corpus, save, *extra):
         corpus, f"checkpoint.save_dir={save}", f"common.log_file={save}/log.jsonl",
         "common.log_interval=1", "optimization.lr=1e-3", "lr_scheduler.warmup_updates=0",
         "lr_scheduler.warmup_ratio=0", "checkpoint.save_interval_updates=2",
-        "checkpoint.save_interval=1000", "dataset.validate_interval=1000", *extra)
+        "checkpoint.save_interval=1000", "dataset.validate_interval=1000",
+        "distributed.fsdp=1", *extra)  # one process: the recipe's fsdp: 8 needs torchrun
     assert port_train.main(argv) == 0
     return [json.loads(line) for line in (save / "log.jsonl").read_text().splitlines()]
 
@@ -266,4 +268,4 @@ def test_train_cli_without_a_card_raises(corpus, tmp_path):
 
     with pytest.raises((RuntimeError, AssertionError)):
         port_train.main(["--config", RECIPE] + overrides(
-            corpus, f"checkpoint.save_dir={tmp_path}"))
+            corpus, f"checkpoint.save_dir={tmp_path}", "distributed.fsdp=1"))

@@ -314,6 +314,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``train_inner`` losses and validation Recall held to the same arguments
    without torchrun, and its bundle resumed without torchrun (the next
    update's loss).
+24. model parallelism on one card, full width, bf16: (a) #1/#2 on every
+   ``tp`` rank's heads (tp 2, 4, 8) against the unsharded call and the
+   plain version; (b) the ring's step functions for every (rank, step) at
+   sp 2 and 4 against #1/#2 on the whole sequence; (c) the fusion encoder
+   at depth ``CUT_DEPTH`` split into stages and micro-batches, and through
+   its own pipeline route (``pipeline_forward`` over a one-rank NCCL group,
+   without and with the stage remat), against the serial stack.
 
 The CLI checks 13(b), 14(b), 15(c), 16(c) and 19(c) run at depth 2
 (resume, export and ``cli.evaluate`` do not depend on depth); 17(d) and
@@ -365,6 +372,8 @@ from one_peace_tpu_torch.ops import build
 from one_peace_tpu_torch.ops import det_attention as da
 from one_peace_tpu_torch.ops import flash_attention as fa
 from one_peace_tpu_torch.ops import int8_matmul as im
+from one_peace_tpu_torch.ops import ring_attention as ra
+from one_peace_tpu_torch.parallel import tensor_parallel as tpar
 from one_peace_tpu_torch.ops.attention import attention_plain
 from one_peace_tpu_torch.ops.preprocess import resize_normalize
 from one_peace_tpu_torch.ops.quant import quantize_ffn_
@@ -7130,6 +7139,301 @@ def check_torchrun_cli(data: dict, card: str, child: TorchrunCli) -> dict:
             "resume_gap": resume_gap, "torchrun_s": child.seconds}
 
 
+# ---------------------------------------------------------------------------
+# 24. model parallelism: #1/#2 on a TP rank's heads, the ring's steps, the
+# pipeline's stage split and route (one card: N > 1 runs on the CPU tests only)
+# ---------------------------------------------------------------------------
+
+TP_SHAPES = [  # (B, L, bias, what): the shared vl bias, pretraining's per-sample one
+    (32, 257, "shared", "vl image tower"),
+    (32, 124, "per-sample", "VL student, text pads"),
+]
+TP_SIZES = (2, 4, 8)
+RING_B, RING_L, RING_SIZES = 32, 500, (2, 4)  # audio's L = 500
+PIPE_B, PIPE_STAGES, PIPE_MICRO = 32, 2, 4
+
+
+def tp_key_bias(b: int, l: int, what: str, rng):
+    return pretrain_key_bias(b, l, what, rng) if "pads" in what else None
+
+
+def heads_of(x: torch.Tensor, rank: int, tp: int, heads: int = 24) -> torch.Tensor:
+    """Rank ``rank``'s heads of a (B, L, heads * 64) tensor, through the
+    port's slicing code (``tensor_parallel.chunk_of``)."""
+    b, l, _ = x.shape
+    return tpar.chunk_of(x.view(b, l, heads, 64), 2, rank, tp).view(b, l, heads // tp * 64)
+
+
+def check_tp_heads(card: str) -> tuple:
+    """Phase 24(a): at each of ``TP_SHAPES``, #1 with statistics and #2 with
+    d(bias) on every TP rank's heads for tp = 2, 4, 8 (12, 6, 3 heads), the
+    q/k/v/g and bias slices cut by ``tensor_parallel.chunk_of`` (the
+    per-sample bias's head slice is not contiguous in the whole; a shared
+    bias's is a view, aligned by ``flash_attention.kernel_bias`` as
+    ``flash_attention`` aligns it), the
+    ranks' results concatenated over heads against the unsharded kernel call
+    (whether bit-equal) and the plain version (phase 3's and 6's bounds);
+    then all ranks' calls (on their slices, cut beforehand) timed in turns
+    with the unsharded one, and each
+    rank's shape through ``time_attention_cases`` for #1/#2's rows.
+    Returns (forward rows, backward rows, launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(240)
+    rng = np.random.RandomState(240)
+    fa.launches = fa.bwd_launches = 0
+    for b, l, kind, what in TP_SHAPES:
+        q, k, v, g = (torch.randn(b, l, 24 * 64, generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(4))
+        bias = torch.randn(*((24, l, l) if kind == "shared" else (b, 24, l, l)),
+                           generator=gen, device="cuda")
+        key_bias = tp_key_bias(b, l, what, rng)
+        head_dim = 0 if kind == "shared" else 1
+        out, stats = fa.flash_attention_cuda(q, k, v, bias, key_bias, 0.125, 24, with_stats=True)
+        whole = (out,) + tuple(fa.flash_attention_bwd_cuda(q, k, v, g, bias, key_bias, 0.125, 24,
+                                                           stats=stats))
+        plain = (fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, key_bias,
+                                          0.125, 24),) + tuple(
+            fa.flash_attention_bwd_plain(q, k, v, g, bias, key_bias, 0.125, 24))
+        for tp in TP_SIZES:
+            h = 24 // tp
+
+            sliced = [[heads_of(x, r, tp) for x in (q, k, v, g)]
+                      + [fa.kernel_bias(tpar.chunk_of(bias, head_dim, r, tp))]
+                      for r in range(tp)]
+
+            def ranks(keep=True):
+                parts = []
+                for qr, kr, vr, gr, br in sliced:
+                    o, st = fa.flash_attention_cuda(qr, kr, vr, br, key_bias, 0.125, h,
+                                                    with_stats=True)
+                    grads = fa.flash_attention_bwd_cuda(qr, kr, vr, gr, br, key_bias, 0.125, h,
+                                                        stats=st)
+                    if keep:
+                        parts.append((o,) + tuple(grads))
+                return parts
+
+            parts = ranks()
+            got = [torch.cat([p[i].view(b, l, h, 64) for p in parts], 2).view(b, l, 24 * 64)
+                   for i in range(4)] + [torch.cat([p[4] for p in parts], head_dim)]
+            equal = [torch.equal(x, y) for x, y in zip(got, whole)]
+            fwd_err = (got[0].float() - plain[0]).abs()
+            rel = [((x.float() - y.float()).abs().max().item() / y.float().abs().max().item(),
+                    (x.float() - y.float()).abs().mean().item() / y.float().abs().mean().item())
+                   for x, y in zip(got[1:], plain[1:])]
+            t = in_turns({"ranks": lambda: ranks(keep=False),
+                          "whole": lambda: fa.flash_attention_bwd_cuda(
+                              q, k, v, g, bias, key_bias, 0.125, 24, stats=fa.flash_attention_cuda(
+                                  q, k, v, bias, key_bias, 0.125, 24, with_stats=True)[1])},
+                         iters=3)
+            log(f"24(a) B={b} L={l} {kind} bias, tp={tp} ({h} heads a rank) bf16: the ranks' "
+                f"out/dq/dk/dv/d(bias) concatenated bit-equal to the unsharded call: "
+                f"{equal}; forward vs plain max |d| {fwd_err.max().item():.3e} mean "
+                f"{fwd_err.mean().item():.3e}; backward max/mean relative "
+                f"{', '.join(f'{a:.2e}/{m:.2e}' for a, m in rel)}; forward + backward of all "
+                f"{tp} ranks {t['ranks']:.4f} ms, unsharded {t['whole']:.4f} ms (in turns; "
+                f"{card})")
+            if fwd_err.max().item() > BF16_MAX_ERR or fwd_err.mean().item() > BF16_MEAN_ERR:
+                raise RuntimeError(f"24(a) tp={tp} {what}: the forward on the ranks' heads "
+                                   "disagrees with the plain version")
+            if any(a > 2e-2 or m > 5e-3 for a, m in rel):
+                raise RuntimeError(f"24(a) tp={tp} {what}: the backward on the ranks' heads "
+                                   "disagrees with the plain version")
+            del parts, got, sliced
+        del q, k, v, g, bias, out, stats, whole, plain
+        torch.cuda.empty_cache()
+    launches = (fa.launches, fa.bwd_launches)
+    cases = [(b, l, 24 // tp, kind, f"{what}, tp={tp} rank ({24 // tp} heads)")
+             for b, l, kind, what in TP_SHAPES for tp in TP_SIZES]
+    fwd_rows, bwd_rows = time_attention_cases("24(a)", cases, card, 241, tp_key_bias)
+    return fwd_rows, bwd_rows, launches
+
+
+def check_ring_steps(card: str) -> None:
+    """Phase 24(b): ring attention's step functions
+    (``ops.ring_attention.forward_block`` / ``backward_block``, the
+    arithmetic each rank runs between two hops) for every (rank, step) in
+    turn at sp = 2 and 4, at audio's L=500, B=32, 24 heads, bf16 q/k/v,
+    the shared bias and key pads; the chunks assembled as the ring
+    assembles them, against #1/#2 on the whole sequence.  Bounds: phase 3's
+    bf16 ones on the output (max |d| 2e-2, mean 2e-3) and phase 6's
+    relative ones on dq/dk/dv/d(bias) (max 2e-2, mean 5e-3): the ring
+    computes in fp32 from the bf16 inputs, the kernels round their outputs
+    to bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(242)
+    b, l, h = RING_B, RING_L, 24
+    q, k, v, g = (torch.randn(b, l, h * 64, generator=gen, device="cuda", dtype=torch.bfloat16)
+                  for _ in range(4))
+    bias = torch.randn(h, l, l, generator=gen, device="cuda")
+    spec = ModelConfig().encoder.audio_adapter.feature_encoder_spec
+    pad = torch.zeros(b, l, dtype=torch.bool, device="cuda")
+    for row, seconds in enumerate(np.random.RandomState(242).uniform(5, 10, b)):
+        pad[row, 1 + conv_output_length(int(16000 * seconds), spec):] = True
+    key_bias = torch.zeros(b, l, device="cuda").masked_fill(pad, fa.NEG_INF)
+    out, stats = fa.flash_attention_cuda(q, k, v, bias, key_bias, 0.125, h, with_stats=True)
+    kernel = (out,) + tuple(fa.flash_attention_bwd_cuda(q, k, v, g, bias, key_bias, 0.125, h,
+                                                        stats=stats))
+    q4, k4, v4, g4 = (x.view(b, l, h, 64) for x in (q, k, v, g))
+    for sp in RING_SIZES:
+        lc = l // sp
+        chunk = [[tpar.chunk_of(x, 1, r, sp) for r in range(sp)] for x in (q4, k4, v4, g4)]
+        outs, lses, dq = [], [], []
+        dk = [torch.zeros(b, lc, h, 64, device="cuda") for _ in range(sp)]
+        dv = [torch.zeros(b, lc, h, 64, device="cuda") for _ in range(sp)]
+        dbias = torch.zeros(h, l, l, device="cuda")
+        for r in range(sp):
+            qf = chunk[0][r].float() * 0.125
+            state = ra.start_state(chunk[0][r])
+            for step in range(sp):
+                src = (r - step) % sp
+                state = ra.forward_block(state, qf, chunk[1][src], chunk[2][src], bias, pad, r, src)
+            o, lse = ra.finish_state(state)
+            outs.append(o)
+            do = chunk[3][r].float()
+            delta = (do * o).sum(-1).transpose(1, 2)
+            dq_r = torch.zeros_like(qf)
+            for step in range(sp):
+                src = (r - step) % sp
+                dq_part, dk_part, dv_part, tile = ra.backward_block(
+                    qf, do, delta, lse, chunk[1][src], chunk[2][src], bias, pad, r, src, 0.125)
+                dq_r += dq_part
+                dk[src] += dk_part
+                dv[src] += dv_part
+                dbias[:, r * lc:(r + 1) * lc, src * lc:(src + 1) * lc] = tile
+            dq.append(dq_r)
+        got = [torch.cat(x, 1).reshape(b, l, h * 64) for x in (outs, dq, dk, dv)] + [dbias]
+        fwd_err = (got[0] - kernel[0].float()).abs()
+        rel = [((x - y.float()).abs().max().item() / y.float().abs().max().item(),
+                (x - y.float()).abs().mean().item() / y.float().abs().mean().item())
+               for x, y in zip(got[1:], kernel[1:])]
+        qf0 = chunk[0][0].float() * 0.125
+        step_fwd = cuda_time_ms(lambda: ra.forward_block(ra.start_state(chunk[0][0]), qf0,
+                                                         chunk[1][0], chunk[2][0], bias, pad, 0,
+                                                         0), iters=3)
+        log(f"24(b) ring sp={sp} (chunks of {lc}) B={b} L={l} H={h}, shared bias, key pads: "
+            f"the {sp}x{sp} (rank, step) blocks vs #1 on the whole sequence max |d| "
+            f"{fwd_err.max().item():.3e} mean {fwd_err.mean().item():.3e} (bound "
+            f"{BF16_MAX_ERR:.0e} / {BF16_MEAN_ERR:.0e}); vs #2 dq/dk/dv/d(bias) max/mean "
+            f"relative {', '.join(f'{a:.2e}/{m:.2e}' for a, m in rel)} (bound 2e-2 / 5e-3); "
+            f"one forward step (plain torch, fp32) {step_fwd:.3f} ms ({card})")
+        if fwd_err.max().item() > BF16_MAX_ERR or fwd_err.mean().item() > BF16_MEAN_ERR:
+            raise RuntimeError(f"24(b) sp={sp}: the ring's forward steps disagree with #1")
+        if any(a > 2e-2 or m > 5e-3 for a, m in rel):
+            raise RuntimeError(f"24(b) sp={sp}: the ring's backward steps disagree with #2")
+        del chunk, outs, dq, dk, dv, dbias, got, fwd_err
+        torch.cuda.empty_cache()
+
+
+def check_pipeline_split(gen, card: str) -> tuple:
+    """Phase 24(c): the vl step's batch (B=32: 256 px images, L=257; 70-token
+    texts with pads, L=71) through the fusion encoder at depth ``CUT_DEPTH``,
+    bf16, against the serial stack (#1/#2 at B=32): each tower's output and
+    every layer parameter's gradient under a seeded linear loss, for
+    - "split": each of ``PIPE_STAGES`` stages' ``FusionEncoder.stage_fn`` on
+      each of ``PIPE_MICRO`` micro-batches in turn (#1/#2 at B=8, the
+      padding mask micro-sliced);
+    - "pipeline" and "pipeline, remat": the encoder's own pipeline route
+      (``FusionEncoder.enable_pipeline``, ``_pipelined``, ``pipeline_forward``)
+      over a one-rank NCCL group: one stage of every layer, ``PIPE_MICRO``
+      micro-batches, the output broadcast over the group, the backward
+      through ``torch.autograd.grad`` of the stage's leaves, without and with
+      ``checkpoint_stages``.
+    Returns the launches (#1, #2) of the pipeline route's two runs, counted
+    from 0 around them."""
+    from one_peace_tpu_torch.parallel.pipeline import micro_batches
+
+    cfg = train_config(layers=CUT_DEPTH, bf16=True, remat=False, drop_path=0.0)
+    model = fill_random_(OnePeaceRetrievalModel(cfg.model, device="cuda"),
+                         torch.Generator(device="cuda").manual_seed(243)).to(torch.bfloat16)
+    wrapper, fusion = model.encoder_wrapper, model.encoder_wrapper.fusion
+    for p in fusion.layers.parameters():
+        p.requires_grad_(True)
+    batch = train_batch(cfg, gen, PIPE_B)
+    n = CUT_DEPTH
+    per = n // PIPE_STAGES
+    stages = [list(range(s * per, (s + 1) * per)) for s in range(PIPE_STAGES)]
+    params = list(fusion.layers.parameters())
+    bounds = micro_batches(PIPE_B, PIPE_MICRO)
+    rates, seeds, keep = np.zeros(n, np.float32), [None] * n, [True] * n
+    towers = []
+    with torch.no_grad():
+        towers.append(("text", wrapper.text_adapter(batch["src_tokens"], None, None, None,
+                                                    deterministic=True, generator=None)))
+        towers.append(("image", wrapper.image_adapter(
+            batch["src_images"].to(torch.bfloat16), None, None, None, False, deterministic=True,
+            generator=None)))
+
+    def run(path):
+        outs = []
+        for tower, (x, pad, bias) in towers:
+            x = x * (1.0 - pad[..., None].to(x.dtype))
+            key_mask = pad if bool(pad.any()) else None
+            split_lens = (x.shape[1], 0, 0) if tower == "text" else (0, x.shape[1], 0)
+            if path == "serial":
+                outs.append(fusion._serial(x, key_mask, bias, False, tower, split_lens, rates,
+                                           True, seeds, keep, None))
+                continue
+            if path != "split":
+                outs.append(fusion._pipelined(x, key_mask, bias, False, tower, split_lens,
+                                              rates, True, seeds, keep))
+                continue
+            fns = [fusion.stage_fn(owned, PIPE_MICRO, PIPE_B, False, False, tower, split_lens,
+                                   rates, True, seeds, keep) for owned in stages]
+            stage_params = [[p for i in owned for _, p in fusion.layers[i].named_parameters()]
+                            for owned in stages]
+            rows = []
+            for m, (start, count) in enumerate(bounds):
+                h = x[start:start + count]
+                aux = (None if key_mask is None else key_mask[start:start + count], None)
+                for fn, ps in zip(fns, stage_params):
+                    h = fn(m, h, aux, (bias[0],), ps)
+                rows.append(h)
+            outs.append(torch.cat(rows))
+        weights = [torch.randn(o.shape, generator=torch.Generator(device="cuda").manual_seed(
+            244 + i), device="cuda") for i, o in enumerate(outs)]
+        loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return [o.detach() for o in outs], grads
+
+    import torch.distributed as dist
+
+    results = {path: run(path) for path in ("serial", "split")}
+    launches = {}
+    with one_rank_group():
+        fusion.enable_pipeline(tpar.Shard(dist.group.WORLD, 0, 1), [0], PIPE_MICRO)
+        for path, remat in (("pipeline", False), ("pipeline, remat", True)):
+            fusion.cfg.checkpoint_activations = remat
+            fa.launches = fa.bwd_launches = 0
+            results[path] = run(path)
+            launches[path] = (fa.launches, fa.bwd_launches)
+        fusion.cfg.checkpoint_activations = False
+        fusion.pipeline = None
+    out_s, grads_s = results["serial"]
+    for path in ("split", "pipeline", "pipeline, remat"):
+        out_p, grads_p = results[path]
+        out_cos = min(min_cosine(a.flatten(1), b.flatten(1)) for a, b in zip(out_s, out_p))
+        grad_cos = min(torch.nn.functional.cosine_similarity(
+            a.double().flatten(), b.double().flatten(), dim=0).item()
+            for a, b in zip(grads_s, grads_p))
+        got = launches.get(path)
+        # two towers, every layer, every micro-batch; the remat runs the
+        # forward again in the backward
+        want = None if got is None else (2 * n * PIPE_MICRO * (2 if "remat" in path else 1),
+                                         2 * n * PIPE_MICRO)
+        log(f"24(c) {path}: {PIPE_STAGES if path == 'split' else 1} stage(s) x {PIPE_MICRO} "
+            f"micro-batches of {PIPE_B // PIPE_MICRO} at depth {n}, bf16, text L=71 with pads "
+            f"and image L=257: outputs vs the serial stack min row cosine {out_cos:.6f}; layer "
+            f"parameters' gradients min cosine {grad_cos:.6f} over {len(grads_p)}"
+            + ("" if got is None else f"; launches #1 {got[0]}, #2 {got[1]} (expected {want})")
+            + f" ({card})")
+        if got is not None and got != want:
+            raise RuntimeError(f"24(c) {path} ran #1/#2 {got} times, not {want}")
+        if out_cos < 0.9999 or grad_cos < 0.999:
+            raise RuntimeError(f"24(c) {path} disagrees with the serial stack")
+    del model, results
+    torch.cuda.empty_cache()
+    return tuple(sum(c[i] for c in launches.values()) for i in range(2))
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -7150,7 +7454,7 @@ def main() -> None:
 
 def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep,
                torchrun: "TorchrunCli") -> None:
-    """Phases 2-23 (10 after 17) and the two last lines."""
+    """Phases 2-24 (10 after 17) and the two last lines."""
 
     def mark(phase: str) -> None:
         """Log the phase's wall time and the script's so far."""
@@ -7540,6 +7844,25 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep,
         f"{par_det_bwd}; the phase took {time.time() - t23:.1f} s")
     mark("23(c)")
 
+    # 24. model parallelism on one card: #1/#2 on every TP rank's heads at
+    # tp = 2, 4, 8 against the unsharded call and the plain version (24(a));
+    # the ring's step functions for every (rank, step) at sp = 2, 4 against
+    # #1/#2 on the whole sequence (24(b)); the pipeline's stage split and
+    # its route over a one-rank NCCL group against the serial stack, the
+    # route's launches counted from 0 (24(c))
+    t24 = time.time()
+    tp_fwd_rows, tp_bwd_rows, tp_launches = check_tp_heads(card)
+    fwd_times["shapes"].update(tp_fwd_rows)
+    bwd_times["shapes"].update(tp_bwd_rows)
+    mark("24(a)")
+    check_ring_steps(card)
+    mark("24(b)")
+    pipe_fwd, pipe_bwd = check_pipeline_split(gen, card)
+    log(f"24 launches: #1 {tp_launches[0]}, #2 {tp_launches[1]} on the TP ranks' heads (checks); "
+        f"#1 {pipe_fwd}, #2 {pipe_bwd} in the pipeline route's two runs; the phase took "
+        f"{time.time() - t24:.1f} s")
+    mark("24(c)")
+
     imported = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                       or m == "one_peace_tpu" or m.startswith("one_peace_tpu."))
     if imported:
@@ -7565,10 +7888,10 @@ def run_phases(card: str, clock: list, golden_state: GoldenState, prep: Prep,
     log(json.dumps({"kernels": [
         entry("flash_attention_fwd", "one_peace_tpu/ops/flash_attention.py:239",
               embed_launches + fwd_train + cli_fwd + cls_fwd + pre_fwd + seg_fwd + seg_train_fwd
-              + vid_fwd + rest_fwd + par_fwd, worst, fwd_times),
+              + vid_fwd + rest_fwd + par_fwd + pipe_fwd, worst, fwd_times),
         entry("flash_attention_bwd", "one_peace_tpu/ops/flash_attention.py:409",
               bwd_train + cli_bwd + cls_bwd + pre_bwd + seg_train_bwd + vid_bwd + rest_bwd
-              + par_bwd, bwd_worst, bwd_times),
+              + par_bwd + pipe_bwd, bwd_worst, bwd_times),
         entry("int8_matmul", "one_peace_tpu/ops/quant_pallas.py:75",
               int8_launches["gemm"] + cls_int8["gemm"], int8_worst["gemm"], gemm),
         quantize,

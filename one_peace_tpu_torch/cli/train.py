@@ -74,10 +74,15 @@ best export, and preemption-safe resume, on one card.
   models a ``--user-dir`` plugin registers.
 - **Processes.** Under ``torchrun`` (``--nproc_per_node N``) each process
   drives one card (``cuda:LOCAL_RANK``, NCCL; gloo with ``--device cpu``)
-  and the recipe's ``distributed`` section is the mesh: ``dp`` x ``fsdp``
-  must be the number of processes (``dp: -1`` takes what ``fsdp`` leaves),
-  and the trainer shards the parameters over ``fsdp`` with FSDP2
-  (``parallel/``).  ``tp``, ``pp`` and ``sp`` above 1 are refused.  Without
+  and the recipe's ``distributed`` section is the mesh: ``pp`` x ``dp`` x
+  ``fsdp`` x ``tp`` x ``sp`` must be the number of processes (``dp: -1``
+  takes what the others leave).  The trainer shards the parameters over
+  ``fsdp`` with FSDP2, splits the fusion encoder's heads and FFN width over
+  ``tp``, its layers over ``pp`` (GPipe with ``pp_micro_batches``), and runs
+  ring attention over ``sp`` under ``model.encoder.attn_impl=ring``
+  (``parallel/``).  The batch is split over the data ranks (``dp`` x
+  ``fsdp``) only: the ``tp``, ``sp`` and ``pp`` ranks of one data rank
+  take the same rows.  Without
   ``torchrun`` one process runs, and a recipe that sets ``fsdp: 8`` (the
   detection, segmentation, pretraining, K400 and 4B fine-tuning recipes)
   raises unless it is given ``distributed.fsdp=1``.  Rank 0 alone logs,
@@ -309,8 +314,8 @@ def main(argv: Optional[list] = None) -> int:
     from ..core.config import load_config
     from ..core.metrics import ProgressLogger, aggregate, build_sinks, log_scalar
     from ..criterions import build_criterion
-    from ..parallel.mesh import (close_distributed, init_distributed, local_device,
-                                 mesh_shape)
+    from ..parallel.mesh import (close_distributed, data_rank_world, init_distributed,
+                                 local_device, mesh_shape)
     from ..tasks import build_task
     from ..trainer import Trainer
     from ..utils import native_checkpoint as ckpt
@@ -333,6 +338,7 @@ def main(argv: Optional[list] = None) -> int:
     model = build_model_for_task(cfg, task, device)
     load_weights(cfg, model, device)
     trainer = Trainer(cfg, model, criterion)
+    data_rank, data_ranks = data_rank_world()  # the trainer opened the layout
 
     if main_rank:
         progress = ProgressLogger(cfg.common.log_format, cfg.common.log_interval,
@@ -345,7 +351,7 @@ def main(argv: Optional[list] = None) -> int:
         progress = inner_progress = valid_progress = _Silent()
     itr = task.get_batch_iterator(
         "train", cfg.dataset.batch_size, seed=cfg.common.seed,
-        shard_id=rank, num_shards=world,
+        shard_id=data_rank, num_shards=data_ranks,
         ensure_equal_batch=cfg.dataset.ensure_equal_batch,
         skip_remainder_batch=cfg.optimization.skip_remainder_batch)
     best = {"value": None}

@@ -8,7 +8,9 @@
   (the merge of counter-style reducers); the identity with one process.
 
 Both go through ``torch.distributed`` (``all_gather_object``: NCCL on the
-card, gloo on the CPU) and fail if a collective does.
+card, gloo on the CPU) over the data ranks (``parallel.mesh.data_group``:
+a ``tp``, ``sp`` or ``pp`` replica scored the same rows and is not merged
+again), and fail if a collective does.
 
 The JAX reducers gather only when a global that nothing sets says the data
 was process-sharded.  Here the merge keys on the ``num_shards`` of the
@@ -23,9 +25,11 @@ from __future__ import annotations
 import numpy as np
 import torch.distributed as dist
 
+from ..parallel.mesh import data_group, data_rank_world
+
 
 def _world() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
+    return data_rank_world()[1]
 
 
 def gather_ragged(local: np.ndarray) -> np.ndarray:
@@ -36,7 +40,7 @@ def gather_ragged(local: np.ndarray) -> np.ndarray:
     if _world() == 1:
         return local
     parts = [None] * _world()
-    dist.all_gather_object(parts, local)
+    dist.all_gather_object(parts, local, group=data_group())
     parts = [np.asarray(p) for p in parts if np.asarray(p).size]
     return np.concatenate(parts) if parts else local
 
@@ -48,7 +52,7 @@ def allsum(local) -> np.ndarray:
     if _world() == 1:
         return local
     parts = [None] * _world()
-    dist.all_gather_object(parts, local)
+    dist.all_gather_object(parts, local, group=data_group())
     return np.sum(np.stack([np.asarray(p) for p in parts]), axis=0)
 
 

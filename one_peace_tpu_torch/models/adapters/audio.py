@@ -103,6 +103,7 @@ class AudioAdapter(nn.Module):
         self.layernorm_embedding = LayerNorm(d, **kw) if cfg.layernorm_embedding else None
         self.cls_embedding = empty_param(1, 1, d, **kw)
         self.type_embedding = empty_param(1, 1, d, **kw) if cfg.add_type_embedding else None
+        self.tp = None  # this rank's heads under tensor parallelism
         self.rel_pos_table = None
         if cfg.use_attn_bias:
             num_rel_dis = 2 * cfg.bucket_size - 1 + 3
@@ -169,7 +170,7 @@ class AudioAdapter(nn.Module):
             raise ValueError(
                 f"audio sequence of {seq_len} frames exceeds the rel-pos table "
                 f"({self.rp_bucket.shape[0]} positions)")
-        return gather_rel_bias(self.rel_pos_table, self.rp_bucket[:seq_len, :seq_len])
+        return gather_rel_bias(self.rel_pos_table, self.rp_bucket[:seq_len, :seq_len], tp=self.tp)
 
     def forward(self, src_audios: torch.Tensor, padding_mask: torch.Tensor,
                 preserve_ids: Optional[torch.Tensor] = None,
@@ -196,7 +197,8 @@ class AudioAdapter(nn.Module):
                     preserve_ids, None if self.rel_pos_table is None else self.rp_bucket)
                 # the ids index CLS + frames: frame i is row i - 1 of feats
                 feats = gather_rows(feats, (pos[:, 1:] - 1).clamp(0, feats.shape[1] - 1))
-                rel_bias = None if idx is None else gather_rel_bias(self.rel_pos_table, idx)
+                rel_bias = None if idx is None else gather_rel_bias(
+                    self.rel_pos_table, idx, tp=self.tp)
             pos_embed = torch.cat([self.cls_pos_embed.expand(bsz, 1, self.embed_dim),
                                    self.conv_pos_embed(feats)], dim=1)
             x = torch.cat([self.cls_embedding.expand(bsz, 1, self.embed_dim), feats], dim=1)

@@ -63,6 +63,7 @@ class ImageAdapter(nn.Module):
         self.layernorm_embedding = LayerNorm(d, **kw) if cfg.layernorm_embedding else None
         self.type_embedding = empty_param(1, 1, d, **kw) if cfg.add_type_embedding else None
         self.type_embedding_2 = empty_param(1, 1, d, **kw) if cfg.add_type_embedding else None
+        self.tp = None  # this rank's heads under tensor parallelism
         self.rel_pos_table = None
         if cfg.use_attn_bias:
             num_rel_dis = (2 * cfg.rel_bucket_size - 1) ** 2 + 3
@@ -115,8 +116,8 @@ class ImageAdapter(nn.Module):
             return None
         if table is not None:
             return gather_rel_bias(self.rel_pos_table[table:table + 1], self.rp_bucket,
-                                   self.rp_sums)[0]
-        return gather_rel_bias(self.rel_pos_table, self.rp_bucket, self.rp_sums)
+                                   self.rp_sums, tp=self.tp)[0]
+        return gather_rel_bias(self.rel_pos_table, self.rp_bucket, self.rp_sums, tp=self.tp)
 
     def forward(self, src_images: torch.Tensor, preserve_ids: Optional[torch.Tensor] = None,
                 preserve_embed: Optional[torch.Tensor] = None,
@@ -155,7 +156,8 @@ class ImageAdapter(nn.Module):
                 padding_mask, pos, idx = student_positions(
                     preserve_ids, None if self.rel_pos_table is None else self.rp_bucket)
                 x, pos_embed = gather_rows(x, pos), gather_rows(pos_embed, pos)
-                rel_bias = None if idx is None else gather_rel_bias(self.rel_pos_table, idx)
+                rel_bias = None if idx is None else gather_rel_bias(
+                    self.rel_pos_table, idx, tp=self.tp)
             if self.layernorm_embedding is not None:
                 x = self.layernorm_embedding(x)
             x = shrink(x, cfg.shrink_alpha)

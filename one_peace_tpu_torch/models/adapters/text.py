@@ -41,6 +41,7 @@ class TextAdapter(nn.Module):
                                     if cfg.layernorm_embedding else None)
         self.type_embedding = (empty_param(1, 1, embed_dim, **kw)
                                if cfg.add_type_embedding else None)
+        self.tp = None  # this rank's heads under tensor parallelism
         self.rel_pos_table = None
         if cfg.use_attn_bias:
             num_rel_dis = 2 * cfg.bucket_size - 1 + 3
@@ -54,7 +55,7 @@ class TextAdapter(nn.Module):
         """(tables, H, L, L) fp32, or None."""
         if self.rel_pos_table is None:
             return None
-        return gather_rel_bias(self.rel_pos_table, self.rp_bucket[:seq_len, :seq_len])
+        return gather_rel_bias(self.rel_pos_table, self.rp_bucket[:seq_len, :seq_len], tp=self.tp)
 
     def forward(self, src_tokens: torch.Tensor, preserve_ids: Optional[torch.Tensor] = None,
                 preserve_embed: Optional[torch.Tensor] = None,
@@ -85,7 +86,8 @@ class TextAdapter(nn.Module):
                 padding_mask, pos, idx = student_positions(
                     preserve_ids, None if self.rel_pos_table is None else self.rp_bucket)
                 x, pos_embed = gather_rows(x, pos), gather_rows(pos_embed, pos)
-                rel_bias = None if idx is None else gather_rel_bias(self.rel_pos_table, idx)
+                rel_bias = None if idx is None else gather_rel_bias(
+                    self.rel_pos_table, idx, tp=self.tp)
             if self.layernorm_embedding is not None:
                 x = self.layernorm_embedding(x)
             x = shrink(x, self.cfg.shrink_alpha)

@@ -244,7 +244,8 @@ class _BucketGather(torch.autograd.Function):
 
 
 def gather_rel_bias(table: torch.Tensor, idx: torch.Tensor,
-                    sums: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                    sums: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    tp=None) -> torch.Tensor:
     """A (tables, R, H) rel-pos table gathered at (L, L) bucket indices, as
     contiguous fp32 (tables, H, L, L), or at a student pass's per-sample
     (B, P, P) indices, as (tables, B, H, P, P): contiguous once here, so the
@@ -253,7 +254,14 @@ def gather_rel_bias(table: torch.Tensor, idx: torch.Tensor,
     planes in place: gathering (L, L, H) rows and transposing them cost ~12
     ms a table at L = 3137 on an H100.  With ``sums`` (``bucket_order`` of
     ``idx``) its backward is a sum per bucket instead of the index
-    backward."""
+    backward.  Under tensor parallelism (``tp``, a ``tensor_parallel.Shard``)
+    this rank's heads of the replicated table are taken first
+    (``slice_from``: the table's gradient is all-gathered), so that only
+    they are gathered."""
+    if tp is not None:
+        from ..parallel.tensor_parallel import slice_from
+
+        table = slice_from(table, 2, tp)
     if idx.ndim == 2:
         if sums is not None:
             return _BucketGather.apply(table.float(), idx, *sums)
@@ -311,17 +319,24 @@ def generator_on(generator: Optional[torch.Generator], device) -> Optional[torch
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
     """Inverted dropout: keep with probability 1 - rate, scale by 1 / keep.
     Identity when deterministic or at rate 0; otherwise ``generator`` (on
     x's device) draws the mask (for the global batch across data ranks,
-    ``parallel.data.batch_rand``)."""
+    ``parallel.data.batch_rand``).  With ``shard`` (a
+    ``tensor_parallel.Shard``) x's last axis is this rank's part of one that
+    many times wider: the mask is drawn for the whole width and cut."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout with rate > 0 needs a generator when not deterministic")
     keep = 1.0 - rate
-    mask = batch_rand(x.shape, generator, x.device) < keep
+    if shard is not None and shard.size > 1:
+        n = x.shape[-1]
+        full = batch_rand(tuple(x.shape[:-1]) + (n * shard.size,), generator, x.device)
+        mask = full.narrow(-1, shard.rank * n, n) < keep
+    else:
+        mask = batch_rand(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -30,6 +30,7 @@ from .adapters.text import TextAdapter
 from .components import (LayerNorm, Linear, dropout, empty_param, gelu, generator_on,
                          split_generator)
 from .encoder import FusionEncoder
+from ..parallel.tensor_parallel import column_linear
 
 ENCODER_TYPES = ("text", "image", "audio", "vl", "al", "val")
 
@@ -79,6 +80,14 @@ class ModelWrapper(nn.Module):
                                            remat=cfg.checkpoint_activations, **kw)
                               if cfg.use_audio_moe else None)
         self.fusion = FusionEncoder(cfg, use_text_norm, use_image_norm, use_audio_norm, **kw)
+
+    def enable_pipeline(self, shard, ranks, num_micro_batches: int) -> List[str]:
+        """Pipeline the fusion encoder (``FusionEncoder.enable_pipeline``);
+        returns the name prefixes of the parameters that run before it (the
+        adapters), whose gradients each stage holds a part of."""
+        self.fusion.enable_pipeline(shard, ranks, num_micro_batches)
+        return [f"{mod}_adapter." for mod in ("text", "image", "audio")
+                if getattr(self, f"{mod}_adapter") is not None]
 
     def forward(
         self,
@@ -174,6 +183,7 @@ class OnePeaceRetrievalModel(nn.Module):
         self.image_proj = Linear(d, d, **kw) if enc.use_image_moe else None
         self.audio_proj = Linear(d, d, **kw) if enc.use_audio_moe else None
         self.logit_scale = empty_param((), device=device, dtype=torch.float32)
+        self.tp_heads = None  # a tensor_parallel.Shard: the heads' rows of this rank
 
     def logit_scale_exp(self) -> torch.Tensor:
         """exp(logit_scale) with the value clamped to [0, ln 100] and the
@@ -200,7 +210,8 @@ class OnePeaceRetrievalModel(nn.Module):
             audio_padding_masks=audio_padding_masks, encoder_type=encoder_type,
             deterministic=deterministic, generator=generator)
         feats = {"text": text_f, "image": image_f, "audio": audio_f}[encoder_type]
-        out = getattr(self, f"{encoder_type}_proj")(feats[:, 0])
+        out = column_linear(feats[:, 0], getattr(self, f"{encoder_type}_proj"), self.tp_heads,
+                            gather=True)
         outf = out.float()
         return (outf / torch.linalg.vector_norm(outf, dim=-1, keepdim=True)).to(out.dtype)
 

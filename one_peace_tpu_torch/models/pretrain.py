@@ -35,6 +35,7 @@ from ..core.config import ModelConfig
 from ..core.registry import MODELS
 
 from ..utils.checkpoint import _to_torch, model_to_jax, params_from_jax
+from ..parallel.tensor_parallel import column_linear
 from .components import Linear, empty_param, split_generator
 from .one_peace import ModelWrapper
 
@@ -68,6 +69,7 @@ class OnePeacePretrainModel(nn.Module):
             setattr(self, f"decoder_{mod}_embed", Linear(d, dd, **kw) if both else None)
             setattr(self, f"{mod}_mask_token", empty_param(1, dd, **kw) if both else None)
             setattr(self, f"{mod}_mask_head", Linear(dd, d, **kw) if both else None)
+        self.tp_heads = None  # a tensor_parallel.Shard: the heads' rows of this rank
 
     def logit_scale_exp(self) -> torch.Tensor:
         """exp(logit_scale) with the value clamped to [0, ln 100] and the
@@ -119,7 +121,8 @@ class OnePeacePretrainModel(nn.Module):
 
         if encoder_type in MODALITIES:
             feats = enc[encoder_type]
-            out = getattr(self, f"{encoder_type}_proj")(feats[:, 0])
+            out = column_linear(feats[:, 0], getattr(self, f"{encoder_type}_proj"),
+                                self.tp_heads, gather=True)
             outf = out.float()
             logits = (outf / torch.linalg.vector_norm(outf, dim=-1, keepdim=True)).to(out.dtype)
             return logits, feats

@@ -375,6 +375,15 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None, None, None
 
 
+def kernel_bias(rel_bias: torch.Tensor) -> torch.Tensor:
+    """``rel_bias`` as the kernels take it: fp32, contiguous, 16-byte
+    aligned (a layer's table of a per-layer stack, or a ``tp`` rank's heads
+    of a shared bias, is a view that may start at an odd L off alignment:
+    copied then)."""
+    rel_bias = rel_bias.float().contiguous()
+    return rel_bias.clone() if rel_bias.data_ptr() % 16 else rel_bias
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -394,7 +403,7 @@ def flash_attention(
                                device=key_padding_mask.device)
         key_bias.masked_fill_(key_padding_mask, NEG_INF)
     if rel_bias is not None:
-        rel_bias = rel_bias.float().contiguous()
+        rel_bias = kernel_bias(rel_bias)
     out = FlashAttentionFunction.apply(q3, k3, v3, rel_bias, key_bias, scaling, h,
                                        torch.is_grad_enabled())
     return out.reshape(b, l, h, d)

@@ -19,7 +19,10 @@ what depends on the whole batch come out as on one process:
   are those of one process running the whole batch.
 
 Outside ``batch_rows`` (one process, or evaluation) each is the plain local
-computation.
+computation.  The ranks are the data ranks (``mesh.data_group``): a ``tp``,
+``sp`` or ``pp`` replica of a rank holds the same rows and is not counted
+again.  ``Rows.micro`` narrows the layout to a pipeline micro-batch's rows,
+so that its draws are those rows' draws of the whole batch.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .mesh import data_group
 
 _STATE = threading.local()
 
@@ -49,6 +54,12 @@ class Rows:
     def share(self) -> float:
         """This rank's share of the global batch, ``b_r / B``."""
         return self.local / self.total
+
+    def micro(self, start: int, count: int) -> "Rows":
+        """The ``count`` rows from ``start`` of this rank's rows, as the one
+        rank between the rows before and after them."""
+        before = self.offset + start
+        return Rows([before, count, self.total - before - count], 1)
 
 
 def current_rows() -> Optional[Rows]:
@@ -101,7 +112,7 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     padded = x.new_zeros((width,) + tuple(x.shape[1:]))
     padded[:x.shape[0]] = x
     parts = [torch.empty_like(padded) for _ in rows.sizes]
-    dist.all_gather(parts, padded)
+    dist.all_gather(parts, padded, group=data_group())
     return torch.cat([p[:n] for p, n in zip(parts, rows.sizes)])
 
 
@@ -112,7 +123,7 @@ def all_sum(x: torch.Tensor) -> torch.Tensor:
     if rows is None or len(rows.sizes) == 1:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=data_group())
     return out
 
 

@@ -12,8 +12,13 @@ trunk stacks its windowed layers on two axes (``win_layers``: groups,
 period - 1), so no rule reaches them: ``param_specs`` leaves those layers
 replicated as the JAX package does, and shards the global ones.
 
-The ``tp`` entries are kept for the model-parallel slice; this slice places
-the ``fsdp`` entries only.  ``shard_model`` applies them with FSDP2:
+The ``tp`` entries are placed by ``tensor_parallel.shard_model_``: each
+rank keeps its slice along the rule's ``tp`` dimension.  Under a pipeline
+the fusion encoder's layers are split over ``pp`` and nothing else is (the
+pretrain decoder stays whole, as in JAX); a stage's layers stay outside
+FSDP (``shard_model``'s ``exclude``): replicated over the data ranks, their
+gradients all-reduced by the trainer.  ``shard_model`` applies the ``fsdp``
+entries with FSDP2 over the *data* sub-mesh (``dp`` x ``fsdp``) only:
 ``fully_shard`` on each layer of a stack (the fusion encoder's, the pretrain
 decoder's, the detection, segmentation and video trunks'), then on the root,
 over the mesh's (``dp``, ``fsdp``) dimensions (HSDP: sharded over ``fsdp``,
@@ -83,6 +88,16 @@ def spec_for_path(path: str, ndim: int) -> Spec:
     return ()
 
 
+_PIPELINED = re.compile(r"(^|\.)encoder_wrapper\.fusion\.layers\.\d+\.")
+
+
+def pipelined_params(model: nn.Module) -> Set[str]:
+    """The parameters a pipeline splits over ``pp`` (the JAX ``_with_pp``):
+    the fusion encoder's layers, not the pretrain decoder's nor a vision
+    trunk's."""
+    return {name for name, _ in model.named_parameters() if _PIPELINED.search(name)}
+
+
 def windowed_layers(model: nn.Module) -> Set[str]:
     """The module paths of the detection trunk's windowed layers (every layer
     of a ``jax_layout`` period but its last, the global one)."""
@@ -121,16 +136,16 @@ def layer_units(model: nn.Module) -> List[nn.Module]:
 
 
 def shard_model(root: nn.Module, model: nn.Module, mesh, param_dtype: Optional[torch.dtype],
-                shard_params: bool = True) -> Set[str]:
+                shard_params: bool = True, exclude: Set[str] = frozenset()) -> Set[str]:
     """Apply FSDP2 to ``model`` (inside ``root``, the module whose forward
     runs the whole loss) by the rules; returns the names of the replicated
-    parameters, which FSDP leaves alone.  ``param_dtype``: the compute
-    dtype FSDP gathers the parameters in (None keeps fp32); gradients are
-    reduced in fp32."""
+    parameters, which FSDP leaves alone (those in ``exclude`` among them).
+    ``param_dtype``: the compute dtype FSDP gathers the parameters in (None
+    keeps fp32); gradients are reduced in fp32."""
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor import Shard
 
-    dims = fsdp_dims(model, shard_params)
+    dims = {n: d for n, d in fsdp_dims(model, shard_params).items() if n not in exclude}
     replicated = {name for name, _ in model.named_parameters() if name not in dims}
     if not dims:
         return replicated
@@ -141,7 +156,8 @@ def shard_model(root: nn.Module, model: nn.Module, mesh, param_dtype: Optional[t
     hsdp = mesh["dp", "fsdp"]
     kw = dict(mesh=hsdp, mp_policy=mp, shard_placement_fn=placement.get)
     for unit in layer_units(model):
-        fully_shard(unit, ignored_params=ignored & set(unit.parameters()), **kw)
+        if any(p in placement for p in unit.parameters()):
+            fully_shard(unit, ignored_params=ignored & set(unit.parameters()), **kw)
     fully_shard(root, ignored_params=ignored, **kw)
     for unit in fsdp_modules(root):  # each rank's loss is its share: sum the gradients
         unit.set_gradient_divide_factor(1.0)

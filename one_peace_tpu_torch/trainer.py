@@ -73,6 +73,26 @@ over its mesh:
   by parameter name, and ``load_state_dict`` takes such a bundle at any
   number of ranks.
 
+Model parallelism over the layout's other axes (``parallel.mesh.Layout``):
+
+- ``tp``: ``tensor_parallel.shard_model_`` cuts the model to this rank's
+  slices before FSDP wraps it (FSDP then shards the slices over ``fsdp``);
+- ``pp``: the model's ``enable_pipeline`` keeps this stage's layers, which
+  stay outside FSDP (replicated over the data ranks);
+- ``sp``: ring attention reads the layout (``ops.attention``);
+- the batch layout, the metrics' merge and the replicated gradients'
+  all-reduce go over the *data* ranks only; the parameters that run before
+  the pipeline (the adapters, each stage holding a part of their gradient:
+  stage 0 the input's, every stage its layers' share of the rel-pos bias)
+  are summed over ``pp`` first.  The gradient norm counts the ``tp``- and
+  ``pp``-owned gradients once each (their squares summed over their
+  group), a replicated one once; whether it is finite is agreed by the
+  whole world;
+- ``state_dict``, ``full_params`` and the EMA's exports hold full tensors
+  under every layout (the ``tp`` slices gathered, every stage's layers),
+  with the names and values of a one-process run, and ``load_state_dict``
+  takes such a bundle under any layout, each rank cutting what it keeps.
+
 Without a process group nothing is wrapped.
 """
 
@@ -95,9 +115,10 @@ from .core.config import FrameworkConfig
 from .models.components import split_generator
 from .optim import build_lr_schedule, build_optimizer
 from .optim.loss_scaler import LossScaler
+from .parallel import tensor_parallel
 from .parallel.data import Rows, batch_rows, local_tensor
-from .parallel.mesh import mesh_from_config, mesh_shape, world_size
-from .parallel.sharding import fsdp_modules, shard_model
+from .parallel.mesh import check_split, make_layout, mesh_shape, world_size
+from .parallel.sharding import fsdp_modules, pipelined_params, shard_model
 from .utils.ema import EMA
 
 
@@ -141,16 +162,42 @@ class Trainer:
                 raise TypeError(f"master parameter {name} is {p.dtype}, not float32")
             p.requires_grad_(trainable.get(name, True))
         self.device = next(model.parameters()).device
+        # the trainable parameters' names in the one-process layout
+        self._all_names = [n for n, p in model.named_parameters() if p.requires_grad]
         self._call = _CriterionCall(model, criterion)
         d = cfg.distributed
         mesh_shape(d.dp, d.fsdp, d.tp, d.pp, d.sp, world_size())  # raises on a mismatch
-        self.mesh = mesh_from_config(d, self.device) if dist.is_initialized() else None
+        if d.tp > 1:
+            tensor_parallel.check_model(model)
+        if d.sp > 1:
+            tensor_parallel.check_sequence_parallel(model)
+        fusion = tensor_parallel.fusion_model(model)
+        if (d.tp > 1 or d.pp > 1) and fusion:
+            encoders = [model.cfg.encoder] + ([model.cfg.decoder]
+                                              if hasattr(model, "decoder_wrapper") else [])
+            check_split(encoders, d.tp, d.pp)
+        self.layout = make_layout(d, self.device) if dist.is_initialized() else None
+        self.mesh = None if self.layout is None else self.layout.mesh
+        self._tp_dims: Dict[str, int] = {}      # tp-split parameters: their dimension
+        self._pp_owned: set = set()             # this stage's layers' parameters
+        self._pp_partial: tuple = ()            # name prefixes of what runs before the pipeline
+        if self.layout is not None and self.layout.size("tp") > 1:
+            self._tp_dims = tensor_parallel.shard_model_(model, self._shard("tp"))
+        if self.layout is not None and self.layout.size("pp") > 1 and fusion:
+            # the fusion encoder's layers only: the pretrain decoder stays
+            # whole (~1% of the FLOPs, its depth rarely divides ``pp``) and
+            # the vision trunks replicated, as in JAX
+            self._pp_partial = tuple("encoder_wrapper." + p for p in
+                                     model.encoder_wrapper.enable_pipeline(
+                                         self._shard("pp"), self.layout.ranks["pp"],
+                                         d.pp_micro_batches))
+            self._pp_owned = pipelined_params(model)
         # the names of the parameters outside FSDP; None when nothing is wrapped
         self._replicated = None
         if self.mesh is not None:
             param_dtype = None if self.compute_dtype == torch.float32 else self.compute_dtype
             self._replicated = shard_model(self._call, model, self.mesh, param_dtype,
-                                           shard_params=d.shard_params)
+                                           shard_params=d.shard_params, exclude=self._pp_owned)
         self._names, self._params = [], []  # the trainable masters
         for name, p in model.named_parameters():
             if p.requires_grad:
@@ -172,6 +219,20 @@ class Trainer:
         self.train_time = 0.0
         self.generator = torch.Generator().manual_seed(cfg.common.seed + 1)
         self.ema = EMA(cfg.ema, model.named_parameters()) if cfg.ema.store_ema else None
+
+    def _shard(self, axis: str) -> "tensor_parallel.Shard":
+        layout = self.layout
+        return tensor_parallel.Shard(layout.group(axis), layout.rank(axis), layout.size(axis))
+
+    def _sum_over(self, tensors: List[torch.Tensor], axis: str) -> None:
+        """Sum ``tensors`` (local tensors) in place over the layout's
+        ``axis`` ranks, in one all-reduce."""
+        if not tensors or self.layout is None or self.layout.size(axis) == 1:
+            return
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=self.layout.group(axis))
+        for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(part.view_as(t))
 
     def _compute_params(self, prefix: str = "model.",
                         source: Optional[Dict[str, torch.Tensor]] = None
@@ -216,29 +277,34 @@ class Trainer:
     def _rows(self, batch: Dict[str, Any]) -> Rows:
         """Every rank's row count of its slice of the global batch."""
         local = next(len(v) for v in batch.values() if np.ndim(v) > 0)
-        sizes = [torch.zeros(1, dtype=torch.int64, device=self.device)
-                 for _ in range(dist.get_world_size())]
-        dist.all_gather(sizes, torch.tensor([local], dtype=torch.int64, device=self.device))
+        n = self.layout.size("data")
+        sizes = [torch.zeros(1, dtype=torch.int64, device=self.device) for _ in range(n)]
+        mine = torch.tensor([local], dtype=torch.int64, device=self.device)
+        if n > 1:
+            dist.all_gather(sizes, mine, group=self.layout.group("data"))
+        else:
+            sizes = [mine]
         sizes = [int(s) for s in sizes]
         if min(sizes) == 0:
             raise ValueError(f"a global batch of {sum(sizes)} rows leaves a rank without "
                              f"rows: every one of the {len(sizes)} ranks needs one")
-        return Rows(sizes, dist.get_rank())
+        return Rows(sizes, self.layout.rank("data"))
 
     def _merge(self, metrics: Dict[str, torch.Tensor], rows: Rows) -> Dict[str, torch.Tensor]:
         """The ranks' metrics weighted by their share of the batch, summed."""
         keys = sorted(metrics)
         flat = torch.stack([metrics[k].detach().to(torch.float64).reshape(()) for k in keys])
         flat = flat * rows.share
-        dist.all_reduce(flat)
+        if len(rows.sizes) > 1:
+            dist.all_reduce(flat, group=self.layout.group("data"))
         return {k: flat[i].to(torch.float32) for i, k in enumerate(keys)}
 
     def _sharded_gradients(self, batch, generator):
         """``gradients`` under FSDP: each rank's loss weighted by its share of
         the batch, so that its gradients are its part of the one-process
         gradients (of their magnitude, which fp16 needs), summed over the
-        ranks in fp32 by FSDP, and by one all-reduce for the replicated
-        parameters."""
+        data ranks in fp32 by FSDP, and by one all-reduce for the replicated
+        parameters; those before a pipeline summed over ``pp`` first."""
         rows = self._rows(batch)
         with batch_rows(rows):  # the backward's recomputes draw as the forward did
             loss, metrics = torch.func.functional_call(
@@ -251,29 +317,46 @@ class Trainer:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self._params]
         for p in self._params:
             p.grad = None
-        plain = [g for g in grads if not hasattr(g, "to_local")]
-        if plain:  # the replicated parameters: one all-reduce for all of them
-            flat = torch.cat([g.reshape(-1) for g in plain])
-            dist.all_reduce(flat)
-            for g, part in zip(plain, flat.split([g.numel() for g in plain])):
-                g.copy_(part.view_as(g))
+        if self._pp_partial:  # each stage holds a part of these
+            self._sum_over([local_tensor(g) for n, g in zip(self._names, grads)
+                            if n.startswith(self._pp_partial)], "pp")
+        # the replicated parameters: one all-reduce for all of them
+        self._sum_over([g for g in grads if not hasattr(g, "to_local")], "data")
         if self.scaler is not None:
             self.scaler.unscale_([local_tensor(g) for g in grads])
         return self._merge(metrics, rows), grads
 
     def _total_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """The global L2 norm of ``grads``: sharded gradients reduced over
-        their shards."""
+        """The global L2 norm of ``grads`` (in the order of ``_names``):
+        FSDP's gradients reduced over their shards, the squares of the
+        ``tp``-split and of this stage's gradients summed over ``tp`` and
+        ``pp``, a replicated gradient counted once."""
         if self._replicated is None:
             return get_total_norm(grads)
-        sharded = [g for g in grads if hasattr(g, "to_local")]
-        plain = [g for g in grads if not hasattr(g, "to_local")]
-        sq = torch.zeros((), dtype=torch.float32, device=self.device)
-        if sharded:
-            sq = sq + get_total_norm(sharded).full_tensor() ** 2
-        if plain:
-            sq = sq + get_total_norm(plain) ** 2
-        return sq.sqrt()
+        sq = torch.zeros(4, dtype=torch.float32, device=self.device)
+        for k, (tp, pp) in enumerate(((False, False), (True, False), (False, True),
+                                      (True, True))):
+            kind = [g for n, g in zip(self._names, grads)
+                    if (n in self._tp_dims) == tp and (n in self._pp_owned) == pp]
+            sharded = [g for g in kind if hasattr(g, "to_local")]
+            plain = [g for g in kind if not hasattr(g, "to_local")]
+            if sharded:
+                sq[k] += get_total_norm(sharded).full_tensor().float() ** 2
+            if plain:
+                sq[k] += get_total_norm(plain).float() ** 2
+        for axis, cut in (("tp", [1, 3]), ("pp", [2, 3])):
+            if self.layout.size(axis) > 1:
+                part = sq[cut].clone()
+                dist.all_reduce(part, group=self.layout.group(axis))
+                sq[cut] = part
+        return sq.sum().sqrt()
+
+    def _finite(self, gnorm: torch.Tensor) -> bool:
+        """Whether ``gnorm`` is finite on every rank of the world."""
+        ok = torch.isfinite(gnorm).to(torch.float32).reshape(1)
+        if self.layout is not None and dist.get_world_size() > 1:
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        return bool(ok)
 
     @torch.no_grad()
     def valid_step(self, batch: Dict[str, Any], fetch: bool = False):
@@ -297,7 +380,7 @@ class Trainer:
         t0 = time.time()
         metrics, grads = self.gradients(batch, split_generator(self.generator, 1)[0])
         gnorm = self._total_norm(grads)
-        finite = bool(torch.isfinite(gnorm))
+        finite = self._finite(gnorm)
         lr = self.lr_schedule(self._micro // self._update_freq)
         if finite:
             self._accumulate(grads)
@@ -356,10 +439,14 @@ class Trainer:
         shares no storage with the live state.  The optimizer state is kept
         by parameter name.  Under FSDP the shards are gathered to the
         one-process layout: every rank must call it."""
+        acc = None
+        if self._acc is not None:
+            acc = self._gathered(zip(self._names, self._acc))
+            acc = [acc[n] for n in self._all_names]
         state = {
-            "params": {n: _host(p) for n, p in self.model.named_parameters()},
+            "params": self._gathered(self.model.named_parameters()),
             "opt_state": self._named_opt_state(),
-            "acc": None if self._acc is None else [_host(a) for a in self._acc],
+            "acc": acc,
             "mini": self._mini,
             "updates": self._updates,
             "step": self.step,
@@ -370,17 +457,56 @@ class Trainer:
         if self.scaler is not None:
             state["loss_scale"] = self.scaler.state_dict()
         if self.ema is not None:
-            state["ema_shadow"] = {n: _host(s) for n, s in self.ema.shadow.items()}
+            state["ema_shadow"] = self._gathered(self.ema.shadow.items())
         return state
 
     def _opt_names(self) -> List[str]:
         """The optimizer's parameters by name, in its state's index order."""
         return [n for group in self.optimizer.param_groups for n in group["names"]]
 
+    def _host_full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of the tensor ``t`` of parameter ``name`` (the
+        parameter, its gradient, a moment, the EMA shadow) in the
+        one-process layout: gathered from its FSDP shards, and its ``tp``
+        slices all-gathered."""
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
+        if name in self._tp_dims and t.ndim > 0:
+            shard = self._shard("tp")
+            parts = [torch.empty_like(t) for _ in range(shard.size)]
+            dist.all_gather(parts, t.detach().contiguous(), group=shard.group)
+            t = torch.cat(parts, dim=self._tp_dims[name])
+        return t.detach().to("cpu", copy=True)
+
+    def _gathered(self, named) -> Dict[str, torch.Tensor]:
+        """``_host_full`` of every (name, tensor), every pipeline stage's
+        merged in (every rank must call it)."""
+        out = {n: self._host_full(n, t) for n, t in named}
+        return self._merge_stages(out)
+
+    def _merge_stages(self, out: Dict[str, Any]) -> Dict[str, Any]:
+        if not self._pp_owned:
+            return out
+        parts = [None] * self.layout.size("pp")
+        dist.all_gather_object(parts, {n: v for n, v in out.items() if n in self._pp_owned},
+                               group=self.layout.group("pp"))
+        for part in parts:
+            out.update(part)
+        return out
+
+    def _mine(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's ``tp`` slice of a full tensor of parameter ``name``."""
+        if name not in self._tp_dims or full.ndim == 0:
+            return full
+        shard = self._shard("tp")
+        return tensor_parallel.chunk_of(full, self._tp_dims[name], shard.rank, shard.size)
+
     def _named_opt_state(self) -> Dict[str, Any]:
         sd = self.optimizer.state_dict()
         names = self._opt_names()
-        return {"state": {names[i]: _walk(st, _host) for i, st in sd["state"].items()},
+        state = {names[i]: _walk(st, lambda t, n=names[i]: self._host_full(n, t))
+                 for i, st in sd["state"].items()}
+        return {"state": self._merge_stages(state),
                 "param_groups": _walk([{k: v for k, v in g.items() if k != "params"}
                                        for g in sd["param_groups"]], _host)}
 
@@ -390,7 +516,7 @@ class Trainer:
         tensors are copied to the parameters' device (their shards, under
         FSDP), and the bundle stays unchanged by later steps."""
         for n, p in self.model.named_parameters():
-            local_tensor(p).copy_(_piece(state["params"][n], p))
+            local_tensor(p).copy_(_piece(self._mine(n, state["params"][n]), p))
         opt = state["opt_state"]
         current = self.optimizer.state_dict()
         if all(isinstance(k, str) for k in opt["state"]):
@@ -401,7 +527,8 @@ class Trainer:
             for i, name in enumerate(self._opt_names()):
                 if name in opt["state"]:
                     p = by_name[name]
-                    loaded[i] = {k: (v.clone() if k == "step" else _dist_like(v, p))
+                    loaded[i] = {k: (v.clone() if k == "step"
+                                     else _dist_like(self._mine(name, v), p))
                                  if isinstance(v, torch.Tensor) else v
                                  for k, v in opt["state"][name].items()}
             self.optimizer.load_state_dict({"state": loaded,
@@ -412,8 +539,11 @@ class Trainer:
                               if isinstance(v, torch.Tensor) else v for k, v in st.items()}
                           for i, st in opt["state"].items()},
                 "param_groups": copy.deepcopy(opt["param_groups"])})
-        self._acc = None if state["acc"] is None else [
-            _dist_like(a, p) for a, p in zip(state["acc"], self._params)]
+        self._acc = None
+        if state["acc"] is not None:
+            acc = dict(zip(self._all_names, state["acc"]))
+            self._acc = [_dist_like(self._mine(n, acc[n]), p)
+                         for n, p in zip(self._names, self._params)]
         self._mini = int(state["mini"])
         self._updates = int(state["updates"])
         self.step = int(state["step"])
@@ -424,7 +554,7 @@ class Trainer:
             self.scaler.load_state_dict(state["loss_scale"])
         if "ema_shadow" in state and self.ema is not None:
             for n, s in self.ema.shadow.items():
-                local_tensor(s).copy_(_piece(state["ema_shadow"][n], s))
+                local_tensor(s).copy_(_piece(self._mine(n, state["ema_shadow"][n]), s))
 
     def full_params(self, source: Optional[Dict[str, torch.Tensor]] = None):
         """The parameters (or ``source``, the EMA shadow) in the one-process
@@ -434,7 +564,7 @@ class Trainer:
         if self._replicated is None:
             return source
         named = self.model.named_parameters() if source is None else source.items()
-        return {n: _host(p) for n, p in named}
+        return self._gathered(named)
 
     def _params_in_opt_order(self) -> List[torch.Tensor]:
         return [p for group in self.optimizer.param_groups for p in group["params"]]

@@ -96,19 +96,19 @@ def train_scenarios(rank, world, state, scenarios, dp, fsdp):
 
 
 def device_mesh_layout(rank, world):
-    """The mesh of (dp 2, fsdp 2) over 4 ranks, and the refusals."""
+    """The mesh of (dp 2, fsdp 2) over 4 ranks, the sub-groups of a (dp 2,
+    tp 2) layout, and the refusal of a mismatch."""
     import torch.distributed as dist
 
-    from one_peace_tpu_torch.parallel.mesh import make_mesh
+    from one_peace_tpu_torch.core.config import DistributedConfig
+    from one_peace_tpu_torch.parallel.mesh import make_layout, make_mesh
 
     mesh = make_mesh(2, 2, device_type="cpu")
     out = {"names": tuple(mesh.mesh_dim_names), "shape": tuple(mesh.shape),
            "fsdp_group": dist.get_process_group_ranks(mesh["fsdp"].get_group())}
-    try:
-        make_mesh(2, 1, 2, device_type="cpu")
-        out["tp_refused"] = False
-    except NotImplementedError:
-        out["tp_refused"] = True
+    layout = make_layout(DistributedConfig(dp=2, tp=2), torch.device("cpu"))
+    out["tp_layout"] = {axis: (layout.ranks[axis], layout.rank(axis))
+                        for axis in ("data", "tp", "sp", "pp")}
     try:
         make_mesh(1, 2, device_type="cpu")
         out["mismatch_refused"] = False

@@ -104,9 +104,12 @@ def test_key_mask_forms_agree():
 
 
 def test_ring_and_unknown_impl_raise():
+    """Without an ``sp`` layout the ring does not engage and 'ring' takes
+    the 'pallas' path (the plain version on a CPU tensor), as JAX takes its
+    XLA path; an unknown impl still raises."""
     q, k, v, rel, pad = map(_torch, _inputs(10, None, None))
-    with pytest.raises(NotImplementedError):
-        multihead_attention(q, k, v, rel, pad, 0.25, impl="ring")
+    want = multihead_attention(q, k, v, rel, pad, 0.25, impl="pallas")
+    assert torch.equal(multihead_attention(q, k, v, rel, pad, 0.25, impl="ring"), want)
     with pytest.raises(ValueError):
         multihead_attention(q, k, v, rel, pad, 0.25, impl="sdpa")
 

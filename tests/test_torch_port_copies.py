@@ -95,6 +95,7 @@ def test_port_imports_nothing_of_the_jax_package():
         "          ('adapter', 'mask2former', 'ms_deform_attn', 'upernet', 'video_backbone'))\n"
         "      and all(f'one_peace_tpu_torch.{m}' in names for m in\n"
         "          ('parallel.mesh', 'parallel.sharding', 'parallel.data', 'metrics.gather',\n"
+        "           'parallel.tensor_parallel', 'parallel.pipeline', 'ops.ring_attention',\n"
         "           'metrics.bleu', 'metrics.edit_distance', 'utils.watchdog',\n"
         "           'utils.diff_harness')))\n"
         "sys.exit(1 if bad else 0)\n")

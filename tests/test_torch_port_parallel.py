@@ -78,22 +78,34 @@ def test_mesh_shape_matches_jax(dp, fsdp, tp, pp, sp, world):
 
 def test_one_process_names_the_override(monkeypatch):
     """The detection recipe's fsdp: 8 in one process raises and names the
-    override, without a process group; tp above 1 is the next slice's."""
+    override, without a process group; a tp, pp or sp layout is accepted,
+    and one that does not split the model raises naming the divisibility
+    it needs."""
     with pytest.raises(ValueError, match="distributed.fsdp=1"):
         port_mesh.make_mesh(1, 8, device_type="cpu")
     assert port_mesh.make_mesh(-1, 1, device_type="cpu") is None
-    # a valid layout over 2 processes, but with tp: refused before any group
+    # valid layouts over 2 processes, with tp, pp or sp: no group, no mesh
     monkeypatch.setattr(port_mesh, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="model-parallel"):
-        port_mesh.make_mesh(1, 1, 2, device_type="cpu")
+    for kw in (dict(tp=2), dict(pp=2), dict(sp=2)):
+        assert port_mesh.make_mesh(1, 1, device_type="cpu", **kw) is None
+    enc = tiny_model_config().encoder  # 4 heads, FFN 64, 2 layers
+    with pytest.raises(ValueError, match="distributed.tp=8 does not divide the 4 attention"):
+        port_mesh.check_split([enc], tp=8)
+    with pytest.raises(ValueError, match="distributed.pp=4 does not divide the encoder's 2"):
+        port_mesh.check_split([enc], pp=4)
 
 
 def test_device_mesh_over_four_ranks(tmp_path):
     shapes = run_ranks(4, pw.device_mesh_layout, tmp_path=tmp_path)
     for rank, got in enumerate(shapes):
         assert got["names"] == ("dp", "fsdp", "tp") and got["shape"] == (2, 2, 1)
-        assert got["tp_refused"] and got["mismatch_refused"]
+        assert got["mismatch_refused"]
         assert got["fsdp_group"] == [2 * (rank // 2), 2 * (rank // 2) + 1]
+        # (dp 2, tp 2): tp the inner axis, the data ranks across it
+        pair = [2 * (rank // 2), 2 * (rank // 2) + 1]
+        assert got["tp_layout"] == {"data": ([rank % 2, rank % 2 + 2], rank // 2),
+                                    "tp": (pair, rank % 2), "sp": ([rank], 0),
+                                    "pp": ([rank], 0)}
 
 
 # ---------------------------------------------------------------------------
